@@ -3,17 +3,23 @@
 
     python3 chip_smoke.py
 
-Phases, one line each: device, build (nvcc of resselt_tpu_torch/csrc/*.cu),
-kernels (every ESRGAN 3x3 conv shape: kernel against its plain version in
-f32 and bf16, then kernel / plain / library / bound times at the bench
-shapes), load (a seeded ESRGAN RRDBNet-23 4x checkpoint written as
-.safetensors and .pth and loaded through the public entry points), model
-(f32 on the card against the CPU, 351 kernel launches per forward, bf16
-against f32), serve (the main path: the bench config, batch 16 of 256x256
-tiles in bf16, then a tiled 1280x720 image, then the upscale CLI on a PNG;
-the launch counts start from 0 just before it, the bench forwards must
-launch 351 convs each, all at shapes the kernels phase checked, and each
-shape's launches per forward are read from those forwards' counts).  Then the
+Phases, one line each: device, build (one nvcc per resselt_tpu_torch/csrc/*.cu,
+all started together).  Then ESRGAN: kernels (every ESRGAN 3x3 conv shape:
+kernel against its plain version in f32 and bf16, then kernel / plain /
+library / bound times at the bench shapes), load (a seeded ESRGAN
+RRDBNet-23 4x checkpoint written as .safetensors and .pth and loaded
+through the public entry points), model (f32 on the card against the CPU,
+351 kernel launches per forward, bf16 against f32), serve (the main path:
+the bench config, batch 16 of 256x256 tiles in bf16, then a tiled 1280x720
+image, then the upscale CLI on a PNG; the launch counts start from 0 just
+before it, the bench forwards must launch 351 convs each, all at shapes the
+kernels phase checked, and each shape's launches per forward are read from
+those forwards' counts).  Then PLKSR the same way: lk_kernels (every
+large-kernel conv shape of the PLKSR path and the kernel's other shape
+classes, against the plain version in f32 and bf16, with times), plksr_load
+(PLKSR dim 64, 28 blocks, k 17, 4x), plksr_model (28 lk launches per
+forward, card against CPU, bf16 against f32; RealPLKSR with DySample card
+against CPU), plksr_serve (28 lk launches per bench forward).  Then the
 card's name and power limit, one JSON line of kernel figures, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device, or without the package beside this script, it exits 1 before
@@ -33,6 +39,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # bench.py's headline configuration
 BENCH = {'num_blocks': 23, 'num_filters': 64, 'scale': 4, 'tile': 256, 'batch': 16}
+# PLKSR at the widths tools/bench_families.py gives the reference (DCCM
+# mixer, PLK, EA), served at the same batch and tile
+PLKSR = {'dim': 64, 'n_blocks': 28, 'scale': 4, 'kernel_size': 17, 'pdim': 16}
 
 # H100 SXM dense peaks (NVIDIA data sheet) for bound_ms
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
@@ -160,71 +169,170 @@ def phase_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
     return out
 
 
-def phase_load(device, num_filters: int, num_blocks: int, scale: int, tmp: str):
+def lk_shapes(n: int, tile: int, pdim: int, k: int) -> list[dict]:
+    """Every large-kernel conv shape of the PLKSR path (the bench forwards,
+    the tiled 720p windows, the CLI's and the model phase's whole images),
+    plus the kernel's other shape classes.  ``pitch`` is the input's pixel
+    pitch: the path hands the kernel a channel slice of the 64-wide
+    features."""
+    window = tile + 2 * 4  # the loader's serving halo
+    rows = [
+        ('bench 16->16', n, tile, tile, pdim, pdim, k, 'linear', 4 * pdim),
+        ('tiled window 16->16', 8, window, window, pdim, pdim, k, 'linear', 4 * pdim),
+        ('cli 16->16 narrow', 1, 48, 64, pdim, pdim, k, 'linear', 4 * pdim),
+        ('model 16->16 narrow', 1, 64, 64, pdim, pdim, k, 'linear', 4 * pdim),
+        ('k13 16->16', n, tile, tile, 16, 16, 13, 'linear', 16),
+        ('k17 32->32', n, tile, tile, 32, 32, 17, 'linear', 32),
+        ('k17 64->64', n, tile, tile, 64, 64, 17, 'linear', 64),
+        ('k17 16->8 lrelu', n, tile, tile, 16, 8, 17, 'lrelu', 16),
+        ('unaligned 1x19x200', 1, 19, 200, 16, 16, 17, 'linear', 16),
+    ]
+    keys = ('name', 'n', 'h', 'w', 'cin', 'cout', 'k', 'act', 'pitch')
+    return [dict(zip(keys, r)) for r in rows]
+
+
+def lk_shape_key(s: dict) -> tuple:
+    """The key under which ``fused_conv_lk.by_shape`` counts ``s``."""
+    return (s['n'], s['h'], s['w'], s['cin'], s['cout'], s['k'], s['act'])
+
+
+def lk_bound_ms(s: dict, dtype_name: str) -> tuple[float, str]:
+    """Least time for one k x k conv on an H100: the larger of its bytes (x's
+    cin channels read once, weights and bias read once, y written once) over
+    the memory rate and its FLOPs over the dense peak for the dtype."""
+    size = 2 if dtype_name == 'bfloat16' else 4
+    px = s['n'] * s['h'] * s['w']
+    taps = s['k'] * s['k']
+    nbytes = px * (s['cin'] + s['cout']) * size + taps * s['cin'] * s['cout'] * size + 4 * s['cout']
+    flops = 2 * px * taps * s['cin'] * s['cout']
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def phase_lk_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
+    """Each shape: the lk kernel against its plain version in f32 (TF32 off)
+    and in bf16 (plain version in f32 from the same bf16 inputs), then
+    kernel / plain / library / bound times in bf16; f32 times too at the
+    bench shape."""
+    import torch
+    import torch.nn.functional as TF
+
+    from resselt_tpu_torch.ops import fused_conv as fc
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = []
+    for s in shapes:
+        k, act = s['k'], s['act']
+        wide = torch.randn((s['n'], s['h'], s['w'], s['pitch']), generator=gen, device=device)
+        x = wide[..., :s['cin']]
+        w = torch.randn((s['cout'], s['cin'], k, k), generator=gen, device=device) / (k * s['cin'] ** 0.5)
+        b = torch.randn((s['cout'],), generator=gen, device=device)
+
+        taps32 = fc.pack_conv_lk_weight(w, torch.float32)
+        got = fc.fused_conv_lk(x, taps32, b, k=k, act=act)
+        want = fc.fused_conv_lk_ref(x, taps32, b, k=k, act=act)
+        err32 = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+        xb = wide.to(torch.bfloat16)[..., :s['cin']]
+        tapsb = fc.pack_conv_lk_weight(w, torch.bfloat16)
+        gotb = fc.fused_conv_lk(xb, tapsb, b, k=k, act=act)
+        wantb = fc.fused_conv_lk_ref(xb.float(), tapsb.float(), b, k=k, act=act)
+        errb = (gotb.float() - wantb).abs().max().item()
+        torch.testing.assert_close(gotb.float(), wantb, rtol=BF16_RTOL, atol=BF16_ATOL)
+        del got, want, gotb, wantb
+
+        row = {'name': s['name'], 'shape': [s['n'], s['h'], s['w'], s['cin'], s['cout']], 'k': k, 'act': act,
+               'pitch': s['pitch'], 'max_abs_err_f32': err32, 'max_abs_err_bf16': errb}
+        wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        x_cl = xb.contiguous().permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW view
+        bb = b.to(torch.bfloat16)
+        row['ms'] = _ms(lambda: fc.fused_conv_lk(xb, tapsb, b, k=k, act=act), reps)
+        row['plain_ms'] = _ms(lambda: fc.fused_conv_lk_ref(xb, tapsb, b, k=k, act=act), reps)
+        row['library_ms'] = _ms(lambda: TF.conv2d(x_cl, wb, bb, padding=k // 2), reps)
+        row['bound_ms'], row['bound_by'] = lk_bound_ms(s, 'bfloat16')
+        if s['name'] == 'bench 16->16':
+            row['ms_f32'] = _ms(lambda: fc.fused_conv_lk(x, taps32, b, k=k, act=act), reps)
+            row['bound_ms_f32'] = lk_bound_ms(s, 'float32')[0]
+        del wide, x, xb, x_cl, wb
+        torch.cuda.empty_cache()
+        out.append(row)
+    return out
+
+
+def phase_load(device, sd: dict, stem: str, arch: str, meta, tmp: str):
     """Write a seeded checkpoint as .safetensors and .pth, load both."""
     import numpy as np
     import torch
 
     import resselt_tpu_torch
-    from resselt_tpu_torch.core import ModelMetadata
     from resselt_tpu_torch.io import write_safetensors
-    from resselt_tpu_torch.zoo import make_esrgan
 
-    sd = make_esrgan(num_filters, num_blocks, scale, seed=0)
-    st = os.path.join(tmp, 'esrgan.safetensors')
-    pth = os.path.join(tmp, 'esrgan.pth')
+    st = os.path.join(tmp, f'{stem}.safetensors')
+    pth = os.path.join(tmp, f'{stem}.pth')
     write_safetensors(sd, st)
     torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
     models = [resselt_tpu_torch.load_from_file(p, device=device) for p in (st, pth)]
     for m in models:
-        if m.arch_id != 'ESRGAN' or m.metadata != ModelMetadata(3, 3, scale, 'ESRGAN'):
+        if m.arch_id != arch or m.metadata != meta:
             raise AssertionError(f'detected {m.arch_id} {m.metadata}')
         for k, v in sd.items():
             if not np.array_equal(m.params[k].cpu().numpy(), v):
                 raise AssertionError(f'{k} differs after load')
-    return models[0], sd, st
+    return models[0], st
 
 
-def phase_model(model, sd, size: int):
-    """f32 on the card against the CPU, launch count, bf16 against f32."""
+def phase_model(model, sd, size: int, entry, bf16: bool = True):
+    """f32 on the card against the CPU, ``entry``'s launches in that
+    forward, bf16 against f32."""
     import numpy as np
     import torch
 
     import resselt_tpu_torch
-    from resselt_tpu_torch.ops import fused_conv as fc
 
     x = np.random.default_rng(0).random((1, size, size, 3), dtype=np.float32)
     cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
     want = cpu(x).numpy()
-    before = fc.fused_conv3x3_act.launches
+    before = entry.launches
     got32 = model(x)
     torch.cuda.synchronize()
-    launches = fc.fused_conv3x3_act.launches - before
+    launches = entry.launches - before
     err = float(np.abs(got32.cpu().numpy() - want).max())
     if got32.shape != want.shape or not err < MODEL_TOL:
         raise AssertionError(f'f32 card vs cpu: shape {tuple(got32.shape)} vs {want.shape}, max err {err}')
-    gotb = model(x, dtype=torch.bfloat16).float()
-    mse = float(((gotb - got32) ** 2).mean())
-    psnr = 10 * np.log10(1.0 / max(mse, 1e-12))
-    if not psnr > BF16_PSNR:
-        raise AssertionError(f'bf16 vs f32 PSNR {psnr:.2f} dB')
-    return {'max_abs_err_f32': err, 'launches_per_forward': launches, 'bf16_psnr_db': round(psnr, 2)}
+    res = {'max_abs_err_f32': err, 'launches_per_forward': launches}
+    if bf16:
+        gotb = model(x, dtype=torch.bfloat16).float()
+        mse = float(((gotb - got32) ** 2).mean())
+        psnr = 10 * np.log10(1.0 / max(mse, 1e-12))
+        if not psnr > BF16_PSNR:
+            raise AssertionError(f'bf16 vs f32 PSNR {psnr:.2f} dB')
+        res['bf16_psnr_db'] = round(psnr, 2)
+    return res
+
+
+def _entries() -> dict:
+    """Every kernel wrapper, by the name its counts are reported under."""
+    from resselt_tpu_torch.ops import fused_conv as fc
+
+    return {'act': fc.fused_conv3x3_act, 'pack2': fc.fused_conv3x3_pack2, 'lk': fc.fused_conv_lk}
 
 
 def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: int, img_hw: tuple[int, int]):
     """The main path: the bench config through SRModel.__call__, a tiled
-    image through upscale_tiled, and a PNG through the CLI.  Every launch
-    count starts from 0 just before the timed bench forwards; their counts
-    are read just after them (``bench_counts``), and the whole phase's at
-    its end (``launches``)."""
+    image through upscale_tiled, and a PNG through the CLI.  Every kernel's
+    launch count starts from 0 just before the timed bench forwards; their
+    counts are read just after them (``bench_counts``), and the whole
+    phase's at its end (``launches``)."""
     import numpy as np
     import torch
 
     from resselt_tpu_torch import upscale
-    from resselt_tpu_torch.ops import fused_conv as fc
     from resselt_tpu_torch.parallel import upscale_tiled
 
-    entries = {'act': fc.fused_conv3x3_act, 'pack2': fc.fused_conv3x3_pack2}
+    entries = _entries()
     res = {}
     x = torch.rand((batch, tile, tile, 3), generator=torch.Generator().manual_seed(1)).to(model.device)
     for _ in range(2):
@@ -272,6 +380,23 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
     return res
 
 
+def check_bench_counts(counts: dict, mine: set, per_forward: int, reps: int, checked: set) -> int:
+    """The bench forwards launched the kernels of the wrappers named in
+    ``mine`` ``per_forward`` times each forward, no other kernel, and only
+    at shapes the kernels phase checked.  Returns the launches."""
+    bench = sum(counts[k][0] for k in mine)
+    if bench != per_forward * reps:
+        raise AssertionError(f'{bench} kernel launches of {sorted(mine)} in {reps} bench forwards, '
+                             f'expected {per_forward} each')
+    others = {k: c[0] for k, c in counts.items() if k not in mine and c[0]}
+    if others:
+        raise AssertionError(f'the bench forwards launched other kernels: {others}')
+    ran = {(k, key) for k, (_, by_shape) in counts.items() for key in by_shape}
+    if ran - checked:
+        raise AssertionError(f'the bench forwards ran shapes the kernels phase did not check: {sorted(ran - checked)}')
+    return bench
+
+
 def main() -> int:
     import torch
 
@@ -289,7 +414,11 @@ def main() -> int:
     log('device', kind=repr(kind), count=torch.cuda.device_count(), nvidia_smi=repr(smi),
         torch=torch.__version__, cuda=torch.version.cuda)
 
+    import resselt_tpu_torch
+    from resselt_tpu_torch.core import ModelMetadata
     from resselt_tpu_torch.ops import _build
+    from resselt_tpu_torch.ops import fused_conv as fc
+    from resselt_tpu_torch.zoo import make_esrgan, make_plksr, make_realplksr
 
     t0 = time.perf_counter()
     took = _build.build()
@@ -297,39 +426,72 @@ def main() -> int:
              if 'registers' in ln or 'spill' in ln]
     log('build', seconds=round(time.perf_counter() - t0, 2), kernels=took, ptxas=json.dumps(ptxas))
 
+    # -- ESRGAN: the conv3x3 kernel ------------------------------------------
     shapes = conv_shapes(BENCH['batch'], BENCH['tile'])
     rows = phase_kernels('cuda', shapes, reps=10)
     log('kernels', f32_tol=F32_TOL, bf16_rtol=BF16_RTOL, bf16_atol=BF16_ATOL, rows=json.dumps(rows))
 
+    reps = 5
     with tempfile.TemporaryDirectory() as tmp:
-        model, sd, ckpt = phase_load('cuda', BENCH['num_filters'], BENCH['num_blocks'], BENCH['scale'], tmp)
+        sd = make_esrgan(BENCH['num_filters'], BENCH['num_blocks'], BENCH['scale'], seed=0)
+        model, ckpt = phase_load('cuda', sd, 'esrgan', 'ESRGAN', ModelMetadata(3, 3, BENCH['scale'], 'ESRGAN'), tmp)
         log('load', arch=model.arch_id, metadata=repr(model.metadata), files='safetensors,pth')
 
-        res = phase_model(model, sd, 64)
+        res = phase_model(model, sd, 64, fc.fused_conv3x3_act)
         if res['launches_per_forward'] != 351:
             raise AssertionError(f"{res['launches_per_forward']} kernel launches per forward, expected 351")
         log('model', tol=MODEL_TOL, **res)
 
-        reps = 5
         serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280))
         counts = serve.pop('bench_counts')
         launches = serve.pop('launches')['act']
         if launches == 0:
             raise AssertionError('the main path launched no conv3x3 kernel')
-        bench_launches = counts['act'][0] + counts['pack2'][0]
-        if bench_launches != 351 * reps:
-            raise AssertionError(f'{bench_launches} kernel launches in {reps} bench forwards, expected 351 each')
         checked = {(r['entry'], shape_key(s)) for r, s in zip(rows, shapes)}
-        ran = {(k, key) for k, (_, by_shape) in counts.items() for key in by_shape}
-        if ran - checked:
-            raise AssertionError(f'the bench forwards ran shapes the kernels phase did not check: {sorted(ran - checked)}')
+        bench_launches = check_bench_counts(counts, {'act', 'pack2'}, 351, reps, checked)
         for r, s in zip(rows, shapes):
             r['per_forward'] = counts[r['entry']][1].get(shape_key(s), 0) / reps
         conv_ms = sum(r['ms'] * r['per_forward'] for r in rows)
         log('serve', dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], launches=launches,
             launches_per_bench_forward=bench_launches / reps, conv_ms_per_bench_forward=conv_ms, **serve)
+        del model, sd
+        torch.cuda.empty_cache()
+
+    # -- PLKSR: the large-kernel conv ----------------------------------------
+    nb = PLKSR['n_blocks']
+    lk = lk_shapes(BENCH['batch'], BENCH['tile'], PLKSR['pdim'], PLKSR['kernel_size'])
+    lk_rows = phase_lk_kernels('cuda', lk, reps=10)
+    log('lk_kernels', f32_tol=F32_TOL, bf16_rtol=BF16_RTOL, bf16_atol=BF16_ATOL, rows=json.dumps(lk_rows))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sd = make_plksr(PLKSR['dim'], nb, PLKSR['scale'], PLKSR['kernel_size'], seed=0)
+        model, ckpt = phase_load('cuda', sd, 'plksr', 'PLKSR', ModelMetadata(3, 3, PLKSR['scale'], 'PLKSR'), tmp)
+        log('plksr_load', arch=model.arch_id, metadata=repr(model.metadata), files='safetensors,pth')
+
+        res = phase_model(model, sd, 64, fc.fused_conv_lk)
+        if res['launches_per_forward'] != nb:
+            raise AssertionError(f"{res['launches_per_forward']} lk launches per PLKSR forward, expected {nb}")
+        rsd = make_realplksr(PLKSR['dim'], 4, PLKSR['scale'], PLKSR['kernel_size'], dysample=True, seed=1)
+        real = resselt_tpu_torch.load_from_state_dict(rsd, device='cuda')
+        rres = phase_model(real, rsd, 64, fc.fused_conv_lk, bf16=False)
+        if rres['launches_per_forward'] != 4 or real.metadata.name != 'RealPLKSR' or not real.config.dys:
+            raise AssertionError(f'RealPLKSR: {rres}, {real.metadata}, dys {real.config.dys}')
+        log('plksr_model', tol=MODEL_TOL, **res, realplksr_dys_4_blocks=json.dumps(rres))
+        del real
+
+        serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280))
+        counts = serve.pop('bench_counts')
+        lk_launches = serve.pop('launches')['lk']
+        checked = {('lk', lk_shape_key(s)) for s in lk}
+        lk_bench = check_bench_counts(counts, {'lk'}, nb, reps, checked)
+        for r, s in zip(lk_rows, lk):
+            r['per_forward'] = counts['lk'][1].get(lk_shape_key(s), 0) / reps
+        lk_ms = sum(r['ms'] * r['per_forward'] for r in lk_rows)
+        log('plksr_serve', dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], launches=lk_launches,
+            launches_per_bench_forward=lk_bench / reps, lk_ms_per_bench_forward=lk_ms, **serve)
 
     head = next(r for r in rows if r['name'] == 'rdb stage0 64->192')
+    lk_head = next(r for r in lk_rows if r['name'] == 'bench 16->16')
     kernels = [{
         'name': 'fused_conv3x3_act',
         'route': 'cuda',
@@ -345,6 +507,21 @@ def main() -> int:
         'timed_shape': head['name'] + ' bf16 ' + 'x'.join(map(str, head['shape'])),
         'ms_per_bench_forward': conv_ms,
         'shapes': rows,
+    }, {
+        'name': 'fused_conv_lk',
+        'route': 'cuda',
+        'source': 'resselt_tpu_torch/csrc/conv_lk.cu',
+        'replaces': 'resselt_tpu/ops/fused_conv.py:288',
+        'launches': lk_launches,
+        'max_abs_err': max(r['max_abs_err_bf16'] for r in lk_rows),
+        'ms': lk_head['ms'],
+        'plain_ms': lk_head['plain_ms'],
+        'bound_ms': lk_head['bound_ms'],
+        'bound_by': lk_head['bound_by'],
+        'library_ms': lk_head['library_ms'],
+        'timed_shape': f"PLKSR bench bf16 {'x'.join(map(str, lk_head['shape']))} k{lk_head['k']}",
+        'ms_per_bench_forward': lk_ms,
+        'shapes': lk_rows,
     }]
     print(smi)
     print(json.dumps({'kernels': kernels}))

@@ -3,6 +3,7 @@ numpy-valued dicts.  Counterpart of ``resselt_tpu/core/state_dict.py``."""
 
 from __future__ import annotations
 
+import math
 from typing import Any, Mapping
 
 
@@ -39,3 +40,9 @@ def get_seq_len(state_dict: Mapping[str, Any], seq_key: str) -> int:
     if not indices:
         return 0
     return max(indices) + 1
+
+
+def pixelshuffle_scale(ps_size: int, channels: int) -> int:
+    """The upscale of a PixelShuffle tail whose conv emits ``ps_size``
+    channels for ``channels`` output planes."""
+    return math.isqrt(ps_size // channels)

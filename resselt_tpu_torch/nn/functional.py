@@ -1,6 +1,7 @@
 """Functional NN ops with PyTorch semantics on NHWC tensors.
 
-Counterpart of ``resselt_tpu/nn/functional.py``, holding what ESRGAN uses.
+Counterpart of ``resselt_tpu/nn/functional.py``, holding what ESRGAN and
+PLKSR use.
 Feature maps are contiguous NHWC ``(N, H, W, C)``; conv weights keep the
 torch OIHW layout.
 """
@@ -42,6 +43,27 @@ def leaky_relu(x, negative_slope: float = 0.01):
     return TF.leaky_relu(x, negative_slope)
 
 
+def gelu(x):
+    """torch's default GELU, the exact erf form."""
+    return TF.gelu(x)
+
+
+def mish(x):
+    return TF.mish(x)
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def pixel_shuffle(x, r: int):
+    """torch's PixelShuffle channel order, on NHWC."""
+    n, h, w, c = x.shape
+    co = c // (r * r)
+    x = x.reshape(n, h, w, co, r, r).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(n, h * r, w * r, co)
+
+
 def pixel_unshuffle(x, r: int):
     """torch's PixelUnshuffle channel order, on NHWC."""
     n, h, w, c = x.shape
@@ -72,3 +94,22 @@ def interpolate_nearest(x, scale_factor=None, size=None):
     hi = torch.floor(torch.arange(oh, device=x.device, dtype=torch.float64) * (h / oh)).long()
     wi = torch.floor(torch.arange(ow, device=x.device, dtype=torch.float64) * (w / ow)).long()
     return x[:, hi][:, :, wi].contiguous()
+
+
+def group_norm(x, num_groups: int, weight=None, bias=None, eps: float = 1e-5):
+    """GroupNorm over NHWC: statistics per sample and group, over the whole
+    image and the group's channels."""
+    w = None if weight is None else weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    return TF.group_norm(x.permute(0, 3, 1, 2), num_groups, w, b, eps).permute(0, 2, 3, 1).contiguous()
+
+
+def grid_sample_bilinear(x, grid, align_corners: bool = False, padding_mode: str = 'zeros'):
+    """torch ``grid_sample(mode='bilinear')`` on NHWC ``x``; ``grid``:
+    (N, Ho, Wo, 2), xy in [-1, 1] (grid[..., 0] = x/width, [..., 1] =
+    y/height).  ``padding_mode`` 'zeros' or 'border', as the JAX package."""
+    if padding_mode not in ('zeros', 'border'):
+        raise NotImplementedError(f'grid_sample padding_mode {padding_mode!r} not supported')
+    y = TF.grid_sample(x.permute(0, 3, 1, 2), grid.to(x.dtype), mode='bilinear',
+                       padding_mode=padding_mode, align_corners=align_corners)
+    return y.permute(0, 2, 3, 1).contiguous()

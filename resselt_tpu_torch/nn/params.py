@@ -35,6 +35,10 @@ class PTree:
     def __contains__(self, key: str) -> bool:
         return (self._prefix + str(key)) in self._d
 
+    def shape(self, key: str):
+        """The shape of one tensor."""
+        return self._d[self._prefix + str(key)].shape
+
     def keys(self):
         n = len(self._prefix)
         return [k[n:] for k in self._d.keys() if k.startswith(self._prefix)]

@@ -3,7 +3,11 @@ from .fused_conv import (
     fused_conv3x3_act_ref,
     fused_conv3x3_pack2,
     fused_conv3x3_pack2_ref,
+    fused_conv_lk,
+    fused_conv_lk_ref,
+    lk_conv_supported,
     pack_conv3x3_weight,
+    pack_conv_lk_weight,
 )
 
 __all__ = [
@@ -11,5 +15,9 @@ __all__ = [
     'fused_conv3x3_act_ref',
     'fused_conv3x3_pack2',
     'fused_conv3x3_pack2_ref',
+    'fused_conv_lk',
+    'fused_conv_lk_ref',
+    'lk_conv_supported',
     'pack_conv3x3_weight',
+    'pack_conv_lk_weight',
 ]

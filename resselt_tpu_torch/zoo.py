@@ -1,7 +1,9 @@
 """Synthetic checkpoints: random numpy state dicts with the exact
 key and shape layout the detection tables fingerprint, made from a seed.
 
-Counterpart of ``resselt_tpu/zoo.py``, holding ``make_esrgan``.
+Counterpart of ``resselt_tpu/zoo.py``, holding ``make_esrgan`` and
+``make_plksr`` (the same arrays as the JAX package's) and
+``make_realplksr``.
 """
 
 from __future__ import annotations
@@ -43,4 +45,58 @@ def make_esrgan(num_filters: int = 64, num_blocks: int = 23, scale: int = 4, in_
         m.conv(f'model.{3 * i}', nf, nf, 3)
     m.conv(f'model.{3 * n_up + 2}', nf, nf, 3)
     m.conv(f'model.{3 * n_up + 4}', out_nc, nf, 3)
+    return m.sd
+
+
+def make_plksr(dim: int = 64, n_blocks: int = 4, upscale: int = 4, kernel_size: int = 17, split_ratio: float = 0.25,
+               in_nc: int = 3, seed: int = 0):
+    """PLKSR layout with DCCM mixer + EA attention: a 17x17 partial
+    large-kernel conv per block."""
+    m = _Maker(seed)
+    d = dim
+    pk = int(d * split_ratio)
+    m.conv('feats.0', d, in_nc, 3)
+    for i in range(1, n_blocks + 1):
+        m.conv(f'feats.{i}.channe_mixer.0', 2 * d, d, 3)
+        m.conv(f'feats.{i}.channe_mixer.2', d, 2 * d, 3)
+        m.conv(f'feats.{i}.lk.conv', pk, pk, kernel_size)
+        m.conv(f'feats.{i}.attn.f.0', d, d, 3)
+        m.conv(f'feats.{i}.refine', d, d, 1)
+    m.conv(f'feats.{n_blocks + 1}', in_nc * upscale**2, d, 3)
+    return m.sd
+
+
+def make_realplksr(dim: int = 64, n_blocks: int = 28, upscale: int = 4, kernel_size: int = 17,
+                   split_ratio: float = 0.25, in_nc: int = 3, use_ea: bool = True, dysample: bool = False,
+                   seed: int = 0):
+    """RealPLKSR layout: DCCM mixer (``channel_mixer``), partial
+    large-kernel conv, optional EA, GroupNorm per block; a dropout slot puts
+    the last conv at ``feats.{n_blocks + 2}``; with ``dysample`` (and
+    upscale > 1) a DySample tail ``to_img`` with the reference's initial
+    sample positions."""
+    m = _Maker(seed)
+    d = dim
+    pk = int(d * split_ratio)
+    m.conv('feats.0', d, in_nc, 3)
+    for i in range(1, n_blocks + 1):
+        m.conv(f'feats.{i}.channel_mixer.0', 2 * d, d, 3)
+        m.conv(f'feats.{i}.channel_mixer.2', d, 2 * d, 3)
+        m.conv(f'feats.{i}.lk.conv', pk, pk, kernel_size)
+        if use_ea:
+            m.conv(f'feats.{i}.attn.f.0', d, d, 3)
+        m.conv(f'feats.{i}.refine', d, d, 1)
+        m.t(f'feats.{i}.norm.weight', d)
+        m.sd[f'feats.{i}.norm.weight'] += 1.0
+        m.t(f'feats.{i}.norm.bias', d)
+    c = in_nc * upscale**2
+    m.conv(f'feats.{n_blocks + 2}', c, d, 3)
+    if dysample and upscale != 1:
+        s = upscale
+        g = in_nc if s % 2 else 4
+        m.conv('to_img.offset', 2 * g * s * s, c, 1)
+        m.t('to_img.scope.weight', 2 * g * s * s, c, 1, 1)
+        h = (np.arange(s, dtype=np.float32) - (s - 1) / 2) / s
+        pos = np.stack(np.meshgrid(h, h, indexing='ij')).transpose(0, 2, 1)  # (2, s, s): [x, y] offsets
+        m.sd['to_img.init_pos'] = np.tile(pos, (1, g, 1)).reshape(1, -1, 1, 1).astype(np.float32)
+        m.conv('to_img.end_conv', in_nc, c, 1)
     return m.sd

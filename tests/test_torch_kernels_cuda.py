@@ -1,4 +1,5 @@
-"""The port's CUDA kernels and main path on the card.  Needs an NVIDIA GPU
+"""The port's CUDA kernels (conv3x3, conv_lk) and main paths (ESRGAN,
+PLKSR, RealPLKSR) on the card.  Needs an NVIDIA GPU
 and nvcc; every test here is marked ``cuda`` and skips without a card.
 
 This file imports torch and resselt_tpu_torch only, so that it runs where
@@ -18,7 +19,7 @@ import torch
 import resselt_tpu_torch
 from resselt_tpu_torch.ops import fused_conv as fc
 from resselt_tpu_torch.parallel import upscale_tiled
-from resselt_tpu_torch.zoo import make_esrgan
+from resselt_tpu_torch.zoo import make_esrgan, make_plksr, make_realplksr
 
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +112,104 @@ def test_tiled_on_card_matches_cpu(cuda):
     got = upscale_tiled(gpu, img, tile=32, halo=8)
     assert got.device.type == 'cuda'
     np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32, halo=8).numpy(), rtol=0, atol=5e-4)
+
+
+# -- the large-kernel conv (csrc/conv_lk.cu) ----------------------------------
+
+
+def _lk_check(cuda, dtype, n, h, w, cin, cout, k, act, bias=True, pitch=None, c0=0):
+    g = torch.Generator(device=cuda).manual_seed(k * 100 + cin)
+    xw = torch.randn((n, h, w, pitch or cin), generator=g, device=cuda).to(dtype)
+    x = xw[..., c0:c0 + cin]
+    wt = torch.randn((cout, cin, k, k), generator=g, device=cuda) / (k * cin ** 0.5)
+    b = torch.randn((cout,), generator=g, device=cuda) if bias else None
+    taps = fc.pack_conv_lk_weight(wt, dtype)
+    key = (n, h, w, cin, cout, k, act)
+    before, shape_before = fc.fused_conv_lk.launches, fc.fused_conv_lk.by_shape[key]
+    got = fc.fused_conv_lk(x, taps, b, k=k, act=act)
+    torch.cuda.synchronize()
+    assert fc.fused_conv_lk.launches == before + 1 and fc.fused_conv_lk.by_shape[key] == shape_before + 1
+    assert got.dtype == dtype and got.shape == (n, h, w, cout) and got.is_contiguous()
+    want = fc.fused_conv_lk_ref(x.float(), taps.float(), b, k=k, act=act)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('act', ['linear', 'lrelu'])
+@pytest.mark.parametrize('k', [5, 13, 17, 31])
+@pytest.mark.parametrize('cin,cout', [(8, 8), (16, 16), (16, 5), (32, 24), (64, 64), (64, 40)])
+def test_lk_kernel_matches_plain(cuda, dtype, act, k, cin, cout):
+    _lk_check(cuda, dtype, 2, 37, 45, cin, cout, k, act)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,h,w', [(1, 1, 1), (1, 1, 19), (3, 7, 2), (1, 19, 200), (2, 33, 17), (1, 64, 127)])
+def test_lk_kernel_odd_and_tiny_images(cuda, dtype, n, h, w):
+    _lk_check(cuda, dtype, n, h, w, 16, 16, 17, 'linear')
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('pitch,c0', [(64, 0), (20, 0), (64, 48), (24, 3)])
+def test_lk_kernel_reads_a_channel_slice_in_place(cuda, dtype, pitch, c0):
+    """x[..., c0:c0 + 16] of a wider tensor; c0 = 0 is PLKSR's partial
+    conv (pitch 20 and c0 = 3 take the kernel's unvectorised loads)."""
+    _lk_check(cuda, dtype, 2, 30, 41, 16, 16, 17, 'lrelu', pitch=pitch, c0=c0)
+
+
+def test_lk_kernel_no_bias(cuda):
+    _lk_check(cuda, torch.bfloat16, 1, 20, 24, 32, 32, 9, 'linear', bias=False)
+
+
+def test_lk_kernel_refuses_what_it_does_not_take(cuda):
+    taps = fc.pack_conv_lk_weight(torch.zeros((16, 16, 17, 17), device=cuda))
+    with pytest.raises(TypeError):
+        fc.fused_conv_lk(torch.zeros((1, 8, 8, 16), device=cuda, dtype=torch.float16), taps.half())
+    with pytest.raises(ValueError):  # pixels not at one pitch
+        fc.fused_conv_lk(torch.zeros((1, 8, 16, 16), device=cuda).transpose(1, 2), taps)
+    with pytest.raises(ValueError):  # packed weight in another dtype
+        fc.fused_conv_lk(torch.zeros((1, 8, 8, 16), device=cuda, dtype=torch.bfloat16), taps)
+    with pytest.raises(ValueError):  # weight for other input channels
+        fc.fused_conv_lk(torch.zeros((1, 8, 8, 16), device=cuda), fc.pack_conv_lk_weight(torch.zeros((8, 8, 17, 17),
+                                                                                                    device=cuda)))
+    with pytest.raises(ValueError):  # weight for another k
+        fc.fused_conv_lk(torch.zeros((1, 8, 8, 16), device=cuda), taps, k=13)
+    with pytest.raises(ValueError):  # outside lk_conv_supported
+        fc.fused_conv_lk(torch.zeros((1, 8, 8, 24), device=cuda), torch.zeros((24, 24, 17, 17), device=cuda))
+
+
+def test_lk_empty_input_launches_nothing(cuda):
+    taps = fc.pack_conv_lk_weight(torch.zeros((16, 16, 17, 17), device=cuda))
+    before = fc.fused_conv_lk.launches
+    got = fc.fused_conv_lk(torch.zeros((0, 8, 8, 16), device=cuda), taps)
+    assert got.shape == (0, 8, 8, 16) and fc.fused_conv_lk.launches == before
+
+
+@pytest.mark.parametrize('variant', ['plksr', 'realplksr', 'realplksr_dys3'])
+def test_plksr_on_card_matches_cpu(cuda, variant):
+    if variant == 'plksr':
+        sd, scale = make_plksr(32, 2, 4, kernel_size=17, seed=1), 4
+    else:
+        scale = 3 if variant == 'realplksr_dys3' else 2
+        sd = make_realplksr(32, 2, scale, kernel_size=13, dysample=variant == 'realplksr_dys3', seed=2)
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    x = np.random.default_rng(0).random((2, 21, 26, 3), dtype=np.float32)
+    before = fc.fused_conv_lk.launches
+    got = gpu(x)
+    torch.cuda.synchronize()
+    assert fc.fused_conv_lk.launches - before == 2
+    assert got.shape == (2, 21 * scale, 26 * scale, 3)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu(x).numpy(), rtol=0, atol=5e-4)
+
+
+def test_plksr_tiled_on_card_matches_cpu(cuda):
+    sd = make_plksr(32, 1, 2, kernel_size=17, seed=3)
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    img = np.random.default_rng(1).random((70, 90, 3), dtype=np.float32)
+    got = upscale_tiled(gpu, img, tile=32)
+    assert got.device.type == 'cuda'
+    np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=5e-4)

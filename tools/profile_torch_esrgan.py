@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Where one bf16 ESRGAN RRDBNet-23 4x forward of resselt_tpu_torch spends
-its device time, at bench.py's config (batch 16 of 256x256 tiles).
+"""Where one bf16 forward of resselt_tpu_torch spends its device time, at
+bench.py's serving shape (batch 16 of 256x256 tiles): ESRGAN RRDBNet-23 4x
+(default) or PLKSR dim 64, 28 blocks, k 17, 4x (``--model plksr``).
 
-    python3 tools/profile_torch_esrgan.py [--reps 2] [--seed 0]
+    python3 tools/profile_torch_esrgan.py [--model esrgan|plksr] [--reps 2] [--seed 0]
 
 Runs on a CUDA device only.  Warms up, then records ``--reps`` forwards
 under torch.profiler and prints one JSON line: the window's wall time per
 forward, device time per forward summed by kernel name (the top entries),
-the share of it in the conv3x3 kernel, and the device busy share of the
-window (the union of device-event intervals over the wall time).
+the share of it in the model's hand-written kernel (conv3x3 / conv_lk),
+and the device busy share of the window (the union of device-event
+intervals over the wall time).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import time
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--model', choices=('esrgan', 'plksr'), default='esrgan')
     parser.add_argument('--reps', type=int, default=2)
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--top', type=int, default=8)
@@ -34,9 +37,13 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import resselt_tpu_torch
-    from resselt_tpu_torch.zoo import make_esrgan
+    from resselt_tpu_torch.zoo import make_esrgan, make_plksr
 
-    model = resselt_tpu_torch.load_from_state_dict(make_esrgan(64, 23, 4, seed=args.seed), device='cuda')
+    if args.model == 'plksr':
+        sd, kernel, config = make_plksr(64, 28, 4, 17, seed=args.seed), 'conv_lk', 'PLKSR dim64 28 blocks k17 4x'
+    else:
+        sd, kernel, config = make_esrgan(64, 23, 4, seed=args.seed), 'conv3x3', 'ESRGAN RRDBNet-23 nf64 4x'
+    model = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
     x = torch.rand((16, 256, 256, 3), generator=torch.Generator().manual_seed(args.seed)).cuda()
     for _ in range(2):
         model(x, dtype=torch.bfloat16)
@@ -72,14 +79,14 @@ def main(argv=None) -> int:
             last_end = end
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    conv_ms = sum(r[1] for r in rows if 'conv3x3' in r[0])
+    kernel_ms = sum(r[1] for r in rows if kernel in r[0])
     out = {
         'device': torch.cuda.get_device_name(0),
-        'config': 'ESRGAN RRDBNet-23 nf64 4x, bf16, batch 16 x 256x256',
+        'config': config + ', bf16, batch 16 x 256x256',
         'wall_ms_per_forward': wall * 1e3 / args.reps,
         'device_ms_per_forward': device_ms,
-        'conv3x3_ms_per_forward': conv_ms,
-        'conv3x3_share_of_device': conv_ms / device_ms if device_ms else None,
+        f'{kernel}_ms_per_forward': kernel_ms,
+        f'{kernel}_share_of_device': kernel_ms / device_ms if device_ms else None,
         'device_busy_share': busy_us / 1e3 / (wall * 1e3) if device_ms else None,
         'top': [{'kernel': k[:120], 'ms_per_forward': ms, 'launches_per_forward': n} for k, ms, n in rows[: args.top]],
     }
