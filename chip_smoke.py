@@ -19,7 +19,16 @@ large-kernel conv shape of the PLKSR path and the kernel's other shape
 classes, against the plain version in f32 and bf16, with times), plksr_load
 (PLKSR dim 64, 28 blocks, k 17, 4x), plksr_model (28 lk launches per
 forward, card against CPU, bf16 against f32; RealPLKSR with DySample card
-against CPU), plksr_serve (28 lk launches per bench forward).  Then the
+against CPU), plksr_serve (28 lk launches per bench forward).  Then
+SwinIR-M the same way: wattn_kernels (every window-attention shape of
+the SwinIR path and the kernel's other shape classes, against the plain
+version in f32 and bf16, with kernel / plain / library (PyTorch's
+scaled_dot_product_attention, with the backend it picked) / bound times),
+swinir_load (SwinIR-M x4 classical, embed 180, depths and heads (6,) x 6,
+window 8), swinir_model (36 window_mha launches per forward, card against
+CPU, bf16 against f32; the real-world nearest+conv variant at 2 x 2
+blocks card against CPU), swinir_serve (36 launches per bench forward,
+and every shape of the phase checked by wattn_kernels).  Then the
 card's name and power limit, one JSON line of kernel figures, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device, or without the package beside this script, it exits 1 before
@@ -42,6 +51,11 @@ BENCH = {'num_blocks': 23, 'num_filters': 64, 'scale': 4, 'tile': 256, 'batch': 
 # PLKSR at the widths tools/bench_families.py gives the reference (DCCM
 # mixer, PLK, EA), served at the same batch and tile
 PLKSR = {'dim': 64, 'n_blocks': 28, 'scale': 4, 'kernel_size': 17, 'pdim': 16}
+# SwinIR-M x4 classical (official SwinIR main_test_swinir.py define_model,
+# classical_sr, patch 64: 001_classicalSR_DF2K_s64w8_SwinIR-M_x4); it
+# serves tiled at the loader's bf16 hints: tile 160, halo 8, one tile a batch
+SWINIR = {'embed_dim': 180, 'depths': (6,) * 6, 'num_heads': (6,) * 6, 'window_size': 8, 'scale': 4,
+          'img_size': 64, 'tile': 160, 'halo': 8}
 
 # H100 SXM dense peaks (NVIDIA data sheet) for bound_ms
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
@@ -51,6 +65,8 @@ F32_TOL = 1e-4     # rtol = atol: exact f32 FMA against cuDNN f32 with TF32 off
 BF16_RTOL = 2e-2   # bf16 output rounding (2^-9 relative) with margin
 BF16_ATOL = 1e-3
 MODEL_TOL = 5e-4   # tests/test_conv_archs.py's TOL for ESRGAN
+SWINIR_TOL = 2e-3  # tests/test_swinir.py's TOL for transformer stacks
+WATTN_BF16_ATOL = 1e-2  # window attention: P is rounded to bf16 before P V
 BF16_PSNR = 35.0   # tests/test_parallel.py's bf16-vs-f32 floor
 
 
@@ -262,8 +278,145 @@ def phase_lk_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
     return out
 
 
-def phase_load(device, sd: dict, stem: str, arch: str, meta, tmp: str):
-    """Write a seeded checkpoint as .safetensors and .pth, load both."""
+def wattn_shapes(n_img: int, tile: int, cfg: dict) -> list[dict]:
+    """Every window-attention shape of the SwinIR-M path (the bench
+    forwards, the tiled 720p windows at the loader's hints, the CLI's
+    48x64 and the model phase's 64x64 images; each with the shift mask and
+    without), plus the kernel's other shape classes.  ``windows`` counts
+    the window batch, ``nw`` the mask's windows (None: unmasked)."""
+    ws, c, h = cfg['window_size'], cfg['embed_dim'], cfg['num_heads'][0]
+    n = ws * ws
+    nw_bench = (tile // ws) ** 2
+    nw_tiled = ((cfg['tile'] + 2 * cfg['halo']) // ws) ** 2
+    nw_cli = (48 // ws) * (64 // ws)
+    nw_model = (64 // ws) ** 2
+    rows = [
+        ('bench masked', n_img * nw_bench, n, c, h, nw_bench),
+        ('bench', n_img * nw_bench, n, c, h, None),
+        ('tiled window masked', nw_tiled, n, c, h, nw_tiled),
+        ('tiled window', nw_tiled, n, c, h, None),
+        ('cli masked', nw_cli, n, c, h, nw_cli),
+        ('cli', nw_cli, n, c, h, None),
+        ('model masked', nw_model, n, c, h, nw_model),
+        ('model', nw_model, n, c, h, None),
+        ('window 7 n49', n_img * 1024, 49, 180, 6, 1024),
+        ('SwinIR-light C60', n_img * nw_bench, 64, 60, 6, nw_bench),
+        ('DAT-S n128 masked', n_img * 512, 128, 180, 6, 512),
+        ('HAT-S n256', n_img * 256, 256, 144, 6, None),
+        ('ATD-light n256 masked', n_img * 256, 256, 48, 4, 256),
+    ]
+    keys = ('name', 'windows', 'n', 'c', 'heads', 'nw')
+    return [dict(zip(keys, r)) for r in rows]
+
+
+def wattn_shape_key(s: dict) -> tuple:
+    """The key under which ``window_mha.by_shape`` counts ``s``."""
+    return (s['windows'], s['n'], s['c'], s['heads'], s['nw'] is not None)
+
+
+def wattn_bound_ms(s: dict, dtype_name: str) -> tuple[float, str]:
+    """Least time for one window attention on an H100: the larger of its
+    bytes (q, k, v read once, the f32 bias and mask read once, O written
+    once) over the memory rate and its FLOPs (Q K^T and P V) over the dense
+    peak for the dtype."""
+    size = 2 if dtype_name == 'bfloat16' else 4
+    n, c, w = s['n'], s['c'], s['windows']
+    nbytes = 4 * w * n * c * size + 4 * s['heads'] * n * n + 4 * (s['nw'] or 0) * n * n
+    flops = 4 * w * n * n * c
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def _device_kernels(fn) -> str:
+    """The device kernels one call of ``fn`` runs, by time, from
+    torch.profiler: names PyTorch's choice of backend."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    return '; '.join(k[:60] for k, _ in sorted(by_name.items(), key=lambda kv: -kv[1])[:2])
+
+
+def phase_wattn_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
+    """Each shape: the window-attention kernel against its plain version in
+    f32 (TF32 off) and in bf16 (plain version in f32 from the same bf16
+    inputs), with q, k, v handed over as slices of one qkv tensor as the
+    model does; then kernel / plain / library / bound times in bf16 (f32
+    times too at the bench shape).  The library call is
+    ``scaled_dot_product_attention`` with bias + mask summed into one bf16
+    additive mask (materialised per window where masked)."""
+    import torch
+    import torch.nn.functional as TF
+
+    from resselt_tpu_torch.ops import window_attention as wa
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = []
+    for s in shapes:
+        w, n, c, h, nw = s['windows'], s['n'], s['c'], s['heads'], s['nw']
+        hd = c // h
+        scale = hd ** -0.5
+        qkv = torch.randn((w, n, 3 * c), generator=gen, device=device)
+        bias = torch.randn((h, n, n), generator=gen, device=device) * 0.5
+        mask = None
+        if nw is not None:
+            mask = torch.where(torch.rand((nw, n, n), generator=gen, device=device) < 0.3, -100.0, 0.0)
+
+        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+        got = wa.window_mha(q, k, v, bias, mask, num_heads=h, scale=scale)
+        want = wa.window_mha_ref(q, k, v, bias, mask, num_heads=h, scale=scale)
+        err32 = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+        del got, want
+
+        qkvb = qkv.to(torch.bfloat16)
+        del qkv
+        qb, kb, vb = qkvb[..., :c], qkvb[..., c:2 * c], qkvb[..., 2 * c:]
+        gotb = wa.window_mha(qb, kb, vb, bias, mask, num_heads=h, scale=scale)
+        wantb = wa.window_mha_ref(qb.float(), kb.float(), vb.float(), bias, mask, num_heads=h, scale=scale)
+        errb = (gotb.float() - wantb).abs().max().item()
+        torch.testing.assert_close(gotb.float(), wantb, rtol=BF16_RTOL, atol=WATTN_BF16_ATOL)
+        del gotb, wantb
+
+        row = {'name': s['name'], 'windows': w, 'n': n, 'c': c, 'heads': h, 'mask_windows': nw,
+               'max_abs_err_f32': err32, 'max_abs_err_bf16': errb}
+        row['ms'] = _ms(lambda: wa.window_mha(qb, kb, vb, bias, mask, num_heads=h, scale=scale), reps)
+        row['plain_ms'] = _ms(lambda: wa.window_mha_ref(qb, kb, vb, bias, mask, num_heads=h, scale=scale), reps)
+        q4, k4, v4 = (t.unflatten(-1, (h, hd)).transpose(1, 2) for t in (qb, kb, vb))
+        if mask is None:
+            am = bias.to(torch.bfloat16)[None]
+        else:
+            am = (bias[None, None] + mask[:, None][None]).to(torch.bfloat16)
+            am = am.expand(w // nw, nw, h, n, n).reshape(w, h, n, n)
+
+        def library():
+            return TF.scaled_dot_product_attention(q4, k4, v4, attn_mask=am, scale=scale)
+
+        row['library_ms'] = _ms(library, reps)
+        row['library_kernels'] = _device_kernels(library)
+        row['bound_ms'], row['bound_by'] = wattn_bound_ms(s, 'bfloat16')
+        if s['name'] == 'bench masked':
+            q32, k32, v32 = (t.float() for t in (qb, kb, vb))
+            row['ms_f32'] = _ms(lambda: wa.window_mha(q32, k32, v32, bias, mask, num_heads=h, scale=scale), reps)
+            row['bound_ms_f32'] = wattn_bound_ms(s, 'float32')[0]
+            del q32, k32, v32
+        del qkvb, qb, kb, vb, q4, k4, v4, am, bias, mask
+        torch.cuda.empty_cache()
+        out.append(row)
+    return out
+
+
+def phase_load(device, sd: dict, stem: str, arch: str, meta, tmp: str, dropped: frozenset = frozenset()):
+    """Write a seeded checkpoint as .safetensors and .pth, load both; the
+    params are the checkpoint's arrays less the ``dropped`` keys."""
     import numpy as np
     import torch
 
@@ -278,13 +431,15 @@ def phase_load(device, sd: dict, stem: str, arch: str, meta, tmp: str):
     for m in models:
         if m.arch_id != arch or m.metadata != meta:
             raise AssertionError(f'detected {m.arch_id} {m.metadata}')
-        for k, v in sd.items():
-            if not np.array_equal(m.params[k].cpu().numpy(), v):
+        if set(sd) - set(m.params) != dropped:
+            raise AssertionError(f'params lack {sorted(set(sd) - set(m.params))}, expected {sorted(dropped)}')
+        for k in m.params:
+            if not np.array_equal(m.params[k].cpu().numpy(), sd[k]):
                 raise AssertionError(f'{k} differs after load')
     return models[0], st
 
 
-def phase_model(model, sd, size: int, entry, bf16: bool = True):
+def phase_model(model, sd, size: int, entry, bf16: bool = True, tol: float = MODEL_TOL):
     """f32 on the card against the CPU, ``entry``'s launches in that
     forward, bf16 against f32."""
     import numpy as np
@@ -300,7 +455,7 @@ def phase_model(model, sd, size: int, entry, bf16: bool = True):
     torch.cuda.synchronize()
     launches = entry.launches - before
     err = float(np.abs(got32.cpu().numpy() - want).max())
-    if got32.shape != want.shape or not err < MODEL_TOL:
+    if got32.shape != want.shape or not err < tol:
         raise AssertionError(f'f32 card vs cpu: shape {tuple(got32.shape)} vs {want.shape}, max err {err}')
     res = {'max_abs_err_f32': err, 'launches_per_forward': launches}
     if bf16:
@@ -316,16 +471,20 @@ def phase_model(model, sd, size: int, entry, bf16: bool = True):
 def _entries() -> dict:
     """Every kernel wrapper, by the name its counts are reported under."""
     from resselt_tpu_torch.ops import fused_conv as fc
+    from resselt_tpu_torch.ops import window_attention as wa
 
-    return {'act': fc.fused_conv3x3_act, 'pack2': fc.fused_conv3x3_pack2, 'lk': fc.fused_conv_lk}
+    return {'act': fc.fused_conv3x3_act, 'pack2': fc.fused_conv3x3_pack2, 'lk': fc.fused_conv_lk,
+            'wattn': wa.window_mha}
 
 
-def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: int, img_hw: tuple[int, int]):
+def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: int, img_hw: tuple[int, int],
+                tiled_tile: int | None = None):
     """The main path: the bench config through SRModel.__call__, a tiled
-    image through upscale_tiled, and a PNG through the CLI.  Every kernel's
-    launch count starts from 0 just before the timed bench forwards; their
-    counts are read just after them (``bench_counts``), and the whole
-    phase's at its end (``launches``)."""
+    image through upscale_tiled (at ``tiled_tile``, or the loader's hints
+    when None), and a PNG through the CLI.  Every kernel's launch count
+    starts from 0 just before the timed bench forwards; their counts are
+    read just after them (``bench_counts``), and the whole phase's at its
+    end (``launches``, and per shape ``shapes``)."""
     import numpy as np
     import torch
 
@@ -358,7 +517,7 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
     img = np.random.default_rng(2).random((h, w, 3), dtype=np.float32)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = upscale_tiled(model, img, tile=tile, dtype=torch.bfloat16)
+    out = upscale_tiled(model, img, tile=tiled_tile, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     res['tiled_s'] = time.perf_counter() - t0
     if out.shape != (h * s, w * s, 3) or not bool(torch.isfinite(out).all()):
@@ -377,6 +536,7 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
         raise AssertionError(f'cli: rc {rc}, output size {size}')
     res['cli_out'] = list(size)
     res['launches'] = {k: e.launches for k, e in entries.items()}
+    res['shapes'] = {k: set(e.by_shape) for k, e in entries.items()}
     return res
 
 
@@ -418,7 +578,7 @@ def main() -> int:
     from resselt_tpu_torch.core import ModelMetadata
     from resselt_tpu_torch.ops import _build
     from resselt_tpu_torch.ops import fused_conv as fc
-    from resselt_tpu_torch.zoo import make_esrgan, make_plksr, make_realplksr
+    from resselt_tpu_torch.zoo import make_esrgan, make_plksr, make_realplksr, make_swinir
 
     t0 = time.perf_counter()
     took = _build.build()
@@ -442,8 +602,10 @@ def main() -> int:
             raise AssertionError(f"{res['launches_per_forward']} kernel launches per forward, expected 351")
         log('model', tol=MODEL_TOL, **res)
 
-        serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280))
+        serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280),
+                            tiled_tile=BENCH['tile'])
         counts = serve.pop('bench_counts')
+        serve.pop('shapes')
         launches = serve.pop('launches')['act']
         if launches == 0:
             raise AssertionError('the main path launched no conv3x3 kernel')
@@ -479,8 +641,10 @@ def main() -> int:
         log('plksr_model', tol=MODEL_TOL, **res, realplksr_dys_4_blocks=json.dumps(rres))
         del real
 
-        serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280))
+        serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280),
+                            tiled_tile=BENCH['tile'])
         counts = serve.pop('bench_counts')
+        serve.pop('shapes')
         lk_launches = serve.pop('launches')['lk']
         checked = {('lk', lk_shape_key(s)) for s in lk}
         lk_bench = check_bench_counts(counts, {'lk'}, nb, reps, checked)
@@ -490,8 +654,58 @@ def main() -> int:
         log('plksr_serve', dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], launches=lk_launches,
             launches_per_bench_forward=lk_bench / reps, lk_ms_per_bench_forward=lk_ms, **serve)
 
+    # -- SwinIR-M: the window attention ---------------------------------------
+    from resselt_tpu_torch.ops import window_attention as wa
+
+    sw = SWINIR
+    n_blocks = sum(sw['depths'])
+    wshapes = wattn_shapes(BENCH['batch'], BENCH['tile'], sw)
+    w_rows = phase_wattn_kernels('cuda', wshapes, reps=10)
+    log('wattn_kernels', f32_tol=F32_TOL, bf16_rtol=BF16_RTOL, bf16_atol=WATTN_BF16_ATOL, rows=json.dumps(w_rows))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sd = make_swinir(sw['embed_dim'], sw['depths'], sw['num_heads'], sw['window_size'], upscale=sw['scale'],
+                         img_size=sw['img_size'], seed=0)
+        masks = frozenset(k for k in sd if k.endswith('.attn_mask'))
+        model, ckpt = phase_load('cuda', sd, 'swinir', 'SwinIR', ModelMetadata(3, 3, sw['scale'], 'SwinIR'), tmp,
+                                 dropped=masks)
+        if (model.config.embed_dim, model.config.depths, model.config.window_size) != (180, (6,) * 6, 8):
+            raise AssertionError(f'SwinIR config {model.config}')
+        log('swinir_load', arch=model.arch_id, metadata=repr(model.metadata), files='safetensors,pth',
+            dropped_attn_masks=len(masks))
+
+        res = phase_model(model, sd, 64, wa.window_mha, tol=SWINIR_TOL)
+        if res['launches_per_forward'] != n_blocks:
+            raise AssertionError(f"{res['launches_per_forward']} window_mha launches per SwinIR forward, "
+                                 f'expected {n_blocks}')
+        rsd = make_swinir(sw['embed_dim'], (2, 2), (6, 6), sw['window_size'], upscale=sw['scale'],
+                          upsampler='nearest+conv', img_size=sw['img_size'], seed=1)
+        real = resselt_tpu_torch.load_from_state_dict(rsd, device='cuda')
+        rres = phase_model(real, rsd, 64, wa.window_mha, bf16=False, tol=SWINIR_TOL)
+        if rres['launches_per_forward'] != 4 or real.config.upsampler != 'nearest+conv':
+            raise AssertionError(f'real-world SwinIR: {rres}, {real.config}')
+        log('swinir_model', tol=SWINIR_TOL, **res, realsr_nearest_conv_2x2_blocks=json.dumps(rres))
+        del real
+
+        serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280))
+        counts = serve.pop('bench_counts')
+        w_launches = serve.pop('launches')['wattn']
+        phase_shapes = serve.pop('shapes')['wattn']
+        checked = {('wattn', wattn_shape_key(s)) for s in wshapes}
+        w_bench = check_bench_counts(counts, {'wattn'}, n_blocks, reps, checked)
+        unchecked = {('wattn', key) for key in phase_shapes} - checked
+        if unchecked:
+            raise AssertionError(f'the serve phase ran window shapes wattn_kernels did not check: {sorted(unchecked)}')
+        for r, s in zip(w_rows, wshapes):
+            r['per_forward'] = counts['wattn'][1].get(wattn_shape_key(s), 0) / reps
+        w_ms = sum(r['ms'] * r['per_forward'] for r in w_rows)
+        log('swinir_serve', dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], launches=w_launches,
+            launches_per_bench_forward=w_bench / reps, wattn_ms_per_bench_forward=w_ms,
+            tiled_tile=sw['tile'], tiled_halo=sw['halo'], **serve)
+
     head = next(r for r in rows if r['name'] == 'rdb stage0 64->192')
     lk_head = next(r for r in lk_rows if r['name'] == 'bench 16->16')
+    w_head = next(r for r in w_rows if r['name'] == 'bench masked')
     kernels = [{
         'name': 'fused_conv3x3_act',
         'route': 'cuda',
@@ -522,6 +736,23 @@ def main() -> int:
         'timed_shape': f"PLKSR bench bf16 {'x'.join(map(str, lk_head['shape']))} k{lk_head['k']}",
         'ms_per_bench_forward': lk_ms,
         'shapes': lk_rows,
+    }, {
+        'name': 'window_mha',
+        'route': 'cuda',
+        'source': 'resselt_tpu_torch/csrc/window_attn.cu',
+        'replaces': 'resselt_tpu/ops/window_attention.py:32',
+        'launches': w_launches,
+        'max_abs_err': max(r['max_abs_err_bf16'] for r in w_rows),
+        'ms': w_head['ms'],
+        'plain_ms': w_head['plain_ms'],
+        'bound_ms': w_head['bound_ms'],
+        'bound_by': w_head['bound_by'],
+        'library_ms': w_head['library_ms'],
+        'library_kernels': w_head['library_kernels'],
+        'timed_shape': (f"SwinIR-M bench masked bf16 {w_head['windows']} windows x {w_head['n']} tokens, "
+                        f"C {w_head['c']}, {w_head['heads']} heads, nW {w_head['mask_windows']}"),
+        'ms_per_bench_forward': w_ms,
+        'shapes': w_rows,
     }]
     print(smi)
     print(json.dumps({'kernels': kernels}))

@@ -15,7 +15,7 @@ import importlib
 
 from ..core import Registry
 
-_ARCH_MODULES: list[str] = ['esrgan', 'plksr']
+_ARCH_MODULES: list[str] = ['swinir', 'esrgan', 'plksr']
 
 internal_registry = Registry()
 

@@ -42,6 +42,25 @@ def get_seq_len(state_dict: Mapping[str, Any], seq_key: str) -> int:
     return max(indices) + 1
 
 
+def get_pixelshuffle_params(
+    state_dict: Mapping[str, Any],
+    upsample_key: str = 'upsample',
+    default_nf: int = 64,
+) -> tuple[int, int]:
+    """Total upscale and feature width of a conv + PixelShuffle cascade
+    ``{upsample_key}.{0, 2, 4, ...}``."""
+    upscale = 1
+    num_feat = default_nf
+    for i in range(0, 10, 2):
+        key = f'{upsample_key}.{i}.weight'
+        if key not in state_dict:
+            break
+        shape = tuple(state_dict[key].shape)
+        num_feat = shape[1]
+        upscale *= math.isqrt(shape[0] // num_feat)
+    return upscale, num_feat
+
+
 def pixelshuffle_scale(ps_size: int, channels: int) -> int:
     """The upscale of a PixelShuffle tail whose conv emits ``ps_size``
     channels for ``channels`` output planes."""

@@ -1,13 +1,14 @@
 """Functional NN ops with PyTorch semantics on NHWC tensors.
 
-Counterpart of ``resselt_tpu/nn/functional.py``, holding what ESRGAN and
-PLKSR use.
+Counterpart of ``resselt_tpu/nn/functional.py``, holding what ESRGAN,
+PLKSR and SwinIR use.
 Feature maps are contiguous NHWC ``(N, H, W, C)``; conv weights keep the
-torch OIHW layout.
+torch OIHW layout, linear weights torch's ``(out, in)``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as TF
 
@@ -37,6 +38,19 @@ def conv2d(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
         groups=groups,
     )
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def linear(x, w, b=None):
+    """Torch Linear: ``w`` is (out, in); contracts ``x``'s last dim, in
+    ``x``'s dtype."""
+    return TF.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+
+
+def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
+    """LayerNorm over the last dimension (channels-last)."""
+    w = None if weight is None else weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    return TF.layer_norm(x, (x.shape[-1],), w, b, eps)
 
 
 def leaky_relu(x, negative_slope: float = 0.01):
@@ -77,6 +91,40 @@ def pad2d(x, pads, mode: str = 'constant', value: float = 0.0):
     if max(pads) == 0 and min(pads) == 0:
         return x
     y = TF.pad(x.permute(0, 3, 1, 2), tuple(pads), mode=mode, value=value if mode == 'constant' else None)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _reflect_index(size: int, out: int) -> np.ndarray:
+    """numpy's ``pad(mode='reflect')`` source rows for ``out`` rows padded
+    from ``size`` at the end, also when the pad is longer than the input
+    (the reflection repeats with period 2 * (size - 1))."""
+    i = np.arange(out)
+    if size == 1:
+        return np.zeros(out, np.int64)
+    period = 2 * (size - 1)
+    i = i % period
+    return np.where(i < size, i, period - i)
+
+
+def pad_to_multiple(x, multiple: int):
+    """Reflect-pad bottom/right so H and W are multiples of ``multiple``, as
+    ``jnp.pad`` reflects (the JAX package's), for any pad length."""
+    h, w = x.shape[1], x.shape[2]
+    ph = (multiple - h % multiple) % multiple
+    pw = (multiple - w % multiple) % multiple
+    if ph == 0 and pw == 0:
+        return x
+    hi = torch.from_numpy(_reflect_index(h, h + ph)).to(x.device)
+    wi = torch.from_numpy(_reflect_index(w, w + pw)).to(x.device)
+    return x[:, hi][:, :, wi].contiguous()
+
+
+def interpolate_bicubic(x, scale_factor: int):
+    """torch bicubic (A = -0.75, align_corners False, no antialias) on NHWC,
+    by an integer factor."""
+    n, h, w, c = x.shape
+    y = TF.interpolate(x.permute(0, 3, 1, 2), size=(h * scale_factor, w * scale_factor), mode='bicubic',
+                       align_corners=False)
     return y.permute(0, 2, 3, 1).contiguous()
 
 

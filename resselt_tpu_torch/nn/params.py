@@ -50,3 +50,10 @@ class PTree:
     def conv(self, name: str, x, stride=1, padding=0, dilation=1, groups=1):
         w, b = self.wb(name)
         return F.conv2d(x, w, b, stride=stride, padding=padding, dilation=dilation, groups=groups)
+
+    def linear(self, name: str, x):
+        w, b = self.wb(name)
+        return F.linear(x, w, b)
+
+    def layer_norm(self, name: str, x, eps: float = 1e-5):
+        return F.layer_norm(x, self.get(f'{name}.weight'), self.get(f'{name}.bias'), eps=eps)

@@ -9,6 +9,7 @@ from .fused_conv import (
     pack_conv3x3_weight,
     pack_conv_lk_weight,
 )
+from .window_attention import window_mha, window_mha_ref, window_mha_supported
 
 __all__ = [
     'fused_conv3x3_act',
@@ -20,4 +21,7 @@ __all__ = [
     'lk_conv_supported',
     'pack_conv3x3_weight',
     'pack_conv_lk_weight',
+    'window_mha',
+    'window_mha_ref',
+    'window_mha_supported',
 ]

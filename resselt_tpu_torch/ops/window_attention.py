@@ -1,0 +1,146 @@
+"""Window multi-head attention with an additive bias and shift mask.
+
+Counterpart of ``resselt_tpu/ops/window_attention.py``'s
+``window_mha_pallas``.  For every window and head it computes
+
+    O = softmax(scale * Q K^T + bias[h] + mask[w mod nW]) V
+
+with the scores, bias, mask and softmax in f32 and the output in the
+input's dtype.  On a CUDA tensor :func:`window_mha` launches the
+hand-written Hopper kernel ``csrc/window_attn.cu`` (f32: exact FMA; bf16:
+tensor cores with f32 accumulation and an online softmax) or raises; on a
+CPU tensor it computes the plain version :func:`window_mha_ref`.  The
+wrapper counts its kernel launches in ``window_mha.launches``, and per
+shape in the ``window_mha.by_shape`` Counter under ``(windows, n, c,
+heads, masked)``.
+
+q, k and v may be the three channel slices ``qkv[..., :C]``,
+``qkv[..., C:2C]``, ``qkv[..., 2C:]`` of one ``(B, N, 3C)`` projection:
+the kernel reads them in place through their token pitch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+
+import torch
+
+from . import _build
+
+WATTN_MAX_N = 256  # csrc/window_attn.cu: tokens per window (padded to 16 inside)
+WATTN_MAX_HEAD_DIM = 64  # csrc/window_attn.cu: head_dim (padded to 16 inside)
+
+
+def window_mha_supported(n: int, c: int, num_heads: int) -> bool:
+    """Shapes :func:`window_mha` (and its kernel) take: 1 <= n <= 256
+    tokens per window and C = heads x head_dim with head_dim <= 64."""
+    return (1 <= n <= WATTN_MAX_N and num_heads >= 1 and c % num_heads == 0
+            and 1 <= c // num_heads <= WATTN_MAX_HEAD_DIM)
+
+
+def window_mha_ref(q, k, v, bias, mask=None, *, num_heads: int, scale: float) -> torch.Tensor:
+    """Plain version, with the JAX kernel's semantics: q, k, v taken to f32,
+    q scaled in f32, scores + bias + mask and the softmax in f32, P V in
+    f32, cast back to q's dtype.  In f32 this is the JAX package's
+    ``_mha_xla``; in bf16 it does not round the scores to bf16 first, as
+    ``_mha_xla`` does (the kernel differs from it only by a full-f32
+    softmax)."""
+    b, n, c = q.shape
+    hd = c // num_heads
+
+    def heads(t):
+        return t.float().reshape(b, t.shape[1], num_heads, hd).transpose(1, 2)
+
+    s = torch.matmul(heads(q) * scale, heads(k).transpose(-1, -2)) + bias.float()[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        s = (s.reshape(b // nw, nw, num_heads, n, n) + mask.float()[None, :, None]).reshape(b, num_heads, n, n)
+    o = torch.matmul(torch.softmax(s, dim=-1), heads(v))
+    return o.transpose(1, 2).reshape(b, n, c).to(q.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load('window_attn')
+    if not getattr(lib, '_resselt_typed', False):
+        for fn in (lib.resselt_window_attn_f32, lib.resselt_window_attn_bf16):
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+                           + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        lib._resselt_typed = True
+    return lib
+
+
+def _token_strides(q, k, v) -> tuple[int, int]:
+    """(window stride, token stride) in elements, shared by q, k and v,
+    whose channels must lie next to each other (contiguous tensors, or
+    channel slices of one wider tensor)."""
+    strides = {t.stride() for t in (q, k, v)}
+    if len(strides) != 1:
+        raise ValueError(f'window attention kernel needs q, k, v at the same strides, got {sorted(strides)}')
+    sw, st, sc = strides.pop()
+    if sc != 1 or st < q.shape[2] or sw < q.shape[1] * st:
+        raise ValueError(f'window attention kernel needs tokens at one pitch with channels next to each other, '
+                         f'got shape {tuple(q.shape)} strides {(sw, st, sc)}')
+    return sw, st
+
+
+def _launch(q, k, v, bias, mask, num_heads: int, scale: float) -> torch.Tensor:
+    """Check the operands, launch the kernel on the current stream and count
+    the launch."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'window attention kernel takes float32 or bfloat16, got {q.dtype}')
+    if k.dtype != q.dtype or v.dtype != q.dtype or k.device != q.device or v.device != q.device:
+        raise ValueError('q, k and v must share dtype and device')
+    b, n, c = q.shape
+    sw, st = _token_strides(q, k, v)
+    bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
+    nw = 1
+    if mask is not None:
+        mask = mask.to(device=q.device, dtype=torch.float32).contiguous()
+        nw = mask.shape[0]
+    out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
+    if b == 0:
+        return out
+    lib = _lib()
+    fn = lib.resselt_window_attn_bf16 if q.dtype == torch.bfloat16 else lib.resselt_window_attn_f32
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                None if mask is None else mask.data_ptr(), out.data_ptr(),
+                b, n, num_heads, c // num_heads, st, sw, nw, float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f'window attention kernel launch failed: CUDA error {rc} '
+                           f'(q {tuple(q.shape)} {q.dtype}, heads {num_heads}, mask windows {nw})')
+    window_mha.launches += 1
+    window_mha.by_shape[(b, n, c, num_heads, mask is not None)] += 1
+    return out
+
+
+def window_mha(q, k, v, bias, mask=None, *, num_heads: int, scale: float) -> torch.Tensor:
+    """Fused window multi-head attention.
+
+    ``q``, ``k``, ``v``: (B, N, C), B = batch x nW windows, float32 or
+    bfloat16; ``bias``: (heads, N, N) additive (read in f32); ``mask``:
+    (nW, N, N) additive shift mask with B a multiple of nW, or None.
+    Shapes outside :func:`window_mha_supported` raise ValueError.  Returns
+    a contiguous (B, N, C) tensor in q's dtype."""
+    if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f'window_mha takes q, k, v of one (B, N, C) shape, got '
+                         f'{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}')
+    b, n, c = q.shape
+    if not window_mha_supported(n, c, num_heads):
+        raise ValueError(f'unsupported window attention: n={n} c={c} heads={num_heads}')
+    if tuple(bias.shape) != (num_heads, n, n):
+        raise ValueError(f'bias must be ({num_heads}, {n}, {n}), got {tuple(bias.shape)}')
+    if mask is not None and (mask.ndim != 3 or tuple(mask.shape[1:]) != (n, n) or b % mask.shape[0]):
+        raise ValueError(f'mask must be (nW, {n}, {n}) with nW dividing {b}, got {tuple(mask.shape)}')
+    if q.device.type == 'cpu':
+        return window_mha_ref(q, k, v, bias, mask, num_heads=num_heads, scale=scale)
+    if q.device.type == 'cuda':
+        return _launch(q, k, v, bias, mask, num_heads, scale)
+    raise ValueError(f'window_mha runs on CPU or CUDA tensors, got {q.device}')
+
+
+window_mha.launches = 0
+window_mha.by_shape = Counter()

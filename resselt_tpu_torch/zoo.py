@@ -1,9 +1,9 @@
 """Synthetic checkpoints: random numpy state dicts with the exact
 key and shape layout the detection tables fingerprint, made from a seed.
 
-Counterpart of ``resselt_tpu/zoo.py``, holding ``make_esrgan`` and
-``make_plksr`` (the same arrays as the JAX package's) and
-``make_realplksr``.
+Counterpart of ``resselt_tpu/zoo.py``, holding ``make_esrgan``,
+``make_swinir`` and ``make_plksr`` (the same arrays as the JAX package's)
+and ``make_realplksr``.
 """
 
 from __future__ import annotations
@@ -45,6 +45,81 @@ def make_esrgan(num_filters: int = 64, num_blocks: int = 23, scale: int = 4, in_
         m.conv(f'model.{3 * i}', nf, nf, 3)
     m.conv(f'model.{3 * n_up + 2}', nf, nf, 3)
     m.conv(f'model.{3 * n_up + 4}', out_nc, nf, 3)
+    return m.sd
+
+
+def make_swinir(
+    embed_dim: int = 60,
+    depths=(6, 6, 6, 6),
+    num_heads=(6, 6, 6, 6),
+    window_size: int = 8,
+    mlp_ratio: float = 2.0,
+    upscale: int = 4,
+    upsampler: str = 'pixelshuffle',
+    in_nc: int = 3,
+    img_size: int = 64,
+    seed: int = 0,
+):
+    """SwinIR layout, including the ``attn_mask`` buffers the reference
+    registers on shifted blocks at its training resolution (when
+    ``img_size`` tiles evenly into shifted windows).  For 'pixelshuffle',
+    'pixelshuffledirect' and '' the same arrays as the JAX package's
+    ``make_swinir``; 'nearest+conv' builds the real-world tail
+    (``conv_before_upsample.0``, ``conv_up1`` .. ``conv_up{log2 upscale}``,
+    ``conv_hr``, ``conv_last``, 64 features)."""
+    from .nn.window import relative_position_index, swin_attn_mask
+
+    m = _Maker(seed)
+    e = embed_dim
+    m.conv('conv_first', e, in_nc, 3)
+    m.t('patch_embed.norm.weight', e)
+    m.t('patch_embed.norm.bias', e)
+    rpi = relative_position_index(window_size, window_size)
+    mask = None
+    if img_size > window_size and img_size % window_size == 0:
+        mask = swin_attn_mask(img_size, img_size, window_size, window_size // 2)
+    for li, (depth, heads) in enumerate(zip(depths, num_heads)):
+        for bi in range(depth):
+            b = f'layers.{li}.residual_group.blocks.{bi}'
+            if bi % 2 == 1 and mask is not None:
+                m.sd[f'{b}.attn_mask'] = mask
+            for nk in ('norm1', 'norm2'):
+                m.t(f'{b}.{nk}.weight', e)
+                m.t(f'{b}.{nk}.bias', e)
+            m.t(f'{b}.attn.relative_position_bias_table', (2 * window_size - 1) ** 2, heads)
+            m.sd[f'{b}.attn.relative_position_index'] = rpi
+            m.t(f'{b}.attn.qkv.weight', 3 * e, e)
+            m.t(f'{b}.attn.qkv.bias', 3 * e)
+            m.t(f'{b}.attn.proj.weight', e, e)
+            m.t(f'{b}.attn.proj.bias', e)
+            hid = int(e * mlp_ratio)
+            m.t(f'{b}.mlp.fc1.weight', hid, e)
+            m.t(f'{b}.mlp.fc1.bias', hid)
+            m.t(f'{b}.mlp.fc2.weight', e, hid)
+            m.t(f'{b}.mlp.fc2.bias', e)
+        m.conv(f'layers.{li}.conv', e, e, 3)
+    m.t('norm.weight', e)
+    m.t('norm.bias', e)
+    m.conv('conv_after_body', e, e, 3)
+    nf = 64
+    if upsampler == 'pixelshuffle':
+        m.conv('conv_before_upsample.0', nf, e, 3)
+        if upscale & (upscale - 1) == 0:
+            for i in range(int(math.log2(upscale))):
+                m.conv(f'upsample.{2 * i}', 4 * nf, nf, 3)
+        elif upscale == 3:
+            m.conv('upsample.0', 9 * nf, nf, 3)
+        m.conv('conv_last', in_nc, nf, 3)
+    elif upsampler == 'pixelshuffledirect':
+        m.conv('upsample.0', in_nc * upscale**2, e, 3)
+    elif upsampler == 'nearest+conv':
+        m.conv('conv_before_upsample.0', nf, e, 3)
+        for i in range(1, int(math.log2(upscale)) + 1):
+            m.conv(f'conv_up{i}', nf, nf, 3)
+        m.conv('conv_hr', nf, nf, 3)
+        m.conv('conv_last', in_nc, nf, 3)
+    else:
+        m.conv('conv_last', in_nc, e, 3)
     return m.sd
 
 

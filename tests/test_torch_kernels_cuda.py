@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (conv3x3, conv_lk) and main paths (ESRGAN,
-PLKSR, RealPLKSR) on the card.  Needs an NVIDIA GPU
+"""The port's CUDA kernels (conv3x3, conv_lk, window_attn) and main paths
+(ESRGAN, PLKSR, RealPLKSR, SwinIR) on the card.  Needs an NVIDIA GPU
 and nvcc; every test here is marked ``cuda`` and skips without a card.
 
 This file imports torch and resselt_tpu_torch only, so that it runs where
@@ -9,7 +9,8 @@ JAX is absent:
 
 f32 is held to 1e-4 against the plain version with TF32 off (exact f32
 FMA); bf16 to 2e-2 relative against the plain version in f32 from the same
-bf16 inputs (the output's bf16 rounding).
+bf16 inputs (the output's bf16 rounding); the window attention in bf16
+also to 1e-2 absolute, since P is rounded to bf16 before P V.
 """
 
 import numpy as np
@@ -18,8 +19,9 @@ import torch
 
 import resselt_tpu_torch
 from resselt_tpu_torch.ops import fused_conv as fc
+from resselt_tpu_torch.ops import window_attention as wa
 from resselt_tpu_torch.parallel import upscale_tiled
-from resselt_tpu_torch.zoo import make_esrgan, make_plksr, make_realplksr
+from resselt_tpu_torch.zoo import make_esrgan, make_plksr, make_realplksr, make_swinir
 
 
 pytestmark = pytest.mark.cuda
@@ -213,3 +215,97 @@ def test_plksr_tiled_on_card_matches_cpu(cuda):
     got = upscale_tiled(gpu, img, tile=32)
     assert got.device.type == 'cuda'
     np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=5e-4)
+
+
+# -- window attention (csrc/window_attn.cu) -----------------------------------
+
+WATTN_BF16_TOL = (2e-2, 1e-2)  # rtol, atol: P rounded to bf16 before P V, and the bf16 output
+
+
+def _wattn_check(cuda, dtype, windows, n, c, heads, nw=None, qkv=True, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if qkv:  # q, k, v as channel slices of one projection, as the model hands them
+        t = torch.randn((windows, n, 3 * c), generator=g, device=cuda).to(dtype)
+        q, k, v = t[..., :c], t[..., c:2 * c], t[..., 2 * c:]
+    else:
+        q, k, v = (torch.randn((windows, n, c), generator=g, device=cuda).to(dtype) for _ in range(3))
+    bias = torch.randn((heads, n, n), generator=g, device=cuda) * 0.5
+    mask = None
+    if nw is not None:
+        mask = torch.where(torch.rand((nw, n, n), generator=g, device=cuda) < 0.3, -100.0, 0.0)
+    scale = (c // heads) ** -0.5
+    key = (windows, n, c, heads, mask is not None)
+    before, shape_before = wa.window_mha.launches, wa.window_mha.by_shape[key]
+    got = wa.window_mha(q, k, v, bias, mask, num_heads=heads, scale=scale)
+    torch.cuda.synchronize()
+    assert wa.window_mha.launches == before + 1 and wa.window_mha.by_shape[key] == shape_before + 1
+    assert got.dtype == dtype and got.shape == (windows, n, c) and got.is_contiguous()
+    want = wa.window_mha_ref(q.float(), k.float(), v.float(), bias, mask, num_heads=heads, scale=scale)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=WATTN_BF16_TOL[0], atol=WATTN_BF16_TOL[1])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('windows,n,c,heads,nw', [
+    (64, 64, 180, 6, 16), (64, 64, 180, 6, None),  # SwinIR-M / HAT-L / SwinIR-L
+    (32, 64, 60, 6, 8),                             # SwinIR-light
+    (24, 128, 180, 6, 4),                           # DAT-S rectangles
+    (8, 256, 144, 6, None),                         # HAT-S
+    (8, 256, 48, 4, 2),                             # ATD-light
+    (18, 49, 180, 6, 9), (6, 49, 60, 6, None),      # window 7
+    (5, 1, 8, 1, None), (3, 17, 64 * 3, 3, 3), (4, 250, 21, 3, 2),  # odd n, head_dim 64, odd head_dim
+])
+def test_window_kernel_matches_plain(cuda, dtype, windows, n, c, heads, nw):
+    _wattn_check(cuda, dtype, windows, n, c, heads, nw)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_window_kernel_contiguous_inputs(cuda, dtype):
+    _wattn_check(cuda, dtype, 16, 64, 96, 4, 4, qkv=False)
+
+
+def test_window_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((4, 64, 32), device=cuda)
+    bias = torch.zeros((4, 64, 64), device=cuda)
+    with pytest.raises(TypeError):
+        wa.window_mha(q.half(), q.half(), q.half(), bias, num_heads=4, scale=1.0)
+    with pytest.raises(ValueError):  # channels not next to each other
+        t = torch.zeros((4, 32, 64), device=cuda).transpose(1, 2)
+        wa.window_mha(t, t, t, bias, num_heads=4, scale=1.0)
+    with pytest.raises(ValueError):  # q, k, v at different strides
+        wa.window_mha(q, torch.zeros((4, 64, 64), device=cuda)[..., :32], q, bias, num_heads=4, scale=1.0)
+    with pytest.raises(ValueError):  # outside window_mha_supported
+        wa.window_mha(q, q, q, bias, num_heads=3, scale=1.0)
+
+
+def test_window_kernel_empty_input_launches_nothing(cuda):
+    q = torch.zeros((0, 64, 32), device=cuda)
+    before = wa.window_mha.launches
+    got = wa.window_mha(q, q, q, torch.zeros((4, 64, 64), device=cuda), num_heads=4, scale=1.0)
+    assert got.shape == (0, 64, 32) and wa.window_mha.launches == before
+
+
+@pytest.mark.parametrize('upsampler,scale', [('pixelshuffle', 4), ('nearest+conv', 4), ('', 1)])
+def test_swinir_on_card_matches_cpu(cuda, upsampler, scale):
+    sd = make_swinir(36, (2, 2), (6, 3), 8, upscale=scale, upsampler=upsampler, img_size=32, seed=1)
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    x = np.random.default_rng(0).random((2, 21, 26, 3), dtype=np.float32)
+    before = wa.window_mha.launches
+    got = gpu(x)
+    torch.cuda.synchronize()
+    assert wa.window_mha.launches - before == 4
+    assert got.shape == (2, 21 * scale, 26 * scale, 3)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu(x).numpy(), rtol=0, atol=2e-3)
+
+
+def test_swinir_tiled_on_card_matches_cpu(cuda):
+    sd = make_swinir(24, (2,), (3,), 8, upscale=2, img_size=32, seed=3)
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    img = np.random.default_rng(1).random((70, 90, 3), dtype=np.float32)
+    got = upscale_tiled(gpu, img, tile=32)
+    assert got.device.type == 'cuda'
+    np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=2e-3)

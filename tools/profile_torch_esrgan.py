@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where one bf16 forward of resselt_tpu_torch spends its device time, at
 bench.py's serving shape (batch 16 of 256x256 tiles): ESRGAN RRDBNet-23 4x
-(default) or PLKSR dim 64, 28 blocks, k 17, 4x (``--model plksr``).
+(default), PLKSR dim 64, 28 blocks, k 17, 4x (``--model plksr``) or SwinIR-M
+4x classical, embed 180, depths and heads (6,) x 6, window 8
+(``--model swinir``).
 
-    python3 tools/profile_torch_esrgan.py [--model esrgan|plksr] [--reps 2] [--seed 0]
+    python3 tools/profile_torch_esrgan.py [--model esrgan|plksr|swinir] [--reps 2] [--seed 0]
 
 Runs on a CUDA device only.  Warms up, then records ``--reps`` forwards
 under torch.profiler and prints one JSON line: the window's wall time per
 forward, device time per forward summed by kernel name (the top entries),
-the share of it in the model's hand-written kernel (conv3x3 / conv_lk),
+the share of it in the model's hand-written kernel (conv3x3 / conv_lk /
+wattn),
 and the device busy share of the window (the union of device-event
 intervals over the wall time).
 """
@@ -24,7 +27,7 @@ import time
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--model', choices=('esrgan', 'plksr'), default='esrgan')
+    parser.add_argument('--model', choices=('esrgan', 'plksr', 'swinir'), default='esrgan')
     parser.add_argument('--reps', type=int, default=2)
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--top', type=int, default=8)
@@ -37,9 +40,12 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import resselt_tpu_torch
-    from resselt_tpu_torch.zoo import make_esrgan, make_plksr
+    from resselt_tpu_torch.zoo import make_esrgan, make_plksr, make_swinir
 
-    if args.model == 'plksr':
+    if args.model == 'swinir':
+        sd, kernel, config = (make_swinir(180, (6,) * 6, (6,) * 6, 8, upscale=4, img_size=64, seed=args.seed),
+                              'wattn', 'SwinIR-M 4x classical embed180 depths6x6 window8')
+    elif args.model == 'plksr':
         sd, kernel, config = make_plksr(64, 28, 4, 17, seed=args.seed), 'conv_lk', 'PLKSR dim64 28 blocks k17 4x'
     else:
         sd, kernel, config = make_esrgan(64, 23, 4, seed=args.seed), 'conv3x3', 'ESRGAN RRDBNet-23 nf64 4x'
