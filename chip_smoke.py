@@ -28,8 +28,18 @@ swinir_load (SwinIR-M x4 classical, embed 180, depths and heads (6,) x 6,
 window 8), swinir_model (36 window_mha launches per forward, card against
 CPU, bf16 against f32; the real-world nearest+conv variant at 2 x 2
 blocks card against CPU), swinir_serve (36 launches per bench forward,
-and every shape of the phase checked by wattn_kernels).  Then the
-card's name and power limit, one JSON line of kernel figures, and last
+and every shape of the phase checked by wattn_kernels).  Then EIMN_L
+the same way: molrcm_kernels (every MOLRCM shape of the EIMN path: the
+bench, the tiled window, the CLI's and the model phase's images, and an
+edge shape that is not a multiple of the kernel's 16-pixel tile; against
+the plain version in f32 and bf16, with kernel / plain / eager-chain /
+bound times), eimn_load (the reference's eimn() defaults: embed 64, 16
+stages of one block, mlp ratio 2.66, 4x), eimn_model (16 fused_molrcm
+launches per forward, card against CPU, bf16 against f32), eimn_serve (16
+launches per bench forward, every shape of the phase checked by
+molrcm_kernels; tiled at the defaults for a model without hints, tile
+256, halo 16).  Then the card's name and power limit, one JSON line of
+kernel figures, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device, or without the package beside this script, it exits 1 before
 printing any result.
@@ -56,6 +66,10 @@ PLKSR = {'dim': 64, 'n_blocks': 28, 'scale': 4, 'kernel_size': 17, 'pdim': 16}
 # serves tiled at the loader's bf16 hints: tile 160, halo 8, one tile a batch
 SWINIR = {'embed_dim': 180, 'depths': (6,) * 6, 'num_heads': (6,) * 6, 'window_size': 8, 'scale': 4,
           'img_size': 64, 'tile': 160, 'halo': 8}
+# EIMN_L: the reference's eimn() defaults (EIMN paper, Liu et al., ECAI
+# 2023), tools/bench_families.py's 'eimn 4x'; no serving hints, so it
+# serves tiled at the defaults (tile 256, halo 16, 8 tiles a batch)
+EIMN = {'embed_dims': 64, 'num_stages': 16, 'depths': 1, 'mlp_ratio': 2.66, 'scale': 4, 'tile': 256, 'halo': 16}
 
 # H100 SXM dense peaks (NVIDIA data sheet) for bound_ms
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
@@ -68,6 +82,7 @@ MODEL_TOL = 5e-4   # tests/test_conv_archs.py's TOL for ESRGAN
 SWINIR_TOL = 2e-3  # tests/test_swinir.py's TOL for transformer stacks
 WATTN_BF16_ATOL = 1e-2  # window attention: P is rounded to bf16 before P V
 BF16_PSNR = 35.0   # tests/test_parallel.py's bf16-vs-f32 floor
+MOLRCM_TOL = 1.5e-3  # x max|plain|: tests/test_pallas_ops.py's tolerance for the JAX MOLRCM kernel
 
 
 def log(phase: str, **fields) -> None:
@@ -414,6 +429,105 @@ def phase_wattn_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
     return out
 
 
+def molrcm_shapes(n_img: int, tile: int, cfg: dict) -> list[dict]:
+    """Every MOLRCM shape of the EIMN path (the bench forwards, the tiled
+    720p windows at the default tile and halo, the CLI's 48x64 and the
+    model phase's 64x64 images) and an edge shape that is not a multiple of
+    the kernel's 16-pixel tile."""
+    window = cfg['tile'] + 2 * cfg['halo']
+    rows = [
+        ('bench', n_img, tile, tile),
+        ('tiled window', 8, window, window),
+        ('cli', 1, 48, 64),
+        ('model', 1, 64, 64),
+        ('edge', 2, 37, 45),
+    ]
+    return [dict(zip(('name', 'n', 'h', 'w'), r), dim=cfg['embed_dims']) for r in rows]
+
+
+def molrcm_shape_keys(s: dict) -> set:
+    """The keys under which ``fused_molrcm.by_shape`` counts ``s``, in both
+    dtypes."""
+    return {('molrcm', (s['n'], s['h'], s['w'], s['dim'], d)) for d in ('float32', 'bfloat16')}
+
+
+def molrcm_bound_ms(s: dict, dtype_name: str, weight_bytes: int) -> tuple[float, str]:
+    """Least time for one MOLRCM on an H100: the larger of its bytes (x read
+    once, the packed f32 weights read once, out written once) over the
+    memory rate and its FLOPs (20,152 MAC a pixel at dim 64: four 64 x 64
+    products, the 5x5 region conv on 64 channels, the dilated 5x5 on 24 and
+    7x7 on 32) over the dense peak for the dtype."""
+    size = 2 if dtype_name == 'bfloat16' else 4
+    dim = s['dim']
+    c1, c2 = dim * 3 // 8, dim // 8
+    px = s['n'] * s['h'] * s['w']
+    mac = 4 * dim * dim + 25 * dim + 25 * c1 + 49 * (dim - c1 - c2)
+    t_bytes = (2 * px * dim * size + weight_bytes) / PEAK_BYTES * 1e3
+    t_ops = 2 * px * mac / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def phase_molrcm_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
+    """Each shape: the MOLRCM kernel against its plain version in f32 (TF32
+    off; within MOLRCM_TOL x max|plain|) and in bf16 (plain version in f32
+    from the same bf16 inputs and bf16-rounded weights), then kernel / plain
+    / eager-chain / bound times in bf16 (f32 times too at the bench shape).
+    No single PyTorch call computes MOLRCM: the yardstick is the eager bf16
+    chain the port runs outside the kernel's gate (seven cuDNN convs, three
+    of them depthwise and two dilated, gelu, cat, silu, mul)."""
+    import torch
+
+    from resselt_tpu_torch.archs import eimn
+    from resselt_tpu_torch.nn.params import PTree
+    from resselt_tpu_torch.ops import molrcm as mo
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = []
+    for s in shapes:
+        dim = s['dim']
+        c1, c2 = dim * 3 // 8, dim // 8
+        params = {}
+        for name, (o, i, k) in {'proj_value.0': (dim, dim, 1), 'proj_query.0': (dim, dim, 1), 'region': (dim, 1, 5),
+                                'spatial_1': (c1, 1, 5), 'spatial_2': (dim - c1 - c2, 1, 7), 'fusion': (dim, dim, 1),
+                                'out': (dim, dim, 1)}.items():
+            params[f'{name}.weight'] = torch.randn((o, i, k, k), generator=gen, device=device) / (k * i ** 0.5)
+            params[f'{name}.bias'] = torch.randn((o,), generator=gen, device=device) * 0.1
+        x = torch.randn((s['n'], s['h'], s['w'], dim), generator=gen, device=device)
+
+        packed32 = mo.pack_molrcm_weights(PTree(params), torch.float32)
+        got = mo.fused_molrcm(x, packed32)
+        want = mo.fused_molrcm_ref(x, packed32)
+        err32 = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=0, atol=MOLRCM_TOL * want.abs().max().item())
+        del got, want
+
+        xb = x.to(torch.bfloat16)
+        packedb = mo.pack_molrcm_weights(PTree(params), torch.bfloat16)
+        gotb = mo.fused_molrcm(xb, packedb)
+        wantb = mo.fused_molrcm_ref(xb.float(), packedb)
+        errb = (gotb.float() - wantb).abs().max().item()
+        torch.testing.assert_close(gotb.float(), wantb, rtol=BF16_RTOL, atol=BF16_ATOL)
+        del gotb, wantb
+
+        row = {'name': s['name'], 'shape': [s['n'], s['h'], s['w'], dim], 'max_abs_err_f32': err32,
+               'max_abs_err_bf16': errb}
+        pb = PTree({k: v.to(torch.bfloat16) for k, v in params.items()})
+        row['ms'] = _ms(lambda: mo.fused_molrcm(xb, packedb), reps)
+        row['plain_ms'] = _ms(lambda: mo.fused_molrcm_ref(xb, packedb), reps)
+        row['library_ms'] = None
+        row['eager_chain_ms'] = _ms(lambda: eimn._molrcm(pb, xb, dim), reps)
+        wbytes = packedb.numel() * 4
+        row['bound_ms'], row['bound_by'] = molrcm_bound_ms(s, 'bfloat16', wbytes)
+        if s['name'] == 'bench':
+            row['ms_f32'] = _ms(lambda: mo.fused_molrcm(x, packed32), reps)
+            row['bound_ms_f32'] = molrcm_bound_ms(s, 'float32', wbytes)[0]
+        del x, xb
+        torch.cuda.empty_cache()
+        out.append(row)
+    return out
+
+
 def phase_load(device, sd: dict, stem: str, arch: str, meta, tmp: str, dropped: frozenset = frozenset()):
     """Write a seeded checkpoint as .safetensors and .pth, load both; the
     params are the checkpoint's arrays less the ``dropped`` keys."""
@@ -471,10 +585,11 @@ def phase_model(model, sd, size: int, entry, bf16: bool = True, tol: float = MOD
 def _entries() -> dict:
     """Every kernel wrapper, by the name its counts are reported under."""
     from resselt_tpu_torch.ops import fused_conv as fc
+    from resselt_tpu_torch.ops import molrcm as mo
     from resselt_tpu_torch.ops import window_attention as wa
 
     return {'act': fc.fused_conv3x3_act, 'pack2': fc.fused_conv3x3_pack2, 'lk': fc.fused_conv_lk,
-            'wattn': wa.window_mha}
+            'wattn': wa.window_mha, 'molrcm': mo.fused_molrcm}
 
 
 def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: int, img_hw: tuple[int, int],
@@ -578,7 +693,7 @@ def main() -> int:
     from resselt_tpu_torch.core import ModelMetadata
     from resselt_tpu_torch.ops import _build
     from resselt_tpu_torch.ops import fused_conv as fc
-    from resselt_tpu_torch.zoo import make_esrgan, make_plksr, make_realplksr, make_swinir
+    from resselt_tpu_torch.zoo import make_eimn, make_esrgan, make_plksr, make_realplksr, make_swinir
 
     t0 = time.perf_counter()
     took = _build.build()
@@ -703,9 +818,50 @@ def main() -> int:
             launches_per_bench_forward=w_bench / reps, wattn_ms_per_bench_forward=w_ms,
             tiled_tile=sw['tile'], tiled_halo=sw['halo'], **serve)
 
+    # -- EIMN_L: the fused MOLRCM ------------------------------------------------
+    from resselt_tpu_torch.ops import molrcm as mo
+
+    ei = EIMN
+    n_molrcm = ei['num_stages'] * ei['depths']
+    mshapes = molrcm_shapes(BENCH['batch'], BENCH['tile'], ei)
+    m_rows = phase_molrcm_kernels('cuda', mshapes, reps=10)
+    log('molrcm_kernels', f32_tol=f'{MOLRCM_TOL} x max|plain|', bf16_rtol=BF16_RTOL, bf16_atol=BF16_ATOL,
+        rows=json.dumps(m_rows))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sd = make_eimn(ei['embed_dims'], ei['num_stages'], ei['depths'], ei['mlp_ratio'], ei['scale'], seed=0)
+        model, ckpt = phase_load('cuda', sd, 'eimn', 'eimn', ModelMetadata(3, 3, ei['scale'], 'EIMN'), tmp)
+        cfg = model.config
+        if (cfg.embed_dims, cfg.num_stages, cfg.depths, cfg.mlp_ratio) != (64, 16, 1, 170 / 64):
+            raise AssertionError(f'EIMN config {cfg}')
+        log('eimn_load', arch=model.arch_id, metadata=repr(model.metadata), config=repr(cfg), files='safetensors,pth')
+
+        res = phase_model(model, sd, 64, mo.fused_molrcm)
+        if res['launches_per_forward'] != n_molrcm:
+            raise AssertionError(f"{res['launches_per_forward']} fused_molrcm launches per EIMN forward, "
+                                 f'expected {n_molrcm}')
+        log('eimn_model', tol=MODEL_TOL, **res)
+
+        serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280))
+        counts = serve.pop('bench_counts')
+        m_launches = serve.pop('launches')['molrcm']
+        phase_shapes = serve.pop('shapes')['molrcm']
+        checked = set().union(*(molrcm_shape_keys(s) for s in mshapes))
+        m_bench = check_bench_counts(counts, {'molrcm'}, n_molrcm, reps, checked)
+        unchecked = {('molrcm', key) for key in phase_shapes} - checked
+        if unchecked:
+            raise AssertionError(f'the serve phase ran MOLRCM shapes molrcm_kernels did not check: {sorted(unchecked)}')
+        for r, s in zip(m_rows, mshapes):
+            r['per_forward'] = counts['molrcm'][1].get((s['n'], s['h'], s['w'], s['dim'], 'bfloat16'), 0) / reps
+        m_ms = sum(r['ms'] * r['per_forward'] for r in m_rows)
+        log('eimn_serve', dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], launches=m_launches,
+            launches_per_bench_forward=m_bench / reps, molrcm_ms_per_bench_forward=m_ms,
+            tiled_tile=ei['tile'], tiled_halo=ei['halo'], **serve)
+
     head = next(r for r in rows if r['name'] == 'rdb stage0 64->192')
     lk_head = next(r for r in lk_rows if r['name'] == 'bench 16->16')
     w_head = next(r for r in w_rows if r['name'] == 'bench masked')
+    m_head = next(r for r in m_rows if r['name'] == 'bench')
     kernels = [{
         'name': 'fused_conv3x3_act',
         'route': 'cuda',
@@ -753,6 +909,23 @@ def main() -> int:
                         f"C {w_head['c']}, {w_head['heads']} heads, nW {w_head['mask_windows']}"),
         'ms_per_bench_forward': w_ms,
         'shapes': w_rows,
+    }, {
+        'name': 'fused_molrcm',
+        'route': 'cuda',
+        'source': 'resselt_tpu_torch/csrc/molrcm.cu',
+        'replaces': 'resselt_tpu/ops/molrcm.py:80',
+        'launches': m_launches,
+        'max_abs_err': max(r['max_abs_err_bf16'] for r in m_rows),
+        'ms': m_head['ms'],
+        'plain_ms': m_head['plain_ms'],
+        'bound_ms': m_head['bound_ms'],
+        'bound_by': m_head['bound_by'],
+        'library_ms': None,
+        'library_note': 'no single PyTorch call computes MOLRCM; eager_chain_ms is the eager bf16 chain of calls',
+        'eager_chain_ms': m_head['eager_chain_ms'],
+        'timed_shape': f"EIMN_L bench bf16 {'x'.join(map(str, m_head['shape']))}",
+        'ms_per_bench_forward': m_ms,
+        'shapes': m_rows,
     }]
     print(smi)
     print(json.dumps({'kernels': kernels}))

@@ -15,7 +15,7 @@ import importlib
 
 from ..core import Registry
 
-_ARCH_MODULES: list[str] = ['swinir', 'esrgan', 'plksr']
+_ARCH_MODULES: list[str] = ['swinir', 'esrgan', 'plksr', 'eimn']
 
 internal_registry = Registry()
 

@@ -49,7 +49,8 @@ def write_safetensors(state_dict, path: str, metadata: dict | None = None) -> No
     blobs: list[bytes] = []
     offset = 0
     for key, value in state_dict.items():
-        arr = np.ascontiguousarray(np.asarray(value))
+        arr = np.asarray(value)
+        arr = np.ascontiguousarray(arr).reshape(arr.shape)  # ascontiguousarray makes a 0-d array 1-d
         if arr.dtype.byteorder == '>':
             arr = arr.astype(arr.dtype.newbyteorder('<'))
         dt = names.get(arr.dtype)

@@ -1,7 +1,7 @@
 """Functional NN ops with PyTorch semantics on NHWC tensors.
 
 Counterpart of ``resselt_tpu/nn/functional.py``, holding what ESRGAN,
-PLKSR and SwinIR use.
+PLKSR, SwinIR and EIMN use.
 Feature maps are contiguous NHWC ``(N, H, W, C)``; conv weights keep the
 torch OIHW layout, linear weights torch's ``(out, in)``.
 """
@@ -64,6 +64,10 @@ def gelu(x):
 
 def mish(x):
     return TF.mish(x)
+
+
+def silu(x):
+    return TF.silu(x)
 
 
 def sigmoid(x):
@@ -142,6 +146,15 @@ def interpolate_nearest(x, scale_factor=None, size=None):
     hi = torch.floor(torch.arange(oh, device=x.device, dtype=torch.float64) * (h / oh)).long()
     wi = torch.floor(torch.arange(ow, device=x.device, dtype=torch.float64) * (w / ow)).long()
     return x[:, hi][:, :, wi].contiguous()
+
+
+def batch_norm_2d(x, weight, bias, running_mean, running_var, eps: float = 1e-5):
+    """Inference-mode BatchNorm2d over NHWC channels, with the running
+    statistics and affine params taken to ``x``'s dtype first; one
+    multiply-add: ``x * s + (bias - mean * s)``, ``s = weight / sqrt(var +
+    eps)``."""
+    s = torch.rsqrt(running_var.to(x.dtype) + eps) * weight.to(x.dtype)
+    return torch.addcmul(bias.to(x.dtype) - running_mean.to(x.dtype) * s, x, s)
 
 
 def group_norm(x, num_groups: int, weight=None, bias=None, eps: float = 1e-5):

@@ -57,3 +57,7 @@ class PTree:
 
     def layer_norm(self, name: str, x, eps: float = 1e-5):
         return F.layer_norm(x, self.get(f'{name}.weight'), self.get(f'{name}.bias'), eps=eps)
+
+    def batch_norm(self, name: str, x, eps: float = 1e-5):
+        return F.batch_norm_2d(x, self[f'{name}.weight'], self[f'{name}.bias'], self[f'{name}.running_mean'],
+                               self[f'{name}.running_var'], eps=eps)

@@ -2,8 +2,8 @@
 key and shape layout the detection tables fingerprint, made from a seed.
 
 Counterpart of ``resselt_tpu/zoo.py``, holding ``make_esrgan``,
-``make_swinir`` and ``make_plksr`` (the same arrays as the JAX package's)
-and ``make_realplksr``.
+``make_swinir`` and ``make_plksr`` (the same arrays as the JAX package's),
+``make_realplksr`` and ``make_eimn``.
 """
 
 from __future__ import annotations
@@ -174,4 +174,63 @@ def make_realplksr(dim: int = 64, n_blocks: int = 28, upscale: int = 4, kernel_s
         pos = np.stack(np.meshgrid(h, h, indexing='ij')).transpose(0, 2, 1)  # (2, s, s): [x, y] offsets
         m.sd['to_img.init_pos'] = np.tile(pos, (1, g, 1)).reshape(1, -1, 1, 1).astype(np.float32)
         m.conv('to_img.end_conv', in_nc, c, 1)
+    return m.sd
+
+
+def make_eimn(embed_dims: int = 64, num_stages: int = 16, depths: int = 1, mlp_ratio: float = 2.66, scale: int = 4,
+              seed: int = 0):
+    """EIMN layout (the reference's ``eimn()`` defaults are EIMN_L: embed
+    64, 16 stages of one block, mlp ratio 2.66, 4x): per block the layer
+    scales, two BatchNorm2d with running statistics (mean N(0, 0.1), var
+    U(0.5, 1.5), as tests/test_rcan_eimn.py randomizes them, and
+    ``num_batches_tracked``), the MOLRCM attention (1x1 value, query,
+    fusion and out convs, the 5x5 region and the dilated 5x5 / 7x7
+    depthwise convs on the 3/8 and 4/8 channel splits) and the SADFFM
+    (linear_in to 2 x int(embed x mlp_ratio), the depthwise 3x3 SAL,
+    linear_out, DFFM).  The repository does not record the reference's
+    DFFM reduce width; this function uses embed // 4 for
+    ``global_reduce`` / ``local_reduce`` (``spatial_expand`` takes both
+    halves to one channel).  A LayerNorm per stage, and a pixel-shuffle
+    tail."""
+    m = _Maker(seed)
+    d = embed_dims
+    c1, c2 = int(3 / 8 * d), int(1 / 8 * d)
+    hidden = int(d * mlp_ratio)
+    red = d // 4
+    m.conv('head.0', d, 3, 3)
+    for i in range(1, num_stages + 1):
+        for j in range(depths):
+            b = f'block{i}.{j}'
+            m.t(f'{b}.layer_scale_1', d)
+            m.t(f'{b}.layer_scale_2', d)
+            for norm in ('norm1', 'norm2'):
+                m.t(f'{b}.{norm}.weight', d)
+                m.sd[f'{b}.{norm}.weight'] += 1.0
+                m.t(f'{b}.{norm}.bias', d)
+                m.sd[f'{b}.{norm}.running_mean'] = (m.rng.standard_normal(d) * 0.1).astype(np.float32)
+                m.sd[f'{b}.{norm}.running_var'] = (m.rng.random(d) + 0.5).astype(np.float32)
+                m.sd[f'{b}.{norm}.num_batches_tracked'] = np.zeros((), np.int64)
+            a = f'{b}.attn'
+            m.conv(f'{a}.proj_value.0', d, d, 1)
+            m.conv(f'{a}.proj_query.0', d, d, 1)
+            m.conv(f'{a}.region', d, 1, 5)
+            m.conv(f'{a}.spatial_1', c1, 1, 5)
+            m.conv(f'{a}.spatial_2', d - c1 - c2, 1, 7)
+            m.conv(f'{a}.fusion', d, d, 1)
+            m.conv(f'{a}.out', d, d, 1)
+            f = f'{b}.mlp'
+            m.conv(f'{f}.linear_in', 2 * hidden, d, 1)
+            m.conv(f'{f}.SAL', 2 * hidden, 1, 3)
+            m.conv(f'{f}.linear_out', d, hidden, 1)
+            m.t(f'{f}.DFFM.norm.weight', d)
+            m.sd[f'{f}.DFFM.norm.weight'] += 1.0
+            m.t(f'{f}.DFFM.norm.bias', d)
+            m.conv(f'{f}.DFFM.global_reduce', red, d, 1)
+            m.conv(f'{f}.DFFM.local_reduce', red, d, 1)
+            m.conv(f'{f}.DFFM.channel_expand', d, red, 1)
+            m.conv(f'{f}.DFFM.spatial_expand', 1, 2 * red, 1)
+        m.t(f'norm{i}.weight', d)
+        m.sd[f'norm{i}.weight'] += 1.0
+        m.t(f'norm{i}.bias', d)
+    m.conv('tail.0', 3 * scale**2, d, 3)
     return m.sd

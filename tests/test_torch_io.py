@@ -138,6 +138,19 @@ def test_write_safetensors_both_ways(tmp_path):
     _assert_same_tree(tio.read_safetensors(str(pj)), jio.read_safetensors(str(pt)))
 
 
+def test_write_safetensors_keeps_0d_shape(tmp_path):
+    """A 0-d array (BatchNorm's num_batches_tracked) stays 0-d, as torch's
+    safetensors writer keeps it."""
+    import safetensors.torch
+
+    sd = {'n': np.zeros((), np.int64), 'w': np.ones((2, 3), np.float32)}
+    p = tmp_path / 'm.safetensors'
+    tio.write_safetensors(sd, str(p))
+    back = tio.read_safetensors(str(p))
+    assert back['n'].shape == () and back['w'].shape == (2, 3)
+    assert safetensors.torch.load_file(str(p))['n'].shape == ()
+
+
 def test_evil_pickle_rejected(tmp_path):
     class Evil:
         def __reduce__(self):

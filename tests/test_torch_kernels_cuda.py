@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (conv3x3, conv_lk, window_attn) and main paths
-(ESRGAN, PLKSR, RealPLKSR, SwinIR) on the card.  Needs an NVIDIA GPU
+"""The port's CUDA kernels (conv3x3, conv_lk, window_attn, molrcm) and main
+paths (ESRGAN, PLKSR, RealPLKSR, SwinIR, EIMN) on the card.  Needs an NVIDIA GPU
 and nvcc; every test here is marked ``cuda`` and skips without a card.
 
 This file imports torch and resselt_tpu_torch only, so that it runs where
@@ -10,7 +10,9 @@ JAX is absent:
 f32 is held to 1e-4 against the plain version with TF32 off (exact f32
 FMA); bf16 to 2e-2 relative against the plain version in f32 from the same
 bf16 inputs (the output's bf16 rounding); the window attention in bf16
-also to 1e-2 absolute, since P is rounded to bf16 before P V.
+also to 1e-2 absolute, since P is rounded to bf16 before P V.  The MOLRCM
+kernel is held in f32 to 1.5e-3 x max|plain| (tests/test_pallas_ops.py's
+tolerance for the JAX kernel).
 """
 
 import numpy as np
@@ -18,10 +20,12 @@ import pytest
 import torch
 
 import resselt_tpu_torch
+from resselt_tpu_torch.nn.params import PTree
 from resselt_tpu_torch.ops import fused_conv as fc
+from resselt_tpu_torch.ops import molrcm as mo
 from resselt_tpu_torch.ops import window_attention as wa
 from resselt_tpu_torch.parallel import upscale_tiled
-from resselt_tpu_torch.zoo import make_esrgan, make_plksr, make_realplksr, make_swinir
+from resselt_tpu_torch.zoo import make_eimn, make_esrgan, make_plksr, make_realplksr, make_swinir
 
 
 pytestmark = pytest.mark.cuda
@@ -309,3 +313,91 @@ def test_swinir_tiled_on_card_matches_cpu(cuda):
     got = upscale_tiled(gpu, img, tile=32)
     assert got.device.type == 'cuda'
     np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=2e-3)
+
+
+# -- MOLRCM (csrc/molrcm.cu) ----------------------------------------------------
+
+
+def _molrcm_params(device, seed=0, bias=True, dim=64):
+    """A MOLRCM attention's torch-layout params, scaled so that every stage
+    stays of order one."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    c1, c2 = dim * 3 // 8, dim // 8
+    shapes = {'proj_value.0': (dim, dim, 1), 'proj_query.0': (dim, dim, 1), 'region': (dim, 1, 5),
+              'spatial_1': (c1, 1, 5), 'spatial_2': (dim - c1 - c2, 1, 7), 'fusion': (dim, dim, 1), 'out': (dim, dim, 1)}
+    params = {}
+    for name, (o, i, k) in shapes.items():
+        params[f'{name}.weight'] = torch.randn((o, i, k, k), generator=g, device=device) / (k * i ** 0.5)
+        if bias:
+            params[f'{name}.bias'] = torch.randn((o,), generator=g, device=device) * 0.1
+    return PTree(params)
+
+
+def _molrcm_check(cuda, dtype, n, h, w, bias=True, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    x = torch.randn((n, h, w, 64), generator=g, device=cuda).to(dtype)
+    packed = mo.pack_molrcm_weights(_molrcm_params(cuda, seed, bias), dtype)
+    key = (n, h, w, 64, str(dtype).removeprefix('torch.'))
+    before, shape_before = mo.fused_molrcm.launches, mo.fused_molrcm.by_shape[key]
+    got = mo.fused_molrcm(x, packed)
+    torch.cuda.synchronize()
+    assert mo.fused_molrcm.launches == before + 1 and mo.fused_molrcm.by_shape[key] == shape_before + 1
+    assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous()
+    want = mo.fused_molrcm_ref(x.float(), packed)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1.5e-3 * float(want.abs().max()))
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,h,w', [(2, 37, 45), (1, 16, 128), (1, 1, 1), (3, 7, 2), (2, 33, 17), (1, 64, 64),
+                                   (1, 48, 64), (1, 5, 300)])
+def test_molrcm_kernel_matches_plain(cuda, dtype, n, h, w):
+    _molrcm_check(cuda, dtype, n, h, w)
+
+
+def test_molrcm_kernel_no_bias(cuda):
+    _molrcm_check(cuda, torch.bfloat16, 2, 20, 24, bias=False, seed=3)
+
+
+def test_molrcm_kernel_refuses_what_it_does_not_take(cuda):
+    packed = mo.pack_molrcm_weights(_molrcm_params(cuda))
+    with pytest.raises(TypeError):
+        mo.fused_molrcm(torch.zeros((1, 8, 8, 64), device=cuda, dtype=torch.float16), packed)
+    with pytest.raises(ValueError):  # not contiguous
+        mo.fused_molrcm(torch.zeros((1, 8, 64, 8), device=cuda).transpose(2, 3), packed)
+    with pytest.raises(ValueError):  # packed weights on the CPU
+        mo.fused_molrcm(torch.zeros((1, 8, 8, 64), device=cuda), packed.cpu())
+    with pytest.raises(ValueError):  # outside molrcm_supported
+        mo.fused_molrcm(torch.zeros((1, 8, 8, 48), device=cuda), packed)
+
+
+def test_molrcm_empty_input_launches_nothing(cuda):
+    packed = mo.pack_molrcm_weights(_molrcm_params(cuda))
+    before = mo.fused_molrcm.launches
+    got = mo.fused_molrcm(torch.zeros((0, 8, 8, 64), device=cuda), packed)
+    assert got.shape == (0, 8, 8, 64) and mo.fused_molrcm.launches == before
+
+
+def test_eimn_on_card_matches_cpu(cuda):
+    sd = make_eimn(64, 2, 1, 2.66, 4, seed=1)
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    x = np.random.default_rng(0).random((2, 21, 26, 3), dtype=np.float32)
+    before = mo.fused_molrcm.launches
+    got = gpu(x)
+    torch.cuda.synchronize()
+    assert mo.fused_molrcm.launches - before == 2
+    assert got.shape == (2, 84, 104, 3)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu(x).numpy(), rtol=0, atol=5e-4)
+
+
+def test_eimn_tiled_on_card_matches_cpu(cuda):
+    sd = make_eimn(64, 1, 1, 2.66, 2, seed=3)
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    img = np.random.default_rng(1).random((70, 90, 3), dtype=np.float32)
+    got = upscale_tiled(gpu, img, tile=32)
+    assert got.device.type == 'cuda'
+    np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=5e-4)

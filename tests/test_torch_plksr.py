@@ -119,7 +119,9 @@ def test_detection_esrgan_and_plksr():
         tm = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
         jm = resselt_tpu.load_from_state_dict(sd)
         assert tm.arch_id == jm.arch_id == arch and tm.metadata.name == jm.metadata.name == name
-    assert [a.id for a in resselt_tpu_torch.archs.internal_registry] == ['SwinIR', 'ESRGAN', 'PLKSR']
+    # the port registers its families in the JAX package's order
+    port = [a.id for a in resselt_tpu_torch.archs.internal_registry]
+    assert port == [a.id for a in resselt_tpu.archs.internal_registry if a.id in port]
 
 
 def test_params_from_numpy_carries_jax_params():

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Where one bf16 forward of resselt_tpu_torch spends its device time, at
 bench.py's serving shape (batch 16 of 256x256 tiles): ESRGAN RRDBNet-23 4x
-(default), PLKSR dim 64, 28 blocks, k 17, 4x (``--model plksr``) or SwinIR-M
+(default), PLKSR dim 64, 28 blocks, k 17, 4x (``--model plksr``), SwinIR-M
 4x classical, embed 180, depths and heads (6,) x 6, window 8
-(``--model swinir``).
+(``--model swinir``) or EIMN_L, embed 64, 16 stages, mlp ratio 2.66, 4x
+(``--model eimn``).
 
-    python3 tools/profile_torch_esrgan.py [--model esrgan|plksr|swinir] [--reps 2] [--seed 0]
+    python3 tools/profile_torch_esrgan.py [--model esrgan|plksr|swinir|eimn] [--reps 2] [--seed 0]
 
 Runs on a CUDA device only.  Warms up, then records ``--reps`` forwards
 under torch.profiler and prints one JSON line: the window's wall time per
 forward, device time per forward summed by kernel name (the top entries),
 the share of it in the model's hand-written kernel (conv3x3 / conv_lk /
-wattn),
+wattn / molrcm),
 and the device busy share of the window (the union of device-event
 intervals over the wall time).
 """
@@ -27,7 +28,7 @@ import time
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--model', choices=('esrgan', 'plksr', 'swinir'), default='esrgan')
+    parser.add_argument('--model', choices=('esrgan', 'plksr', 'swinir', 'eimn'), default='esrgan')
     parser.add_argument('--reps', type=int, default=2)
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--top', type=int, default=8)
@@ -40,9 +41,12 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import resselt_tpu_torch
-    from resselt_tpu_torch.zoo import make_esrgan, make_plksr, make_swinir
+    from resselt_tpu_torch.zoo import make_eimn, make_esrgan, make_plksr, make_swinir
 
-    if args.model == 'swinir':
+    if args.model == 'eimn':
+        sd, kernel, config = (make_eimn(64, 16, 1, 2.66, 4, seed=args.seed), 'molrcm',
+                              'EIMN_L embed64 16 stages mlp2.66 4x')
+    elif args.model == 'swinir':
         sd, kernel, config = (make_swinir(180, (6,) * 6, (6,) * 6, 8, upscale=4, img_size=64, seed=args.seed),
                               'wattn', 'SwinIR-M 4x classical embed180 depths6x6 window8')
     elif args.model == 'plksr':
