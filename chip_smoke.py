@@ -38,8 +38,22 @@ stages of one block, mlp ratio 2.66, 4x), eimn_model (16 fused_molrcm
 launches per forward, card against CPU, bf16 against f32), eimn_serve (16
 launches per bench forward, every shape of the phase checked by
 molrcm_kernels; tiled at the defaults for a model without hints, tile
-256, halo 16).  Then the card's name and power limit, one JSON line of
-kernel figures, and last
+256, halo 16).  Then ATD-light and HAT-S, the two transformers with 256-token
+windows: gather_kernels (every row-gather shape of the ATD path: the bench
+forwards' qkv gather and unsort, the tiled 720p windows', the model
+check's and the CLI image's, plus edge shapes (one row, width 1, widths
+that are not multiples of 16 bytes, a repeated index, more or fewer output
+rows than source rows, a column slice read in place); exact equality with
+the plain version in f32 and bf16, int64 and int32 indices; kernel / plain
+/ library (index_select) / bound times); wattn_kernels also holds their
+window shapes; atd_load / atd_model (30 window_mha + 60 row_gather
+launches per forward, card against CPU, bf16 against f32, and the tokens
+whose AC_MSA category differs between the two) / atd_serve (30 + 60 per
+bench forward; tiled at the loader's bf16 hints: tile 160, halo 8, two
+windows a batch), hat_load / hat_model (36 window_mha launches; the six
+OCABs take the plain path) / hat_serve (36 per bench forward; tiled at
+tile 192, halo 16, two windows a batch).  Then the card's name and power
+limit, one JSON line of kernel figures, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device, or without the package beside this script, it exits 1 before
 printing any result.
@@ -70,6 +84,16 @@ SWINIR = {'embed_dim': 180, 'depths': (6,) * 6, 'num_heads': (6,) * 6, 'window_s
 # 2023), tools/bench_families.py's 'eimn 4x'; no serving hints, so it
 # serves tiled at the defaults (tile 256, halo 16, 8 tiles a batch)
 EIMN = {'embed_dims': 64, 'num_stages': 16, 'depths': 1, 'mlp_ratio': 2.66, 'scale': 4, 'tile': 256, 'halo': 16}
+# ATD-light x4 (ATD paper, Zhang et al., CVPR 2024; tools/bench_families.py's
+# 'atd-light 4x'); tiled at the loader's bf16 hints, two windows a batch
+ATD = {'name': 'ATD-light', 'embed_dim': 48, 'depths': (6,) * 5, 'num_heads': (4,) * 5, 'window_size': 16,
+       'category_size': 128, 'num_tokens': 64, 'reducted_dim': 8, 'convffn_kernel_size': 7, 'mlp_ratio': 1.0,
+       'scale': 4, 'tile': 160, 'halo': 8, 'tile_batch': 2}
+# HAT-S x4 (HAT paper, Chen et al., CVPR 2023; tools/bench_families.py's
+# 'hat-s 4x'); tiled at the loader's hints, two windows a batch
+HAT = {'name': 'HAT-S', 'embed_dim': 144, 'depths': (6,) * 6, 'num_heads': (6,) * 6, 'window_size': 16,
+       'overlap_ratio': 0.5, 'compress_ratio': 24, 'squeeze_factor': 24, 'mlp_ratio': 2.0, 'num_feat': 64,
+       'scale': 4, 'tile': 192, 'halo': 16, 'tile_batch': 2}
 
 # H100 SXM dense peaks (NVIDIA data sheet) for bound_ms
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
@@ -83,6 +107,7 @@ SWINIR_TOL = 2e-3  # tests/test_swinir.py's TOL for transformer stacks
 WATTN_BF16_ATOL = 1e-2  # window attention: P is rounded to bf16 before P V
 BF16_PSNR = 35.0   # tests/test_parallel.py's bf16-vs-f32 floor
 MOLRCM_TOL = 1.5e-3  # x max|plain|: tests/test_pallas_ops.py's tolerance for the JAX MOLRCM kernel
+ATD_TOL = HAT_TOL = 2e-3  # tests/test_atd.py's and tests/test_hat.py's TOL
 
 
 def log(phase: str, **fields) -> None:
@@ -293,12 +318,14 @@ def phase_lk_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
     return out
 
 
-def wattn_shapes(n_img: int, tile: int, cfg: dict) -> list[dict]:
+def wattn_shapes(n_img: int, tile: int, cfg: dict, others: tuple[dict, ...]) -> list[dict]:
     """Every window-attention shape of the SwinIR-M path (the bench
     forwards, the tiled 720p windows at the loader's hints, the CLI's
     48x64 and the model phase's 64x64 images; each with the shift mask and
-    without), plus the kernel's other shape classes.  ``windows`` counts
-    the window batch, ``nw`` the mask's windows (None: unmasked)."""
+    without), the kernel's other shape classes, and the same four images'
+    shapes for each of ``others`` (ATD-light, HAT-S; their tiled windows
+    come ``tile_batch`` a batch).  ``windows`` counts the window batch,
+    ``nw`` the mask's windows (None: unmasked)."""
     ws, c, h = cfg['window_size'], cfg['embed_dim'], cfg['num_heads'][0]
     n = ws * ws
     nw_bench = (tile // ws) ** 2
@@ -317,9 +344,15 @@ def wattn_shapes(n_img: int, tile: int, cfg: dict) -> list[dict]:
         ('window 7 n49', n_img * 1024, 49, 180, 6, 1024),
         ('SwinIR-light C60', n_img * nw_bench, 64, 60, 6, nw_bench),
         ('DAT-S n128 masked', n_img * 512, 128, 180, 6, 512),
-        ('HAT-S n256', n_img * 256, 256, 144, 6, None),
-        ('ATD-light n256 masked', n_img * 256, 256, 48, 4, 256),
     ]
+    for o in others:
+        ows, oc, oh = o['window_size'], o['embed_dim'], o['num_heads'][0]
+        window = o['tile'] + 2 * o['halo']
+        for name, imgs, ih, iw in (('bench', n_img, tile, tile), ('tiled window', o['tile_batch'], window, window),
+                                   ('cli', 1, 48, 64), ('model', 1, 64, 64)):
+            onw = (ih // ows) * (iw // ows)
+            rows.append((f"{o['name']} {name} masked", imgs * onw, ows * ows, oc, oh, onw))
+            rows.append((f"{o['name']} {name}", imgs * onw, ows * ows, oc, oh, None))
     keys = ('name', 'windows', 'n', 'c', 'heads', 'nw')
     return [dict(zip(keys, r)) for r in rows]
 
@@ -528,6 +561,121 @@ def phase_molrcm_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
     return out
 
 
+def gather_shapes(n_img: int, tile: int, cfg: dict) -> list[dict]:
+    """Every row-gather shape of the ATD path: per image of h x w tokens
+    AC_MSA gathers the 3C-wide qkv rows into sorted order and the C-wide
+    attention output back (the bench forwards, the tiled 720p windows, the
+    CLI's 48x64 image in bf16; the model phase's 64x64 image in f32 too),
+    plus edge shapes.  ``pitch``, ``offset``: the source rows' pitch and
+    first column where they are a column slice of a wider matrix."""
+    c = cfg['embed_dim']
+    window = cfg['tile'] + 2 * cfg['halo']
+    rows = []
+    for name, imgs, h, w, dtypes in (('bench', n_img, tile, tile, ('bfloat16',)),
+                                     ('tiled window', cfg['tile_batch'], window, window, ('bfloat16',)),
+                                     ('cli', 1, 48, 64, ('bfloat16',)),
+                                     ('model', 1, 64, 64, ('float32', 'bfloat16'))):
+        n = imgs * h * w
+        for dtype in dtypes:
+            rows.append((f'{name} gather {dtype}', n, n, 3 * c, dtype, 'int64', None, 0))
+            rows.append((f'{name} unsort {dtype}', n, n, c, dtype, 'int64', None, 0))
+    rows += [
+        ('one row', 1, 1, c, 'bfloat16', 'int64', None, 0),
+        ('width 1', 1000, 1000, 1, 'bfloat16', 'int32', None, 0),
+        ('ATD C210 unsort, 4-byte vectors', 65536, 65536, 210, 'bfloat16', 'int64', None, 0),
+        ('ATD C210 gather, 4-byte vectors', 65536, 65536, 630, 'bfloat16', 'int32', None, 0),
+        ('odd width f32', 4097, 4097, 45, 'float32', 'int64', None, 0),
+        ('gather adding a pad tail', 2 * 640, 2 * 576, 3 * c, 'float32', 'int64', None, 0),
+        ('unsort skipping a pad tail', 2 * 576, 2 * 640, c, 'bfloat16', 'int32', None, 0),
+        ('column slice in place', 5000, 5000, c, 'bfloat16', 'int64', 3 * c, c),
+        ('column slice in place, 2-byte vectors', 5000, 5000, 47, 'bfloat16', 'int64', 3 * c, 1),
+    ]
+    keys = ('name', 'rows_out', 'rows_src', 'width', 'dtype', 'idx', 'pitch', 'offset')
+    return [dict(zip(keys, r)) for r in rows]
+
+
+def gather_shape_key(s: dict) -> tuple:
+    """The key under which ``row_gather.by_shape`` counts ``s``."""
+    return (s['rows_out'], s['rows_src'], s['width'], s['dtype'])
+
+
+def gather_bound_ms(s: dict) -> tuple[float, str]:
+    """Least time for one row gather on an H100: its bytes (every gathered
+    row read once and written once, every index read once) over the memory
+    rate.  It does no arithmetic."""
+    size = 2 if s['dtype'] == 'bfloat16' else 4
+    nbytes = s['rows_out'] * (2 * s['width'] * size + (8 if s['idx'] == 'int64' else 4))
+    return nbytes / PEAK_BYTES * 1e3, 'bytes'
+
+
+def phase_gather_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
+    """Each shape: the row-gather kernel against its plain version, exact
+    equality in f32 and bf16 with int64 and int32 indices (a random
+    permutation cut or repeated to ``rows_out``, with one index repeated),
+    then kernel / plain / library / bound times in the shape's own types.
+    The plain version is the library call, ``index_select``."""
+    import torch
+
+    from resselt_tpu_torch.ops import row_gather, row_gather_ref
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = []
+    for s in shapes:
+        wide32 = torch.randn((s['rows_src'], s['pitch'] or s['width']), generator=gen, device=device)
+        perm = torch.randperm(s['rows_src'], generator=gen, device=device)
+        idx64 = perm.repeat(-(-s['rows_out'] // s['rows_src']))[:s['rows_out']].clone()
+        idx64[-1] = idx64[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            src = wide32.to(dtype)[:, s['offset']:s['offset'] + s['width']]
+            for idx in (idx64, idx64.to(torch.int32)):
+                got = row_gather(src, idx)
+                want = row_gather_ref(src, idx)
+                torch.cuda.synchronize()
+                if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+                    raise AssertionError(f"row_gather differs from its plain version at {s['name']}, "
+                                         f'{dtype}, {idx.dtype}')
+                del got, want
+        wide = wide32.to(getattr(torch, s['dtype']))
+        src = wide[:, s['offset']:s['offset'] + s['width']]
+        idx = idx64.to(getattr(torch, s['idx']))
+        del wide32, idx64
+        row = {**s, 'max_abs_err': 0.0}
+        row['ms'] = _ms(lambda: row_gather(src, idx), reps)
+        row['plain_ms'] = _ms(lambda: row_gather_ref(src, idx), reps)
+        row['library_ms'] = _ms(lambda: torch.index_select(src, 0, idx), reps)
+        row['bound_ms'], row['bound_by'] = gather_bound_ms(s)
+        del wide, src, perm, idx
+        torch.cuda.empty_cache()
+        out.append(row)
+    return out
+
+
+def atd_category_flips(model_a, model_b, x, dtype_b=None) -> tuple[int, int]:
+    """How many tokens AC_MSA sorts into another category in ``model_b`` (on
+    its device, in ``dtype_b``) than in ``model_a`` (f32) at the first ATD
+    layer, of how many: the argmax of the port's own ``_atd_ca`` similarity
+    on that layer's input."""
+    import torch
+
+    from resselt_tpu_torch.archs import atd
+    from resselt_tpu_torch.nn.params import PTree
+
+    ids = []
+    for model, dtype in ((model_a, torch.float32), (model_b, dtype_b or torch.float32)):
+        cfg = model.config
+        p = PTree(model.weights(dtype))
+        with torch.no_grad():
+            xin = torch.as_tensor(x).to(model.device, dtype)
+            feat = p.conv('conv_first', xin - torch.tensor(atd._RGB_MEAN, dtype=dtype, device=model.device), padding=1)
+            feat = feat.reshape(feat.shape[0], -1, cfg.embed_dim)
+            g = p.sub('layers.0.residual_group')
+            td = g['td'].to(dtype)[None].expand(feat.shape[0], -1, -1)
+            lp = g.sub('layers.0')
+            _, sim = atd._atd_ca(lp.sub('attn_atd'), lp.layer_norm('norm1', feat), td, cfg.num_tokens)
+        ids.append(torch.argmax(sim, dim=-1).cpu())
+    return int((ids[0] != ids[1]).sum()), ids[0].numel()
+
+
 def phase_load(device, sd: dict, stem: str, arch: str, meta, tmp: str, dropped: frozenset = frozenset()):
     """Write a seeded checkpoint as .safetensors and .pth, load both; the
     params are the checkpoint's arrays less the ``dropped`` keys."""
@@ -555,7 +703,8 @@ def phase_load(device, sd: dict, stem: str, arch: str, meta, tmp: str, dropped: 
 
 def phase_model(model, sd, size: int, entry, bf16: bool = True, tol: float = MODEL_TOL):
     """f32 on the card against the CPU, ``entry``'s launches in that
-    forward, bf16 against f32."""
+    forward (``entry``: a kernel wrapper, or a tuple of them for a list of
+    counts), bf16 against f32."""
     import numpy as np
     import torch
 
@@ -564,10 +713,13 @@ def phase_model(model, sd, size: int, entry, bf16: bool = True, tol: float = MOD
     x = np.random.default_rng(0).random((1, size, size, 3), dtype=np.float32)
     cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
     want = cpu(x).numpy()
-    before = entry.launches
+    entries = entry if isinstance(entry, tuple) else (entry,)
+    before = [e.launches for e in entries]
     got32 = model(x)
     torch.cuda.synchronize()
-    launches = entry.launches - before
+    launches = [e.launches - b for e, b in zip(entries, before)]
+    if not isinstance(entry, tuple):
+        launches = launches[0]
     err = float(np.abs(got32.cpu().numpy() - want).max())
     if got32.shape != want.shape or not err < tol:
         raise AssertionError(f'f32 card vs cpu: shape {tuple(got32.shape)} vs {want.shape}, max err {err}')
@@ -586,10 +738,11 @@ def _entries() -> dict:
     """Every kernel wrapper, by the name its counts are reported under."""
     from resselt_tpu_torch.ops import fused_conv as fc
     from resselt_tpu_torch.ops import molrcm as mo
+    from resselt_tpu_torch.ops import row_gather
     from resselt_tpu_torch.ops import window_attention as wa
 
     return {'act': fc.fused_conv3x3_act, 'pack2': fc.fused_conv3x3_pack2, 'lk': fc.fused_conv_lk,
-            'wattn': wa.window_mha, 'molrcm': mo.fused_molrcm}
+            'wattn': wa.window_mha, 'molrcm': mo.fused_molrcm, 'gather': row_gather}
 
 
 def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: int, img_hw: tuple[int, int],
@@ -655,6 +808,13 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
     return res
 
 
+def over_bound_ms(rows: list[dict], prefix: str = '') -> float:
+    """What the rows' kernel launches of one bench forward take beyond their
+    bounds: the sum of launches per forward x (ms - bound ms), over the rows
+    whose name starts with ``prefix``."""
+    return sum(r['per_forward'] * (r['ms'] - r['bound_ms']) for r in rows if r['name'].startswith(prefix))
+
+
 def check_bench_counts(counts: dict, mine: set, per_forward: int, reps: int, checked: set) -> int:
     """The bench forwards launched the kernels of the wrappers named in
     ``mine`` ``per_forward`` times each forward, no other kernel, and only
@@ -673,6 +833,7 @@ def check_bench_counts(counts: dict, mine: set, per_forward: int, reps: int, che
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -693,7 +854,8 @@ def main() -> int:
     from resselt_tpu_torch.core import ModelMetadata
     from resselt_tpu_torch.ops import _build
     from resselt_tpu_torch.ops import fused_conv as fc
-    from resselt_tpu_torch.zoo import make_eimn, make_esrgan, make_plksr, make_realplksr, make_swinir
+    from resselt_tpu_torch.zoo import (make_atd, make_eimn, make_esrgan, make_hat, make_plksr, make_realplksr,
+                                       make_swinir)
 
     t0 = time.perf_counter()
     took = _build.build()
@@ -774,7 +936,7 @@ def main() -> int:
 
     sw = SWINIR
     n_blocks = sum(sw['depths'])
-    wshapes = wattn_shapes(BENCH['batch'], BENCH['tile'], sw)
+    wshapes = wattn_shapes(BENCH['batch'], BENCH['tile'], sw, others=(ATD, HAT))
     w_rows = phase_wattn_kernels('cuda', wshapes, reps=10)
     log('wattn_kernels', f32_tol=F32_TOL, bf16_rtol=BF16_RTOL, bf16_atol=WATTN_BF16_ATOL, rows=json.dumps(w_rows))
 
@@ -814,6 +976,7 @@ def main() -> int:
         for r, s in zip(w_rows, wshapes):
             r['per_forward'] = counts['wattn'][1].get(wattn_shape_key(s), 0) / reps
         w_ms = sum(r['ms'] * r['per_forward'] for r in w_rows)
+        w_checked = checked
         log('swinir_serve', dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], launches=w_launches,
             launches_per_bench_forward=w_bench / reps, wattn_ms_per_bench_forward=w_ms,
             tiled_tile=sw['tile'], tiled_halo=sw['halo'], **serve)
@@ -858,10 +1021,110 @@ def main() -> int:
             launches_per_bench_forward=m_bench / reps, molrcm_ms_per_bench_forward=m_ms,
             tiled_tile=ei['tile'], tiled_halo=ei['halo'], **serve)
 
+    # -- ATD-light: the row gather, and the window attention at n 256 --------------
+    from resselt_tpu_torch.ops import row_gather
+
+    at = ATD
+    n_layers = sum(at['depths'])
+    gshapes = gather_shapes(BENCH['batch'], BENCH['tile'], at)
+    g_rows = phase_gather_kernels('cuda', gshapes, reps=10)
+    log('gather_kernels', tol='exact', rows=json.dumps(g_rows))
+    g_checked = {('gather', gather_shape_key(s)) for s in gshapes}
+
+    def serve_window_model(model, ckpt, tmp, mine: dict, cfg: dict):
+        """phase_serve for a model on the window-attention kernel (and, for
+        ATD, the row gather): ``mine`` maps each of its wrappers' names to
+        the launches expected per forward.  Every shape of the phase must
+        have been checked by a kernels phase; each checked row's launches
+        per bench forward are added to its ``per_forward``.  Returns the
+        phase's fields, and per wrapper (launches, per bench forward, ms per
+        bench forward)."""
+        serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280))
+        counts = serve.pop('bench_counts')
+        launches = serve.pop('launches')
+        phase_shapes = serve.pop('shapes')
+        checked = w_checked | g_checked
+        check_bench_counts(counts, set(mine), sum(mine.values()), reps, checked)
+        unchecked = {(k, key) for k in mine for key in phase_shapes[k]} - checked
+        if unchecked:
+            raise AssertionError(f'the serve phase ran shapes no kernels phase checked: {sorted(unchecked)}')
+        figures = {}
+        for name, per_forward in mine.items():
+            if counts[name][0] != per_forward * reps:
+                raise AssertionError(f'{counts[name][0]} {name} launches in {reps} bench forwards, '
+                                     f'expected {per_forward} each')
+            table, shapes_, key_of = ((w_rows, wshapes, wattn_shape_key) if name == 'wattn'
+                                      else (g_rows, gshapes, gather_shape_key))
+            ms = 0.0
+            for r, s in zip(table, shapes_):
+                n = counts[name][1].get(key_of(s), 0) / reps
+                r['per_forward'] = r.get('per_forward', 0) + n
+                ms += r['ms'] * n
+            figures[name] = (launches[name], counts[name][0] / reps, ms)
+        serve.update(dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], tiled_tile=cfg['tile'],
+                     tiled_halo=cfg['halo'], tiled_batch=cfg['tile_batch'])
+        return serve, figures
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sd = make_atd(at['embed_dim'], at['depths'], at['num_heads'], at['window_size'], at['num_tokens'],
+                      at['reducted_dim'], at['convffn_kernel_size'], at['mlp_ratio'], at['scale'], seed=0)
+        model, ckpt = phase_load('cuda', sd, 'atd', 'ATD', ModelMetadata(3, 3, at['scale'], 'ATD'), tmp)
+        cfg = model.config
+        if ((cfg.embed_dim, cfg.depths, cfg.window_size, cfg.category_size, cfg.num_tokens, cfg.upsampler)
+                != (48, (6,) * 5, 16, 128, 64, 'pixelshuffledirect')):
+            raise AssertionError(f'ATD config {cfg}')
+        log('atd_load', arch=model.arch_id, metadata=repr(model.metadata), config=repr(cfg), files='safetensors,pth')
+
+        x64 = np.random.default_rng(0).random((1, 64, 64, 3), dtype=np.float32)
+        cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+        flips32, tokens = atd_category_flips(cpu, model, x64)
+        flipsb, _ = atd_category_flips(cpu, model, x64, torch.bfloat16)
+        res = phase_model(model, sd, 64, (wa.window_mha, row_gather), tol=ATD_TOL)
+        if res['launches_per_forward'] != [n_layers, 2 * n_layers]:
+            raise AssertionError(f"{res['launches_per_forward']} window_mha and row_gather launches per ATD forward, "
+                                 f'expected {[n_layers, 2 * n_layers]}')
+        log('atd_model', tol=ATD_TOL, **res, layer0_category_flips_f32_card_vs_cpu=f'{flips32}/{tokens}',
+            layer0_category_flips_bf16_vs_f32=f'{flipsb}/{tokens}')
+        del cpu
+
+        serve, atd_fig = serve_window_model(model, ckpt, tmp, {'wattn': n_layers, 'gather': 2 * n_layers}, at)
+        log('atd_serve', launches=atd_fig['wattn'][0] + atd_fig['gather'][0],
+            wattn_launches_per_bench_forward=atd_fig['wattn'][1], gather_launches_per_bench_forward=atd_fig['gather'][1],
+            wattn_ms_per_bench_forward=atd_fig['wattn'][2], gather_ms_per_bench_forward=atd_fig['gather'][2], **serve)
+        del model, sd
+        torch.cuda.empty_cache()
+
+    # -- HAT-S: the window attention at n 256; OCAB on the plain path ----------------
+    ha = HAT
+    n_habs = sum(ha['depths'])
+    with tempfile.TemporaryDirectory() as tmp:
+        sd = make_hat(ha['embed_dim'], ha['depths'], ha['num_heads'], ha['window_size'], ha['overlap_ratio'],
+                      ha['compress_ratio'], ha['squeeze_factor'], ha['mlp_ratio'], ha['scale'], ha['num_feat'], seed=0)
+        model, ckpt = phase_load('cuda', sd, 'hat', 'HAT', ModelMetadata(3, 3, ha['scale'], 'HAT'), tmp)
+        cfg = model.config
+        if ((cfg.embed_dim, cfg.depths, cfg.window_size, cfg.overlap_win_size, cfg.compress_ratio, cfg.squeeze_factor,
+             cfg.num_feat) != (144, (6,) * 6, 16, 24, 24, 24, 64)):
+            raise AssertionError(f'HAT config {cfg}')
+        log('hat_load', arch=model.arch_id, metadata=repr(model.metadata), config=repr(cfg), files='safetensors,pth')
+
+        res = phase_model(model, sd, 64, wa.window_mha, tol=HAT_TOL)
+        if res['launches_per_forward'] != n_habs:
+            raise AssertionError(f"{res['launches_per_forward']} window_mha launches per HAT forward, expected {n_habs}")
+        log('hat_model', tol=HAT_TOL, **res)
+
+        torch.cuda.reset_peak_memory_stats()
+        serve, hat_fig = serve_window_model(model, ckpt, tmp, {'wattn': n_habs}, ha)
+        log('hat_serve', launches=hat_fig['wattn'][0], launches_per_bench_forward=hat_fig['wattn'][1],
+            wattn_ms_per_bench_forward=hat_fig['wattn'][2],
+            peak_memory_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2), **serve)
+        del model, sd
+        torch.cuda.empty_cache()
+
     head = next(r for r in rows if r['name'] == 'rdb stage0 64->192')
     lk_head = next(r for r in lk_rows if r['name'] == 'bench 16->16')
     w_head = next(r for r in w_rows if r['name'] == 'bench masked')
     m_head = next(r for r in m_rows if r['name'] == 'bench')
+    g_head = next(r for r in g_rows if r['name'] == 'bench gather bfloat16')
     kernels = [{
         'name': 'fused_conv3x3_act',
         'route': 'cuda',
@@ -876,6 +1139,7 @@ def main() -> int:
         'library_ms': head['library_ms'],
         'timed_shape': head['name'] + ' bf16 ' + 'x'.join(map(str, head['shape'])),
         'ms_per_bench_forward': conv_ms,
+        'over_bound_ms_per_bench_forward': over_bound_ms(rows),
         'shapes': rows,
     }, {
         'name': 'fused_conv_lk',
@@ -891,13 +1155,15 @@ def main() -> int:
         'library_ms': lk_head['library_ms'],
         'timed_shape': f"PLKSR bench bf16 {'x'.join(map(str, lk_head['shape']))} k{lk_head['k']}",
         'ms_per_bench_forward': lk_ms,
+        'over_bound_ms_per_bench_forward': over_bound_ms(lk_rows),
         'shapes': lk_rows,
     }, {
         'name': 'window_mha',
         'route': 'cuda',
         'source': 'resselt_tpu_torch/csrc/window_attn.cu',
         'replaces': 'resselt_tpu/ops/window_attention.py:32',
-        'launches': w_launches,
+        'launches': w_launches + atd_fig['wattn'][0] + hat_fig['wattn'][0],
+        'launches_by_path': {'SwinIR-M': w_launches, 'ATD-light': atd_fig['wattn'][0], 'HAT-S': hat_fig['wattn'][0]},
         'max_abs_err': max(r['max_abs_err_bf16'] for r in w_rows),
         'ms': w_head['ms'],
         'plain_ms': w_head['plain_ms'],
@@ -908,6 +1174,11 @@ def main() -> int:
         'timed_shape': (f"SwinIR-M bench masked bf16 {w_head['windows']} windows x {w_head['n']} tokens, "
                         f"C {w_head['c']}, {w_head['heads']} heads, nW {w_head['mask_windows']}"),
         'ms_per_bench_forward': w_ms,
+        'ms_per_bench_forward_by_path': {'SwinIR-M': w_ms, 'ATD-light': atd_fig['wattn'][2],
+                                         'HAT-S': hat_fig['wattn'][2]},
+        'over_bound_ms_per_bench_forward_by_path': {
+            'SwinIR-M': over_bound_ms(w_rows) - over_bound_ms(w_rows, 'ATD-light') - over_bound_ms(w_rows, 'HAT-S'),
+            'ATD-light': over_bound_ms(w_rows, 'ATD-light'), 'HAT-S': over_bound_ms(w_rows, 'HAT-S')},
         'shapes': w_rows,
     }, {
         'name': 'fused_molrcm',
@@ -925,7 +1196,25 @@ def main() -> int:
         'eager_chain_ms': m_head['eager_chain_ms'],
         'timed_shape': f"EIMN_L bench bf16 {'x'.join(map(str, m_head['shape']))}",
         'ms_per_bench_forward': m_ms,
+        'over_bound_ms_per_bench_forward': over_bound_ms(m_rows),
         'shapes': m_rows,
+    }, {
+        'name': 'row_gather',
+        'route': 'cuda',
+        'source': 'resselt_tpu_torch/csrc/row_gather.cu',
+        'replaces': 'tools/probe_acmsa_gather.py:39',
+        'launches': atd_fig['gather'][0],
+        'max_abs_err': max(r['max_abs_err'] for r in g_rows),
+        'ms': g_head['ms'],
+        'plain_ms': g_head['plain_ms'],
+        'bound_ms': g_head['bound_ms'],
+        'bound_by': g_head['bound_by'],
+        'library_ms': g_head['library_ms'],
+        'timed_shape': (f"ATD-light bench qkv gather bf16 {g_head['rows_out']} rows x {g_head['width']}, "
+                        f"{g_head['idx']} indices"),
+        'ms_per_bench_forward': atd_fig['gather'][2],
+        'over_bound_ms_per_bench_forward': over_bound_ms(g_rows),
+        'shapes': g_rows,
     }]
     print(smi)
     print(json.dumps({'kernels': kernels}))

@@ -5,8 +5,8 @@ Counterpart of ``resselt_tpu/archs/__init__.py``.  The JAX package registers
 spanplus last): swinir, hat, omni, drct, fdat, dat, rgt, atd, spanpp, span,
 esrgan, plksr, mosrv2, moesr, rtmosr, smosr, rha, flexnet, gaterv3,
 gaterv2, lawfft, gfisrv2, figsr, gfisr, gater, cugan, rcan, eimn, mosr,
-compact, spanplus.  Later slices of the port add theirs to
-``_ARCH_MODULES`` at the same places.
+compact, spanplus.  ``_ARCH_MODULES`` lists the families the port has, in
+that order; a later slice inserts its family where that order puts it.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import importlib
 
 from ..core import Registry
 
-_ARCH_MODULES: list[str] = ['swinir', 'esrgan', 'plksr', 'eimn']
+_ARCH_MODULES: list[str] = ['swinir', 'hat', 'atd', 'esrgan', 'plksr', 'eimn']
 
 internal_registry = Registry()
 

@@ -1,7 +1,7 @@
 """Functional NN ops with PyTorch semantics on NHWC tensors.
 
 Counterpart of ``resselt_tpu/nn/functional.py``, holding what ESRGAN,
-PLKSR, SwinIR and EIMN use.
+PLKSR, SwinIR, EIMN, ATD and HAT use.
 Feature maps are contiguous NHWC ``(N, H, W, C)``; conv weights keep the
 torch OIHW layout, linear weights torch's ``(out, in)``.
 """
@@ -53,6 +53,10 @@ def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
     return TF.layer_norm(x, (x.shape[-1],), w, b, eps)
 
 
+def relu(x):
+    return TF.relu(x)
+
+
 def leaky_relu(x, negative_slope: float = 0.01):
     return TF.leaky_relu(x, negative_slope)
 
@@ -72,6 +76,10 @@ def silu(x):
 
 def sigmoid(x):
     return torch.sigmoid(x)
+
+
+def softmax(x, dim: int = -1):
+    return torch.softmax(x, dim=dim)
 
 
 def pixel_shuffle(x, r: int):

@@ -73,11 +73,12 @@ def shift_mask(cache: dict, h: int, w: int, ws: int, shift: int, device) -> torc
 
 
 def relative_position_bias(table, rpi, dtype: torch.dtype) -> torch.Tensor:
-    """The (heads, N, N) bias that ``table`` ((2ws-1)^2, heads) gives
-    through index ``rpi`` (N, N), rounded to ``dtype`` (as the JAX package
-    casts it to the activations' dtype) and held in f32, contiguous."""
-    n = rpi.shape[0]
-    bias = table[rpi.reshape(-1)].reshape(n, n, table.shape[1]).permute(2, 0, 1)
+    """The (heads, N, M) bias that ``table`` (entries, heads) gives through
+    index ``rpi`` (N, M) (M = N for a square window, M > N for HAT's
+    overlapping keys), rounded to ``dtype`` (as the JAX package casts it to
+    the activations' dtype) and held in f32, contiguous."""
+    n, m = rpi.shape
+    bias = table[rpi.reshape(-1)].reshape(n, m, table.shape[1]).permute(2, 0, 1)
     return bias.to(dtype).float().contiguous()
 
 

@@ -10,6 +10,7 @@ from .fused_conv import (
     pack_conv_lk_weight,
 )
 from .molrcm import fused_molrcm, fused_molrcm_ref, molrcm_supported, pack_molrcm_weights
+from .row_gather import row_gather, row_gather_ref
 from .window_attention import window_mha, window_mha_ref, window_mha_supported
 
 __all__ = [
@@ -26,6 +27,8 @@ __all__ = [
     'pack_conv3x3_weight',
     'pack_conv_lk_weight',
     'pack_molrcm_weights',
+    'row_gather',
+    'row_gather_ref',
     'window_mha',
     'window_mha_ref',
     'window_mha_supported',

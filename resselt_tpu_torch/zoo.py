@@ -3,7 +3,9 @@ key and shape layout the detection tables fingerprint, made from a seed.
 
 Counterpart of ``resselt_tpu/zoo.py``, holding ``make_esrgan``,
 ``make_swinir`` and ``make_plksr`` (the same arrays as the JAX package's),
-``make_realplksr`` and ``make_eimn``.
+``make_realplksr`` and ``make_eimn``; ``make_hat`` and ``make_atd`` (the JAX
+package's arrays; ``make_atd`` also builds the other upsamplers' tails and
+the 3conv residual).
 """
 
 from __future__ import annotations
@@ -120,6 +122,185 @@ def make_swinir(
         m.conv('conv_last', in_nc, nf, 3)
     else:
         m.conv('conv_last', in_nc, e, 3)
+    return m.sd
+
+
+def _rpi_oca(ws: int, owin: int) -> np.ndarray:
+    """HAT's overlapping cross-attention relative position index,
+    (ws*ws, owin*owin) int."""
+    co = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing='ij')).reshape(2, -1)
+    ce = np.stack(np.meshgrid(np.arange(owin), np.arange(owin), indexing='ij')).reshape(2, -1)
+    rel = (ce[:, None, :] - co[:, :, None]).transpose(1, 2, 0).astype(np.int64)
+    rel += ws - owin + 1
+    rel[:, :, 0] *= ws + owin - 1
+    return rel.sum(-1)
+
+
+def make_hat(
+    embed_dim: int = 48,
+    depths=(2,),
+    num_heads=(4,),
+    window_size: int = 8,
+    overlap_ratio: float = 0.5,
+    compress_ratio: int = 4,
+    squeeze_factor: int = 8,
+    mlp_ratio: float = 2.0,
+    upscale: int = 2,
+    num_feat: int = 32,
+    in_nc: int = 3,
+    seed: int = 0,
+):
+    """HAT layout: HAB blocks (window attention + CAB), one OCAB per group,
+    a pixelshuffle tail, and the two relative-position index buffers.  The
+    same arrays as the JAX package's ``make_hat``."""
+    from .nn.window import relative_position_index
+
+    m = _Maker(seed)
+    e = embed_dim
+    ws = window_size
+    owin = ws + int(overlap_ratio * ws)
+    hid = int(e * mlp_ratio)
+    m.conv('conv_first', e, in_nc, 3)
+    m.sd['relative_position_index_SA'] = relative_position_index(ws, ws)
+    m.sd['relative_position_index_OCA'] = _rpi_oca(ws, owin)
+
+    def mlp(b):
+        m.t(f'{b}.mlp.fc1.weight', hid, e)
+        m.t(f'{b}.mlp.fc1.bias', hid)
+        m.t(f'{b}.mlp.fc2.weight', e, hid)
+        m.t(f'{b}.mlp.fc2.bias', e)
+
+    for li, (depth, heads) in enumerate(zip(depths, num_heads)):
+        for bi in range(depth):
+            b = f'layers.{li}.residual_group.blocks.{bi}'
+            for nk in ('norm1', 'norm2'):
+                m.t(f'{b}.{nk}.weight', e)
+                m.t(f'{b}.{nk}.bias', e)
+            m.t(f'{b}.attn.relative_position_bias_table', (2 * ws - 1) ** 2, heads)
+            m.t(f'{b}.attn.qkv.weight', 3 * e, e)
+            m.t(f'{b}.attn.qkv.bias', 3 * e)
+            m.t(f'{b}.attn.proj.weight', e, e)
+            m.t(f'{b}.attn.proj.bias', e)
+            m.conv(f'{b}.conv_block.cab.0', e // compress_ratio, e, 3)
+            m.conv(f'{b}.conv_block.cab.2', e, e // compress_ratio, 3)
+            m.conv(f'{b}.conv_block.cab.3.attention.1', e // squeeze_factor, e, 1)
+            m.conv(f'{b}.conv_block.cab.3.attention.3', e, e // squeeze_factor, 1)
+            mlp(b)
+        o = f'layers.{li}.residual_group.overlap_attn'
+        for nk in ('norm1', 'norm2'):
+            m.t(f'{o}.{nk}.weight', e)
+            m.t(f'{o}.{nk}.bias', e)
+        m.t(f'{o}.relative_position_bias_table', (ws + owin - 1) ** 2, heads)
+        m.t(f'{o}.qkv.weight', 3 * e, e)
+        m.t(f'{o}.qkv.bias', 3 * e)
+        m.t(f'{o}.proj.weight', e, e)
+        m.t(f'{o}.proj.bias', e)
+        mlp(o)
+        m.conv(f'layers.{li}.conv', e, e, 3)
+    m.t('norm.weight', e)
+    m.t('norm.bias', e)
+    m.conv('conv_after_body', e, e, 3)
+    m.conv('conv_before_upsample.0', num_feat, e, 3)
+    for i in range(int(math.log2(upscale))):
+        m.conv(f'upsample.{2 * i}', 4 * num_feat, num_feat, 3)
+    m.conv('conv_last', in_nc, num_feat, 3)
+    return m.sd
+
+
+def make_atd(
+    embed_dim: int = 48,
+    depths=(2,),
+    num_heads=(4,),
+    window_size: int = 8,
+    num_tokens: int = 16,
+    reducted_dim: int = 8,
+    convffn_kernel_size: int = 5,
+    mlp_ratio: float = 1.0,
+    upscale: int = 2,
+    in_nc: int = 3,
+    seed: int = 0,
+    upsampler: str = 'pixelshuffledirect',
+    resi_connection: str = '1conv',
+):
+    """ATD layout: a token dictionary ``td`` per group; per layer the shared
+    ``wqkv``, the ``attn_win`` / ``attn_atd`` / ``attn_aca`` parameter sets,
+    the ConvFFN, and (on all but a group's last layer) ``sigma`` and
+    ``norm3`` for the dictionary refresh.  With the defaults
+    ('pixelshuffledirect', '1conv') the same arrays as the JAX package's
+    ``make_atd``.  ``upsampler`` 'pixelshuffle' (64 features), 'nearest+conv'
+    (4x) and '' (1x) build the other tails; ``resi_connection`` '3conv'
+    puts conv(e, e/4, 3), conv(e/4, e/4, 1), conv(e/4, e, 3) in place of each
+    group's conv and of ``conv_after_body``."""
+    from .nn.window import relative_position_index
+
+    m = _Maker(seed)
+    e = embed_dim
+    ws = window_size
+    hid = int(e * mlp_ratio)
+
+    def resi_conv(key):
+        if resi_connection == '1conv':
+            m.conv(key, e, e, 3)
+        else:
+            m.conv(f'{key}.0', e // 4, e, 3)
+            m.conv(f'{key}.2', e // 4, e // 4, 1)
+            m.conv(f'{key}.4', e, e // 4, 3)
+
+    m.conv('conv_first', e, in_nc, 3)
+    m.sd['relative_position_index_SA'] = relative_position_index(ws, ws)
+    for li, (depth, heads) in enumerate(zip(depths, num_heads)):
+        g = f'layers.{li}.residual_group'
+        m.t(f'{g}.td', num_tokens, e)
+        for bi in range(depth):
+            b = f'{g}.layers.{bi}'
+            if bi < depth - 1:  # a group's last layer does not refresh td
+                m.t(f'{b}.sigma', num_tokens, 1)
+                m.t(f'{b}.norm3.weight', num_tokens)
+                m.t(f'{b}.norm3.bias', num_tokens)
+            for nk in ('norm1', 'norm2'):
+                m.t(f'{b}.{nk}.weight', e)
+                m.t(f'{b}.{nk}.bias', e)
+            m.t(f'{b}.wqkv.weight', 3 * e, e)
+            m.t(f'{b}.wqkv.bias', 3 * e)
+            m.t(f'{b}.attn_win.relative_position_bias_table', (2 * ws - 1) ** 2, heads)
+            m.t(f'{b}.attn_win.proj.weight', e, e)
+            m.t(f'{b}.attn_win.proj.bias', e)
+            m.t(f'{b}.attn_atd.scale', num_tokens)
+            for wk, od in (('wq', reducted_dim), ('wk', reducted_dim), ('wv', e)):
+                m.t(f'{b}.attn_atd.{wk}.weight', od, e)
+                m.t(f'{b}.attn_atd.{wk}.bias', od)
+            m.t(f'{b}.attn_aca.logit_scale', 1, 1)
+            m.t(f'{b}.attn_aca.proj.weight', e, e)
+            m.t(f'{b}.attn_aca.proj.bias', e)
+            m.t(f'{b}.convffn.fc1.weight', hid, e)
+            m.t(f'{b}.convffn.fc1.bias', hid)
+            m.conv(f'{b}.convffn.dwconv.depthwise_conv.0', hid, 1, convffn_kernel_size)
+            m.t(f'{b}.convffn.fc2.weight', e, hid)
+            m.t(f'{b}.convffn.fc2.bias', e)
+        resi_conv(f'layers.{li}.conv')
+    m.t('norm.weight', e)
+    m.t('norm.bias', e)
+    resi_conv('conv_after_body')
+    nf = 64
+    if upsampler == 'pixelshuffledirect':
+        m.conv('upsample.0', in_nc * upscale**2, e, 3)
+    elif upsampler == 'pixelshuffle':
+        m.conv('conv_before_upsample.0', nf, e, 3)
+        if upscale & (upscale - 1) == 0:
+            for i in range(int(math.log2(upscale))):
+                m.conv(f'upsample.{2 * i}', 4 * nf, nf, 3)
+        elif upscale == 3:
+            m.conv('upsample.0', 9 * nf, nf, 3)
+        m.conv('conv_last', in_nc, nf, 3)
+    elif upsampler == 'nearest+conv':
+        m.conv('conv_before_upsample.0', nf, e, 3)
+        for key in ('conv_up1', 'conv_up2', 'conv_hr'):
+            m.conv(key, nf, nf, 3)
+        m.conv('conv_last', in_nc, nf, 3)
+    elif upsampler == '':
+        m.conv('conv_last', in_nc, e, 3)
+    else:
+        raise ValueError(f'unknown ATD upsampler {upsampler!r}')
     return m.sd
 
 

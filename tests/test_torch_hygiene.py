@@ -46,7 +46,7 @@ def test_loading_and_serving_import_no_jax():
     code = (
         'import sys, numpy as np\n'
         'import resselt_tpu_torch, resselt_tpu_torch.upscale, resselt_tpu_torch.parallel\n'
-        'from resselt_tpu_torch.zoo import make_eimn, make_esrgan, make_plksr, make_swinir\n'
+        'from resselt_tpu_torch.zoo import make_atd, make_eimn, make_esrgan, make_hat, make_plksr, make_swinir\n'
         "m = resselt_tpu_torch.load_from_state_dict(make_esrgan(8, 1, 2, gc=4), device='cpu')\n"
         'y = resselt_tpu_torch.upscale_tiled(m, np.zeros((40, 40, 3), np.float32), tile=16, halo=2)\n'
         'assert tuple(y.shape) == (80, 80, 3)\n'
@@ -60,6 +60,14 @@ def test_loading_and_serving_import_no_jax():
         'assert tuple(y.shape) == (80, 80, 3)\n'
         "m = resselt_tpu_torch.load_from_state_dict(make_eimn(64, 1, 1, 2.66, 2), device='cpu')\n"
         "assert m.arch_id == 'eimn'\n"
+        'y = resselt_tpu_torch.upscale_tiled(m, np.zeros((40, 40, 3), np.float32), tile=16)\n'
+        'assert tuple(y.shape) == (80, 80, 3)\n'
+        "m = resselt_tpu_torch.load_from_state_dict(make_hat(24, (2,), (3,), 8, upscale=2), device='cpu')\n"
+        "assert m.arch_id == 'HAT'\n"
+        'y = resselt_tpu_torch.upscale_tiled(m, np.zeros((40, 40, 3), np.float32), tile=16)\n'
+        'assert tuple(y.shape) == (80, 80, 3)\n'
+        "m = resselt_tpu_torch.load_from_state_dict(make_atd(24, (2,), (3,), 8, upscale=2), device='cpu')\n"
+        "assert m.arch_id == 'ATD'\n"
         'y = resselt_tpu_torch.upscale_tiled(m, np.zeros((40, 40, 3), np.float32), tile=16)\n'
         'assert tuple(y.shape) == (80, 80, 3)\n'
         "bad = [k for k in sys.modules if k in ('jax', 'resselt_tpu') or k.startswith(('jax.', 'resselt_tpu.'))]\n"

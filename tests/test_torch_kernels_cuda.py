@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (conv3x3, conv_lk, window_attn, molrcm) and main
-paths (ESRGAN, PLKSR, RealPLKSR, SwinIR, EIMN) on the card.  Needs an NVIDIA GPU
+"""The port's CUDA kernels (conv3x3, conv_lk, window_attn, molrcm,
+row_gather) and main paths (ESRGAN, PLKSR, RealPLKSR, SwinIR, EIMN, ATD,
+HAT) on the card.  Needs an NVIDIA GPU
 and nvcc; every test here is marked ``cuda`` and skips without a card.
 
 This file imports torch and resselt_tpu_torch only, so that it runs where
@@ -12,7 +13,7 @@ FMA); bf16 to 2e-2 relative against the plain version in f32 from the same
 bf16 inputs (the output's bf16 rounding); the window attention in bf16
 also to 1e-2 absolute, since P is rounded to bf16 before P V.  The MOLRCM
 kernel is held in f32 to 1.5e-3 x max|plain| (tests/test_pallas_ops.py's
-tolerance for the JAX kernel).
+tolerance for the JAX kernel).  The row gather is held to exact equality.
 """
 
 import numpy as np
@@ -21,11 +22,12 @@ import torch
 
 import resselt_tpu_torch
 from resselt_tpu_torch.nn.params import PTree
+from resselt_tpu_torch.ops import row_gather, row_gather_ref
 from resselt_tpu_torch.ops import fused_conv as fc
 from resselt_tpu_torch.ops import molrcm as mo
 from resselt_tpu_torch.ops import window_attention as wa
 from resselt_tpu_torch.parallel import upscale_tiled
-from resselt_tpu_torch.zoo import make_eimn, make_esrgan, make_plksr, make_realplksr, make_swinir
+from resselt_tpu_torch.zoo import make_atd, make_eimn, make_esrgan, make_hat, make_plksr, make_realplksr, make_swinir
 
 
 pytestmark = pytest.mark.cuda
@@ -256,8 +258,8 @@ def _wattn_check(cuda, dtype, windows, n, c, heads, nw=None, qkv=True, seed=0):
     (64, 64, 180, 6, 16), (64, 64, 180, 6, None),  # SwinIR-M / HAT-L / SwinIR-L
     (32, 64, 60, 6, 8),                             # SwinIR-light
     (24, 128, 180, 6, 4),                           # DAT-S rectangles
-    (8, 256, 144, 6, None),                         # HAT-S
-    (8, 256, 48, 4, 2),                             # ATD-light
+    (8, 256, 144, 6, None), (8, 256, 144, 6, 4),    # HAT-S
+    (8, 256, 48, 4, 2), (8, 256, 48, 4, None),      # ATD-light
     (18, 49, 180, 6, 9), (6, 49, 60, 6, None),      # window 7
     (5, 1, 8, 1, None), (3, 17, 64 * 3, 3, 3), (4, 250, 21, 3, 2),  # odd n, head_dim 64, odd head_dim
 ])
@@ -401,3 +403,120 @@ def test_eimn_tiled_on_card_matches_cpu(cuda):
     got = upscale_tiled(gpu, img, tile=32)
     assert got.device.type == 'cuda'
     np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=5e-4)
+
+
+# -- row gather (csrc/row_gather.cu) ---------------------------------------------
+
+
+def _gather_check(cuda, dtype, idx_dtype, rows_src, rows_out, width, pitch=None, offset=0, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    wide = torch.randn((rows_src, pitch or width), generator=g, device=cuda).to(dtype)
+    src = wide[:, offset:offset + width]
+    idx = torch.randint(0, rows_src, (rows_out,), generator=g, device=cuda).to(idx_dtype)
+    idx[-1] = idx[0]
+    key = (rows_out, rows_src, width, str(dtype).removeprefix('torch.'))
+    before, shape_before = row_gather.launches, row_gather.by_shape[key]
+    got = row_gather(src, idx)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 1 and row_gather.by_shape[key] == shape_before + 1
+    assert got.dtype == dtype and got.shape == (rows_out, width) and got.is_contiguous()
+    assert torch.equal(got, row_gather_ref(src, idx))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('idx_dtype', [torch.int64, torch.int32])
+@pytest.mark.parametrize('rows_src,rows_out,width', [
+    (4096, 4096, 144), (4096, 4096, 48),        # ATD-light: 16-byte vectors
+    (1152, 1280, 630), (1280, 1152, 210),       # ATD: 4-byte vectors in bf16; a pad tail added and skipped
+    (1, 1, 48), (1, 7, 3), (1000, 1000, 1), (3000, 17, 45), (5, 100000, 8),
+])
+def test_row_gather_kernel_is_exact(cuda, dtype, idx_dtype, rows_src, rows_out, width):
+    _gather_check(cuda, dtype, idx_dtype, rows_src, rows_out, width)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('width,pitch,offset', [(48, 144, 48), (48, 144, 1), (47, 144, 1), (16, 40, 8), (5, 9, 2)])
+def test_row_gather_kernel_reads_a_column_slice_in_place(cuda, dtype, width, pitch, offset):
+    _gather_check(cuda, dtype, torch.int64, 3000, 2500, width, pitch=pitch, offset=offset)
+
+
+def test_row_gather_kernel_reads_a_row_slice_and_past_2gb(cuda):
+    """Rows whose byte offset passes 2^31 (row 3,728,271 on): 64-bit addresses."""
+    src = torch.randn((5_000_000, 144), device=cuda)  # 2.9 GB
+    idx = torch.tensor([4_999_999, 0, 3_900_000, 4_999_999, 3_728_271], device=cuda)
+    assert torch.equal(row_gather(src, idx), row_gather_ref(src, idx))
+    tail, tail_idx = src[4_000_000:], torch.tensor([999_999, 0, 500_000], device=cuda)
+    assert torch.equal(row_gather(tail, tail_idx), row_gather_ref(tail, tail_idx))
+
+
+def test_row_gather_kernel_refuses_what_it_does_not_take(cuda):
+    src = torch.zeros((8, 6), device=cuda)
+    idx = torch.zeros((3,), dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        row_gather(src.half(), idx)
+    with pytest.raises(ValueError):  # elements of a row not next to each other
+        row_gather(torch.zeros((6, 8), device=cuda).t(), idx)
+    with pytest.raises(ValueError):  # indices on another device
+        row_gather(src, idx.cpu())
+    with pytest.raises(IndexError):
+        row_gather(torch.zeros((0, 6), device=cuda), idx)
+
+
+def test_row_gather_empty_launches_nothing(cuda):
+    before = row_gather.launches
+    got = row_gather(torch.zeros((8, 6), device=cuda), torch.zeros((0,), dtype=torch.int64, device=cuda))
+    assert got.shape == (0, 6) and row_gather.launches == before
+
+
+# -- ATD and HAT ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize('upsampler,scale', [('pixelshuffledirect', 4), ('pixelshuffle', 2), ('nearest+conv', 4)])
+def test_atd_on_card_matches_cpu(cuda, upsampler, scale):
+    """The zoo's small weights keep the similarity's argmax apart from its
+    runner-up by more than f32 rounding, so the card and the CPU sort the
+    tokens into the same categories."""
+    sd = make_atd(24, (2, 2), (3, 3), 8, reducted_dim=4, upscale=scale, upsampler=upsampler, seed=1)
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    x = np.random.default_rng(0).random((2, 19, 21, 3), dtype=np.float32)  # 576 tokens: AC_MSA's pad tail
+    before = wa.window_mha.launches, row_gather.launches
+    got = gpu(x)
+    torch.cuda.synchronize()
+    assert (wa.window_mha.launches - before[0], row_gather.launches - before[1]) == (4, 8)
+    assert got.shape == (2, 19 * scale, 21 * scale, 3)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu(x).numpy(), rtol=0, atol=2e-3)
+
+
+def test_atd_tiled_on_card_matches_cpu(cuda):
+    sd = make_atd(24, (2,), (3,), 8, reducted_dim=4, upscale=2, seed=3)
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    img = np.random.default_rng(1).random((70, 90, 3), dtype=np.float32)
+    got = upscale_tiled(gpu, img, tile=32)
+    assert got.device.type == 'cuda'
+    np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize('window,scale', [(8, 4), (16, 2)])
+def test_hat_on_card_matches_cpu(cuda, window, scale):
+    sd = make_hat(36, (2, 2), (6, 3), window, 0.5, 3, 6, 2.0, scale, seed=1)
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    x = np.random.default_rng(0).random((2, 21, 26, 3), dtype=np.float32)
+    before = wa.window_mha.launches
+    got = gpu(x)
+    torch.cuda.synchronize()
+    assert wa.window_mha.launches - before == 4  # the two OCABs take the plain path
+    assert got.shape == (2, 21 * scale, 26 * scale, 3)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu(x).numpy(), rtol=0, atol=2e-3)
+
+
+def test_hat_tiled_on_card_matches_cpu(cuda):
+    sd = make_hat(24, (2,), (3,), 8, upscale=2, seed=3)
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    img = np.random.default_rng(1).random((70, 90, 3), dtype=np.float32)
+    got = upscale_tiled(gpu, img, tile=32)
+    assert got.device.type == 'cuda'
+    np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=2e-3)

@@ -3,16 +3,18 @@
 bench.py's serving shape (batch 16 of 256x256 tiles): ESRGAN RRDBNet-23 4x
 (default), PLKSR dim 64, 28 blocks, k 17, 4x (``--model plksr``), SwinIR-M
 4x classical, embed 180, depths and heads (6,) x 6, window 8
-(``--model swinir``) or EIMN_L, embed 64, 16 stages, mlp ratio 2.66, 4x
-(``--model eimn``).
+(``--model swinir``), EIMN_L, embed 64, 16 stages, mlp ratio 2.66, 4x
+(``--model eimn``), ATD-light 4x, embed 48, depths (6,) x 5, window 16
+(``--model atd``) or HAT-S 4x, embed 144, depths (6,) x 6, window 16
+(``--model hat``).
 
-    python3 tools/profile_torch_esrgan.py [--model esrgan|plksr|swinir|eimn] [--reps 2] [--seed 0]
+    python3 tools/profile_torch_esrgan.py [--model esrgan|plksr|swinir|eimn|atd|hat] [--reps 2] [--seed 0]
 
 Runs on a CUDA device only.  Warms up, then records ``--reps`` forwards
 under torch.profiler and prints one JSON line: the window's wall time per
 forward, device time per forward summed by kernel name (the top entries),
-the share of it in the model's hand-written kernel (conv3x3 / conv_lk /
-wattn / molrcm),
+the share of it in the model's hand-written kernels (conv3x3 / conv_lk /
+wattn / molrcm / row_gather; ATD has two, reported together and apart),
 and the device busy share of the window (the union of device-event
 intervals over the wall time).
 """
@@ -28,7 +30,7 @@ import time
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--model', choices=('esrgan', 'plksr', 'swinir', 'eimn'), default='esrgan')
+    parser.add_argument('--model', choices=('esrgan', 'plksr', 'swinir', 'eimn', 'atd', 'hat'), default='esrgan')
     parser.add_argument('--reps', type=int, default=2)
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--top', type=int, default=8)
@@ -41,9 +43,15 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import resselt_tpu_torch
-    from resselt_tpu_torch.zoo import make_eimn, make_esrgan, make_plksr, make_swinir
+    from resselt_tpu_torch.zoo import make_atd, make_eimn, make_esrgan, make_hat, make_plksr, make_swinir
 
-    if args.model == 'eimn':
+    if args.model == 'atd':
+        sd, kernel, config = (make_atd(48, (6,) * 5, (4,) * 5, 16, 64, 8, 7, 1.0, 4, seed=args.seed),
+                              'wattn+row_gather', 'ATD-light 4x embed48 depths6x5 window16 category128')
+    elif args.model == 'hat':
+        sd, kernel, config = (make_hat(144, (6,) * 6, (6,) * 6, 16, 0.5, 24, 24, 2.0, 4, 64, seed=args.seed),
+                              'wattn', 'HAT-S 4x embed144 depths6x6 window16 overlap0.5')
+    elif args.model == 'eimn':
         sd, kernel, config = (make_eimn(64, 16, 1, 2.66, 4, seed=args.seed), 'molrcm',
                               'EIMN_L embed64 16 stages mlp2.66 4x')
     elif args.model == 'swinir':
@@ -89,7 +97,8 @@ def main(argv=None) -> int:
             last_end = end
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    kernel_ms = sum(r[1] for r in rows if kernel in r[0])
+    parts = {k: sum(r[1] for r in rows if k in r[0]) for k in kernel.split('+')}
+    kernel_ms = sum(parts.values())
     out = {
         'device': torch.cuda.get_device_name(0),
         'config': config + ', bf16, batch 16 x 256x256',
@@ -97,6 +106,7 @@ def main(argv=None) -> int:
         'device_ms_per_forward': device_ms,
         f'{kernel}_ms_per_forward': kernel_ms,
         f'{kernel}_share_of_device': kernel_ms / device_ms if device_ms else None,
+        **({f'{k}_ms_per_forward': ms for k, ms in parts.items()} if len(parts) > 1 else {}),
         'device_busy_share': busy_us / 1e3 / (wall * 1e3) if device_ms else None,
         'top': [{'kernel': k[:120], 'ms_per_forward': ms, 'launches_per_forward': n} for k, ms, n in rows[: args.top]],
     }
