@@ -4,9 +4,13 @@
     python3 chip_smoke.py
 
 Phases, one line each: device, build (one nvcc per resselt_tpu_torch/csrc/*.cu,
-all started together).  Then ESRGAN: kernels (every ESRGAN 3x3 conv shape:
-kernel against its plain version in f32 and bf16, then kernel / plain /
-library / bound times at the bench shapes), load (a seeded ESRGAN
+all started together; ptxas's registers, shared memory and spills per
+kernel).  Every kernels phase holds its kernel against the plain version in
+f32, bf16 and fp16; every model phase holds bf16, fp16 and
+precision='bfloat16' against f32.  Then ESRGAN: kernels (every ESRGAN 3x3
+conv shape and the kernel's other shape classes: every N tile of the wgmma
+path, Cout 3 / 7 / 8, Cin 3 / 12 / 48, ragged H and W, the four
+activations; then kernel / plain / library / bound times), load (a seeded ESRGAN
 RRDBNet-23 4x checkpoint written as .safetensors and .pth and loaded
 through the public entry points), model (f32 on the card against the CPU,
 351 kernel launches per forward, bf16 against f32), serve (the main path:
@@ -22,8 +26,11 @@ forward, card against CPU, bf16 against f32; RealPLKSR with DySample card
 against CPU), plksr_serve (28 lk launches per bench forward).  Then
 SwinIR-M the same way: wattn_kernels (every window-attention shape of
 the SwinIR path and the kernel's other shape classes, against the plain
-version in f32 and bf16, with kernel / plain / library (PyTorch's
-scaled_dot_product_attention, with the backend it picked) / bound times),
+version, with kernel / plain / library (PyTorch's
+scaled_dot_product_attention, with the backend it picked) / bound times;
+the masked rows use a random mask without an all-zero window, and the three
+bench shapes are also timed with the model's own shift mask, which stands
+for the bench forwards' masked launches, and with an all-zero mask),
 swinir_load (SwinIR-M x4 classical, embed 180, depths and heads (6,) x 6,
 window 8), swinir_model (36 window_mha launches per forward, card against
 CPU, bf16 against f32; the real-world nearest+conv variant at 2 x 2
@@ -96,16 +103,16 @@ HAT = {'name': 'HAT-S', 'embed_dim': 144, 'depths': (6,) * 6, 'num_heads': (6,) 
        'scale': 4, 'tile': 192, 'halo': 16, 'tile_batch': 2}
 
 # H100 SXM dense peaks (NVIDIA data sheet) for bound_ms
-PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+PEAK_FLOPS = {'bfloat16': 989e12, 'float16': 989e12, 'float32': 67e12}
 PEAK_BYTES = 3.35e12
 
 F32_TOL = 1e-4     # rtol = atol: exact f32 FMA against cuDNN f32 with TF32 off
-BF16_RTOL = 2e-2   # bf16 output rounding (2^-9 relative) with margin
+BF16_RTOL = 2e-2   # bf16 output rounding (2^-9 relative) with margin; fp16 is held to the same
 BF16_ATOL = 1e-3
 MODEL_TOL = 5e-4   # tests/test_conv_archs.py's TOL for ESRGAN
 SWINIR_TOL = 2e-3  # tests/test_swinir.py's TOL for transformer stacks
-WATTN_BF16_ATOL = 1e-2  # window attention: P is rounded to bf16 before P V
-BF16_PSNR = 35.0   # tests/test_parallel.py's bf16-vs-f32 floor
+WATTN_BF16_ATOL = 1e-2  # window attention: P is rounded to bf16 (fp16) before P V
+BF16_PSNR = 35.0   # tests/test_parallel.py's bf16-vs-f32 floor; fp16 is held to the same
 MOLRCM_TOL = 1.5e-3  # x max|plain|: tests/test_pallas_ops.py's tolerance for the JAX MOLRCM kernel
 ATD_TOL = HAT_TOL = 2e-3  # tests/test_atd.py's and tests/test_hat.py's TOL
 
@@ -134,6 +141,20 @@ def conv_shapes(n: int, tile: int) -> list[dict]:
         ('unshuffle2 head 12->64', 'act', n, t // 2, t // 2, 12, 64, 'linear'),
         ('unshuffle4 head 48->64', 'act', n, t // 4, t // 4, 48, 64, 'linear'),
         ('pack2 64->64', 'pack2', n, t, t, 64, 64, 'lrelu'),
+        # the kernel's other shape classes: every N tile of the wgmma path (8, 16, 32, 48, 64, 80, 96), Cout
+        # split with a ragged last slice, Cout 3 / 7 / 8, Cin 3 / 12 / 48, H and W that are no multiples of
+        # the 16-pixel tile, the four activations, a Cin too large for the wgmma path
+        ('edge 64->8 silu', 'act', 2, 37, 29, 64, 8, 'silu'),
+        ('edge 32->16 mish', 'act', 1, 40, 23, 32, 16, 'mish'),
+        ('edge 16->24 lrelu', 'act', 1, 17, 50, 16, 24, 'lrelu'),
+        ('edge 48->48 silu', 'act', 2, 31, 18, 48, 48, 'silu'),
+        ('edge 32->128 mish', 'act', 1, 25, 33, 32, 128, 'mish'),
+        ('edge 64->100 lrelu', 'act', 1, 21, 37, 64, 100, 'lrelu'),
+        ('edge 32->7 linear', 'act', 1, 18, 20, 32, 7, 'linear'),
+        ('edge 64->3 mish', 'act', 1, 33, 17, 64, 3, 'mish'),
+        ('edge 3->64 silu', 'act', 1, 19, 21, 3, 64, 'silu'),
+        ('edge 12->64 mish', 'act', 2, 9, 40, 12, 64, 'mish'),
+        ('edge 256->320 linear', 'act', 1, 7, 3, 256, 320, 'linear'),
     ]
     keys = ('name', 'entry', 'n', 'h', 'w', 'cin', 'cout', 'act')
     return [dict(zip(keys, r)) for r in rows]
@@ -175,9 +196,9 @@ def bound_ms(s: dict, dtype_name: str) -> tuple[float, str]:
 
 
 def phase_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
-    """Each shape: kernel against its plain version in f32 (TF32 off) and in
-    bf16 (plain version in f32 from the same bf16 inputs), then kernel /
-    plain / library / bound times in bf16."""
+    """Each shape: kernel against its plain version in f32 (TF32 off), in
+    bf16 and in fp16 (plain version in f32 from the same 16-bit inputs),
+    then kernel / plain / library / bound times in bf16."""
     import torch
     import torch.nn.functional as TF
 
@@ -205,10 +226,16 @@ def phase_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
         wantb = ref(xb.float(), tapsb.float(), b, act=s['act'])
         errb = (gotb.float() - wantb).abs().max().item()
         torch.testing.assert_close(gotb.float(), wantb, rtol=BF16_RTOL, atol=BF16_ATOL)
-        del got, want, gotb, wantb
+        xh = x.to(torch.float16)
+        tapsh = fc.pack_conv3x3_weight(w, torch.float16)
+        goth = entry(xh, tapsh, b, act=s['act'])
+        wanth = ref(xh.float(), tapsh.float(), b, act=s['act'])
+        errh = (goth.float() - wanth).abs().max().item()
+        torch.testing.assert_close(goth.float(), wanth, rtol=BF16_RTOL, atol=BF16_ATOL)
+        del got, want, gotb, wantb, goth, wanth, xh
 
         row = {'name': s['name'], 'entry': s['entry'], 'shape': [s['n'], s['h'], s['w'], s['cin'], s['cout']],
-               'act': s['act'], 'max_abs_err_f32': err32, 'max_abs_err_bf16': errb}
+               'act': s['act'], 'max_abs_err_f32': err32, 'max_abs_err_bf16': errb, 'max_abs_err_f16': errh}
         wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         x_cl = xb.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW view
         bb = b.to(torch.bfloat16)
@@ -267,8 +294,8 @@ def lk_bound_ms(s: dict, dtype_name: str) -> tuple[float, str]:
 
 
 def phase_lk_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
-    """Each shape: the lk kernel against its plain version in f32 (TF32 off)
-    and in bf16 (plain version in f32 from the same bf16 inputs), then
+    """Each shape: the lk kernel against its plain version in f32 (TF32 off),
+    in bf16 and in fp16 (plain version in f32 from the same 16-bit inputs), then
     kernel / plain / library / bound times in bf16; f32 times too at the
     bench shape."""
     import torch
@@ -298,10 +325,16 @@ def phase_lk_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
         wantb = fc.fused_conv_lk_ref(xb.float(), tapsb.float(), b, k=k, act=act)
         errb = (gotb.float() - wantb).abs().max().item()
         torch.testing.assert_close(gotb.float(), wantb, rtol=BF16_RTOL, atol=BF16_ATOL)
-        del got, want, gotb, wantb
+        xh = wide.to(torch.float16)[..., :s['cin']]
+        tapsh = fc.pack_conv_lk_weight(w, torch.float16)
+        goth = fc.fused_conv_lk(xh, tapsh, b, k=k, act=act)
+        wanth = fc.fused_conv_lk_ref(xh.float(), tapsh.float(), b, k=k, act=act)
+        errh = (goth.float() - wanth).abs().max().item()
+        torch.testing.assert_close(goth.float(), wanth, rtol=BF16_RTOL, atol=BF16_ATOL)
+        del got, want, gotb, wantb, goth, wanth, xh
 
         row = {'name': s['name'], 'shape': [s['n'], s['h'], s['w'], s['cin'], s['cout']], 'k': k, 'act': act,
-               'pitch': s['pitch'], 'max_abs_err_f32': err32, 'max_abs_err_bf16': errb}
+               'pitch': s['pitch'], 'max_abs_err_f32': err32, 'max_abs_err_bf16': errb, 'max_abs_err_f16': errh}
         wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         x_cl = xb.contiguous().permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW view
         bb = b.to(torch.bfloat16)
@@ -325,7 +358,11 @@ def wattn_shapes(n_img: int, tile: int, cfg: dict, others: tuple[dict, ...]) -> 
     without), the kernel's other shape classes, and the same four images'
     shapes for each of ``others`` (ATD-light, HAT-S; their tiled windows
     come ``tile_batch`` a batch).  ``windows`` counts the window batch,
-    ``nw`` the mask's windows (None: unmasked)."""
+    ``nw`` the mask's windows (None: unmasked), ``mask`` its kind: 'random'
+    (30% of the entries -100, so no window's tile is all zero: the
+    correctness rows), 'shift' (the model's own ``swin_attn_mask`` of a
+    ``tile``-square image: the bench forwards' masked launches are timed by
+    these rows), 'zero' (every tile all zero)."""
     ws, c, h = cfg['window_size'], cfg['embed_dim'], cfg['num_heads'][0]
     n = ws * ws
     nw_bench = (tile // ws) ** 2
@@ -333,17 +370,19 @@ def wattn_shapes(n_img: int, tile: int, cfg: dict, others: tuple[dict, ...]) -> 
     nw_cli = (48 // ws) * (64 // ws)
     nw_model = (64 // ws) ** 2
     rows = [
-        ('bench masked', n_img * nw_bench, n, c, h, nw_bench),
-        ('bench', n_img * nw_bench, n, c, h, None),
-        ('tiled window masked', nw_tiled, n, c, h, nw_tiled),
-        ('tiled window', nw_tiled, n, c, h, None),
-        ('cli masked', nw_cli, n, c, h, nw_cli),
-        ('cli', nw_cli, n, c, h, None),
-        ('model masked', nw_model, n, c, h, nw_model),
-        ('model', nw_model, n, c, h, None),
-        ('window 7 n49', n_img * 1024, 49, 180, 6, 1024),
-        ('SwinIR-light C60', n_img * nw_bench, 64, 60, 6, nw_bench),
-        ('DAT-S n128 masked', n_img * 512, 128, 180, 6, 512),
+        ('bench masked', n_img * nw_bench, n, c, h, nw_bench, 'random', ws),
+        ('bench shift mask', n_img * nw_bench, n, c, h, nw_bench, 'shift', ws),
+        ('bench zero mask', n_img * nw_bench, n, c, h, nw_bench, 'zero', ws),
+        ('bench', n_img * nw_bench, n, c, h, None, None, ws),
+        ('tiled window masked', nw_tiled, n, c, h, nw_tiled, 'random', ws),
+        ('tiled window', nw_tiled, n, c, h, None, None, ws),
+        ('cli masked', nw_cli, n, c, h, nw_cli, 'random', ws),
+        ('cli', nw_cli, n, c, h, None, None, ws),
+        ('model masked', nw_model, n, c, h, nw_model, 'random', ws),
+        ('model', nw_model, n, c, h, None, None, ws),
+        ('window 7 n49', n_img * 1024, 49, 180, 6, 1024, 'random', 7),
+        ('SwinIR-light C60', n_img * nw_bench, 64, 60, 6, nw_bench, 'random', 8),
+        ('DAT-S n128 masked', n_img * 512, 128, 180, 6, 512, 'random', None),
     ]
     for o in others:
         ows, oc, oh = o['window_size'], o['embed_dim'], o['num_heads'][0]
@@ -351,10 +390,25 @@ def wattn_shapes(n_img: int, tile: int, cfg: dict, others: tuple[dict, ...]) -> 
         for name, imgs, ih, iw in (('bench', n_img, tile, tile), ('tiled window', o['tile_batch'], window, window),
                                    ('cli', 1, 48, 64), ('model', 1, 64, 64)):
             onw = (ih // ows) * (iw // ows)
-            rows.append((f"{o['name']} {name} masked", imgs * onw, ows * ows, oc, oh, onw))
-            rows.append((f"{o['name']} {name}", imgs * onw, ows * ows, oc, oh, None))
-    keys = ('name', 'windows', 'n', 'c', 'heads', 'nw')
-    return [dict(zip(keys, r)) for r in rows]
+            rows.append((f"{o['name']} {name} masked", imgs * onw, ows * ows, oc, oh, onw, 'random', ows))
+            if name == 'bench':
+                rows.append((f"{o['name']} bench shift mask", imgs * onw, ows * ows, oc, oh, onw, 'shift', ows))
+                rows.append((f"{o['name']} bench zero mask", imgs * onw, ows * ows, oc, oh, onw, 'zero', ows))
+            rows.append((f"{o['name']} {name}", imgs * onw, ows * ows, oc, oh, None, None, ows))
+    keys = ('name', 'windows', 'n', 'c', 'heads', 'nw', 'mask', 'ws')
+    return [dict(zip(keys, r), tile=tile) for r in rows]
+
+
+def wattn_timed_rows(shapes: list[dict]) -> dict:
+    """For each ``window_mha.by_shape`` key, the index of the row whose time
+    stands for the main path's launches at that key: the 'shift' row where
+    there is one (the path's masks are shift masks), else the first."""
+    best: dict = {}
+    for i, s in enumerate(shapes):
+        key = wattn_shape_key(s)
+        if key not in best or (s['mask'] == 'shift' and shapes[best[key]]['mask'] != 'shift'):
+            best[key] = i
+    return best
 
 
 def wattn_shape_key(s: dict) -> tuple:
@@ -364,12 +418,12 @@ def wattn_shape_key(s: dict) -> tuple:
 
 def wattn_bound_ms(s: dict, dtype_name: str) -> tuple[float, str]:
     """Least time for one window attention on an H100: the larger of its
-    bytes (q, k, v read once, the f32 bias and mask read once, O written
-    once) over the memory rate and its FLOPs (Q K^T and P V) over the dense
+    bytes (q, k, v read once, the f32 bias and the mask's non-zero tiles
+    read once, O written once) over the memory rate and its FLOPs (Q K^T and P V) over the dense
     peak for the dtype."""
     size = 2 if dtype_name == 'bfloat16' else 4
     n, c, w = s['n'], s['c'], s['windows']
-    nbytes = 4 * w * n * c * size + 4 * s['heads'] * n * n + 4 * (s['nw'] or 0) * n * n
+    nbytes = 4 * w * n * c * size + 4 * s['heads'] * n * n + 4 * s.get('nonzero_mask_windows', s['nw'] or 0) * n * n
     flops = 4 * w * n * n * c
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -394,15 +448,16 @@ def _device_kernels(fn) -> str:
 
 def phase_wattn_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
     """Each shape: the window-attention kernel against its plain version in
-    f32 (TF32 off) and in bf16 (plain version in f32 from the same bf16
-    inputs), with q, k, v handed over as slices of one qkv tensor as the
-    model does; then kernel / plain / library / bound times in bf16 (f32
+    f32 (TF32 off), in bf16 and in fp16 (plain version in f32 from the same
+    16-bit inputs), with q, k, v handed over as slices of one qkv tensor as
+    the model does and a random f32 bias; then kernel / plain / library / bound times in bf16 (f32
     times too at the bench shape).  The library call is
     ``scaled_dot_product_attention`` with bias + mask summed into one bf16
     additive mask (materialised per window where masked)."""
     import torch
     import torch.nn.functional as TF
 
+    from resselt_tpu_torch.nn.window import swin_attn_mask
     from resselt_tpu_torch.ops import window_attention as wa
 
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -415,8 +470,15 @@ def phase_wattn_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
         qkv = torch.randn((w, n, 3 * c), generator=gen, device=device)
         bias = torch.randn((h, n, n), generator=gen, device=device) * 0.5
         mask = None
-        if nw is not None:
+        if s['mask'] == 'random':
             mask = torch.where(torch.rand((nw, n, n), generator=gen, device=device) < 0.3, -100.0, 0.0)
+        elif s['mask'] == 'shift':
+            mask = torch.from_numpy(swin_attn_mask(s['tile'], s['tile'], s['ws'], s['ws'] // 2)).to(device)
+            if mask.shape != (nw, n, n):
+                raise AssertionError(f"shift mask {tuple(mask.shape)} at {s['name']}")
+        elif s['mask'] == 'zero':
+            mask = torch.zeros((nw, n, n), device=device)
+        nonzero_windows = None if mask is None else int(wa.mask_window_flags(mask).sum())
 
         q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
         got = wa.window_mha(q, k, v, bias, mask, num_heads=h, scale=scale)
@@ -432,10 +494,17 @@ def phase_wattn_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
         wantb = wa.window_mha_ref(qb.float(), kb.float(), vb.float(), bias, mask, num_heads=h, scale=scale)
         errb = (gotb.float() - wantb).abs().max().item()
         torch.testing.assert_close(gotb.float(), wantb, rtol=BF16_RTOL, atol=WATTN_BF16_ATOL)
-        del gotb, wantb
+        qkvh = qkvb.to(torch.float16)  # the bf16 values, exact in fp16 unless tiny
+        qh, kh, vh = qkvh[..., :c], qkvh[..., c:2 * c], qkvh[..., 2 * c:]
+        goth = wa.window_mha(qh, kh, vh, bias, mask, num_heads=h, scale=scale)
+        wanth = wa.window_mha_ref(qh.float(), kh.float(), vh.float(), bias, mask, num_heads=h, scale=scale)
+        errh = (goth.float() - wanth).abs().max().item()
+        torch.testing.assert_close(goth.float(), wanth, rtol=BF16_RTOL, atol=WATTN_BF16_ATOL)
+        del gotb, wantb, goth, wanth, qkvh, qh, kh, vh
 
         row = {'name': s['name'], 'windows': w, 'n': n, 'c': c, 'heads': h, 'mask_windows': nw,
-               'max_abs_err_f32': err32, 'max_abs_err_bf16': errb}
+               'mask': s['mask'], 'nonzero_mask_windows': nonzero_windows,
+               'max_abs_err_f32': err32, 'max_abs_err_bf16': errb, 'max_abs_err_f16': errh}
         row['ms'] = _ms(lambda: wa.window_mha(qb, kb, vb, bias, mask, num_heads=h, scale=scale), reps)
         row['plain_ms'] = _ms(lambda: wa.window_mha_ref(qb, kb, vb, bias, mask, num_heads=h, scale=scale), reps)
         q4, k4, v4 = (t.unflatten(-1, (h, hd)).transpose(1, 2) for t in (qb, kb, vb))
@@ -450,11 +519,12 @@ def phase_wattn_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
 
         row['library_ms'] = _ms(library, reps)
         row['library_kernels'] = _device_kernels(library)
-        row['bound_ms'], row['bound_by'] = wattn_bound_ms(s, 'bfloat16')
+        counted = {**s, 'nonzero_mask_windows': nonzero_windows or 0}  # what this run's mask needs read
+        row['bound_ms'], row['bound_by'] = wattn_bound_ms(counted, 'bfloat16')
         if s['name'] == 'bench masked':
             q32, k32, v32 = (t.float() for t in (qb, kb, vb))
             row['ms_f32'] = _ms(lambda: wa.window_mha(q32, k32, v32, bias, mask, num_heads=h, scale=scale), reps)
-            row['bound_ms_f32'] = wattn_bound_ms(s, 'float32')[0]
+            row['bound_ms_f32'] = wattn_bound_ms(counted, 'float32')[0]
             del q32, k32, v32
         del qkvb, qb, kb, vb, q4, k4, v4, am, bias, mask
         torch.cuda.empty_cache()
@@ -502,8 +572,8 @@ def molrcm_bound_ms(s: dict, dtype_name: str, weight_bytes: int) -> tuple[float,
 
 def phase_molrcm_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
     """Each shape: the MOLRCM kernel against its plain version in f32 (TF32
-    off; within MOLRCM_TOL x max|plain|) and in bf16 (plain version in f32
-    from the same bf16 inputs and bf16-rounded weights), then kernel / plain
+    off; within MOLRCM_TOL x max|plain|), in bf16 and in fp16 (plain version
+    in f32 from the same 16-bit inputs and rounded weights), then kernel / plain
     / eager-chain / bound times in bf16 (f32 times too at the bench shape).
     No single PyTorch call computes MOLRCM: the yardstick is the eager bf16
     chain the port runs outside the kernel's gate (seven cuDNN convs, three
@@ -541,10 +611,16 @@ def phase_molrcm_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
         wantb = mo.fused_molrcm_ref(xb.float(), packedb)
         errb = (gotb.float() - wantb).abs().max().item()
         torch.testing.assert_close(gotb.float(), wantb, rtol=BF16_RTOL, atol=BF16_ATOL)
-        del gotb, wantb
+        xh = x.to(torch.float16)
+        packedh = mo.pack_molrcm_weights(PTree(params), torch.float16)
+        goth = mo.fused_molrcm(xh, packedh)
+        wanth = mo.fused_molrcm_ref(xh.float(), packedh)
+        errh = (goth.float() - wanth).abs().max().item()
+        torch.testing.assert_close(goth.float(), wanth, rtol=BF16_RTOL, atol=BF16_ATOL)
+        del gotb, wantb, goth, wanth, xh
 
         row = {'name': s['name'], 'shape': [s['n'], s['h'], s['w'], dim], 'max_abs_err_f32': err32,
-               'max_abs_err_bf16': errb}
+               'max_abs_err_bf16': errb, 'max_abs_err_f16': errh}
         pb = PTree({k: v.to(torch.bfloat16) for k, v in params.items()})
         row['ms'] = _ms(lambda: mo.fused_molrcm(xb, packedb), reps)
         row['plain_ms'] = _ms(lambda: mo.fused_molrcm_ref(xb, packedb), reps)
@@ -610,7 +686,7 @@ def gather_bound_ms(s: dict) -> tuple[float, str]:
 
 def phase_gather_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
     """Each shape: the row-gather kernel against its plain version, exact
-    equality in f32 and bf16 with int64 and int32 indices (a random
+    equality in f32, bf16 and fp16 with int64 and int32 indices (a random
     permutation cut or repeated to ``rows_out``, with one index repeated),
     then kernel / plain / library / bound times in the shape's own types.
     The plain version is the library call, ``index_select``."""
@@ -625,7 +701,7 @@ def phase_gather_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
         perm = torch.randperm(s['rows_src'], generator=gen, device=device)
         idx64 = perm.repeat(-(-s['rows_out'] // s['rows_src']))[:s['rows_out']].clone()
         idx64[-1] = idx64[0]
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             src = wide32.to(dtype)[:, s['offset']:s['offset'] + s['width']]
             for idx in (idx64, idx64.to(torch.int32)):
                 got = row_gather(src, idx)
@@ -704,7 +780,7 @@ def phase_load(device, sd: dict, stem: str, arch: str, meta, tmp: str, dropped: 
 def phase_model(model, sd, size: int, entry, bf16: bool = True, tol: float = MODEL_TOL):
     """f32 on the card against the CPU, ``entry``'s launches in that
     forward (``entry``: a kernel wrapper, or a tuple of them for a list of
-    counts), bf16 against f32."""
+    counts), bf16 and fp16 against f32."""
     import numpy as np
     import torch
 
@@ -731,6 +807,16 @@ def phase_model(model, sd, size: int, entry, bf16: bool = True, tol: float = MOD
         if not psnr > BF16_PSNR:
             raise AssertionError(f'bf16 vs f32 PSNR {psnr:.2f} dB')
         res['bf16_psnr_db'] = round(psnr, 2)
+        goth = model(x, dtype=torch.float16).float()
+        psnr = 10 * np.log10(1.0 / max(float(((goth - got32) ** 2).mean()), 1e-12))
+        if not psnr > BF16_PSNR:
+            raise AssertionError(f'fp16 vs f32 PSNR {psnr:.2f} dB')
+        res['fp16_psnr_db'] = round(psnr, 2)
+        gotp = model(x, precision='bfloat16')  # f32 inputs, bf16 passes allowed in the plain torch ops
+        psnr = 10 * np.log10(1.0 / max(float(((gotp - got32) ** 2).mean()), 1e-12))
+        if gotp.dtype != torch.float32 or not psnr > BF16_PSNR:
+            raise AssertionError(f"precision='bfloat16' vs f32 PSNR {psnr:.2f} dB, dtype {gotp.dtype}")
+        res['precision_bfloat16_psnr_db'] = round(psnr, 2)
     return res
 
 
@@ -808,6 +894,30 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
     return res
 
 
+def ptxas_report(build_log: str) -> dict:
+    """What ``nvcc -Xptxas -v`` said of each kernel of one source: registers,
+    static shared memory and spills, under the kernel's name with its
+    template arguments as the mangled name spells them."""
+    import re
+
+    out, name = {}, None
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = re.sub(r'^_ZN?\d*_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+', '', m.group(1))
+            name = re.sub(r'EEvP.*$|EvP.*$|PK.*$', '', name).replace('13__nv_bfloat16', 'bf16,').replace('6__half', 'f16,')
+            continue
+        if name is None:
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', ln)
+        if m:
+            out.setdefault(name, {})['spill_bytes'] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r'Used (\d+) registers(?:.*?(\d+) bytes smem)?', ln)
+        if m:
+            out.setdefault(name, {}).update(registers=int(m.group(1)), static_smem=int(m.group(2) or 0))
+    return out
+
+
 def over_bound_ms(rows: list[dict], prefix: str = '') -> float:
     """What the rows' kernel launches of one bench forward take beyond their
     bounds: the sum of launches per forward x (ms - bound ms), over the rows
@@ -859,9 +969,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     took = _build.build()
-    ptxas = [ln.strip() for name in took for ln in _build.build_log(name).splitlines()
-             if 'registers' in ln or 'spill' in ln]
-    log('build', seconds=round(time.perf_counter() - t0, 2), kernels=took, ptxas=json.dumps(ptxas))
+    log('build', seconds=round(time.perf_counter() - t0, 2), kernels=took,
+        ptxas=json.dumps({name: ptxas_report(_build.build_log(name)) for name in took}))
 
     # -- ESRGAN: the conv3x3 kernel ------------------------------------------
     shapes = conv_shapes(BENCH['batch'], BENCH['tile'])
@@ -973,8 +1082,10 @@ def main() -> int:
         unchecked = {('wattn', key) for key in phase_shapes} - checked
         if unchecked:
             raise AssertionError(f'the serve phase ran window shapes wattn_kernels did not check: {sorted(unchecked)}')
-        for r, s in zip(w_rows, wshapes):
-            r['per_forward'] = counts['wattn'][1].get(wattn_shape_key(s), 0) / reps
+        timed = wattn_timed_rows(wshapes)
+        for i, (r, s) in enumerate(zip(w_rows, wshapes)):
+            key = wattn_shape_key(s)
+            r['per_forward'] = counts['wattn'][1].get(key, 0) / reps if timed[key] == i else 0.0
         w_ms = sum(r['ms'] * r['per_forward'] for r in w_rows)
         w_checked = checked
         log('swinir_serve', dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], launches=w_launches,
@@ -1055,9 +1166,12 @@ def main() -> int:
                                      f'expected {per_forward} each')
             table, shapes_, key_of = ((w_rows, wshapes, wattn_shape_key) if name == 'wattn'
                                       else (g_rows, gshapes, gather_shape_key))
+            timed = wattn_timed_rows(wshapes) if name == 'wattn' else None
             ms = 0.0
-            for r, s in zip(table, shapes_):
+            for i, (r, s) in enumerate(zip(table, shapes_)):
                 n = counts[name][1].get(key_of(s), 0) / reps
+                if timed is not None and timed[key_of(s)] != i:
+                    n = 0.0  # the shift-mask row stands for this key's launches
                 r['per_forward'] = r.get('per_forward', 0) + n
                 ms += r['ms'] * n
             figures[name] = (launches[name], counts[name][0] / reps, ms)

@@ -103,22 +103,39 @@ def params_from_numpy(params: Mapping[str, np.ndarray], device, dtype=None) -> d
     return out
 
 
+_PRECISIONS = {
+    # name: (torch.backends.cudnn.allow_tf32, torch.set_float32_matmul_precision)
+    'highest': (False, 'highest'),
+    'tensorfloat32': (True, 'high'),
+    'bfloat16': (True, 'medium'),
+}
+
+
 @contextlib.contextmanager
 def _precision(precision: str | None):
-    """``SRModel.__call__``'s ``precision``: None keeps torch's defaults,
-    'highest' turns TF32 off for cuDNN and matmul, 'tensorfloat32' on."""
+    """``SRModel.__call__``'s ``precision``, for f32 inputs to the plain
+    torch ops: None keeps torch's settings; 'highest' turns TF32 off for
+    cuDNN and matmul; 'tensorfloat32' turns it on; 'bfloat16' turns it on
+    for cuDNN and lets f32 matmuls run as bf16 passes
+    (``torch.set_float32_matmul_precision('medium')``), the nearest thing
+    the card has to the JAX package's bf16 passes.  The matmul precision
+    (which ``torch.backends.cuda.matmul.allow_tf32`` mirrors) and cuDNN's
+    TF32 switch are restored on exit.  The hand-written f32 kernels are
+    exact FMA whatever it says.  Any other string raises ValueError."""
     if precision is None:
         yield
         return
-    if precision not in ('highest', 'tensorfloat32'):
-        raise ValueError(f"precision must be None, 'highest' or 'tensorfloat32', got {precision!r}")
-    allow = precision == 'tensorfloat32'
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = allow
+    if precision not in _PRECISIONS:
+        raise ValueError(f'precision must be None or one of {sorted(_PRECISIONS)}, got {precision!r}')
+    cudnn_tf32, matmul = _PRECISIONS[precision]
+    saved = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
     try:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        torch.set_float32_matmul_precision(matmul)
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
 
 
 class SRModel:
@@ -198,11 +215,12 @@ class SRModel:
         tensor; it is moved to the model's device.
 
         Float inputs are expected in [0, 1]; uint8 images are converted
-        automatically.  ``dtype`` is the compute dtype (float32 or
-        bfloat16; float16 is refused by the CUDA kernels).  ``precision``:
-        None keeps torch's defaults, 'highest' turns TF32 off for the plain
-        torch ops, 'tensorfloat32' on; the 3x3 kernel is exact f32 FMA in
-        float32 whatever it says."""
+        automatically.  ``dtype`` is the compute dtype: float32, bfloat16
+        or float16, on either device.  ``precision`` (for f32 inputs to the
+        plain torch ops): None keeps torch's settings, 'highest' turns TF32
+        off, 'tensorfloat32' on, 'bfloat16' also lets f32 matmuls run as
+        bf16 passes; the hand-written f32 kernels are exact FMA whatever it
+        says."""
         x = torch.as_tensor(x).to(self.device)
         squeeze = x.ndim == 3
         if squeeze:

@@ -14,10 +14,11 @@
 // Two kernels:
 //  * f32: exact f32 FMA on the CUDA cores (no TF32), held at 1e-4 against
 //    an f32 reference.
-//  * bf16: implicit GEMM on the tensor cores through mma.sync m16n8k16 with
-//    f32 accumulation (M = output pixels, N = Cout, K = k * k * Cin; at
-//    Cin = 16 each tap is one k16 step); bias, activation and one bf16
-//    rounding at the store.  This is the path PLKSR serves in.
+//  * bf16 / fp16 (one template over the 16-bit type): implicit GEMM on the
+//    tensor cores through mma.sync m16n8k16 with f32 accumulation (M =
+//    output pixels, N = Cout, K = k * k * Cin; at Cin = 16 each tap is one
+//    k16 step); bias, activation and one rounding to the 16-bit type at the
+//    store.  bf16 is the path PLKSR serves in.
 //
 // What bounds it on an H100: operations.  At PLKSR's bench shape (16 x
 // 256 x 256, 16 -> 16, k = 17) the conv does 155 GFLOP on 67 MB of bf16
@@ -37,9 +38,10 @@
 // from shared memory for every tap, although neighbouring taps see the
 // same pixels shifted by one column; Cin = 8 fills half of each k16 step.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "half16.cuh"
 
 namespace {
 
@@ -164,9 +166,10 @@ conv_lk_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, con
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16 implicit GEMM.  A block of 8 warps owns a 32 x
-// 16-pixel tile; warp w owns tile rows 4w .. 4w + 3 (four m16 tiles of 16
-// pixels) and all Cout channels (2 * NP n8 tiles).
+// bf16 / fp16 (template parameter T): mma.sync m16n8k16 implicit GEMM.  A
+// block of 8 warps owns a 32 x 16-pixel tile; warp w owns tile rows 4w ..
+// 4w + 3 (four m16 tiles of 16 pixels) and all Cout channels (2 * NP n8
+// tiles).
 // ---------------------------------------------------------------------------
 
 constexpr int TH = 32;
@@ -177,40 +180,19 @@ constexpr int XPS = KC + 8;  // halo pixel stride in bf16 (48 B: conflict-free l
 
 __host__ __device__ inline int bf16_halo_elems(int k) { return (TH + k - 1) * (TW + k - 1) * XPS; }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-    const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-    const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int NP>  // pairs of n8 tiles: Cout <= 16 * NP
+template <typename T, int NP>  // T: the 16-bit type; NP pairs of n8 tiles: Cout <= 16 * NP
 __global__ void __launch_bounds__(THREADS)
-conv_lk_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                    const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int H, int W, int Cin,
-                    int Cout, int pitch, int k, int act, int vec_x, int vec_w) {
+conv_lk_h16_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const float* __restrict__ bias, T* __restrict__ y, int H, int W, int Cin,
+                   int Cout, int pitch, int k, int act, int vec_x, int vec_w) {
+    using HT = Half16<T>;
     constexpr int BN = NP * 16;
     constexpr int WPS = BN + 8;  // weight row stride in bf16 (conflict-free ldmatrix.trans)
     extern __shared__ __align__(16) unsigned char smem[];
     const int HWD = TW + k - 1;
     const int HH = TH + k - 1;
-    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-    __nv_bfloat16* ws = xs + bf16_halo_elems(k);  // 48 B per halo pixel keeps it 16-byte aligned
+    T* xs = reinterpret_cast<T*>(smem);
+    T* ws = xs + bf16_halo_elems(k);  // 48 B per halo pixel keeps it 16-byte aligned
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
@@ -219,8 +201,8 @@ conv_lk_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
     const int oy0 = blockIdx.y * TH;
     const int ox0 = blockIdx.x * TW;
     const int pad = k / 2;
-    const __nv_bfloat16* xn = x + (size_t)n * H * W * pitch;
-    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    const T* xn = x + (size_t)n * H * W * pitch;
+    const T zero = HT::from_float(0.f);
 
     float acc[MT][2 * NP][4];
 #pragma unroll
@@ -246,7 +228,7 @@ conv_lk_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
             for (int i = tid; i < HH * HWD * KC; i += THREADS) {
                 const int kk = i % KC, p = i / KC;
                 const int iy = oy0 - pad + p / HWD, ix = ox0 - pad + p % HWD;
-                __nv_bfloat16 val = zero;
+                T val = zero;
                 if (c0 + kk < Cin && iy >= 0 && iy < H && ix >= 0 && ix < W)
                     val = xn[((size_t)iy * W + ix) * pitch + c0 + kk];
                 xs[p * XPS + kk] = val;
@@ -269,7 +251,7 @@ conv_lk_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
                 for (int i = tid; i < k * KC * BN; i += THREADS) {
                     const int co = i % BN, r = i / BN;
                     const int kk = r % KC, dx = r / KC;
-                    __nv_bfloat16 val = zero;
+                    T val = zero;
                     if (c0 + kk < Cin && co < Cout) val = w[((size_t)(dy * k + dx) * Cin + c0 + kk) * Cout + co];
                     ws[r * WPS + co] = val;
                 }
@@ -295,8 +277,8 @@ conv_lk_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
                     ldmatrix_x4_trans(b, ws + (dx * KC + (lane & 15)) * WPS + np * 16 + (lane >> 4) * 8);
 #pragma unroll
                     for (int mt = 0; mt < MT; ++mt) {
-                        mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
-                        mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+                        HT::mma(acc[mt][2 * np], a[mt], b[0], b[1]);
+                        HT::mma(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
                     }
                 }
             }
@@ -323,31 +305,31 @@ conv_lk_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
                 if (ox >= W) continue;
                 const float v0 = activate(acc[mt][nt][2 * half] + b0, act);
                 const float v1 = activate(acc[mt][nt][2 * half + 1] + b1, act);
-                __nv_bfloat16* yp = y + (((size_t)n * H + oy) * W + ox) * Cout + co;
+                T* yp = y + (((size_t)n * H + oy) * W + ox) * Cout + co;
                 if (pairs) {
-                    *reinterpret_cast<__nv_bfloat162*>(yp) = __floats2bfloat162_rn(v0, v1);
+                    *reinterpret_cast<uint32_t*>(yp) = HT::pack(v0, v1);
                 } else {
-                    yp[0] = __float2bfloat16(v0);
-                    if (co + 1 < Cout) yp[1] = __float2bfloat16(v1);
+                    yp[0] = HT::from_float(v0);
+                    if (co + 1 < Cout) yp[1] = HT::from_float(v1);
                 }
             }
         }
     }
 }
 
-template <int NP>
-cudaError_t launch_bf16(const void* x, const void* w, const void* b, void* y, int n, int h, int wd, int cin,
+template <typename T, int NP>
+cudaError_t launch_h16(const void* x, const void* w, const void* b, void* y, int n, int h, int wd, int cin,
                         int cout, int pitch, int k, int act, cudaStream_t stream) {
     const size_t smem = (size_t)bf16_halo_elems(k) * 2 + (size_t)k * KC * (NP * 16 + 8) * 2;
-    cudaError_t err = cudaFuncSetAttribute(conv_lk_bf16_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(conv_lk_h16_kernel<T, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
     const int vec_x = (cin % 8 == 0) && (pitch % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
     const int vec_w = (cout % 8 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
     const dim3 grid((wd + TW - 1) / TW, (h + TH - 1) / TH, n);
-    conv_lk_bf16_kernel<NP><<<grid, THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(b),
-        static_cast<__nv_bfloat16*>(y), h, wd, cin, cout, pitch, k, act, vec_x, vec_w);
+    conv_lk_h16_kernel<T, NP><<<grid, THREADS, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(b),
+        static_cast<T*>(y), h, wd, cin, cout, pitch, k, act, vec_x, vec_w);
     return cudaGetLastError();
 }
 
@@ -376,14 +358,29 @@ extern "C" int resselt_conv_lk_f32(const void* x, const void* w, const void* b, 
     return (int)cudaGetLastError();
 }
 
-extern "C" int resselt_conv_lk_bf16(const void* x, const void* w, const void* b, void* y, int n, int h, int wd,
-                                    int cin, int cout, int pitch, int k, int act, void* stream) {
+namespace {
+
+template <typename T>
+int launch_h16_any(const void* x, const void* w, const void* b, void* y, int n, int h, int wd, int cin, int cout,
+                   int pitch, int k, int act, void* stream) {
     if (bad_shape(n, h, wd, cin, cout, pitch, k, act)) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch ((cout + 15) / 16) {
-        case 1: return (int)launch_bf16<1>(x, w, b, y, n, h, wd, cin, cout, pitch, k, act, s);
-        case 2: return (int)launch_bf16<2>(x, w, b, y, n, h, wd, cin, cout, pitch, k, act, s);
-        case 3: return (int)launch_bf16<3>(x, w, b, y, n, h, wd, cin, cout, pitch, k, act, s);
-        default: return (int)launch_bf16<4>(x, w, b, y, n, h, wd, cin, cout, pitch, k, act, s);
+        case 1: return (int)launch_h16<T, 1>(x, w, b, y, n, h, wd, cin, cout, pitch, k, act, s);
+        case 2: return (int)launch_h16<T, 2>(x, w, b, y, n, h, wd, cin, cout, pitch, k, act, s);
+        case 3: return (int)launch_h16<T, 3>(x, w, b, y, n, h, wd, cin, cout, pitch, k, act, s);
+        default: return (int)launch_h16<T, 4>(x, w, b, y, n, h, wd, cin, cout, pitch, k, act, s);
     }
+}
+
+}  // namespace
+
+extern "C" int resselt_conv_lk_bf16(const void* x, const void* w, const void* b, void* y, int n, int h, int wd,
+                                    int cin, int cout, int pitch, int k, int act, void* stream) {
+    return launch_h16_any<__nv_bfloat16>(x, w, b, y, n, h, wd, cin, cout, pitch, k, act, stream);
+}
+
+extern "C" int resselt_conv_lk_f16(const void* x, const void* w, const void* b, void* y, int n, int h, int wd,
+                                   int cin, int cout, int pitch, int k, int act, void* stream) {
+    return launch_h16_any<__half>(x, w, b, y, n, h, wd, cin, cout, pitch, k, act, stream);
 }

@@ -12,9 +12,9 @@
 // Every depthwise conv zero-pads its own input, as torch's convs do: q is
 // zero outside the image before the region conv, and r is zero outside the
 // image before the dilated pair.  x and out are contiguous (n, h, w, 64) in
-// f32 or bf16; w is the f32 buffer ops/molrcm.py::pack_molrcm_weights builds
+// f32, bf16 or fp16; w is the f32 buffer ops/molrcm.py::pack_molrcm_weights builds
 // (1x1 weights as torch's [c_out][k], depthwise taps as [dy * K + dx][c];
-// for a bf16 model every value is already bf16-rounded).  Takes any n, h,
+// for a 16-bit model every value is already rounded to its type).  Takes any n, h,
 // w >= 1.
 //
 // What bounds it on an H100: bytes, by the book.  The chain does 20,152 MAC
@@ -37,8 +37,8 @@
 //    Wf f is accumulated group by group in registers (each thread owns 4
 //    pixels x 8 output channels); the tile's x is staged once, transposed,
 //    for the value product.
-//  * bf16: the four products on the tensor cores, mma.sync m16n8k16 with
-//    f32 accumulation.  q is computed for two groups per pass (two n8
+//  * bf16 / fp16 (one template over the 16-bit type E): the four products
+//    on the tensor cores, mma.sync m16n8k16 with f32 accumulation.  q is computed for two groups per pass (two n8
 //    tiles per A fragment, on the larger of their halos), so the halo's x
 //    is read four times, not eight.  The q and value products take their A
 //    fragments straight from global memory, in a channel order permuted
@@ -47,18 +47,20 @@
 //    16-pixel tile row and computes Wf f and Wv x, the gated product and Wo
 //    of it, and writes its row back through shared memory in 16-byte
 //    stores.  f and the gated product are f32 values: each is split into
-//    two bf16 parts (hi + lo) multiplied in turn, so those products lose
-//    nothing beyond f32 rounding (x and the weights are bf16 already).
+//    two 16-bit parts (hi + lo) multiplied in turn, so those products lose
+//    nothing beyond f32 rounding in bf16 and keep 22 bits in fp16 (x and
+//    the weights are 16-bit already).
 // What this design leaves on the table: wgmma instead of mma.sync; a larger
 // tile (32 x 32 halves the halo recompute) needs q and r in less shared
 // memory; gelu (erff) runs on every halo pixel; every stage ends in a
 // block-wide barrier, and with one 512-thread block per SM nothing fills
 // the SM while the slowest warp of a stage finishes.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "half16.cuh"
 
 namespace {
 
@@ -73,7 +75,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int G = 8;     // channels per group
 constexpr int QMAX = T + 22;  // q halo side of the dil-3 groups
 constexpr int RMAX = T + 18;  // r halo side of the dil-3 groups
-constexpr int LDB = DIM + 8;  // bf16 row stride of the [pixel][channel] tiles (conflict-free ldmatrix)
+constexpr int LDB = DIM + 8;  // 16-bit row stride of the [pixel][channel] tiles (conflict-free ldmatrix)
 
 // Packed weights (floats), as ops/molrcm.py::_layout(64) lays them out.
 constexpr int W_Q = 0;
@@ -426,8 +428,9 @@ molrcm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, floa
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the four products on the tensor cores (mma.sync m16n8k16, f32
-// accumulation); the depthwise convs as in the f32 kernel.
+// bf16 / fp16 (template parameter E): the four products on the tensor cores
+// (mma.sync m16n8k16, f32 accumulation); the depthwise convs as in the f32
+// kernel.
 // ---------------------------------------------------------------------------
 
 // The q and value products take their A fragments straight from global x.
@@ -436,12 +439,12 @@ molrcm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, floa
 // 16 t4 + 4 ks + (0, 1) and + (2, 3), so a lane reads one 32-byte run of a
 // pixel.  The weights' B fragments follow the same order (qperm below).
 
-// Shared memory (bytes).  FB and FL hold the hi and lo bf16 parts of the
+// Shared memory (bytes).  FB and FL hold the hi and lo 16-bit parts of the
 // tile's f, then of the gated product; FB then the output, row by row;
-// both are [pixel][LDB] bf16.  The work area holds one pair of groups' q
+// both are [pixel][LDB] 16-bit.  The work area holds one pair of groups' q
 // (two planes of [QMAX * QMAX][8] f32), one group's r and both groups' taps
 // during the loop, then Wf, Wv (in the permuted channel order), Wo as
-// [n][LDB] bf16 and their biases.
+// [n][LDB] 16-bit and their biases.
 constexpr int B_FB = 0;
 constexpr int B_FL = B_FB + TP * LDB * 2;
 constexpr int B_WORK = B_FL + TP * LDB * 2;
@@ -455,17 +458,12 @@ static_assert(B_BIAS + 3 * DIM * 4 <= B_END, "phase-2 weights must fit the work 
 constexpr size_t BF16_SMEM = (size_t)B_END;
 static_assert(BF16_SMEM <= 232448, "a block has at most 227 KB of shared memory");
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// (a, b) as hi + lo bf16 pairs: hi = bf16(v), lo = bf16(v - hi).
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-    const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
-    const float2 back = __bfloat1622float2(h2);
-    hi = *reinterpret_cast<const uint32_t*>(&h2);
-    lo = pack_bf16(a - back.x, b - back.y);
+// (a, b) as hi + lo pairs of the 16-bit type: hi = E(v), lo = E(v - hi).
+template <typename E>
+__device__ __forceinline__ void split_h16(float a, float b, uint32_t& hi, uint32_t& lo) {
+    hi = Half16<E>::pack(a, b);
+    const float2 back = Half16<E>::unpack(hi);
+    lo = Half16<E>::pack(a - back.x, b - back.y);
 }
 
 // The column of a permuted [n][LDB] weight row that holds physical input
@@ -476,36 +474,23 @@ __device__ __forceinline__ int qperm(int k) {
     return ks * 16 + hi * 8 + 2 * t + e;
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-    const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // acc (16 pixels x 64 channels, as 8 n8 tiles) += A B^T for the k16 step
-// ks, B a [n][LDB] bf16 weight in shared memory.
-__device__ __forceinline__ void step_product(float (&acc)[8][4], const uint32_t (&a)[4], const __nv_bfloat16* B,
+// ks, B a [n][LDB] 16-bit weight in shared memory.
+template <typename E>
+__device__ __forceinline__ void step_product(float (&acc)[8][4], const uint32_t (&a)[4], const E* B,
                                              int ks, int lane) {
 #pragma unroll
     for (int np = 0; np < DIM / 16; ++np) {
         uint32_t b[4];
         ldmatrix_x4(b, B + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDB + ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        Half16<E>::mma(acc[2 * np], a, b[0], b[1]);
+        Half16<E>::mma(acc[2 * np + 1], a, b[2], b[3]);
     }
 }
 
 // acc += A B^T, A the rows m0 .. m0 + 15 of a [pixel][LDB] tile.
-__device__ __forceinline__ void row_product(float (&acc)[8][4], const __nv_bfloat16* A, const __nv_bfloat16* B,
+template <typename E>
+__device__ __forceinline__ void row_product(float (&acc)[8][4], const E* A, const E* B,
                                             int m0, int lane) {
 #pragma unroll
     for (int ks = 0; ks < DIM / 16; ++ks) {
@@ -517,7 +502,8 @@ __device__ __forceinline__ void row_product(float (&acc)[8][4], const __nv_bfloa
 
 // acc += X B^T, X the A fragments of 16 pixels' x as load_x32 reads them
 // (rows g8 and g8 + 8), B permuted by qperm.
-__device__ __forceinline__ void x_product(float (&acc)[8][4], const uint32_t (&xv)[2][8], const __nv_bfloat16* B,
+template <typename E>
+__device__ __forceinline__ void x_product(float (&acc)[8][4], const uint32_t (&xv)[2][8], const E* B,
                                           int lane) {
 #pragma unroll
     for (int ks = 0; ks < DIM / 16; ++ks) {
@@ -527,7 +513,8 @@ __device__ __forceinline__ void x_product(float (&acc)[8][4], const uint32_t (&x
 }
 
 // The 32 bytes of a pixel's x that lane t4 owns: channels 16 t4 .. 16 t4 + 15.
-__device__ __forceinline__ void load_x32(const __nv_bfloat16* p, bool valid, uint32_t (&v)[8]) {
+template <typename E>
+__device__ __forceinline__ void load_x32(const E* p, bool valid, uint32_t (&v)[8]) {
     uint4 a = make_uint4(0u, 0u, 0u, 0u), b = a;
     if (valid) {
         a = *reinterpret_cast<const uint4*>(p);
@@ -537,18 +524,20 @@ __device__ __forceinline__ void load_x32(const __nv_bfloat16* p, bool valid, uin
     v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
+template <typename E>
 __global__ void __launch_bounds__(THREADS, 1)
-molrcm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w, __nv_bfloat16* __restrict__ out,
-                   int h, int wd, int tiles_w, int tiles_per_image) {
+molrcm_h16_kernel(const E* __restrict__ x, const float* __restrict__ w, E* __restrict__ out, int h, int wd,
+                  int tiles_w, int tiles_per_image) {
+    using HT = Half16<E>;
     extern __shared__ __align__(16) unsigned char smem8[];
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g8 = lane >> 2, t4 = lane & 3;
     const int img = blockIdx.x / tiles_per_image;
     const int tile = blockIdx.x % tiles_per_image;
     const int oy = (tile / tiles_w) * T, ox = (tile % tiles_w) * T;
-    const __nv_bfloat16* xi = x + (size_t)img * h * wd * DIM;
-    __nv_bfloat16* FB = reinterpret_cast<__nv_bfloat16*>(smem8 + B_FB);
-    __nv_bfloat16* FL = reinterpret_cast<__nv_bfloat16*>(smem8 + B_FL);
+    const E* xi = x + (size_t)img * h * wd * DIM;
+    E* FB = reinterpret_cast<E*>(smem8 + B_FB);
+    E* FL = reinterpret_cast<E*>(smem8 + B_FL);
     float* QG = reinterpret_cast<float*>(smem8 + B_QG);
     float* RG = reinterpret_cast<float*>(smem8 + B_RG);
     const DwSmem dws[2] = {dw_smem(reinterpret_cast<float*>(smem8 + B_DW)),
@@ -573,7 +562,7 @@ molrcm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict_
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
                 const float2 v = *reinterpret_cast<const float2*>(w + W_Q + (c + g8) * DIM + 16 * t4 + 2 * j);
-                wq[nt][j] = pack_bf16(v.x, v.y);
+                wq[nt][j] = HT::pack(v.x, v.y);
             }
             bq[nt][0] = w[B_Q + c + 2 * t4];
             bq[nt][1] = w[B_Q + c + 2 * t4 + 1];
@@ -598,7 +587,7 @@ molrcm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict_
 #pragma unroll
                 for (int ks = 0; ks < 4; ++ks) {
                     const uint32_t a[4] = {xv[0][2 * ks], xv[1][2 * ks], xv[0][2 * ks + 1], xv[1][2 * ks + 1]};
-                    mma_bf16(d, a, wq[nt][2 * ks], wq[nt][2 * ks + 1]);
+                    HT::mma(d, a, wq[nt][2 * ks], wq[nt][2 * ks + 1]);
                 }
 #pragma unroll
                 for (int hr = 0; hr < 2; ++hr) {
@@ -617,20 +606,20 @@ molrcm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict_
             region_conv(QG + half * np * G, eq, rq - s.rq, RG, dws[half], s, oy, ox, h, wd);
             __syncthreads();
             group_f(RG, dws[half], s, [&](int px, int c, float v) {
-                const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+                const E hi = HT::from_float(v);
                 FB[px * LDB + s.c0 + c] = hi;
-                FL[px * LDB + s.c0 + c] = __float2bfloat16_rn(v - __bfloat162float(hi));
+                FL[px * LDB + s.c0 + c] = HT::from_float(v - HT::to_float(hi));
             });
         }
     }
 
     __syncthreads();  // the last group's readers are done with the work area
-    __nv_bfloat16* W3 = reinterpret_cast<__nv_bfloat16*>(smem8 + B_W3);
+    E* W3 = reinterpret_cast<E*>(smem8 + B_W3);
     float* bias = reinterpret_cast<float*>(smem8 + B_BIAS);
     for (int i = tid; i < 3 * DIM * DIM / 2; i += THREADS) {
         const int m = i / (DIM * DIM / 2), e = 2 * (i % (DIM * DIM / 2)), n = e / DIM, k = e % DIM;
         const float2 v = *reinterpret_cast<const float2*>(w + (m == 0 ? W_F : (m == 1 ? W_V : W_O)) + e);
-        *reinterpret_cast<uint32_t*>(W3 + (m * DIM + n) * LDB + (m == 1 ? qperm(k) : k)) = pack_bf16(v.x, v.y);
+        *reinterpret_cast<uint32_t*>(W3 + (m * DIM + n) * LDB + (m == 1 ? qperm(k) : k)) = HT::pack(v.x, v.y);
     }
     if (tid < 3 * DIM) {
         const int m = tid / DIM, n = tid % DIM;
@@ -666,7 +655,7 @@ molrcm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict_
             const float g0 = silu(hacc[nt][2 * hr] + bias[n]) * (vacc[nt][2 * hr] + bias[DIM + n]);
             const float g1 = silu(hacc[nt][2 * hr + 1] + bias[n + 1]) * (vacc[nt][2 * hr + 1] + bias[DIM + n + 1]);
             uint32_t hi, lo;
-            split_bf16(g0, g1, hi, lo);
+            split_h16<E>(g0, g1, hi, lo);
             *reinterpret_cast<uint32_t*>(FB + (m0 + g8 + 8 * hr) * LDB + n) = hi;
             *reinterpret_cast<uint32_t*>(FL + (m0 + g8 + 8 * hr) * LDB + n) = lo;
         }
@@ -685,10 +674,10 @@ molrcm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict_
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr)
             *reinterpret_cast<uint32_t*>(FB + (m0 + g8 + 8 * hr) * LDB + n) =
-                pack_bf16(hacc[nt][2 * hr] + bias[2 * DIM + n], hacc[nt][2 * hr + 1] + bias[2 * DIM + n + 1]);
+                HT::pack(hacc[nt][2 * hr] + bias[2 * DIM + n], hacc[nt][2 * hr + 1] + bias[2 * DIM + n + 1]);
     }
     __syncwarp();
-    __nv_bfloat16* oi = out + (size_t)img * h * wd * DIM;
+    E* oi = out + (size_t)img * h * wd * DIM;
     for (int i = lane; i < 16 * (DIM / 8); i += 32) {
         const int px = i / (DIM / 8), j = i % (DIM / 8);
         const int xx = ox + px;
@@ -731,16 +720,29 @@ extern "C" int resselt_molrcm_f32(const void* x, const void* w, void* out, int n
     return (int)cudaGetLastError();
 }
 
-extern "C" int resselt_molrcm_bf16(const void* x, const void* w, void* out, int n, int h, int wd, void* stream) {
+namespace {
+
+template <typename E>
+int launch_h16(const void* x, const void* w, void* out, int n, int h, int wd, void* stream) {
     int tiles_w, tiles_per_image;
     unsigned blocks;
     if (x == nullptr || w == nullptr || out == nullptr || !grid_of(n, h, wd, tiles_w, tiles_per_image, blocks))
         return (int)cudaErrorInvalidValue;
     cudaError_t err =
-        cudaFuncSetAttribute(molrcm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BF16_SMEM);
+        cudaFuncSetAttribute(molrcm_h16_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BF16_SMEM);
     if (err != cudaSuccess) return (int)err;
-    molrcm_bf16_kernel<<<blocks, THREADS, BF16_SMEM, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w), static_cast<__nv_bfloat16*>(out), h, wd,
-        tiles_w, tiles_per_image);
+    molrcm_h16_kernel<E><<<blocks, THREADS, BF16_SMEM, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const E*>(x), static_cast<const float*>(w), static_cast<E*>(out), h, wd, tiles_w,
+        tiles_per_image);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int resselt_molrcm_bf16(const void* x, const void* w, void* out, int n, int h, int wd, void* stream) {
+    return launch_h16<__nv_bfloat16>(x, w, out, n, h, wd, stream);
+}
+
+extern "C" int resselt_molrcm_f16(const void* x, const void* w, void* out, int n, int h, int wd, void* stream) {
+    return launch_h16<__half>(x, w, out, n, h, wd, stream);
 }

@@ -3,7 +3,7 @@
 Counterpart of ``resselt_tpu/ops/fused_conv.py``'s ``fused_conv3x3_act``,
 ``fused_conv3x3_pack2`` and ``fused_conv_lk``.  On a CUDA tensor each
 launches its hand-written Hopper kernel (``csrc/conv3x3.cu``,
-``csrc/conv_lk.cu``; f32: exact FMA; bf16: tensor cores with f32
+``csrc/conv_lk.cu``; f32: exact FMA; bf16 and fp16: tensor cores with f32
 accumulation; the output has the input's dtype) or raises; on a CPU tensor
 it computes the plain version, ``*_ref`` below.  Each wrapper counts its
 kernel launches in its ``launches`` attribute, and per shape in its
@@ -27,6 +27,7 @@ import torch.nn.functional as TF
 from . import _build
 
 ACTS = {'linear': 0, 'lrelu': 1, 'silu': 2, 'mish': 3}
+_ENTRY_SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16', torch.float16: 'f16'}  # the kernels' C entry points
 
 
 def pack_conv_lk_weight(w_oihw: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -116,7 +117,7 @@ def _kernel_weights(x: torch.Tensor, w: torch.Tensor, k: int, b):
 def _lib() -> ctypes.CDLL:
     lib = _build.load('conv3x3')
     if not getattr(lib, '_resselt_typed', False):
-        for fn in (lib.resselt_conv3x3_f32, lib.resselt_conv3x3_bf16):
+        for fn in (lib.resselt_conv3x3_f32, lib.resselt_conv3x3_bf16, lib.resselt_conv3x3_f16):
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib._resselt_typed = True
@@ -126,8 +127,8 @@ def _lib() -> ctypes.CDLL:
 def _launch(entry, x: torch.Tensor, w: torch.Tensor, b, act: str) -> torch.Tensor:
     """Check the operands, launch the kernel on the current stream and count
     the launch on ``entry``, the wrapper that asked for it."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f'conv3x3 kernel takes float32 or bfloat16 input, got {x.dtype}')
+    if x.dtype not in _ENTRY_SUFFIX:
+        raise TypeError(f'conv3x3 kernel takes float32, bfloat16 or float16 input, got {x.dtype}')
     if x.ndim != 4 or not x.is_contiguous():
         raise ValueError(f'conv3x3 kernel needs a contiguous NHWC tensor, got shape {tuple(x.shape)}')
     if act not in ACTS:
@@ -139,7 +140,7 @@ def _launch(entry, x: torch.Tensor, w: torch.Tensor, b, act: str) -> torch.Tenso
     if y.numel() == 0:
         return y
     lib = _lib()
-    fn = lib.resselt_conv3x3_bf16 if x.dtype == torch.bfloat16 else lib.resselt_conv3x3_f32
+    fn = getattr(lib, 'resselt_conv3x3_' + _ENTRY_SUFFIX[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), taps.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
@@ -155,8 +156,8 @@ def _launch(entry, x: torch.Tensor, w: torch.Tensor, b, act: str) -> torch.Tenso
 def fused_conv3x3_act(x, w, b=None, act: str = 'linear') -> torch.Tensor:
     """Fused same-padded 3x3 conv + bias + activation.
 
-    ``x``: (H, W, Cin) or (N, H, W, Cin), float32 or bfloat16; ``w``: OIHW
-    or packed taps; ``b``: (Cout,) or None; ``act``: linear, lrelu (0.2),
+    ``x``: (H, W, Cin) or (N, H, W, Cin), float32, bfloat16 or float16;
+    ``w``: OIHW or packed taps; ``b``: (Cout,) or None; ``act``: linear, lrelu (0.2),
     silu or mish.  Output: ``x``'s dtype, ``F.conv2d(x, w, b, padding=1)``
     + activation computed with f32 accumulation."""
     squeeze = x.ndim == 3
@@ -221,7 +222,7 @@ def fused_conv_lk_ref(x, w, b=None, k: int = 17, act: str = 'linear') -> torch.T
 def _lk_lib() -> ctypes.CDLL:
     lib = _build.load('conv_lk')
     if not getattr(lib, '_resselt_typed', False):
-        for fn in (lib.resselt_conv_lk_f32, lib.resselt_conv_lk_bf16):
+        for fn in (lib.resselt_conv_lk_f32, lib.resselt_conv_lk_bf16, lib.resselt_conv_lk_f16):
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib._resselt_typed = True
@@ -243,8 +244,8 @@ def _pixel_pitch(x: torch.Tensor) -> int:
 def _launch_lk(x: torch.Tensor, w: torch.Tensor, b, k: int, act: str) -> torch.Tensor:
     """Check the operands, launch the lk kernel on the current stream and
     count the launch."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f'lk kernel takes float32 or bfloat16 input, got {x.dtype}')
+    if x.dtype not in _ENTRY_SUFFIX:
+        raise TypeError(f'lk kernel takes float32, bfloat16 or float16 input, got {x.dtype}')
     n, h, wd, cin = x.shape
     pitch = _pixel_pitch(x)
     taps, b = _kernel_weights(x, w, k, b)
@@ -253,7 +254,7 @@ def _launch_lk(x: torch.Tensor, w: torch.Tensor, b, k: int, act: str) -> torch.T
     if y.numel() == 0:
         return y
     lib = _lk_lib()
-    fn = lib.resselt_conv_lk_bf16 if x.dtype == torch.bfloat16 else lib.resselt_conv_lk_f32
+    fn = getattr(lib, 'resselt_conv_lk_' + _ENTRY_SUFFIX[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), taps.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
@@ -270,7 +271,7 @@ def fused_conv_lk(x, w, b=None, k: int = 17, act: str = 'linear') -> torch.Tenso
     """Fused same-padded k x k conv + bias + activation for few-channel
     slabs (PLKSR's partial large-kernel conv).
 
-    ``x``: (H, W, Cin) or (N, H, W, Cin), float32 or bfloat16; a channel
+    ``x``: (H, W, Cin) or (N, H, W, Cin), float32, bfloat16 or float16; a channel
     slice ``t[..., a:a + Cin]`` of a contiguous NHWC tensor is read in
     place.  ``w``: OIHW ``(Cout, Cin, k, k)`` or packed taps; ``b``:
     (Cout,) or None; ``act``: linear or lrelu (0.2).  Shapes outside

@@ -11,8 +11,8 @@ the rest ``c3``, it computes
 in f32, with every depthwise conv zero-padding its own input, and returns
 it in ``x``'s dtype.  On a CUDA tensor :func:`fused_molrcm` launches the
 hand-written Hopper kernel ``csrc/molrcm.cu`` (dim 64 only; f32 FMA in f32,
-the four products on the tensor cores in bf16) or raises; on a CPU tensor it computes the plain version
-:func:`fused_molrcm_ref`.  Both read the weights from the one f32 buffer
+the four products on the tensor cores in bf16 and fp16) or raises; on a CPU
+tensor it computes the plain version :func:`fused_molrcm_ref`.  Both read the weights from the one f32 buffer
 :func:`pack_molrcm_weights` builds.  The wrapper counts its kernel launches
 in ``fused_molrcm.launches``, and per shape in the ``fused_molrcm.by_shape``
 Counter under ``(n, h, w, dim, dtype name)``.
@@ -123,7 +123,7 @@ def fused_molrcm_ref(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load('molrcm')
     if not getattr(lib, '_resselt_typed', False):
-        for fn in (lib.resselt_molrcm_f32, lib.resselt_molrcm_bf16):
+        for fn in (lib.resselt_molrcm_f32, lib.resselt_molrcm_bf16, lib.resselt_molrcm_f16):
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.resselt_molrcm_weights.restype = ctypes.c_int
@@ -137,8 +137,8 @@ def _launch(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     """Check the operands, launch the kernel on the current stream and count
     the launch."""
     n, h, w, dim = x.shape
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f'MOLRCM kernel takes float32 or bfloat16, got {x.dtype}')
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f'MOLRCM kernel takes float32, bfloat16 or float16, got {x.dtype}')
     if dim != MOLRCM_DIM:
         raise ValueError(f'MOLRCM kernel takes dim {MOLRCM_DIM}, got {dim}')
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -149,7 +149,8 @@ def _launch(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     lib = _lib()
-    fn = lib.resselt_molrcm_bf16 if x.dtype == torch.bfloat16 else lib.resselt_molrcm_f32
+    fn = {torch.float32: lib.resselt_molrcm_f32, torch.bfloat16: lib.resselt_molrcm_bf16,
+          torch.float16: lib.resselt_molrcm_f16}[x.dtype]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), packed.data_ptr(), out.data_ptr(), n, h, w, stream)

@@ -41,8 +41,8 @@ def _lib() -> ctypes.CDLL:
 def _launch(src, idx) -> torch.Tensor:
     """Check the operands, launch the kernel on the current stream and count
     the launch."""
-    if src.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f'row gather kernel takes float32 or bfloat16 rows, got {src.dtype}')
+    if src.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f'row gather kernel takes float32, bfloat16 or float16 rows, got {src.dtype}')
     if idx.device != src.device:
         raise ValueError(f'src and idx must share a device, got {src.device} and {idx.device}')
     rows_src, width = src.shape
@@ -71,7 +71,7 @@ def _launch(src, idx) -> torch.Tensor:
 
 
 def row_gather(src, idx) -> torch.Tensor:
-    """Rows of ``src`` (R, C), float32 or bfloat16, picked by ``idx`` (R',),
+    """Rows of ``src`` (R, C), float32, bfloat16 or float16, picked by ``idx`` (R',),
     int32 or int64 with values in [0, R): a contiguous (R', C) tensor,
     ``out[j] = src[idx[j]]``.  An index may repeat.  On the card an index
     outside [0, R) stops the kernel with a device-side trap."""

@@ -7,9 +7,11 @@ Counterpart of ``resselt_tpu/ops/window_attention.py``'s
 
 with the scores, bias, mask and softmax in f32 and the output in the
 input's dtype.  On a CUDA tensor :func:`window_mha` launches the
-hand-written Hopper kernel ``csrc/window_attn.cu`` (f32: exact FMA; bf16:
-tensor cores with f32 accumulation and an online softmax) or raises; on a
-CPU tensor it computes the plain version :func:`window_mha_ref`.  The
+hand-written Hopper kernel ``csrc/window_attn.cu`` (f32: exact FMA; bf16 and
+fp16: tensor cores with f32 accumulation and an online softmax, persistent
+blocks that keep their bias rows in shared memory and skip all-zero mask
+windows) or raises; on a CPU tensor it computes the plain version
+:func:`window_mha_ref`.  The
 wrapper counts its kernel launches in ``window_mha.launches``, and per
 shape in the ``window_mha.by_shape`` Counter under ``(windows, n, c,
 heads, masked)``.
@@ -22,6 +24,8 @@ the kernel reads them in place through their token pitch.
 from __future__ import annotations
 
 import ctypes
+import math
+import weakref
 from collections import Counter
 
 import torch
@@ -60,12 +64,32 @@ def window_mha_ref(q, k, v, bias, mask=None, *, num_heads: int, scale: float) ->
     return o.transpose(1, 2).reshape(b, n, c).to(q.dtype)
 
 
+_mask_flags: dict[int, tuple] = {}  # id(mask) -> (weak reference to the mask, its version, flags)
+
+
+def mask_window_flags(mask: torch.Tensor) -> torch.Tensor:
+    """One uint8 per window of an additive ``(nW, N, N)`` mask: 1 where the
+    window's tile holds a non-zero value, 0 where it is all zero (adding
+    0.0 is exact, so the kernel skips such a tile).  Computed once per mask
+    tensor and kept while the tensor lives; a mask written in place since
+    is scanned again."""
+    key = id(mask)
+    cached = _mask_flags.get(key)
+    if cached is not None and cached[0]() is mask and cached[1] == mask._version:
+        return cached[2]
+    flags = (mask != 0).flatten(1).any(1).to(torch.uint8).contiguous()
+    _mask_flags[key] = (weakref.ref(mask, lambda _, key=key: _mask_flags.pop(key, None)), mask._version, flags)
+    return flags
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load('window_attn')
     if not getattr(lib, '_resselt_typed', False):
-        for fn in (lib.resselt_window_attn_f32, lib.resselt_window_attn_bf16):
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
-                           + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        tail = [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        lib.resselt_window_attn_f32.argtypes = [ctypes.c_void_p] * 6 + tail
+        for fn in (lib.resselt_window_attn_bf16, lib.resselt_window_attn_f16):
+            fn.argtypes = [ctypes.c_void_p] * 7 + tail  # + the mask-window flags
+        for fn in (lib.resselt_window_attn_f32, lib.resselt_window_attn_bf16, lib.resselt_window_attn_f16):
             fn.restype = ctypes.c_int
         lib._resselt_typed = True
     return lib
@@ -88,10 +112,17 @@ def _token_strides(q, k, v) -> tuple[int, int]:
 def _launch(q, k, v, bias, mask, num_heads: int, scale: float) -> torch.Tensor:
     """Check the operands, launch the kernel on the current stream and count
     the launch."""
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f'window attention kernel takes float32 or bfloat16, got {q.dtype}')
+    if q.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f'window attention kernel takes float32, bfloat16 or float16, got {q.dtype}')
     if k.dtype != q.dtype or v.dtype != q.dtype or k.device != q.device or v.device != q.device:
         raise ValueError('q, k and v must share dtype and device')
+    if not math.isfinite(scale):
+        raise ValueError(f'window attention needs a finite scale, got {scale}')
+    if q.dtype != torch.float32 and scale <= 0:
+        # the 16-bit kernel takes scale > 0; (-q) k^T (-scale) and 0 k^T are the same scores, exactly.
+        # The stand-in keeps q's strides, which k and v share
+        stand_in = torch.empty_strided(q.shape, q.stride(), dtype=q.dtype, device=q.device)
+        q, scale = (stand_in.copy_(-q), -scale) if scale < 0 else (stand_in.zero_(), 1.0)
     b, n, c = q.shape
     sw, st = _token_strides(q, k, v)
     bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
@@ -103,12 +134,16 @@ def _launch(q, k, v, bias, mask, num_heads: int, scale: float) -> torch.Tensor:
     if b == 0:
         return out
     lib = _lib()
-    fn = lib.resselt_window_attn_bf16 if q.dtype == torch.bfloat16 else lib.resselt_window_attn_f32
+    operands = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None if mask is None else mask.data_ptr()]
+    if q.dtype == torch.float32:
+        fn = lib.resselt_window_attn_f32
+    else:
+        fn = lib.resselt_window_attn_bf16 if q.dtype == torch.bfloat16 else lib.resselt_window_attn_f16
+        flags = None if mask is None else mask_window_flags(mask)  # alive until the launch below
+        operands.append(None if flags is None else flags.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                None if mask is None else mask.data_ptr(), out.data_ptr(),
-                b, n, num_heads, c // num_heads, st, sw, nw, float(scale), stream)
+        rc = fn(*operands, out.data_ptr(), b, n, num_heads, c // num_heads, st, sw, nw, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f'window attention kernel launch failed: CUDA error {rc} '
                            f'(q {tuple(q.shape)} {q.dtype}, heads {num_heads}, mask windows {nw})')
@@ -120,8 +155,8 @@ def _launch(q, k, v, bias, mask, num_heads: int, scale: float) -> torch.Tensor:
 def window_mha(q, k, v, bias, mask=None, *, num_heads: int, scale: float) -> torch.Tensor:
     """Fused window multi-head attention.
 
-    ``q``, ``k``, ``v``: (B, N, C), B = batch x nW windows, float32 or
-    bfloat16; ``bias``: (heads, N, N) additive (read in f32); ``mask``:
+    ``q``, ``k``, ``v``: (B, N, C), B = batch x nW windows, float32,
+    bfloat16 or float16; ``bias``: (heads, N, N) additive (read in f32); ``mask``:
     (nW, N, N) additive shift mask with B a multiple of nW, or None.
     Shapes outside :func:`window_mha_supported` raise ValueError.  Returns
     a contiguous (B, N, C) tensor in q's dtype."""

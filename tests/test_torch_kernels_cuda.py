@@ -9,9 +9,9 @@ JAX is absent:
     python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest
 
 f32 is held to 1e-4 against the plain version with TF32 off (exact f32
-FMA); bf16 to 2e-2 relative against the plain version in f32 from the same
-bf16 inputs (the output's bf16 rounding); the window attention in bf16
-also to 1e-2 absolute, since P is rounded to bf16 before P V.  The MOLRCM
+FMA); bf16 and fp16 to 2e-2 relative against the plain version in f32 from
+the same 16-bit inputs (the output's rounding); the window attention in
+bf16 and fp16 also to 1e-2 absolute, since P is rounded before P V.  The MOLRCM
 kernel is held in f32 to 1.5e-3 x max|plain| (tests/test_pallas_ops.py's
 tolerance for the JAX kernel).  The row gather is held to exact equality.
 """
@@ -42,11 +42,16 @@ def cuda(monkeypatch):
     return torch.device('cuda')
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize('act', ['linear', 'lrelu', 'silu', 'mish'])
 @pytest.mark.parametrize('n,h,w,cin,cout', [(2, 37, 29, 64, 192), (1, 16, 16, 3, 64), (3, 20, 70, 32, 160),
                                             (1, 33, 17, 64, 3), (2, 9, 40, 12, 64), (1, 5, 5, 48, 96),
-                                            (1, 1, 1, 64, 64), (1, 7, 3, 256, 320)])
+                                            (1, 1, 1, 64, 64), (1, 7, 3, 256, 320),
+                                            # the wgmma path's other N tiles (8, 16, 32, 48, 80), a split with a
+                                            # ragged last slice, odd Cout through the 2-byte stores
+                                            (2, 19, 35, 64, 8), (1, 40, 23, 32, 16), (1, 17, 50, 16, 24),
+                                            (2, 31, 18, 48, 48), (1, 25, 33, 32, 128), (1, 21, 37, 64, 100),
+                                            (1, 18, 20, 32, 7), (3, 64, 64, 64, 64)])
 def test_kernel_matches_plain(cuda, dtype, act, n, h, w, cin, cout):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn((n, h, w, cin), generator=g, device=cuda).to(dtype)
@@ -66,7 +71,7 @@ def test_kernel_matches_plain(cuda, dtype, act, n, h, w, cin, cout):
         torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=1e-3)
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
 def test_pack2_and_no_bias(cuda, dtype):
     x = torch.randn((2, 24, 30, 64), device=cuda).to(dtype)
     wt = torch.randn((48, 64, 3, 3), device=cuda) / 24
@@ -82,7 +87,7 @@ def test_pack2_and_no_bias(cuda, dtype):
 def test_kernel_refuses_what_it_does_not_take(cuda):
     taps = fc.pack_conv3x3_weight(torch.zeros((8, 8, 3, 3), device=cuda))
     with pytest.raises(TypeError):
-        fc.fused_conv3x3_act(torch.zeros((1, 4, 4, 8), device=cuda, dtype=torch.float16), taps.half())
+        fc.fused_conv3x3_act(torch.zeros((1, 4, 4, 8), device=cuda, dtype=torch.float64), taps.double())
     with pytest.raises(ValueError):  # not contiguous
         fc.fused_conv3x3_act(torch.zeros((1, 4, 8, 4), device=cuda).transpose(2, 3), taps)
     with pytest.raises(ValueError):  # packed weight in another dtype
@@ -145,7 +150,7 @@ def _lk_check(cuda, dtype, n, h, w, cin, cout, k, act, bias=True, pitch=None, c0
         torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=1e-3)
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize('act', ['linear', 'lrelu'])
 @pytest.mark.parametrize('k', [5, 13, 17, 31])
 @pytest.mark.parametrize('cin,cout', [(8, 8), (16, 16), (16, 5), (32, 24), (64, 64), (64, 40)])
@@ -153,13 +158,13 @@ def test_lk_kernel_matches_plain(cuda, dtype, act, k, cin, cout):
     _lk_check(cuda, dtype, 2, 37, 45, cin, cout, k, act)
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize('n,h,w', [(1, 1, 1), (1, 1, 19), (3, 7, 2), (1, 19, 200), (2, 33, 17), (1, 64, 127)])
 def test_lk_kernel_odd_and_tiny_images(cuda, dtype, n, h, w):
     _lk_check(cuda, dtype, n, h, w, 16, 16, 17, 'linear')
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize('pitch,c0', [(64, 0), (20, 0), (64, 48), (24, 3)])
 def test_lk_kernel_reads_a_channel_slice_in_place(cuda, dtype, pitch, c0):
     """x[..., c0:c0 + 16] of a wider tensor; c0 = 0 is PLKSR's partial
@@ -167,14 +172,15 @@ def test_lk_kernel_reads_a_channel_slice_in_place(cuda, dtype, pitch, c0):
     _lk_check(cuda, dtype, 2, 30, 41, 16, 16, 17, 'lrelu', pitch=pitch, c0=c0)
 
 
-def test_lk_kernel_no_bias(cuda):
-    _lk_check(cuda, torch.bfloat16, 1, 20, 24, 32, 32, 9, 'linear', bias=False)
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+def test_lk_kernel_no_bias(cuda, dtype):
+    _lk_check(cuda, dtype, 1, 20, 24, 32, 32, 9, 'linear', bias=False)
 
 
 def test_lk_kernel_refuses_what_it_does_not_take(cuda):
     taps = fc.pack_conv_lk_weight(torch.zeros((16, 16, 17, 17), device=cuda))
     with pytest.raises(TypeError):
-        fc.fused_conv_lk(torch.zeros((1, 8, 8, 16), device=cuda, dtype=torch.float16), taps.half())
+        fc.fused_conv_lk(torch.zeros((1, 8, 8, 16), device=cuda, dtype=torch.float64), taps.double())
     with pytest.raises(ValueError):  # pixels not at one pitch
         fc.fused_conv_lk(torch.zeros((1, 8, 16, 16), device=cuda).transpose(1, 2), taps)
     with pytest.raises(ValueError):  # packed weight in another dtype
@@ -253,7 +259,7 @@ def _wattn_check(cuda, dtype, windows, n, c, heads, nw=None, qkv=True, seed=0):
         torch.testing.assert_close(got.float(), want, rtol=WATTN_BF16_TOL[0], atol=WATTN_BF16_TOL[1])
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize('windows,n,c,heads,nw', [
     (64, 64, 180, 6, 16), (64, 64, 180, 6, None),  # SwinIR-M / HAT-L / SwinIR-L
     (32, 64, 60, 6, 8),                             # SwinIR-light
@@ -267,16 +273,60 @@ def test_window_kernel_matches_plain(cuda, dtype, windows, n, c, heads, nw):
     _wattn_check(cuda, dtype, windows, n, c, heads, nw)
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
 def test_window_kernel_contiguous_inputs(cuda, dtype):
     _wattn_check(cuda, dtype, 16, 64, 96, 4, 4, qkv=False)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('scale', [-0.25, 0.0])
+def test_window_kernel_nonpositive_scale(cuda, dtype, scale):
+    """The 16-bit kernel works on scores over scale; the wrapper hands it an
+    equivalent problem with a positive scale."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn((12, 64, 3 * 96), generator=g, device=cuda).to(dtype)
+    q, k, v = qkv[..., :96], qkv[..., 96:192], qkv[..., 192:]
+    bias = torch.randn((4, 64, 64), generator=g, device=cuda) * 0.5
+    got = wa.window_mha(q, k, v, bias, None, num_heads=4, scale=scale)
+    want = wa.window_mha_ref(q.float(), k.float(), v.float(), bias, None, num_heads=4, scale=scale)
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else WATTN_BF16_TOL
+    torch.testing.assert_close(got.float(), want, rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('kind', ['shift', 'zero', 'one_window'])
+@pytest.mark.parametrize('ws,c,heads', [(8, 180, 6), (16, 144, 6), (16, 48, 4), (7, 60, 6)])
+def test_window_kernel_skips_zero_mask_windows(cuda, dtype, kind, ws, c, heads):
+    """The model's own shift mask (only the last row and column of windows
+    are non-zero), an all-zero mask, and a mask with one non-zero window:
+    the 16-bit kernel skips the all-zero tiles and gives what the plain
+    version gives with the whole mask."""
+    from resselt_tpu_torch.nn.window import swin_attn_mask
+
+    side, n = 4, ws * ws
+    mask = torch.from_numpy(swin_attn_mask(side * ws, side * ws, ws, ws // 2)).to(cuda)
+    if kind == 'zero':
+        mask = torch.zeros_like(mask)
+    elif kind == 'one_window':
+        mask = torch.zeros_like(mask)
+        mask[5] = torch.where(torch.rand((n, n), device=cuda) < 0.5, -100.0, 0.0)
+    assert int(wa.mask_window_flags(mask).sum()) == {'shift': 2 * side - 1, 'zero': 0, 'one_window': 1}[kind]
+    g = torch.Generator(device=cuda).manual_seed(ws)
+    qkv = torch.randn((3 * side * side, n, 3 * c), generator=g, device=cuda).to(dtype)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    bias = torch.randn((heads, n, n), generator=g, device=cuda) * 0.5
+    scale = (c // heads) ** -0.5
+    got = wa.window_mha(q, k, v, bias, mask, num_heads=heads, scale=scale)
+    want = wa.window_mha_ref(q.float(), k.float(), v.float(), bias, mask, num_heads=heads, scale=scale)
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else WATTN_BF16_TOL
+    torch.testing.assert_close(got.float(), want, rtol=tol[0], atol=tol[1])
 
 
 def test_window_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((4, 64, 32), device=cuda)
     bias = torch.zeros((4, 64, 64), device=cuda)
     with pytest.raises(TypeError):
-        wa.window_mha(q.half(), q.half(), q.half(), bias, num_heads=4, scale=1.0)
+        wa.window_mha(q.double(), q.double(), q.double(), bias, num_heads=4, scale=1.0)
     with pytest.raises(ValueError):  # channels not next to each other
         t = torch.zeros((4, 32, 64), device=cuda).transpose(1, 2)
         wa.window_mha(t, t, t, bias, num_heads=4, scale=1.0)
@@ -352,21 +402,22 @@ def _molrcm_check(cuda, dtype, n, h, w, bias=True, seed=0):
         torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=1e-3)
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize('n,h,w', [(2, 37, 45), (1, 16, 128), (1, 1, 1), (3, 7, 2), (2, 33, 17), (1, 64, 64),
                                    (1, 48, 64), (1, 5, 300)])
 def test_molrcm_kernel_matches_plain(cuda, dtype, n, h, w):
     _molrcm_check(cuda, dtype, n, h, w)
 
 
-def test_molrcm_kernel_no_bias(cuda):
-    _molrcm_check(cuda, torch.bfloat16, 2, 20, 24, bias=False, seed=3)
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+def test_molrcm_kernel_no_bias(cuda, dtype):
+    _molrcm_check(cuda, dtype, 2, 20, 24, bias=False, seed=3)
 
 
 def test_molrcm_kernel_refuses_what_it_does_not_take(cuda):
     packed = mo.pack_molrcm_weights(_molrcm_params(cuda))
     with pytest.raises(TypeError):
-        mo.fused_molrcm(torch.zeros((1, 8, 8, 64), device=cuda, dtype=torch.float16), packed)
+        mo.fused_molrcm(torch.zeros((1, 8, 8, 64), device=cuda, dtype=torch.float64), packed)
     with pytest.raises(ValueError):  # not contiguous
         mo.fused_molrcm(torch.zeros((1, 8, 64, 8), device=cuda).transpose(2, 3), packed)
     with pytest.raises(ValueError):  # packed weights on the CPU
@@ -423,7 +474,7 @@ def _gather_check(cuda, dtype, idx_dtype, rows_src, rows_out, width, pitch=None,
     assert torch.equal(got, row_gather_ref(src, idx))
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize('idx_dtype', [torch.int64, torch.int32])
 @pytest.mark.parametrize('rows_src,rows_out,width', [
     (4096, 4096, 144), (4096, 4096, 48),        # ATD-light: 16-byte vectors
@@ -434,7 +485,7 @@ def test_row_gather_kernel_is_exact(cuda, dtype, idx_dtype, rows_src, rows_out, 
     _gather_check(cuda, dtype, idx_dtype, rows_src, rows_out, width)
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize('width,pitch,offset', [(48, 144, 48), (48, 144, 1), (47, 144, 1), (16, 40, 8), (5, 9, 2)])
 def test_row_gather_kernel_reads_a_column_slice_in_place(cuda, dtype, width, pitch, offset):
     _gather_check(cuda, dtype, torch.int64, 3000, 2500, width, pitch=pitch, offset=offset)
@@ -453,7 +504,7 @@ def test_row_gather_kernel_refuses_what_it_does_not_take(cuda):
     src = torch.zeros((8, 6), device=cuda)
     idx = torch.zeros((3,), dtype=torch.int64, device=cuda)
     with pytest.raises(TypeError):
-        row_gather(src.half(), idx)
+        row_gather(src.double(), idx)
     with pytest.raises(ValueError):  # elements of a row not next to each other
         row_gather(torch.zeros((6, 8), device=cuda).t(), idx)
     with pytest.raises(ValueError):  # indices on another device
@@ -520,3 +571,34 @@ def test_hat_tiled_on_card_matches_cpu(cuda):
     got = upscale_tiled(gpu, img, tile=32)
     assert got.device.type == 'cuda'
     np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=2e-3)
+
+
+
+# -- float16 and precision through the six families -------------------------------------
+
+
+_FAMILIES = {
+    'esrgan': lambda: make_esrgan(16, 2, 4, gc=8, seed=3),
+    'plksr': lambda: make_plksr(32, 2, 4, kernel_size=17, seed=3),
+    'swinir': lambda: make_swinir(36, (2, 2), (6, 3), 8, upscale=2, img_size=32, seed=3),
+    'eimn': lambda: make_eimn(64, 2, 1, 2.66, 4, seed=3),
+    'atd': lambda: make_atd(24, (2, 2), (3, 3), 8, reducted_dim=4, upscale=2, seed=3),
+    'hat': lambda: make_hat(36, (2, 2), (6, 3), 8, 0.5, 3, 6, 2.0, 2, seed=3),
+}
+
+
+@pytest.mark.parametrize('family', sorted(_FAMILIES))
+def test_model_serves_float16_and_every_precision_on_the_card(cuda, family):
+    """fp16, bf16 and precision='bfloat16' stay within 35 dB of f32
+    (tests/test_parallel.py's floor for a 16-bit run)."""
+    gpu = resselt_tpu_torch.load_from_state_dict(_FAMILIES[family](), device='cuda')
+    x = np.random.default_rng(0).random((2, 21, 26, 3), dtype=np.float32)
+    f32 = gpu(x)
+    for kwargs in ({'dtype': torch.float16}, {'dtype': 'bfloat16'}, {'precision': 'bfloat16'},
+                   {'precision': 'tensorfloat32'}):
+        got = gpu(x, **kwargs)
+        assert got.shape == f32.shape and bool(torch.isfinite(got).all())
+        psnr = 10 * torch.log10(1.0 / ((got.float() - f32) ** 2).mean().clamp_min(1e-12))
+        assert float(psnr) >= 35.0, f'{family} {kwargs}: {float(psnr):.2f} dB'
+    with pytest.raises(ValueError):
+        gpu(x, precision='fastest')
