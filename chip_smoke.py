@@ -19,11 +19,13 @@ image, then the upscale CLI on a PNG; the launch counts start from 0 just
 before it, the bench forwards must launch 351 convs each, all at shapes the
 kernels phase checked, and each shape's launches per forward are read from
 those forwards' counts).  Then PLKSR the same way: lk_kernels (every
-large-kernel conv shape of the PLKSR path and the kernel's other shape
-classes, against the plain version in f32 and bf16, with times), plksr_load
-(PLKSR dim 64, 28 blocks, k 17, 4x), plksr_model (28 lk launches per
-forward, card against CPU, bf16 against f32; RealPLKSR with DySample card
-against CPU), plksr_serve (28 lk launches per bench forward).  Then
+large-kernel conv shape of the PLKSR path and the edges of the kernel's
+three 16-bit paths, stacked, tiles and mma, each bf16 launch counted on
+the path the wrapper plans for it; against the plain version in f32, bf16
+and fp16, with times), plksr_load (PLKSR dim 64, 28 blocks, k 17, 4x),
+plksr_model (28 lk launches per forward, card against CPU, bf16 against
+f32; RealPLKSR with DySample card against CPU), plksr_serve (28 lk launches
+per bench forward, every one on the stacked path).  Then
 SwinIR-M the same way: wattn_kernels (every window-attention shape of
 the SwinIR path and the kernel's other shape classes, against the plain
 version, with kernel / plain / library (PyTorch's
@@ -37,13 +39,14 @@ CPU, bf16 against f32; the real-world nearest+conv variant at 2 x 2
 blocks card against CPU), swinir_serve (36 launches per bench forward,
 and every shape of the phase checked by wattn_kernels).  Then EIMN_L
 the same way: molrcm_kernels (every MOLRCM shape of the EIMN path: the
-bench, the tiled window, the CLI's and the model phase's images, and an
-edge shape that is not a multiple of the kernel's 16-pixel tile; against
-the plain version in f32 and bf16, with kernel / plain / eager-chain /
-bound times), eimn_load (the reference's eimn() defaults: embed 64, 16
-stages of one block, mlp ratio 2.66, 4x), eimn_model (16 fused_molrcm
-launches per forward, card against CPU, bf16 against f32), eimn_serve (16
-launches per bench forward, every shape of the phase checked by
+bench, the tiled window, the CLI's and the model phase's images, and the
+edges of the 16-bit kernel's 16-column strips and runs of rows, one
+without biases; against the plain version in f32, bf16 and fp16, with
+kernel / plain / eager-chain / bound times), eimn_load (the reference's
+eimn() defaults: embed 64, 16 stages of one block, mlp ratio 2.66, 4x),
+eimn_model (16 fused_molrcm launches per forward, card against CPU, bf16
+against f32), eimn_serve (16 launches per bench forward, all of them bf16
+launches of the strip kernel, every shape of the phase checked by
 molrcm_kernels; tiled at the defaults for a model without hints, tile
 256, halo 16).  Then ATD-light and HAT-S, the two transformers with 256-token
 windows: gather_kernels (every row-gather shape of the ATD path: the bench
@@ -255,22 +258,35 @@ def phase_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
 def lk_shapes(n: int, tile: int, pdim: int, k: int) -> list[dict]:
     """Every large-kernel conv shape of the PLKSR path (the bench forwards,
     the tiled 720p windows, the CLI's and the model phase's whole images),
-    plus the kernel's other shape classes.  ``pitch`` is the input's pixel
-    pitch: the path hands the kernel a channel slice of the 64-wide
-    features."""
+    plus the kernel's other shape classes: Cin 8 / 16 / 32 / 64, Cout 8 /
+    16 / 32 / 64, k 3 / 13 / 17 / 31, ragged sizes, both activations, one
+    row without bias.  ``pitch`` and ``offset`` are the input's pixel pitch
+    and first channel: the path hands the kernel a channel slice of the
+    64-wide features.  ``path`` is the 16-bit path csrc/conv_lk.cu's plan
+    gives the shape (stacked, tiles, mma)."""
     window = tile + 2 * 4  # the loader's serving halo
     rows = [
-        ('bench 16->16', n, tile, tile, pdim, pdim, k, 'linear', 4 * pdim),
-        ('tiled window 16->16', 8, window, window, pdim, pdim, k, 'linear', 4 * pdim),
-        ('cli 16->16 narrow', 1, 48, 64, pdim, pdim, k, 'linear', 4 * pdim),
-        ('model 16->16 narrow', 1, 64, 64, pdim, pdim, k, 'linear', 4 * pdim),
-        ('k13 16->16', n, tile, tile, 16, 16, 13, 'linear', 16),
-        ('k17 32->32', n, tile, tile, 32, 32, 17, 'linear', 32),
-        ('k17 64->64', n, tile, tile, 64, 64, 17, 'linear', 64),
-        ('k17 16->8 lrelu', n, tile, tile, 16, 8, 17, 'lrelu', 16),
-        ('unaligned 1x19x200', 1, 19, 200, 16, 16, 17, 'linear', 16),
+        ('bench 16->16', n, tile, tile, pdim, pdim, k, 'linear', 4 * pdim, 0, True, 'stacked'),
+        ('tiled window 16->16', 8, window, window, pdim, pdim, k, 'linear', 4 * pdim, 0, True, 'stacked'),
+        ('cli 16->16 narrow', 1, 48, 64, pdim, pdim, k, 'linear', 4 * pdim, 0, True, 'stacked'),
+        ('model 16->16 narrow', 1, 64, 64, pdim, pdim, k, 'linear', 4 * pdim, 0, True, 'stacked'),
+        ('k13 16->16', n, tile, tile, 16, 16, 13, 'linear', 16, 0, True, 'stacked'),
+        ('k17 32->32', n, tile, tile, 32, 32, 17, 'linear', 32, 0, True, 'mma'),
+        ('k17 64->64', n, tile, tile, 64, 64, 17, 'linear', 64, 0, True, 'tiles'),
+        ('k17 16->8 lrelu', n, tile, tile, 16, 8, 17, 'lrelu', 16, 0, True, 'stacked'),
+        ('unaligned 1x19x200', 1, 19, 200, 16, 16, 17, 'linear', 16, 0, True, 'stacked'),
+        # the edges of the three paths: ragged H and W (1, 15, 17, 257), Cout below a tile's
+        # width, a slice at a channel offset (16-byte aligned: the wgmma paths; not: mma)
+        ('edge k3 8->8 lrelu', 3, 15, 17, 8, 8, 3, 'lrelu', 8, 0, True, 'mma'),
+        ('edge k17 16->16 slice at 16', 1, 17, 257, 16, 16, 17, 'lrelu', 64, 16, True, 'stacked'),
+        ('edge k17 16->16 slice at 3', 2, 33, 17, 16, 16, 17, 'linear', 24, 3, True, 'mma'),
+        ('edge k13 16->5 no bias', 1, 1, 300, 16, 5, 13, 'linear', 16, 0, False, 'stacked'),
+        ('edge k31 16->16', 1, 40, 70, 16, 16, 31, 'lrelu', 16, 0, True, 'tiles'),
+        ('edge k13 32->24 lrelu', 2, 37, 45, 32, 24, 13, 'lrelu', 48, 16, True, 'mma'),
+        ('edge k3 64->64', 1, 300, 15, 64, 64, 3, 'linear', 64, 0, True, 'tiles'),
+        ('edge k31 64->40', 1, 21, 23, 64, 40, 31, 'linear', 64, 0, True, 'mma'),
     ]
-    keys = ('name', 'n', 'h', 'w', 'cin', 'cout', 'k', 'act', 'pitch')
+    keys = ('name', 'n', 'h', 'w', 'cin', 'cout', 'k', 'act', 'pitch', 'offset', 'bias', 'path')
     return [dict(zip(keys, r)) for r in rows]
 
 
@@ -295,7 +311,8 @@ def lk_bound_ms(s: dict, dtype_name: str) -> tuple[float, str]:
 
 def phase_lk_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
     """Each shape: the lk kernel against its plain version in f32 (TF32 off),
-    in bf16 and in fp16 (plain version in f32 from the same 16-bit inputs), then
+    in bf16 and in fp16 (plain version in f32 from the same 16-bit inputs),
+    the bf16 launch counted on the shape's ``path``; then
     kernel / plain / library / bound times in bf16; f32 times too at the
     bench shape."""
     import torch
@@ -307,11 +324,11 @@ def phase_lk_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
     gen = torch.Generator(device=device).manual_seed(0)
     out = []
     for s in shapes:
-        k, act = s['k'], s['act']
+        k, act, cin, off = s['k'], s['act'], s['cin'], s['offset']
         wide = torch.randn((s['n'], s['h'], s['w'], s['pitch']), generator=gen, device=device)
-        x = wide[..., :s['cin']]
+        x = wide[..., off:off + cin]
         w = torch.randn((s['cout'], s['cin'], k, k), generator=gen, device=device) / (k * s['cin'] ** 0.5)
-        b = torch.randn((s['cout'],), generator=gen, device=device)
+        b = torch.randn((s['cout'],), generator=gen, device=device) if s['bias'] else None
 
         taps32 = fc.pack_conv_lk_weight(w, torch.float32)
         got = fc.fused_conv_lk(x, taps32, b, k=k, act=act)
@@ -319,13 +336,17 @@ def phase_lk_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
         err32 = (got - want).abs().max().item()
         torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
 
-        xb = wide.to(torch.bfloat16)[..., :s['cin']]
+        xb = wide.to(torch.bfloat16)[..., off:off + cin]
         tapsb = fc.pack_conv_lk_weight(w, torch.bfloat16)
+        path = s['path']
+        before = fc.fused_conv_lk.by_path[(lk_shape_key(s), path)]
         gotb = fc.fused_conv_lk(xb, tapsb, b, k=k, act=act)
+        if fc.fused_conv_lk.by_path[(lk_shape_key(s), path)] != before + 1:
+            raise AssertionError(f"{s['name']}: the bf16 launch did not take the {path} path")
         wantb = fc.fused_conv_lk_ref(xb.float(), tapsb.float(), b, k=k, act=act)
         errb = (gotb.float() - wantb).abs().max().item()
         torch.testing.assert_close(gotb.float(), wantb, rtol=BF16_RTOL, atol=BF16_ATOL)
-        xh = wide.to(torch.float16)[..., :s['cin']]
+        xh = wide.to(torch.float16)[..., off:off + cin]
         tapsh = fc.pack_conv_lk_weight(w, torch.float16)
         goth = fc.fused_conv_lk(xh, tapsh, b, k=k, act=act)
         wanth = fc.fused_conv_lk_ref(xh.float(), tapsh.float(), b, k=k, act=act)
@@ -334,10 +355,11 @@ def phase_lk_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
         del got, want, gotb, wantb, goth, wanth, xh
 
         row = {'name': s['name'], 'shape': [s['n'], s['h'], s['w'], s['cin'], s['cout']], 'k': k, 'act': act,
-               'pitch': s['pitch'], 'max_abs_err_f32': err32, 'max_abs_err_bf16': errb, 'max_abs_err_f16': errh}
+               'pitch': s['pitch'], 'offset': off, 'path': path, 'max_abs_err_f32': err32, 'max_abs_err_bf16': errb,
+               'max_abs_err_f16': errh}
         wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         x_cl = xb.contiguous().permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW view
-        bb = b.to(torch.bfloat16)
+        bb = None if b is None else b.to(torch.bfloat16)
         row['ms'] = _ms(lambda: fc.fused_conv_lk(xb, tapsb, b, k=k, act=act), reps)
         row['plain_ms'] = _ms(lambda: fc.fused_conv_lk_ref(xb, tapsb, b, k=k, act=act), reps)
         row['library_ms'] = _ms(lambda: TF.conv2d(x_cl, wb, bb, padding=k // 2), reps)
@@ -535,17 +557,24 @@ def phase_wattn_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
 def molrcm_shapes(n_img: int, tile: int, cfg: dict) -> list[dict]:
     """Every MOLRCM shape of the EIMN path (the bench forwards, the tiled
     720p windows at the default tile and halo, the CLI's 48x64 and the
-    model phase's 64x64 images) and an edge shape that is not a multiple of
-    the kernel's 16-pixel tile."""
+    model phase's 64x64 images), and the edges of the 16-bit kernel's
+    16-column strips and runs of rows: h and w of 1, 15, 16, 17 and 300, n
+    of 1 and 3, one shape without biases."""
     window = cfg['tile'] + 2 * cfg['halo']
     rows = [
-        ('bench', n_img, tile, tile),
-        ('tiled window', 8, window, window),
-        ('cli', 1, 48, 64),
-        ('model', 1, 64, 64),
-        ('edge', 2, 37, 45),
+        ('bench', n_img, tile, tile, True),
+        ('tiled window', 8, window, window, True),
+        ('cli', 1, 48, 64, True),
+        ('model', 1, 64, 64, True),
+        ('edge', 2, 37, 45, True),
+        ('edge 1x1', 1, 1, 1, True),
+        ('edge 15x17', 3, 15, 17, True),
+        ('edge 16x16', 1, 16, 16, True),
+        ('edge 17x15', 3, 17, 15, True),
+        ('edge 300x16', 1, 300, 16, True),
+        ('edge 16x300 no bias', 3, 16, 300, False),
     ]
-    return [dict(zip(('name', 'n', 'h', 'w'), r), dim=cfg['embed_dims']) for r in rows]
+    return [dict(zip(('name', 'n', 'h', 'w', 'bias'), r), dim=cfg['embed_dims']) for r in rows]
 
 
 def molrcm_shape_keys(s: dict) -> set:
@@ -595,7 +624,8 @@ def phase_molrcm_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
                                 'spatial_1': (c1, 1, 5), 'spatial_2': (dim - c1 - c2, 1, 7), 'fusion': (dim, dim, 1),
                                 'out': (dim, dim, 1)}.items():
             params[f'{name}.weight'] = torch.randn((o, i, k, k), generator=gen, device=device) / (k * i ** 0.5)
-            params[f'{name}.bias'] = torch.randn((o,), generator=gen, device=device) * 0.1
+            if s['bias']:
+                params[f'{name}.bias'] = torch.randn((o,), generator=gen, device=device) * 0.1
         x = torch.randn((s['n'], s['h'], s['w'], dim), generator=gen, device=device)
 
         packed32 = mo.pack_molrcm_weights(PTree(params), torch.float32)
@@ -837,8 +867,9 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
     image through upscale_tiled (at ``tiled_tile``, or the loader's hints
     when None), and a PNG through the CLI.  Every kernel's launch count
     starts from 0 just before the timed bench forwards; their counts are
-    read just after them (``bench_counts``), and the whole phase's at its
-    end (``launches``, and per shape ``shapes``)."""
+    read just after them (``bench_counts``, and per kernel path
+    ``bench_paths`` for the wrappers that have several), and the whole
+    phase's at its end (``launches``, and per shape ``shapes``)."""
     import numpy as np
     import torch
 
@@ -854,12 +885,15 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
     for e in entries.values():
         e.launches = 0
         e.by_shape.clear()
+        if hasattr(e, 'by_path'):
+            e.by_path.clear()
     t0 = time.perf_counter()
     for _ in range(timed_reps):
         y = model(x, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / timed_reps
     res['bench_counts'] = {k: (e.launches, dict(e.by_shape)) for k, e in entries.items()}
+    res['bench_paths'] = {k: dict(e.by_path) for k, e in entries.items() if hasattr(e, 'by_path')}
     s = model.metadata.upscale
     if y.shape != (batch, tile * s, tile * s, 3) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f'bench forward: shape {tuple(y.shape)}, finite {bool(torch.isfinite(y).all())}')
@@ -991,6 +1025,7 @@ def main() -> int:
         serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280),
                             tiled_tile=BENCH['tile'])
         counts = serve.pop('bench_counts')
+        serve.pop('bench_paths')
         serve.pop('shapes')
         launches = serve.pop('launches')['act']
         if launches == 0:
@@ -1030,15 +1065,20 @@ def main() -> int:
         serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280),
                             tiled_tile=BENCH['tile'])
         counts = serve.pop('bench_counts')
+        paths = serve.pop('bench_paths')['lk']
         serve.pop('shapes')
         lk_launches = serve.pop('launches')['lk']
         checked = {('lk', lk_shape_key(s)) for s in lk}
         lk_bench = check_bench_counts(counts, {'lk'}, nb, reps, checked)
+        on_path = sum(c for (_, path), c in paths.items() if path == 'stacked')
+        if on_path != lk_bench:
+            raise AssertionError(f'{lk_bench} lk launches in the bench forwards, {on_path} on the stacked path: {paths}')
         for r, s in zip(lk_rows, lk):
             r['per_forward'] = counts['lk'][1].get(lk_shape_key(s), 0) / reps
         lk_ms = sum(r['ms'] * r['per_forward'] for r in lk_rows)
         log('plksr_serve', dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], launches=lk_launches,
-            launches_per_bench_forward=lk_bench / reps, lk_ms_per_bench_forward=lk_ms, **serve)
+            launches_per_bench_forward=lk_bench / reps, stacked_path_launches_per_bench_forward=on_path / reps,
+            lk_ms_per_bench_forward=lk_ms, **serve)
 
     # -- SwinIR-M: the window attention ---------------------------------------
     from resselt_tpu_torch.ops import window_attention as wa
@@ -1075,6 +1115,7 @@ def main() -> int:
 
         serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280))
         counts = serve.pop('bench_counts')
+        serve.pop('bench_paths')
         w_launches = serve.pop('launches')['wattn']
         phase_shapes = serve.pop('shapes')['wattn']
         checked = {('wattn', wattn_shape_key(s)) for s in wshapes}
@@ -1118,10 +1159,14 @@ def main() -> int:
 
         serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280))
         counts = serve.pop('bench_counts')
+        serve.pop('bench_paths')
         m_launches = serve.pop('launches')['molrcm']
         phase_shapes = serve.pop('shapes')['molrcm']
         checked = set().union(*(molrcm_shape_keys(s) for s in mshapes))
         m_bench = check_bench_counts(counts, {'molrcm'}, n_molrcm, reps, checked)
+        strip = sum(c for key, c in counts['molrcm'][1].items() if key[-1] == 'bfloat16')
+        if strip != m_bench:  # the 16-bit strip kernel is the only kernel bf16 launches reach
+            raise AssertionError(f'{m_bench} MOLRCM launches in the bench forwards, {strip} in bf16')
         unchecked = {('molrcm', key) for key in phase_shapes} - checked
         if unchecked:
             raise AssertionError(f'the serve phase ran MOLRCM shapes molrcm_kernels did not check: {sorted(unchecked)}')
@@ -1129,7 +1174,8 @@ def main() -> int:
             r['per_forward'] = counts['molrcm'][1].get((s['n'], s['h'], s['w'], s['dim'], 'bfloat16'), 0) / reps
         m_ms = sum(r['ms'] * r['per_forward'] for r in m_rows)
         log('eimn_serve', dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], launches=m_launches,
-            launches_per_bench_forward=m_bench / reps, molrcm_ms_per_bench_forward=m_ms,
+            launches_per_bench_forward=m_bench / reps, strip_kernel_launches_per_bench_forward=strip / reps,
+            molrcm_ms_per_bench_forward=m_ms,
             tiled_tile=ei['tile'], tiled_halo=ei['halo'], **serve)
 
     # -- ATD-light: the row gather, and the window attention at n 256 --------------
@@ -1152,6 +1198,7 @@ def main() -> int:
         bench forward)."""
         serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280))
         counts = serve.pop('bench_counts')
+        serve.pop('bench_paths')
         launches = serve.pop('launches')
         phase_shapes = serve.pop('shapes')
         checked = w_checked | g_checked

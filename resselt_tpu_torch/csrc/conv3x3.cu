@@ -73,6 +73,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "half16.cuh"
 #include "wgmma.cuh"
 
@@ -375,21 +376,6 @@ __host__ __device__ inline size_t wg_halo_bytes(int cin) { return (size_t)(cin /
 __host__ __device__ inline size_t wg_smem_bytes(int cin, int nt) {
     return wg_weight_bytes(cin, nt) + STAGES * wg_halo_bytes(cin) + (size_t)(THREADS / 32) * 16 * wg_out_stride(nt) * 2 +
            (size_t)nt * 4;
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-template <int NR>
-__device__ __forceinline__ void fence_registers(float (&d)[NR]) {
-#pragma unroll
-    for (int i = 0; i < NR; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 template <typename T, int NT>

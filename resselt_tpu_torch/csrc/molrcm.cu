@@ -20,46 +20,61 @@
 // What bounds it on an H100: bytes, by the book.  The chain does 20,152 MAC
 // per pixel (16,384 of them in the four 64 x 64 products) on 256 B (bf16)
 // of x and out: 42 GFLOP and 268 MB at the bench shape (16 x 256 x 256),
-// 0.043 ms at 989 TFLOP/s and 0.080 ms at 3.35 TB/s.  The TPU kernel's
-// layout (W on 128 lanes, host-assembled overlapping W-tiles, lane rolls)
-// does not carry over.  Here a block of 512 threads owns a 16 x 16-pixel
-// output tile and works through the channels in groups of 8: q on the
-// group's own halo (38 x 38 pixels for the dil-3 channels, 28 x 28 for the
-// dil-2 ones, 20 x 20 for the pass-through ones), r on that halo less 2,
-// then the group's 8 channels of f on the tile.  q and r live in shared
-// memory for a group or two at a time (46 KB + 37 KB a group in f32); 64
-// channels of q on a 38 x 38 halo (370 KB in f32) would not fit.  So the
-// halo's x is read from L2 once per pass, and the q product costs (halo
-// area / 256) times its useful work: about 4.2x.  The depthwise convs run
-// in f32 on the CUDA cores from shared memory, one channel per thread with
-// its taps in registers, over runs of output rows that share input rows.
-//  * f32: one group at a time; every product in exact f32 FMA (no TF32).
-//    Wf f is accumulated group by group in registers (each thread owns 4
-//    pixels x 8 output channels); the tile's x is staged once, transposed,
-//    for the value product.
-//  * bf16 / fp16 (one template over the 16-bit type E): the four products
-//    on the tensor cores, mma.sync m16n8k16 with f32 accumulation.  q is computed for two groups per pass (two n8
-//    tiles per A fragment, on the larger of their halos), so the halo's x
-//    is read four times, not eight.  The q and value products take their A
-//    fragments straight from global memory, in a channel order permuted
-//    within each k16 step (qperm), so that a lane reads 32 contiguous bytes
-//    a pixel.  f is staged as a [pixel][channel] tile; each warp owns one
-//    16-pixel tile row and computes Wf f and Wv x, the gated product and Wo
-//    of it, and writes its row back through shared memory in 16-byte
-//    stores.  f and the gated product are f32 values: each is split into
-//    two 16-bit parts (hi + lo) multiplied in turn, so those products lose
-//    nothing beyond f32 rounding in bf16 and keep 22 bits in fp16 (x and
-//    the weights are 16-bit already).
-// What this design leaves on the table: wgmma instead of mma.sync; a larger
-// tile (32 x 32 halves the halo recompute) needs q and r in less shared
-// memory; gelu (erff) runs on every halo pixel; every stage ends in a
-// block-wide barrier, and with one 512-thread block per SM nothing fills
-// the SM while the slowest warp of a stage finishes.
+// 0.043 ms at 989 TFLOP/s and 0.080 ms at 3.35 TB/s.  In practice the
+// depthwise convs (3,768 f32 MAC a pixel on the CUDA cores, with their
+// shared-memory traffic) and gelu's erff on every q value bound it.  The
+// TPU kernel's layout (W on 128 lanes, host-assembled overlapping W-tiles,
+// lane rolls) does not carry over.
+//  * f32: a block of 512 threads owns a 16 x 16-pixel output tile and works
+//    through the channels in groups of 8: q on the group's halo (38 x 38
+//    pixels for the dil-3 channels), r on that halo less 2, then the
+//    group's f on the tile; every product in exact f32 FMA (no TF32), Wf f
+//    accumulated group by group in registers.  It recomputes q on 4.35x and
+//    r on 3.2x the tile's pixels.
+//  * bf16 / fp16 (one template over the 16-bit type E): one persistent
+//    block of 512 threads per SM walks down 16-column strips of the image
+//    (an item: one strip of one image, over a run of rows that strip_rows
+//    plans so that the items fill the card; the whole height at the bench
+//    shape).  Rings in shared memory hold q rows
+//    of each channel class on the columns the class needs (38 for the
+//    dil-3 channels, 28 dil-2, 20 pass-through) and r rows (34 / 24 / 16
+//    columns): every row of q and r is computed once per strip, and only
+//    the horizontal halo is recomputed (q on 2.4x the strip's pixels, r on
+//    1.75x).  Step i of an item has one block-wide barrier: it computes q
+//    row i, r row i - 3, f row i - 13, the gated product of row i - 14 and
+//    the output of row i - 15, each from rows that earlier steps wrote (x
+//    row i comes in by cp.async during step i - 1), so that every warp runs
+//    a mix of stages and none waits for another inside a step.  q on the
+//    tensor cores (mma.sync m16n8k16 tiles placed on each class's columns,
+//    Wq's fragments in registers), gelu in the exact erf form; the region
+//    and dilated convs on the CUDA cores, a thread one channel and a run of
+//    columns with its taps in registers and its class's geometry known at
+//    compile time; the three other products on the tensor cores from
+//    weights in shared memory.  f and the gated product are f32 values,
+//    each split into two 16-bit parts (hi + lo) multiplied in turn, so
+//    those products lose nothing beyond f32 rounding in bf16 and keep 22
+//    bits in fp16 (x and the weights are 16-bit already); q, r and f stay
+//    f32 in shared memory.
+// What it reaches and leaves (NVIDIA H100 80GB HBM3, 700.00 W,
+// tools/time_kernel_variants.py, every design in one call): 1.67 ms at the
+// bench shape (16 x 256 x 256), 21x the byte bound; the same strips with
+// three barriers a step took 2.53, and the 16 x 16-tile design before them
+// about 2.5.  It is bound by instruction issue: a step issues about 12,000
+// warp-instructions for 16 output pixels, and the 16 warps' dependency
+// chains (ldmatrix, mma, erff, shared-memory loads) leave some 40% of the
+// issue slots idle.
+// A copy with one stage compiled out saves 0.40 (r), 0.45 (f), 0.44 (q) or
+// 0.58 ms (the products of the output rows).  What would move it: fewer
+// instructions per output pixel, which needs wider strips and so the r
+// rings out of shared memory (f accumulated as r rows arrive), and more
+// warps to hide the chains, which needs fewer registers than the dil-3 f
+// threads' 49 taps.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "half16.cuh"
 
 namespace {
@@ -71,7 +86,6 @@ constexpr int C3 = 32;   // dw7x7 dilation 3
 constexpr int T = 16;    // output tile side
 constexpr int TP = T * T;
 constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
 constexpr int G = 8;     // channels per group
 constexpr int QMAX = T + 22;  // q halo side of the dil-3 groups
 constexpr int RMAX = T + 18;  // r halo side of the dil-3 groups
@@ -428,35 +442,45 @@ molrcm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, floa
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16 (template parameter E): the four products on the tensor cores
-// (mma.sync m16n8k16, f32 accumulation); the depthwise convs as in the f32
-// kernel.
+// bf16 / fp16 (template parameter E): a block walks down a 16-column strip
+// of the image and keeps rings of q and r rows in shared memory, so that
+// every row of q and r is computed once per strip.  See the note at the top.
 // ---------------------------------------------------------------------------
 
-// The q and value products take their A fragments straight from global x.
-// Within each k16 step ks, lane t4 holds logical channels (2 t4, 2 t4 + 1)
-// and (2 t4 + 8, 2 t4 + 9); they are taken from physical channels
-// 16 t4 + 4 ks + (0, 1) and + (2, 3), so a lane reads one 32-byte run of a
-// pixel.  The weights' B fragments follow the same order (qperm below).
+constexpr int SW = 16;              // output columns of a strip
+constexpr int QW = SW + 22;         // q columns: the strip's - 11 .. + 26 (the dil-3 channels' reach)
+constexpr int R3W = SW + 18;        // dil-3 channels' r columns: - 9 .. + 24
+constexpr int R2W = SW + 8;         // dil-2 channels' r columns: - 4 .. + 19
+constexpr int Q2LO = 5, Q2W = SW + 12;  // dil-2 channels' q columns: q column 5 (- 6) .. + 21
+constexpr int QPLO = 9, QPW = SW + 4;   // pass-through channels' q columns: q column 9 (- 2) .. + 17
+// Step i of an item computes q row i, r row i - LAG_R, f row i - LAG_F,
+// the gated product of row i - LAG_O and the output of row i - LAG_G; each
+// reads only rows that earlier steps wrote.
+constexpr int LAG_R = 3, LAG_F = 13, LAG_O = 14, LAG_G = 15;
+// Ring slots (rows): q rows i - 5 .. i, r rows i - 22 .. i - 3 (dil 3),
+// i - 17 .. i - 3 (dil 2), i - 13 .. i - 3 (pass-through).
+constexpr int QS = 6, R3S = 20, R2S = 15, RPS = 11;
+constexpr int ST_THREADS = 512;
+// Steps an item takes beyond its rows: the 11 q rows above it and the lag
+// of its last output row.
+constexpr int ST_EXTRA = 11 + LAG_G;
+// packed biases in shared memory (floats)
+constexpr int SB_Q = 0, SB_R = 64, SB_1 = 128, SB_2 = 152, SB_V = 184, SB_F = 248, SB_O = 312, SB_N = 376;
 
-// Shared memory (bytes).  FB and FL hold the hi and lo 16-bit parts of the
-// tile's f, then of the gated product; FB then the output, row by row;
-// both are [pixel][LDB] 16-bit.  The work area holds one pair of groups' q
-// (two planes of [QMAX * QMAX][8] f32), one group's r and both groups' taps
-// during the loop, then Wf, Wv (in the permuted channel order), Wo as
-// [n][LDB] 16-bit and their biases.
-constexpr int B_FB = 0;
-constexpr int B_FL = B_FB + TP * LDB * 2;
-constexpr int B_WORK = B_FL + TP * LDB * 2;
-constexpr int B_QG = B_WORK;
-constexpr int B_RG = B_QG + 2 * QMAX * QMAX * G * 4;
-constexpr int B_DW = B_RG + RMAX * RMAX * G * 4;
-constexpr int B_END = B_DW + 2 * DW_FLOATS * 4;
-constexpr int B_W3 = B_WORK;
-constexpr int B_BIAS = B_W3 + 3 * DIM * LDB * 2;  // f32 bf, bv, bo
-static_assert(B_BIAS + 3 * DIM * 4 <= B_END, "phase-2 weights must fit the work area");
-constexpr size_t BF16_SMEM = (size_t)B_END;
-static_assert(BF16_SMEM <= 232448, "a block has at most 227 KB of shared memory");
+// Shared memory (bytes), all offsets 16-byte aligned.
+constexpr int S_Q3 = 0;                                  // q ring [QS][QW][32] f32, channels 32..63
+constexpr int S_Q2 = S_Q3 + QS * QW * C3 * 4;            // q ring [QS][Q2W][24] f32, channels 0..23
+constexpr int S_QP = S_Q2 + QS * Q2W * C1 * 4;           // q ring [QS][QPW][8] f32, channels 24..31
+constexpr int S_R3 = S_QP + QS * QPW * C2 * 4;           // r ring [R3S][R3W][32] f32, channels 32..63
+constexpr int S_R2 = S_R3 + R3S * R3W * C3 * 4;          // r ring [R2S][R2W][24] f32, channels 0..23
+constexpr int S_RP = S_R2 + R2S * R2W * C1 * 4;          // r ring [RPS][SW][8] f32, channels 24..31
+constexpr int S_W = S_RP + RPS * SW * C2 * 4;            // Wv (qperm), Wf, Wo: [3][64][64] 16-bit, swizzled (w_col)
+constexpr int S_BIAS = S_W + 3 * DIM * DIM * 2;
+constexpr int S_X = S_BIAS + SB_N * 4;                   // x rows, 2 x [QW][64] 16-bit, 16-byte pieces swizzled
+constexpr int S_FT = S_X + 2 * QW * DIM * 2;             // f rows, 2 slots x (hi, lo) x [SW][LDB] 16-bit
+constexpr int S_GT = S_FT + 4 * SW * LDB * 2;            // gated rows, 2 slots x (hi, lo) x [SW][LDB] 16-bit
+constexpr int S_END = S_GT + 4 * SW * LDB * 2;
+static_assert(S_END <= 232448, "a block has at most 227 KB of shared memory");
 
 // (a, b) as hi + lo pairs of the 16-bit type: hi = E(v), lo = E(v - hi).
 template <typename E>
@@ -466,50 +490,25 @@ __device__ __forceinline__ void split_h16(float a, float b, uint32_t& hi, uint32
     lo = Half16<E>::pack(a - back.x, b - back.y);
 }
 
-// The column of a permuted [n][LDB] weight row that holds physical input
-// channel k: the B fragment of step ks reads columns ks * 16 + 2 t4 (+1)
-// and ks * 16 + 8 + 2 t4 (+1).
+// The value product takes its A fragments straight from global x: within
+// each k16 step ks, lane t4 holds logical channels (2 t4, 2 t4 + 1) and
+// (2 t4 + 8, 2 t4 + 9); they are taken from physical channels
+// 16 t4 + 4 ks + (0, 1) and + (2, 3), so that a lane reads one 32-byte run
+// of a pixel.  qperm(k) is the column of a [n][64] weight row that holds
+// physical input channel k in that order.
 __device__ __forceinline__ int qperm(int k) {
     const int t = k / 16, ks = (k % 16) / 4, hi = (k % 4) / 2, e = k % 2;
     return ks * 16 + hi * 8 + 2 * t + e;
 }
 
-// acc (16 pixels x 64 channels, as 8 n8 tiles) += A B^T for the k16 step
-// ks, B a [n][LDB] 16-bit weight in shared memory.
-template <typename E>
-__device__ __forceinline__ void step_product(float (&acc)[8][4], const uint32_t (&a)[4], const E* B,
-                                             int ks, int lane) {
-#pragma unroll
-    for (int np = 0; np < DIM / 16; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, B + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDB + ks * 16 + ((lane >> 3) & 1) * 8);
-        Half16<E>::mma(acc[2 * np], a, b[0], b[1]);
-        Half16<E>::mma(acc[2 * np + 1], a, b[2], b[3]);
-    }
-}
-
-// acc += A B^T, A the rows m0 .. m0 + 15 of a [pixel][LDB] tile.
-template <typename E>
-__device__ __forceinline__ void row_product(float (&acc)[8][4], const E* A, const E* B,
-                                            int m0, int lane) {
-#pragma unroll
-    for (int ks = 0; ks < DIM / 16; ++ks) {
-        uint32_t a[4];
-        ldmatrix_x4(a, A + (m0 + (lane & 15)) * LDB + ks * 16 + (lane >> 4) * 8);
-        step_product(acc, a, B, ks, lane);
-    }
-}
-
-// acc += X B^T, X the A fragments of 16 pixels' x as load_x32 reads them
-// (rows g8 and g8 + 8), B permuted by qperm.
-template <typename E>
-__device__ __forceinline__ void x_product(float (&acc)[8][4], const uint32_t (&xv)[2][8], const E* B,
-                                          int lane) {
-#pragma unroll
-    for (int ks = 0; ks < DIM / 16; ++ks) {
-        const uint32_t a[4] = {xv[0][2 * ks], xv[1][2 * ks], xv[0][2 * ks + 1], xv[1][2 * ks + 1]};
-        step_product(acc, a, B, ks, lane);
-    }
+// Rows of the [64][64] 16-bit weight tiles are 128 bytes: the 16-byte
+// piece p of row n lies at piece p ^ (n % 8), so that ldmatrix's 8 rows
+// fall in 8 different banks.  w_col is where column k of row n lies.
+__device__ __forceinline__ int w_col(int n, int k) { return (((k >> 3) ^ (n & 7)) << 3) | (k & 7); }
+// ldmatrix_x4 of a weight tile's B fragments for k16 steps ks, ks + 1 and
+// output channels n0 .. n0 + 7 (n0 a multiple of 8): lane l's row address.
+__device__ __forceinline__ int w_frag(int n0, int ks, int lane) {
+    return (n0 + (lane & 7)) * DIM + w_col(lane & 7, 16 * (ks + (lane >> 4)) + ((lane >> 3) & 1) * 8);
 }
 
 // The 32 bytes of a pixel's x that lane t4 owns: channels 16 t4 .. 16 t4 + 15.
@@ -524,167 +523,424 @@ __device__ __forceinline__ void load_x32(const E* p, bool valid, uint32_t (&v)[8
     v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
+// The ring slot of a row; rows are never below -64 slots.
+__device__ __forceinline__ int ring(int row, int slots) { return (row + 64 * slots) % slots; }
+
+// silu with a fast division (2 ulp; 0 where 1 + e^-v overflows, which is the limit)
+__device__ __forceinline__ float silu_fast(float v) { return __fdividef(v, 1.f + expf(-v)); }
+
+// One m16 x n8 tile of q: channels 8 nt .. 8 nt + 7 on the 16 q columns
+// from `start`, of which it stores columns [lo, hi).  The channels of an
+// n-tile are of one class, and each class's tiles cover just the columns
+// it needs: 0 .. 37 (dil 3), 5 .. 32 (dil 2), 9 .. 28 (pass-through).
+struct QTile {
+    int nt, start, lo, hi;
+};
+__device__ __forceinline__ QTile q_tile(int nt, int t) {
+    if (nt < C1 / 8) return t == 0 ? QTile{nt, 5, 5, 21} : QTile{nt, 17, 21, 33};
+    if (nt < (C1 + C2) / 8) return t == 0 ? QTile{nt, 9, 9, 25} : QTile{nt, 13, 25, 29};
+    return t == 0 ? QTile{nt, 0, 0, 16} : (t == 1 ? QTile{nt, 16, 16, 32} : QTile{nt, 22, 32, 38});
+}
+// The q tiles of warp w: tile 0 of n-tile w for warps 0..6, tiles 1 and 2
+// of the dil-3 n-tiles for warps 8..11, tile 1 of n-tile w - 12 for warps
+// 12..15, and tile 0 of n-tile 7 for warp 12 (warp 7, whose r runs are of
+// two classes, has none).
+__device__ __forceinline__ int q_tiles_of(int w) { return w == 7 ? 0 : (w >= 8 && w < 13 ? 2 : 1); }
+__device__ __forceinline__ QTile q_tile_of(int w, int p) {
+    if (w < 8) return q_tile(w, 0);
+    if (w < 12) return q_tile(w - 4, 1 + p);
+    if (w == 12 && p == 1) return q_tile(7, 0);
+    return q_tile(w - 12, 1);
+}
+
+// The geometry of a channel class of r (K 3: the dil-3 channels, 2: the
+// dil-2 ones, 0: the pass-through ones), known at compile time.
+template <int K>
+struct RGeo {
+    static constexpr int LEFT = K == 3 ? 9 : (K == 2 ? 4 : 0);   // r column 0 is strip column -LEFT
+    static constexpr int WIDTH = SW + 2 * LEFT;                  // r columns
+    static constexpr int QN = WIDTH + 4;                         // q columns of the class's ring
+    static constexpr int CH = K == 3 ? C3 : (K == 2 ? C1 : C2);  // channels of the class
+};
+
+// r row j = dw5x5(q) + br of one channel on the 8 r columns from br0 (of
+// which columns past the class's width are not stored: only the last dil-3
+// run has any).  q and r point at the channel in the class's rings, qs is
+// the slot of q row j - 2, rs the slot of r row j; bit m of vmask says
+// that r column br0 + m lies in the image (none does for a row outside it).
+// The reads run past the class's q columns only for columns that are not
+// stored.
+template <int K>
+__device__ __forceinline__ void r_run(const float* q, float* r, const float (&tap)[49], float bias, int br0, int qs,
+                                      int rs, unsigned vmask) {
+    using G = RGeo<K>;
+    float acc[8] = {};
+    if (vmask) {
+#pragma unroll
+        for (int dy = 0; dy < 5; ++dy) {
+            const int s = qs + dy < QS ? qs + dy : qs + dy - QS;
+            const float* qr = q + (s * G::QN + br0) * G::CH;
+            float qv[12];
+#pragma unroll
+            for (int m = 0; m < 12; ++m) qv[m] = qr[m * G::CH];
+#pragma unroll
+            for (int dx = 0; dx < 5; ++dx)
+#pragma unroll
+                for (int m = 0; m < 8; ++m) acc[m] = fmaf(qv[m + dx], tap[dy * 5 + dx], acc[m]);
+        }
+    }
+    float* rr = r + (rs * G::WIDTH + br0) * G::CH;
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+        if (br0 + m < G::WIDTH) rr[m * G::CH] = (vmask >> m) & 1 ? acc[m] + bias : 0.f;
+}
+
+// Work of a step, by warp (one barrier a step, every stage reading rows
+// that earlier steps wrote):
+//   warps 0..7:   the gated product of row i - 14 (warp w: channels 8 w ..
+//                 + 7), one q tile of row i (none on warp 7), one run of r
+//                 row i - 3
+//   warps 8..13:  f row i - 13 of the dil-3 channels (a residue run of
+//                 columns each), two q tiles of row i (warps 8..12) or one
+//                 (13)
+//   warps 14, 15: f row i - 13 of the dil-2 and pass-through channels,
+//                 one q tile of row i
+//   warps 8..15:  output row i - 15 (warp w: channels 8 (w - 8) .. + 7)
 template <typename E>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(ST_THREADS, 1)
 molrcm_h16_kernel(const E* __restrict__ x, const float* __restrict__ w, E* __restrict__ out, int h, int wd,
-                  int tiles_w, int tiles_per_image) {
+                  int strips, int seg_rows, int segs, int items) {
     using HT = Half16<E>;
-    extern __shared__ __align__(16) unsigned char smem8[];
+    extern __shared__ __align__(16) unsigned char sm[];
+    float* Q3 = reinterpret_cast<float*>(sm + S_Q3);
+    float* Q2 = reinterpret_cast<float*>(sm + S_Q2);
+    float* QP = reinterpret_cast<float*>(sm + S_QP);
+    float* R3 = reinterpret_cast<float*>(sm + S_R3);
+    float* R2 = reinterpret_cast<float*>(sm + S_R2);
+    float* RP = reinterpret_cast<float*>(sm + S_RP);
+    E* W3 = reinterpret_cast<E*>(sm + S_W);
+    const float* BS = reinterpret_cast<const float*>(sm + S_BIAS);
+    E* XB = reinterpret_cast<E*>(sm + S_X);
+    E* FT = reinterpret_cast<E*>(sm + S_FT);
+    E* GT = reinterpret_cast<E*>(sm + S_GT);
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g8 = lane >> 2, t4 = lane & 3;
-    const int img = blockIdx.x / tiles_per_image;
-    const int tile = blockIdx.x % tiles_per_image;
-    const int oy = (tile / tiles_w) * T, ox = (tile % tiles_w) * T;
-    const E* xi = x + (size_t)img * h * wd * DIM;
-    E* FB = reinterpret_cast<E*>(smem8 + B_FB);
-    E* FL = reinterpret_cast<E*>(smem8 + B_FL);
-    float* QG = reinterpret_cast<float*>(smem8 + B_QG);
-    float* RG = reinterpret_cast<float*>(smem8 + B_RG);
-    const DwSmem dws[2] = {dw_smem(reinterpret_cast<float*>(smem8 + B_DW)),
-                           dw_smem(reinterpret_cast<float*>(smem8 + B_DW) + DW_FLOATS)};
 
-    // The groups go in pairs (channels 16 p .. 16 p + 15): q is computed for
-    // both on the larger halo, so each pass over the halo's x feeds two n8
-    // tiles; r and f follow group by group.
-    for (int pr = 0; pr < DIM / (2 * G); ++pr) {
-        const Group sg[2] = {group(2 * pr), group(2 * pr + 1)};
-        const int rq = max(sg[0].rq, sg[1].rq), eq = T + 2 * rq, np = eq * eq;
-        __syncthreads();  // the previous pair's readers are done
-        load_dw(w, sg[0], dws[0]);
-        load_dw(w, sg[1], dws[1]);
-        // Wq's B fragments: output channel 16 pr + 8 nt + g8, the lane's
-        // input channels 16 t4 .. 16 t4 + 15 in k order
-        uint32_t wq[2][8];
-        float bq[2][2];
+    // the weights, once per block: Wv (columns in qperm order), Wf, Wo as
+    // 16-bit [n][64] (swizzled) and every bias in shared memory; each thread's
+    // depthwise taps and Wq fragments in registers
+    for (int i = tid; i < 3 * DIM * DIM / 2; i += ST_THREADS) {
+        const int m = i / (DIM * DIM / 2), e = 2 * (i % (DIM * DIM / 2)), n = e / DIM, k = e % DIM;
+        const float2 v = *reinterpret_cast<const float2*>(w + (m == 0 ? W_V : (m == 1 ? W_F : W_O)) + e);
+        *reinterpret_cast<uint32_t*>(W3 + (m * DIM + n) * DIM + w_col(n, m == 0 ? qperm(k) : k)) = HT::pack(v.x, v.y);
+    }
+    {
+        float* bs = reinterpret_cast<float*>(sm + S_BIAS);
+        for (int i = tid; i < SB_N; i += ST_THREADS)
+            bs[i] = i < SB_R ? w[B_Q + i] : i < SB_1 ? w[B_R + i - SB_R] : i < SB_2 ? w[B_1 + i - SB_1]
+                  : i < SB_V ? w[B_2 + i - SB_2] : i < SB_F ? w[B_V + i - SB_V] : i < SB_O ? w[B_F + i - SB_F]
+                  : w[B_O + i - SB_O];
+    }
+    // q: the warp's tiles, their Wq fragments, and which of a lane's two
+    // fragment rows (hr) each tile stores (bit 2 p + hr); a half that no
+    // lane of the warp stores is skipped
+    const int nq = q_tiles_of(warp);
+    uint32_t wq[2][4][2];
+    unsigned qstore = 0, qlive = 0;
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-            const int c = 16 * pr + 8 * nt;
+    for (int p = 0; p < 2; ++p) {
+        const QTile qt = q_tile_of(warp, p < nq ? p : 0);
+        const int n = 8 * qt.nt + g8;
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                const float2 v = *reinterpret_cast<const float2*>(w + W_Q + (c + g8) * DIM + 16 * t4 + 2 * j);
-                wq[nt][j] = HT::pack(v.x, v.y);
-            }
-            bq[nt][0] = w[B_Q + c + 2 * t4];
-            bq[nt][1] = w[B_Q + c + 2 * t4 + 1];
+        for (int ks = 0; ks < 4; ++ks) {
+            const float* wr = w + W_Q + n * DIM + 16 * ks + 2 * t4;
+            wq[p][ks][0] = HT::pack(wr[0], wr[1]);
+            wq[p][ks][1] = HT::pack(wr[8], wr[9]);
         }
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+            const int px = qt.start + g8 + 8 * hr, first = qt.start + 8 * hr;
+            if (p < nq && px >= qt.lo && px < qt.hi) qstore |= 1u << (2 * p + hr);
+            if (p < nq && first + 7 >= qt.lo && first < qt.hi) qlive |= 1u << (2 * p + hr);
+        }
+    }
+    // r (threads 0..247): thread t owns channel bc and r columns br0 ..
+    // br0 + 7 of its class: 5 runs of the dil-3 channels' 34 columns (160
+    // threads, warps 0..4), 3 of the dil-2 ones' 24 (72), 2 of the
+    // pass-through ones' 16 (16).  f (threads 256..511): a dil-3 channel on
+    // a residue run of columns 3 apart (192 threads), a dil-2 channel on the
+    // 8 columns of one parity (48), or the 8 pass-through channels of a
+    // column (16).  tap holds the thread's depthwise taps.
+    int bc = -1, br0 = 0, rleft = 0;
+    if (tid < 160) bc = C1 + C2 + (tid & 31), br0 = (tid >> 5) * 8, rleft = RGeo<3>::LEFT;
+    else if (tid < 232) bc = (tid - 160) % C1, br0 = (tid - 160) / C1 * 8, rleft = RGeo<2>::LEFT;
+    else if (tid < 248) bc = C1 + ((tid - 232) & 7), br0 = ((tid - 232) >> 3) * 8;
+    float tap[49];
+#pragma unroll
+    for (int t = 0; t < 49; ++t) {
+        float v = 0.f;
+        if (tid < 256) {
+            if (t < 25 && bc >= 0) v = w[W_R + t * DIM + bc];
+        } else if (tid < 448) {
+            v = w[W_2 + t * C3 + lane];
+        } else if (tid < 496) {
+            if (t < 25) v = w[W_1 + t * C1 + (tid - 448) % C1];
+        }
+        tap[t] = v;
+    }
+    // x rows: thread t < QW * 8 copies 16-byte piece t % 8 of q column t / 8,
+    // stored at piece (t % 8) ^ (column % 8), so that ldmatrix's 8 rows fall
+    // in 8 different banks
+    const int xpx = tid >> 3, xpiece = tid & 7;
+    const uint32_t xdst = static_cast<uint32_t>(__cvta_generic_to_shared(XB)) +
+                          (xpx * DIM + 8 * (xpiece ^ (xpx & 7))) * 2;
 
-        // q = gelu(Wq x + bq) on the eq x eq halo, 16 halo pixels per row
-        // tile, into plane nt of QG
-        for (int mt = warp; mt * 16 < np; mt += WARPS) {
-            uint32_t xv[2][8];
-            bool valid[2];
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int seg = item % segs, strip = (item / segs) % strips, img = item / (segs * strips);
+        const int ya = seg * seg_rows, yb = min(ya + seg_rows, h), x0 = strip * SW;
+        const E* xi = x + (size_t)img * h * wd * DIM;
+        E* oi = out + (size_t)img * h * wd * DIM;
+        const size_t row_elems = (size_t)wd * DIM;
+
+        // the item's column masks: of the x piece this thread copies, of the
+        // q columns it stores, of the r columns it computes
+        const int xcol = x0 - 11 + xpx;
+        const bool xcol_ok = tid < QW * 8 && xcol >= 0 && xcol < wd;
+        unsigned qcol = 0, rcol = 0;
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
 #pragma unroll
             for (int hr = 0; hr < 2; ++hr) {
-                const int r = mt * 16 + g8 + 8 * hr;
-                const int y = oy - rq + r / eq, xx = ox - rq + r % eq;
-                valid[hr] = r < np && y >= 0 && y < h && xx >= 0 && xx < wd;
-                load_x32(xi + ((size_t)(valid[hr] ? y : 0) * wd + (valid[hr] ? xx : 0)) * DIM + 16 * t4, valid[hr],
-                         xv[hr]);
+                const int col = x0 - 11 + q_tile_of(warp, p < nq ? p : 0).start + g8 + 8 * hr;
+                if (col >= 0 && col < wd) qcol |= 1u << (2 * p + hr);
             }
 #pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-                float d[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int m = 0; m < 8; ++m) {
+            const int col = x0 - rleft + br0 + m;
+            if (col >= 0 && col < wd) rcol |= 1u << m;
+        }
+
+        // x row i into buffer i & 1, zero outside the image
+        auto load_xrow = [&](int i) {
+            if (tid < QW * 8) {
+                const bool valid = xcol_ok && i >= 0 && i < h;
+                cp_async16(xdst + (i & 1) * QW * DIM * 2,
+                           valid ? xi + (size_t)i * row_elems + (size_t)xcol * DIM + 8 * xpiece : x, valid);
+            }
+        };
+        // the value product's A fragments (16 pixels of output row y), as load_x32 reads them
+        uint32_t xv[2][8];
+        auto load_value = [&](int y) {
 #pragma unroll
-                for (int ks = 0; ks < 4; ++ks) {
-                    const uint32_t a[4] = {xv[0][2 * ks], xv[1][2 * ks], xv[0][2 * ks + 1], xv[1][2 * ks + 1]};
-                    HT::mma(d, a, wq[nt][2 * ks], wq[nt][2 * ks + 1]);
+            for (int hr = 0; hr < 2; ++hr) {
+                const int col = x0 + g8 + 8 * hr;
+                const bool valid = y < yb && col < wd;
+                load_x32(xi + (valid ? (size_t)y * row_elems + (size_t)col * DIM : 0) + 16 * t4, valid, xv[hr]);
+            }
+        };
+        load_xrow(ya - 11);
+        cp_async_commit();
+        if (warp < 8) load_value(ya);
+
+        for (int i = ya - 11; i <= yb + LAG_G - 1; ++i) {
+            cp_async_wait<0>();
+            __syncthreads();  // x row i is in; every stage of step i - 1 is done
+            if (i + 1 <= yb + 10) load_xrow(i + 1);
+            cp_async_commit();
+            const int yo = i - LAG_O, yf = i - LAG_F, yg = i - LAG_G;
+            const bool gate_row = yo >= ya && yo < yb;
+            const bool out_row = yg >= ya && yg < yb;
+
+            // -- gated row yo = silu(Wf f + bf) * (Wv x + bv), into slot yo & 1 --
+            if (warp < 8 && gate_row) {
+                const E* FB = FT + (yo & 1) * 2 * SW * LDB;
+                const E* FL = FB + SW * LDB;
+                const int n0 = 8 * warp;
+                // independent accumulators (f hi, f lo, value), so that the
+                // mma chains are 4 long
+                E* GB = GT + (yo & 1) * 2 * SW * LDB;
+                E* GL = GB + SW * LDB;
+                float hacc[2][4] = {}, vacc[4] = {};
+#pragma unroll
+                for (int ks = 0; ks < 4; ks += 2) {
+                    const int boff = w_frag(n0, ks, lane);
+                    uint32_t bf[4], bv[4];
+                    ldmatrix_x4(bf, W3 + DIM * DIM + boff);
+                    ldmatrix_x4(bv, W3 + boff);
+#pragma unroll
+                    for (int kk = 0; kk < 2; ++kk) {
+                        uint32_t ah[4], al[4];
+                        const int aoff = (lane & 15) * LDB + (ks + kk) * 16 + (lane >> 4) * 8;
+                        ldmatrix_x4(ah, FB + aoff);
+                        ldmatrix_x4(al, FL + aoff);
+                        const int kx = ks + kk;
+                        const uint32_t ax[4] = {xv[0][2 * kx], xv[1][2 * kx], xv[0][2 * kx + 1], xv[1][2 * kx + 1]};
+                        HT::mma(hacc[0], ah, bf[2 * kk], bf[2 * kk + 1]);
+                        HT::mma(hacc[1], al, bf[2 * kk], bf[2 * kk + 1]);
+                        HT::mma(vacc, ax, bv[2 * kk], bv[2 * kk + 1]);
+                    }
+                }
+                const int c = n0 + 2 * t4;
+#pragma unroll
+                for (int hr = 0; hr < 2; ++hr) {
+                    const float g0 =
+                        silu_fast(hacc[0][2 * hr] + hacc[1][2 * hr] + BS[SB_F + c]) * (vacc[2 * hr] + BS[SB_V + c]);
+                    const float g1 = silu_fast(hacc[0][2 * hr + 1] + hacc[1][2 * hr + 1] + BS[SB_F + c + 1]) *
+                                     (vacc[2 * hr + 1] + BS[SB_V + c + 1]);
+                    uint32_t hi, lo;
+                    split_h16<E>(g0, g1, hi, lo);
+                    *reinterpret_cast<uint32_t*>(GB + (g8 + 8 * hr) * LDB + c) = hi;
+                    *reinterpret_cast<uint32_t*>(GL + (g8 + 8 * hr) * LDB + c) = lo;
+                }
+                load_value(yo + 1);
+            }
+
+            // -- q row i: gelu(Wq x + bq) on the tensor cores -----------------------
+            if (i <= yb + 10) {
+                const bool row_ok = i >= 0 && i < h;
+                const E* X = XB + (i & 1) * QW * DIM;
+                const int slot = ring(i, QS);
+#pragma unroll
+                for (int p = 0; p < 2; ++p) {
+                    if (p >= nq) break;
+                    const QTile qt = q_tile_of(warp, p);
+                    float acc[4] = {};
+                    if (row_ok) {
+                        const int px = qt.start + (lane & 15);
+#pragma unroll
+                        for (int ks = 0; ks < 4; ++ks) {
+                            uint32_t a[4];
+                            ldmatrix_x4(a, X + px * DIM + 8 * ((2 * ks + (lane >> 4)) ^ (px & 7)));
+                            HT::mma(acc, a, wq[p][ks][0], wq[p][ks][1]);
+                        }
+                    }
+                    const int c = 8 * qt.nt + 2 * t4;
+                    const bool k3 = qt.nt >= (C1 + C2) / 8, k2 = qt.nt < C1 / 8;
+                    float* qrow = k3 ? Q3 + slot * QW * C3 + c - C1 - C2
+                                : k2 ? Q2 + (slot * Q2W - Q2LO) * C1 + c
+                                     : QP + (slot * QPW - QPLO) * C2 + c - C1;
+                    const int cstride = k3 ? C3 : (k2 ? C1 : C2);
+                    const float b0 = BS[SB_Q + c], b1 = BS[SB_Q + c + 1];
+#pragma unroll
+                    for (int hr = 0; hr < 2; ++hr) {
+                        const unsigned bit = 1u << (2 * p + hr);
+                        if (!(qlive & bit)) continue;
+                        float2 q = make_float2(gelu(acc[2 * hr] + b0), gelu(acc[2 * hr + 1] + b1));
+                        if (!row_ok || !(qcol & bit)) q = make_float2(0.f, 0.f);
+                        if (qstore & bit)
+                            *reinterpret_cast<float2*>(qrow + (qt.start + g8 + 8 * hr) * cstride) = q;
+                    }
+                }
+            }
+
+            auto put_f = [&](E* FB, int px, int ch, float v) {  // f as hi + lo into the f row
+                const E hi = HT::from_float(v);
+                FB[px * LDB + ch] = hi;
+                FB[SW * LDB + px * LDB + ch] = HT::from_float(v - HT::to_float(hi));
+            };
+            if (warp < 8) {
+                // -- r row j = dw5x5(q) + br, zero outside the image -------------------
+                const int j = i - LAG_R;
+                const int qs = ring(j - 2, QS);
+                const unsigned vmask = j >= 0 && j < h ? rcol : 0u;
+                if (warp < 5) {
+                    if (j >= ya - 9 && j <= yb + 8)
+                        r_run<3>(Q3 + bc - C1 - C2, R3 + bc - C1 - C2, tap, BS[SB_R + bc], br0, qs, ring(j, R3S),
+                                 vmask);
+                } else if (tid < 232) {
+                    if (j >= ya - 4 && j <= yb + 3)
+                        r_run<2>(Q2 + bc, R2 + bc, tap, BS[SB_R + bc], br0, qs, ring(j, R2S), vmask);
+                } else if (tid < 248) {
+                    if (j >= ya && j < yb)
+                        r_run<0>(QP + bc - C1, RP + bc - C1, tap, BS[SB_R + bc], br0, qs, ring(j, RPS), vmask);
+                }
+            } else if (yf >= ya && yf < yb) {
+                // -- f row yf into the f row slot yf & 1 ---------------------------
+                E* FB = FT + (yf & 1) * 2 * SW * LDB;
+                if (warp < 14) {
+                    // dil-3 channel C1 + C2 + lane on the columns s0, s0 + 3(, s0 + 6):
+                    // runs {0, 3, 6}, {9, 12, 15}, {1, 4, 7}, {10, 13}, {2, 5, 8}, {11, 14};
+                    // the reads past the r row's 34 columns feed only the
+                    // third column of the runs of two, which is not stored
+                    const int run = warp - 8, s0 = (run >> 1) + 9 * (run & 1), cnt = s0 + 6 < SW ? 3 : 2;
+                    const int s9 = ring(yf - 9, R3S);
+                    float acc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+                    for (int dy = 0; dy < 7; ++dy) {
+                        const int s = s9 + 3 * dy < R3S ? s9 + 3 * dy : s9 + 3 * dy - R3S;
+                        const float* rr = R3 + (s * R3W + s0) * C3 + lane;
+                        float rv[9];
+#pragma unroll
+                        for (int m = 0; m < 9; ++m) rv[m] = rr[3 * m * C3];
+#pragma unroll
+                        for (int dx = 0; dx < 7; ++dx)
+#pragma unroll
+                            for (int m = 0; m < 3; ++m) acc[m] = fmaf(rv[m + dx], tap[dy * 7 + dx], acc[m]);
+                    }
+                    const float bias = BS[SB_2 + lane];
+#pragma unroll
+                    for (int m = 0; m < 3; ++m)
+                        if (m < cnt) put_f(FB, s0 + 3 * m, C1 + C2 + lane, acc[m] + bias);
+                } else if (tid < 496) {
+                    // dil-2 channel c on the columns of one parity
+                    const int u = tid - 448, c = u % C1, s0 = u / C1;
+                    const int s4 = ring(yf - 4, R2S);
+                    float acc[8] = {};
+#pragma unroll
+                    for (int dy = 0; dy < 5; ++dy) {
+                        const int s = s4 + 2 * dy < R2S ? s4 + 2 * dy : s4 + 2 * dy - R2S;
+                        const float* rr = R2 + (s * R2W + s0) * C1 + c;
+                        float rv[12];
+#pragma unroll
+                        for (int m = 0; m < 12; ++m) rv[m] = rr[2 * m * C1];
+#pragma unroll
+                        for (int dx = 0; dx < 5; ++dx)
+#pragma unroll
+                            for (int m = 0; m < 8; ++m) acc[m] = fmaf(rv[m + dx], tap[dy * 5 + dx], acc[m]);
+                    }
+                    const float bias = BS[SB_1 + c];
+#pragma unroll
+                    for (int m = 0; m < 8; ++m) put_f(FB, s0 + 2 * m, c, acc[m] + bias);
+                } else {
+                    // the pass-through channels of column tid - 496: r itself
+                    const int col = tid - 496;
+                    const float* rp = RP + (ring(yf, RPS) * SW + col) * C2;
+#pragma unroll
+                    for (int k = 0; k < C2; ++k) put_f(FB, col, C1 + k, rp[k]);
+                }
+            }
+            // -- output row yg = Wo gated + bo, from slot yg & 1 -----------------
+            if (warp >= 8 && out_row) {
+                const E* GB = GT + (yg & 1) * 2 * SW * LDB;
+                const E* GL = GB + SW * LDB;
+                const int n0 = 8 * (warp - 8), c = n0 + 2 * t4;
+                float oacc[2][4] = {};
+#pragma unroll
+                for (int ks = 0; ks < 4; ks += 2) {
+                    uint32_t bo[4];
+                    ldmatrix_x4(bo, W3 + 2 * DIM * DIM + w_frag(n0, ks, lane));
+#pragma unroll
+                    for (int kk = 0; kk < 2; ++kk) {
+                        uint32_t ah[4], al[4];
+                        const int aoff = (lane & 15) * LDB + (ks + kk) * 16 + (lane >> 4) * 8;
+                        ldmatrix_x4(ah, GB + aoff);
+                        ldmatrix_x4(al, GL + aoff);
+                        HT::mma(oacc[0], ah, bo[2 * kk], bo[2 * kk + 1]);
+                        HT::mma(oacc[1], al, bo[2 * kk], bo[2 * kk + 1]);
+                    }
                 }
 #pragma unroll
                 for (int hr = 0; hr < 2; ++hr) {
-                    const int r = mt * 16 + g8 + 8 * hr;
-                    if (r >= np) continue;
-                    float2 q = make_float2(0.f, 0.f);
-                    if (valid[hr]) q = make_float2(gelu(d[2 * hr] + bq[nt][0]), gelu(d[2 * hr + 1] + bq[nt][1]));
-                    *reinterpret_cast<float2*>(QG + (nt * np + r) * G + 2 * t4) = q;
+                    const int col = x0 + g8 + 8 * hr;
+                    if (col < wd)
+                        *reinterpret_cast<uint32_t*>(oi + (size_t)yg * row_elems + (size_t)col * DIM + c) =
+                            HT::pack(oacc[0][2 * hr] + oacc[1][2 * hr] + BS[SB_O + c],
+                                     oacc[0][2 * hr + 1] + oacc[1][2 * hr + 1] + BS[SB_O + c + 1]);
                 }
             }
         }
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const Group& s = sg[half];
-            __syncthreads();  // q (and, for the second group, the first's f) is done
-            region_conv(QG + half * np * G, eq, rq - s.rq, RG, dws[half], s, oy, ox, h, wd);
-            __syncthreads();
-            group_f(RG, dws[half], s, [&](int px, int c, float v) {
-                const E hi = HT::from_float(v);
-                FB[px * LDB + s.c0 + c] = hi;
-                FL[px * LDB + s.c0 + c] = HT::from_float(v - HT::to_float(hi));
-            });
-        }
     }
-
-    __syncthreads();  // the last group's readers are done with the work area
-    E* W3 = reinterpret_cast<E*>(smem8 + B_W3);
-    float* bias = reinterpret_cast<float*>(smem8 + B_BIAS);
-    for (int i = tid; i < 3 * DIM * DIM / 2; i += THREADS) {
-        const int m = i / (DIM * DIM / 2), e = 2 * (i % (DIM * DIM / 2)), n = e / DIM, k = e % DIM;
-        const float2 v = *reinterpret_cast<const float2*>(w + (m == 0 ? W_F : (m == 1 ? W_V : W_O)) + e);
-        *reinterpret_cast<uint32_t*>(W3 + (m * DIM + n) * LDB + (m == 1 ? qperm(k) : k)) = HT::pack(v.x, v.y);
-    }
-    if (tid < 3 * DIM) {
-        const int m = tid / DIM, n = tid % DIM;
-        bias[tid] = w[(m == 0 ? B_F : (m == 1 ? B_V : B_O)) + n];
-    }
-    // this warp's tile row (16 pixels) of x, as A fragments
-    const int y = oy + warp;
-    uint32_t xa[2][8];
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-        const int xx = ox + g8 + 8 * hr;
-        const bool valid = y < h && xx < wd;
-        load_x32(xi + ((size_t)(valid ? y : 0) * wd + (valid ? xx : 0)) * DIM + 16 * t4, valid, xa[hr]);
-    }
-    __syncthreads();
-
-    // each warp owns tile row `warp` (16 pixels) from here on
-    const int m0 = warp * 16;
-    float hacc[8][4], vacc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) hacc[i][e] = vacc[i][e] = 0.f;
-    row_product(hacc, FB, W3, m0, lane);
-    row_product(hacc, FL, W3, m0, lane);
-    x_product(vacc, xa, W3 + DIM * LDB, lane);
-    __syncwarp();  // the warp's ldmatrix reads of its FB and FL rows are done
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-        const int n = nt * 8 + 2 * t4;
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-            const float g0 = silu(hacc[nt][2 * hr] + bias[n]) * (vacc[nt][2 * hr] + bias[DIM + n]);
-            const float g1 = silu(hacc[nt][2 * hr + 1] + bias[n + 1]) * (vacc[nt][2 * hr + 1] + bias[DIM + n + 1]);
-            uint32_t hi, lo;
-            split_h16<E>(g0, g1, hi, lo);
-            *reinterpret_cast<uint32_t*>(FB + (m0 + g8 + 8 * hr) * LDB + n) = hi;
-            *reinterpret_cast<uint32_t*>(FL + (m0 + g8 + 8 * hr) * LDB + n) = lo;
-        }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) hacc[i][e] = 0.f;
-    row_product(hacc, FB, W3 + 2 * DIM * LDB, m0, lane);
-    row_product(hacc, FL, W3 + 2 * DIM * LDB, m0, lane);
-    __syncwarp();
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-        const int n = nt * 8 + 2 * t4;
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr)
-            *reinterpret_cast<uint32_t*>(FB + (m0 + g8 + 8 * hr) * LDB + n) =
-                HT::pack(hacc[nt][2 * hr] + bias[2 * DIM + n], hacc[nt][2 * hr + 1] + bias[2 * DIM + n + 1]);
-    }
-    __syncwarp();
-    E* oi = out + (size_t)img * h * wd * DIM;
-    for (int i = lane; i < 16 * (DIM / 8); i += 32) {
-        const int px = i / (DIM / 8), j = i % (DIM / 8);
-        const int xx = ox + px;
-        if (y < h && xx < wd)
-            *reinterpret_cast<uint4*>(oi + ((size_t)y * wd + xx) * DIM + j * 8) =
-                *reinterpret_cast<const uint4*>(FB + (m0 + px) * LDB + j * 8);
-    }
+    cp_async_wait<0>();
 }
 
 // The grid: one block per 16 x 16 output tile of every image.
@@ -722,18 +978,47 @@ extern "C" int resselt_molrcm_f32(const void* x, const void* w, void* out, int n
 
 namespace {
 
+int num_sms() {
+    static int sms = 0;
+    if (sms == 0) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    return sms;
+}
+
+// Output rows of an item: the whole image height where its strips fill the
+// card, else runs of at least 8 rows; of those, the height that makes the
+// fewest steps per SM, (items / SMs rounded up) x (rows + ST_EXTRA).
+int strip_rows(int n, int h, int wd) {
+    const long long strips = (long long)n * ((wd + SW - 1) / SW), sms = num_sms();
+    long long best_cost = -1;
+    int best = h;
+    for (int segs = 1; segs <= h; ++segs) {
+        const int rows = (h + segs - 1) / segs;
+        if (segs > 1 && rows < 8) break;
+        const long long cost = (strips * ((h + rows - 1) / rows) + sms - 1) / sms * (rows + ST_EXTRA);
+        if (best_cost < 0 || cost < best_cost) best_cost = cost, best = rows;
+    }
+    return best;
+}
+
+// One item per (image, 16-column strip, run of strip_rows output rows); one
+// persistent block of 512 threads per SM walks the items.
 template <typename E>
 int launch_h16(const void* x, const void* w, void* out, int n, int h, int wd, void* stream) {
-    int tiles_w, tiles_per_image;
-    unsigned blocks;
-    if (x == nullptr || w == nullptr || out == nullptr || !grid_of(n, h, wd, tiles_w, tiles_per_image, blocks))
-        return (int)cudaErrorInvalidValue;
-    cudaError_t err =
-        cudaFuncSetAttribute(molrcm_h16_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BF16_SMEM);
+    if (x == nullptr || w == nullptr || out == nullptr || n < 1 || h < 1 || wd < 1) return (int)cudaErrorInvalidValue;
+    const int seg_rows = strip_rows(n, h, wd);
+    const long long strips = (wd + SW - 1) / SW, segs = (h + seg_rows - 1) / seg_rows;
+    const long long items = (long long)n * strips * segs;
+    if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(molrcm_h16_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, S_END);
     if (err != cudaSuccess) return (int)err;
-    molrcm_h16_kernel<E><<<blocks, THREADS, BF16_SMEM, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const E*>(x), static_cast<const float*>(w), static_cast<E*>(out), h, wd, tiles_w,
-        tiles_per_image);
+    const int blocks = (int)(items < num_sms() ? items : num_sms());
+    molrcm_h16_kernel<E><<<blocks, ST_THREADS, S_END, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const E*>(x), static_cast<const float*>(w), static_cast<E*>(out), h, wd, (int)strips, seg_rows,
+        (int)segs, (int)items);
     return (int)cudaGetLastError();
 }
 

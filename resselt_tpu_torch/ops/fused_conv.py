@@ -8,7 +8,9 @@ accumulation; the output has the input's dtype) or raises; on a CPU tensor
 it computes the plain version, ``*_ref`` below.  Each wrapper counts its
 kernel launches in its ``launches`` attribute, and per shape in its
 ``by_shape`` Counter: ``(n, h, w, cin, cout, act)`` for the 3x3 wrappers,
-``(n, h, w, cin, cout, k, act)`` for ``fused_conv_lk``.
+``(n, h, w, cin, cout, k, act)`` for ``fused_conv_lk``, which also counts
+``(that key, path)`` in ``by_path``: the path csrc/conv_lk.cu took for
+the shape (:data:`LK_PATHS` in 16 bits), or 'f32'.
 
 Weights are either torch OIHW ``(Cout, Cin, k, k)`` or already packed into
 ``(k*k, Cin, Cout)`` taps in the input's dtype (:func:`pack_conv3x3_weight`,
@@ -203,7 +205,10 @@ fused_conv3x3_pack2.by_shape = Counter()
 
 # -- large-kernel conv (PLKSR's partial conv) ---------------------------------
 
-LK_MAX_K = 31  # csrc/conv_lk.cu: the bf16 halo + one weight row fit in shared memory up to here
+LK_MAX_K = 31  # csrc/conv_lk.cu: the mma.sync path's halo + one weight row fit in shared memory up to here
+# csrc/conv_lk.cu's 16-bit paths, in its enum Path's order: stacked (Cin 16,
+# Cout <= 16, all weights resident), tiles (Cin 16 and 64), mma (the rest)
+LK_PATHS = ('mma', 'stacked', 'tiles')
 
 
 def lk_conv_supported(cin: int, cout: int, k: int) -> bool:
@@ -225,6 +230,8 @@ def _lk_lib() -> ctypes.CDLL:
         for fn in (lib.resselt_conv_lk_f32, lib.resselt_conv_lk_bf16, lib.resselt_conv_lk_f16):
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.resselt_conv_lk_path.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.resselt_conv_lk_path.restype = ctypes.c_int
         lib._resselt_typed = True
     return lib
 
@@ -259,11 +266,14 @@ def _launch_lk(x: torch.Tensor, w: torch.Tensor, b, k: int, act: str) -> torch.T
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), taps.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
                 n, h, wd, cin, cout, pitch, k, ACTS[act], stream)
+    path = 'f32' if x.dtype == torch.float32 else LK_PATHS[lib.resselt_conv_lk_path(cin, cout, k, pitch, x.data_ptr())]
     if rc != 0:
         raise RuntimeError(f'lk kernel launch failed: CUDA error {rc} '
-                           f'(x {tuple(x.shape)} {x.dtype}, cout {cout}, k {k}, act {act})')
+                           f'(x {tuple(x.shape)} {x.dtype}, cout {cout}, k {k}, act {act}, path {path})')
+    key = (n, h, wd, cin, cout, k, act)
     fused_conv_lk.launches += 1
-    fused_conv_lk.by_shape[(n, h, wd, cin, cout, k, act)] += 1
+    fused_conv_lk.by_shape[key] += 1
+    fused_conv_lk.by_path[(key, path)] += 1
     return y
 
 
@@ -299,3 +309,4 @@ def fused_conv_lk(x, w, b=None, k: int = 17, act: str = 'linear') -> torch.Tenso
 
 fused_conv_lk.launches = 0
 fused_conv_lk.by_shape = Counter()
+fused_conv_lk.by_path = Counter()

@@ -10,9 +10,11 @@ the rest ``c3``, it computes
 
 in f32, with every depthwise conv zero-padding its own input, and returns
 it in ``x``'s dtype.  On a CUDA tensor :func:`fused_molrcm` launches the
-hand-written Hopper kernel ``csrc/molrcm.cu`` (dim 64 only; f32 FMA in f32,
-the four products on the tensor cores in bf16 and fp16) or raises; on a CPU
-tensor it computes the plain version :func:`fused_molrcm_ref`.  Both read the weights from the one f32 buffer
+hand-written Hopper kernel ``csrc/molrcm.cu`` (dim 64 only; f32 FMA in f32;
+in bf16 and fp16 a block per SM walks 16-column strips of the image, with
+the four products on the tensor cores) or raises; on a CPU tensor it
+computes the plain version :func:`fused_molrcm_ref`.  Both read the
+weights from the one f32 buffer
 :func:`pack_molrcm_weights` builds.  The wrapper counts its kernel launches
 in ``fused_molrcm.launches``, and per shape in the ``fused_molrcm.by_shape``
 Counter under ``(n, h, w, dim, dtype name)``.

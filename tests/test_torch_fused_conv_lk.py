@@ -44,6 +44,23 @@ def test_fused_conv_lk_matches_pallas(h, w, cin, cout, k):
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize('h,w,cin,cout,k,act', [
+    (15, 17, 8, 8, 3, 'lrelu'),     # mma path
+    (17, 33, 16, 16, 17, 'lrelu'),  # stacked path, ragged
+    (1, 40, 16, 5, 13, 'linear'),   # stacked path, Cout below a tile, one row
+    (12, 14, 32, 24, 13, 'lrelu'),  # tiles path
+    (9, 11, 64, 40, 31, 'linear'),  # k 31 at Cin 64: mma path
+    (8, 20, 64, 64, 3, 'linear'),   # tiles path, k 3
+])
+def test_fused_conv_lk_matches_pallas_at_path_edges(h, w, cin, cout, k, act):
+    """The shape classes of the card's three 16-bit paths, the plain version
+    against the Pallas kernel."""
+    x, wt, b = _inputs(h, w, cin, cout, k, 4, batch=1)
+    want = np.asarray(jax_lk(x, wt, b, k=k, act=act, interpret=True))
+    got = fc.fused_conv_lk(torch.from_numpy(x), torch.from_numpy(wt), torch.from_numpy(b), k=k, act=act)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
 @pytest.mark.parametrize('act', ['linear', 'lrelu'])
 @pytest.mark.parametrize('bias', [True, False], ids=['bias', 'no_bias'])
 def test_fused_conv_lk_bias_and_act(act, bias):

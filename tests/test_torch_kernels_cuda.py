@@ -130,7 +130,10 @@ def test_tiled_on_card_matches_cpu(cuda):
 # -- the large-kernel conv (csrc/conv_lk.cu) ----------------------------------
 
 
-def _lk_check(cuda, dtype, n, h, w, cin, cout, k, act, bias=True, pitch=None, c0=0):
+def _lk_check(cuda, dtype, n, h, w, cin, cout, k, act, bias=True, pitch=None, c0=0, path=None):
+    """One launch against the plain version, counted once in total, per
+    shape and on one path: 'f32' in f32, else a 16-bit path (``path`` where
+    given)."""
     g = torch.Generator(device=cuda).manual_seed(k * 100 + cin)
     xw = torch.randn((n, h, w, pitch or cin), generator=g, device=cuda).to(dtype)
     x = xw[..., c0:c0 + cin]
@@ -139,9 +142,14 @@ def _lk_check(cuda, dtype, n, h, w, cin, cout, k, act, bias=True, pitch=None, c0
     taps = fc.pack_conv_lk_weight(wt, dtype)
     key = (n, h, w, cin, cout, k, act)
     before, shape_before = fc.fused_conv_lk.launches, fc.fused_conv_lk.by_shape[key]
+    paths_before = {p: fc.fused_conv_lk.by_path[(key, p)] for p in (*fc.LK_PATHS, 'f32')}
     got = fc.fused_conv_lk(x, taps, b, k=k, act=act)
     torch.cuda.synchronize()
     assert fc.fused_conv_lk.launches == before + 1 and fc.fused_conv_lk.by_shape[key] == shape_before + 1
+    took = [p for p, c in paths_before.items() if fc.fused_conv_lk.by_path[(key, p)] == c + 1]
+    assert len(took) == 1 and (took[0] == 'f32') == (dtype == torch.float32), took
+    if path is not None and dtype != torch.float32:
+        assert took == [path]
     assert got.dtype == dtype and got.shape == (n, h, w, cout) and got.is_contiguous()
     want = fc.fused_conv_lk_ref(x.float(), taps.float(), b, k=k, act=act)
     if dtype == torch.float32:
@@ -170,6 +178,26 @@ def test_lk_kernel_reads_a_channel_slice_in_place(cuda, dtype, pitch, c0):
     """x[..., c0:c0 + 16] of a wider tensor; c0 = 0 is PLKSR's partial
     conv (pitch 20 and c0 = 3 take the kernel's unvectorised loads)."""
     _lk_check(cuda, dtype, 2, 30, 41, 16, 16, 17, 'lrelu', pitch=pitch, c0=c0)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('n,h,w,cin,cout,k,act,pitch,c0,path', [
+    (1, 17, 257, 16, 16, 17, 'lrelu', 64, 16, 'stacked'),  # a second 256-column tile one column wide
+    (2, 20, 260, 16, 8, 17, 'linear', 16, 0, 'stacked'),    # 8 output rows a tile
+    (1, 1, 300, 16, 5, 13, 'linear', 16, 0, 'stacked'),     # Cout 5, one row
+    (2, 33, 17, 16, 16, 17, 'linear', 24, 3, 'mma'),        # pixels not 16-byte aligned
+    (3, 15, 17, 8, 8, 3, 'lrelu', 8, 0, 'mma'),             # Cin 8
+    (4, 96, 128, 8, 8, 17, 'lrelu', 8, 0, 'mma'),           # Cin 8, a grid that fills the card
+    (1, 21, 23, 64, 40, 31, 'linear', 64, 0, 'mma'),        # k 31 at Cin 64: the tiles path's halos do not fit
+    (1, 40, 70, 16, 16, 31, 'lrelu', 16, 0, 'tiles'),       # k 31: the stacked path's weights do not fit
+    (2, 37, 45, 32, 24, 13, 'lrelu', 48, 16, 'mma'),        # Cin 32, a 16-byte aligned slice at an offset
+    (2, 37, 45, 64, 24, 13, 'lrelu', 96, 32, 'tiles'),      # a slice at an offset
+    (1, 300, 15, 64, 64, 3, 'linear', 64, 0, 'tiles'),      # k 3
+])
+def test_lk_kernel_paths_match_plain(cuda, dtype, n, h, w, cin, cout, k, act, pitch, c0, path):
+    """The edges of the three 16-bit paths, each counted (by_path) on the
+    path csrc/conv_lk.cu's plan gives it."""
+    _lk_check(cuda, dtype, n, h, w, cin, cout, k, act, pitch=pitch, c0=c0, path=path)
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
@@ -404,14 +432,17 @@ def _molrcm_check(cuda, dtype, n, h, w, bias=True, seed=0):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize('n,h,w', [(2, 37, 45), (1, 16, 128), (1, 1, 1), (3, 7, 2), (2, 33, 17), (1, 64, 64),
-                                   (1, 48, 64), (1, 5, 300)])
+                                   (1, 48, 64), (1, 5, 300),
+                                   # the edges of the 16-bit kernel's 16-column strips and runs of rows
+                                   (3, 15, 17), (1, 16, 16), (3, 17, 15), (1, 300, 16), (3, 16, 300), (1, 17, 1)])
 def test_molrcm_kernel_matches_plain(cuda, dtype, n, h, w):
     _molrcm_check(cuda, dtype, n, h, w)
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
-def test_molrcm_kernel_no_bias(cuda, dtype):
-    _molrcm_check(cuda, dtype, 2, 20, 24, bias=False, seed=3)
+@pytest.mark.parametrize('n,h,w', [(2, 20, 24), (3, 300, 17)])
+def test_molrcm_kernel_no_bias(cuda, dtype, n, h, w):
+    _molrcm_check(cuda, dtype, n, h, w, bias=False, seed=3)
 
 
 def test_molrcm_kernel_refuses_what_it_does_not_take(cuda):

@@ -68,6 +68,30 @@ def test_plain_matches_pallas_and_chain(shape, th):
     assert torch.equal(got, mo.fused_molrcm_ref(torch.from_numpy(x), packed))
 
 
+@pytest.mark.parametrize('shape,bias', [((1, 1, 1, 64), True), ((3, 15, 17, 64), True), ((1, 16, 16, 64), True),
+                                        ((3, 17, 15, 64), True), ((1, 300, 16, 64), True),
+                                        ((3, 16, 300, 64), False)])
+def test_plain_matches_chain_at_strip_edges(shape, bias):
+    """The edges of the 16-bit kernel's 16-column strips and runs of rows
+    (h and w of 1, 15, 16, 17 and 300; n of 1 and 3; without biases): the
+    plain version against JAX's plain chain."""
+    params = _params(64, seed=7, bias=bias)
+    x = np.random.default_rng(8).standard_normal(shape, np.float32) * 0.3
+    want = np.asarray(jax_molrcm(JPTree({k: jnp.asarray(v) for k, v in params.items()}), jnp.asarray(x), 64))
+    got = mo.fused_molrcm(torch.from_numpy(x), mo.pack_molrcm_weights(_port(params)))
+    assert got.shape == shape
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize('shape', [(3, 15, 17, 64), (1, 17, 15, 64)])
+def test_plain_matches_pallas_at_strip_edges(shape):
+    params = _params(64, seed=9)
+    x = np.random.default_rng(10).standard_normal(shape, np.float32) * 0.3
+    jp = JPTree({k: jnp.asarray(v) for k, v in params.items()})
+    pallas = np.asarray(jax_fused_molrcm(jp, jnp.asarray(x), 64, th=8, interpret=True))
+    _close(mo.fused_molrcm(torch.from_numpy(x), mo.pack_molrcm_weights(_port(params))).numpy(), pallas)
+
+
 @pytest.mark.parametrize('bias', [True, False], ids=['bias', 'no_bias'])
 def test_port_chain_and_kernel_path_agree(bias):
     """The port's ``_molrcm``: with packed weights (the kernel's path) and
