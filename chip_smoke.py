@@ -62,8 +62,20 @@ whose AC_MSA category differs between the two) / atd_serve (30 + 60 per
 bench forward; tiled at the loader's bf16 hints: tile 160, halo 8, two
 windows a batch), hat_load / hat_model (36 window_mha launches; the six
 OCABs take the plain path) / hat_serve (36 per bench forward; tiled at
-tile 192, halo 16, two windows a batch).  Then the card's name and power
-limit, one JSON line of kernel figures, and last
+tile 192, halo 16, two windows a batch).  Then DAT-S, RGT-S and DRCT, the
+window transformers with rectangular windows and wide heads (wattn_kernels
+holds each class of their window attentions: DAT's (8, 16) and (16, 8)
+branches at C 90, RGT's (8, 32) and (32, 8), DRCT's swin1 / swin2 / swin4
+at C 180 / 212 / 276, head_dim 30 / 53 / 46, with the models' own
+rectangular shift masks): dat_load / dat_model / dat_serve (36 window_mha
+launches per forward, 18 masked; tiled at tile 96, halo 8, eight windows a
+batch), rgt_* (36; tile 160, halo 8, two a batch), drct_* (18; swin3 at
+head_dim 122 and swin5 at 77, 12 attentions a forward, take the plain path,
+whose time per bench forward is measured beside the library's; tile 128,
+halo 8, one a batch).  Every model and serve phase of a window transformer
+also asserts the window attentions the plain path took (0; HAT-S 6, DRCT
+12), and each serve phase reports its peak device memory.  Then the card's
+name and power limit, one JSON line of kernel figures, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device, or without the package beside this script, it exits 1 before
 printing any result.
@@ -104,6 +116,18 @@ ATD = {'name': 'ATD-light', 'embed_dim': 48, 'depths': (6,) * 5, 'num_heads': (4
 HAT = {'name': 'HAT-S', 'embed_dim': 144, 'depths': (6,) * 6, 'num_heads': (6,) * 6, 'window_size': 16,
        'overlap_ratio': 0.5, 'compress_ratio': 24, 'squeeze_factor': 24, 'mlp_ratio': 2.0, 'num_feat': 64,
        'scale': 4, 'tile': 192, 'halo': 16, 'tile_batch': 2}
+# DAT-S x4 (DAT paper, Chen et al., ICCV 2023; tools/bench_families.py's
+# 'dat-s 4x'); tiled at the loader's bf16 hints, eight windows a batch
+DAT = {'name': 'DAT-S', 'embed_dim': 180, 'depth': (6,) * 6, 'num_heads': (6,) * 6, 'split_size': (8, 16),
+       'expansion_factor': 2.0, 'scale': 4, 'tile': 96, 'halo': 8, 'tile_batch': 8}
+# RGT-S x4 (RGT paper, Chen et al., ICLR 2024, the RGT-S option of its
+# official code); tiled at the loader's bf16 hints, two windows a batch
+RGT = {'name': 'RGT-S', 'embed_dim': 180, 'depth': (6,) * 6, 'num_heads': (6,) * 6, 'split_size': (8, 32),
+       'mlp_ratio': 2.0, 'c_ratio': 0.5, 'scale': 4, 'tile': 160, 'halo': 8, 'tile_batch': 2}
+# DRCT x4 (DRCT paper, Hsu et al., CVPRW 2024; tools/bench_families.py's
+# 'drct-l 4x': six groups); tiled at the loader's bf16 hints, one window a batch
+DRCT = {'name': 'DRCT', 'embed_dim': 180, 'num_layers': 6, 'num_heads': (6,) * 6, 'window_size': 16, 'gc': 32,
+        'mlp_ratio': 2.0, 'scale': 4, 'img_size': 64, 'tile': 128, 'halo': 8, 'tile_batch': 1}
 
 # H100 SXM dense peaks (NVIDIA data sheet) for bound_ms
 PEAK_FLOPS = {'bfloat16': 989e12, 'float16': 989e12, 'float32': 67e12}
@@ -118,6 +142,7 @@ WATTN_BF16_ATOL = 1e-2  # window attention: P is rounded to bf16 (fp16) before P
 BF16_PSNR = 35.0   # tests/test_parallel.py's bf16-vs-f32 floor; fp16 is held to the same
 MOLRCM_TOL = 1.5e-3  # x max|plain|: tests/test_pallas_ops.py's tolerance for the JAX MOLRCM kernel
 ATD_TOL = HAT_TOL = 2e-3  # tests/test_atd.py's and tests/test_hat.py's TOL
+DAT_TOL = RGT_TOL = DRCT_TOL = 2e-3  # tests/test_dat.py's, test_rgt.py's and test_drct.py's TOL
 
 
 def log(phase: str, **fields) -> None:
@@ -373,52 +398,88 @@ def phase_lk_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
     return out
 
 
+def window_classes(cfg: dict) -> tuple[int, list[tuple]]:
+    """A model's window attentions: the multiple its images are padded to,
+    and per class of attention (label, (sp_h, sp_w) window, C, heads,
+    masks: 'both' where its shifted blocks are masked and the others not,
+    'masked' or 'unmasked' where all of its blocks are one or the other).
+    DAT and RGT: two branches, (sp0, sp1) and (sp1, sp0) windows on half the
+    channels with half the heads, padded to max(split).  DRCT: the blocks the
+    kernel takes (head_dim <= 64): swin1 (embed, heads), swin2 and swin4
+    (embed + gc and + 3 gc, heads - width % heads; shifted)."""
+    if 'split_size' in cfg:
+        sp0, sp1 = cfg['split_size']
+        c, h = cfg['embed_dim'] // 2, cfg['num_heads'][0] // 2
+        return max(sp0, sp1), [(f' ({sp0}, {sp1})', (sp0, sp1), c, h, 'both'),
+                               (f' ({sp1}, {sp0})', (sp1, sp0), c, h, 'both')]
+    ws, c, h = cfg['window_size'], cfg['embed_dim'], cfg['num_heads'][0]
+    if 'gc' in cfg:
+        out = [(' swin1', (ws, ws), c, h, 'unmasked')]
+        for k in (2, 4):
+            width = c + (k - 1) * cfg['gc']
+            out.append((f' swin{k}', (ws, ws), width, h - width % h, 'masked'))
+        return ws, out
+    return ws, [('', (ws, ws), c, h, 'both')]
+
+
 def wattn_shapes(n_img: int, tile: int, cfg: dict, others: tuple[dict, ...]) -> list[dict]:
     """Every window-attention shape of the SwinIR-M path (the bench
     forwards, the tiled 720p windows at the loader's hints, the CLI's
     48x64 and the model phase's 64x64 images; each with the shift mask and
-    without), the kernel's other shape classes, and the same four images'
-    shapes for each of ``others`` (ATD-light, HAT-S; their tiled windows
-    come ``tile_batch`` a batch).  ``windows`` counts the window batch,
-    ``nw`` the mask's windows (None: unmasked), ``mask`` its kind: 'random'
-    (30% of the entries -100, so no window's tile is all zero: the
-    correctness rows), 'shift' (the model's own ``swin_attn_mask`` of a
-    ``tile``-square image: the bench forwards' masked launches are timed by
-    these rows), 'zero' (every tile all zero)."""
+    without), the kernel's other shape classes (head_dim 53 and 46 among
+    them, q, k and v slices of one qkv tensor; the wrapper pads heads of
+    53, whose rows are only 2-byte aligned), and the same four images'
+    shapes for each class of window attention (:func:`window_classes`) of
+    each of ``others`` (their tiled windows come ``tile_batch`` a batch).  ``windows`` counts the window
+    batch, ``nw`` the mask's windows (None: unmasked), ``split`` the window,
+    ``image`` the padded image the windows tile; ``mask`` is the kind:
+    'random' (30% of the entries -100, so no window's tile is all zero: the
+    correctness rows), 'shift' (the model's own shift mask of the bench
+    image, ``rect_attn_mask``: the bench forwards' masked launches are timed
+    by these rows), 'zero' (every tile all zero)."""
     ws, c, h = cfg['window_size'], cfg['embed_dim'], cfg['num_heads'][0]
     n = ws * ws
     nw_bench = (tile // ws) ** 2
     nw_tiled = ((cfg['tile'] + 2 * cfg['halo']) // ws) ** 2
     nw_cli = (48 // ws) * (64 // ws)
     nw_model = (64 // ws) ** 2
+    sq, bench = (ws, ws), (tile, tile)
     rows = [
-        ('bench masked', n_img * nw_bench, n, c, h, nw_bench, 'random', ws),
-        ('bench shift mask', n_img * nw_bench, n, c, h, nw_bench, 'shift', ws),
-        ('bench zero mask', n_img * nw_bench, n, c, h, nw_bench, 'zero', ws),
-        ('bench', n_img * nw_bench, n, c, h, None, None, ws),
-        ('tiled window masked', nw_tiled, n, c, h, nw_tiled, 'random', ws),
-        ('tiled window', nw_tiled, n, c, h, None, None, ws),
-        ('cli masked', nw_cli, n, c, h, nw_cli, 'random', ws),
-        ('cli', nw_cli, n, c, h, None, None, ws),
-        ('model masked', nw_model, n, c, h, nw_model, 'random', ws),
-        ('model', nw_model, n, c, h, None, None, ws),
-        ('window 7 n49', n_img * 1024, 49, 180, 6, 1024, 'random', 7),
-        ('SwinIR-light C60', n_img * nw_bench, 64, 60, 6, nw_bench, 'random', 8),
-        ('DAT-S n128 masked', n_img * 512, 128, 180, 6, 512, 'random', None),
+        ('bench masked', n_img * nw_bench, n, c, h, nw_bench, 'random', sq, bench),
+        ('bench shift mask', n_img * nw_bench, n, c, h, nw_bench, 'shift', sq, bench),
+        ('bench zero mask', n_img * nw_bench, n, c, h, nw_bench, 'zero', sq, bench),
+        ('bench', n_img * nw_bench, n, c, h, None, None, sq, bench),
+        ('tiled window masked', nw_tiled, n, c, h, nw_tiled, 'random', sq, None),
+        ('tiled window', nw_tiled, n, c, h, None, None, sq, None),
+        ('cli masked', nw_cli, n, c, h, nw_cli, 'random', sq, None),
+        ('cli', nw_cli, n, c, h, None, None, sq, None),
+        ('model masked', nw_model, n, c, h, nw_model, 'random', sq, None),
+        ('model', nw_model, n, c, h, None, None, sq, None),
+        ('window 7 n49', n_img * 1024, 49, 180, 6, 1024, 'random', (7, 7), None),
+        ('SwinIR-light C60', n_img * nw_bench, 64, 60, 6, nw_bench, 'random', sq, None),
+        ('edge head_dim 53 in place', 7, 256, 212, 4, 7, 'random', (16, 16), None),
+        ('edge head_dim 53 n 100', 6, 100, 106, 2, None, None, (10, 10), None),
+        ('edge head_dim 46 in place', 5, 200, 276, 6, 5, 'random', (10, 20), None),
     ]
     for o in others:
-        ows, oc, oh = o['window_size'], o['embed_dim'], o['num_heads'][0]
+        pad, classes = window_classes(o)
         window = o['tile'] + 2 * o['halo']
-        for name, imgs, ih, iw in (('bench', n_img, tile, tile), ('tiled window', o['tile_batch'], window, window),
-                                   ('cli', 1, 48, 64), ('model', 1, 64, 64)):
-            onw = (ih // ows) * (iw // ows)
-            rows.append((f"{o['name']} {name} masked", imgs * onw, ows * ows, oc, oh, onw, 'random', ows))
-            if name == 'bench':
-                rows.append((f"{o['name']} bench shift mask", imgs * onw, ows * ows, oc, oh, onw, 'shift', ows))
-                rows.append((f"{o['name']} bench zero mask", imgs * onw, ows * ows, oc, oh, onw, 'zero', ows))
-            rows.append((f"{o['name']} {name}", imgs * onw, ows * ows, oc, oh, None, None, ows))
-    keys = ('name', 'windows', 'n', 'c', 'heads', 'nw', 'mask', 'ws')
-    return [dict(zip(keys, r), tile=tile) for r in rows]
+        for label, (sh, sw), oc, oh, masks in classes:
+            nm = o['name'] + label
+            for name, imgs, ih, iw in (('bench', n_img, tile, tile), ('tiled window', o['tile_batch'], window, window),
+                                       ('cli', 1, 48, 64), ('model', 1, 64, 64)):
+                hp, wp = -(-ih // pad) * pad, -(-iw // pad) * pad
+                onw, on = (hp // sh) * (wp // sw), sh * sw
+                if masks != 'unmasked':
+                    rows.append((f'{nm} {name} masked', imgs * onw, on, oc, oh, onw, 'random', (sh, sw), None))
+                    if name == 'bench':
+                        for kind in ('shift', 'zero'):
+                            rows.append((f'{nm} bench {kind} mask', imgs * onw, on, oc, oh, onw, kind, (sh, sw),
+                                         (hp, wp)))
+                if masks != 'masked':
+                    rows.append((f'{nm} {name}', imgs * onw, on, oc, oh, None, None, (sh, sw), None))
+    keys = ('name', 'windows', 'n', 'c', 'heads', 'nw', 'mask', 'split', 'image')
+    return [dict(zip(keys, r)) for r in rows]
 
 
 def wattn_timed_rows(shapes: list[dict]) -> dict:
@@ -452,6 +513,41 @@ def wattn_bound_ms(s: dict, dtype_name: str) -> tuple[float, str]:
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
+def time_plain_attentions(device, per_forward: dict, reps: int) -> list[dict]:
+    """The window attentions the kernel does not take, as the bench forwards
+    sent them to the plain path (``per_forward``: launches per forward by
+    ``multi_head_attention.plain_by_shape`` key, unmasked, M = N): per shape
+    in bf16, q, k, v slices of one qkv tensor and a random bias, the plain
+    path's time, the library call's (``scaled_dot_product_attention``,
+    bias as its bf16 mask) and the bound."""
+    import torch
+    import torch.nn.functional as TF
+
+    from resselt_tpu_torch.nn.window import _mha_plain
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = []
+    for (w, n, m, c, h, masked), count in sorted(per_forward.items()):
+        if masked or m != n:
+            raise AssertionError(f'plain-path timing takes unmasked M = N attentions, got {(w, n, m, c, h, masked)}')
+        hd = c // h
+        qkv = torch.randn((w, n, 3 * c), generator=gen, device=device).to(torch.bfloat16)
+        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+        bias = torch.randn((h, n, n), generator=gen, device=device) * 0.5
+        q4, k4, v4 = (t.unflatten(-1, (h, hd)).transpose(1, 2) for t in (q, k, v))
+        am = bias.to(torch.bfloat16)[None]
+        row = {'windows': w, 'n': n, 'c': c, 'heads': h, 'head_dim': hd, 'per_forward': count}
+        row['plain_ms'] = _ms(lambda: _mha_plain(q, k, v, h, hd ** -0.5, bias, None), reps)
+        row['library_ms'] = _ms(lambda: TF.scaled_dot_product_attention(q4, k4, v4, attn_mask=am, scale=hd ** -0.5),
+                                reps)
+        row['bound_ms'], row['bound_by'] = wattn_bound_ms({'windows': w, 'n': n, 'c': c, 'heads': h, 'nw': None},
+                                                          'bfloat16')
+        del qkv, q, k, v, q4, k4, v4, am, bias
+        torch.cuda.empty_cache()
+        out.append(row)
+    return out
+
+
 def _device_kernels(fn) -> str:
     """The device kernels one call of ``fn`` runs, by time, from
     torch.profiler: names PyTorch's choice of backend."""
@@ -479,7 +575,7 @@ def phase_wattn_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
     import torch
     import torch.nn.functional as TF
 
-    from resselt_tpu_torch.nn.window import swin_attn_mask
+    from resselt_tpu_torch.nn.window import rect_attn_mask
     from resselt_tpu_torch.ops import window_attention as wa
 
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -495,7 +591,8 @@ def phase_wattn_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
         if s['mask'] == 'random':
             mask = torch.where(torch.rand((nw, n, n), generator=gen, device=device) < 0.3, -100.0, 0.0)
         elif s['mask'] == 'shift':
-            mask = torch.from_numpy(swin_attn_mask(s['tile'], s['tile'], s['ws'], s['ws'] // 2)).to(device)
+            (hp, wp), (sh, sw) = s['image'], s['split']
+            mask = torch.from_numpy(rect_attn_mask(hp, wp, sh, sw, sh // 2, sw // 2)).to(device)
             if mask.shape != (nw, n, n):
                 raise AssertionError(f"shift mask {tuple(mask.shape)} at {s['name']}")
         elif s['mask'] == 'zero':
@@ -810,17 +907,20 @@ def phase_load(device, sd: dict, stem: str, arch: str, meta, tmp: str, dropped: 
 def phase_model(model, sd, size: int, entry, bf16: bool = True, tol: float = MODEL_TOL):
     """f32 on the card against the CPU, ``entry``'s launches in that
     forward (``entry``: a kernel wrapper, or a tuple of them for a list of
-    counts), bf16 and fp16 against f32."""
+    counts) and the window attentions it sent to the plain path, bf16 and
+    fp16 against f32."""
     import numpy as np
     import torch
 
     import resselt_tpu_torch
+    from resselt_tpu_torch.nn.window import multi_head_attention
 
     x = np.random.default_rng(0).random((1, size, size, 3), dtype=np.float32)
     cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
     want = cpu(x).numpy()
     entries = entry if isinstance(entry, tuple) else (entry,)
     before = [e.launches for e in entries]
+    plain_before = multi_head_attention.plain_calls
     got32 = model(x)
     torch.cuda.synchronize()
     launches = [e.launches - b for e, b in zip(entries, before)]
@@ -829,7 +929,8 @@ def phase_model(model, sd, size: int, entry, bf16: bool = True, tol: float = MOD
     err = float(np.abs(got32.cpu().numpy() - want).max())
     if got32.shape != want.shape or not err < tol:
         raise AssertionError(f'f32 card vs cpu: shape {tuple(got32.shape)} vs {want.shape}, max err {err}')
-    res = {'max_abs_err_f32': err, 'launches_per_forward': launches}
+    res = {'max_abs_err_f32': err, 'launches_per_forward': launches,
+           'plain_attentions_per_forward': multi_head_attention.plain_calls - plain_before}
     if bf16:
         gotb = model(x, dtype=torch.bfloat16).float()
         mse = float(((gotb - got32) ** 2).mean())
@@ -868,12 +969,14 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
     when None), and a PNG through the CLI.  Every kernel's launch count
     starts from 0 just before the timed bench forwards; their counts are
     read just after them (``bench_counts``, and per kernel path
-    ``bench_paths`` for the wrappers that have several), and the whole
-    phase's at its end (``launches``, and per shape ``shapes``)."""
+    ``bench_paths`` for the wrappers that have several; ``bench_plain``: the
+    window attentions sent to the plain path, in total and per shape), and
+    the whole phase's at its end (``launches``, and per shape ``shapes``)."""
     import numpy as np
     import torch
 
     from resselt_tpu_torch import upscale
+    from resselt_tpu_torch.nn.window import multi_head_attention
     from resselt_tpu_torch.parallel import upscale_tiled
 
     entries = _entries()
@@ -887,6 +990,8 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
         e.by_shape.clear()
         if hasattr(e, 'by_path'):
             e.by_path.clear()
+    multi_head_attention.plain_calls = 0
+    multi_head_attention.plain_by_shape.clear()
     t0 = time.perf_counter()
     for _ in range(timed_reps):
         y = model(x, dtype=torch.bfloat16)
@@ -894,6 +999,7 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
     dt = (time.perf_counter() - t0) / timed_reps
     res['bench_counts'] = {k: (e.launches, dict(e.by_shape)) for k, e in entries.items()}
     res['bench_paths'] = {k: dict(e.by_path) for k, e in entries.items() if hasattr(e, 'by_path')}
+    res['bench_plain'] = (multi_head_attention.plain_calls, dict(multi_head_attention.plain_by_shape))
     s = model.metadata.upscale
     if y.shape != (batch, tile * s, tile * s, 3) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f'bench forward: shape {tuple(y.shape)}, finite {bool(torch.isfinite(y).all())}')
@@ -1026,6 +1132,7 @@ def main() -> int:
                             tiled_tile=BENCH['tile'])
         counts = serve.pop('bench_counts')
         serve.pop('bench_paths')
+        serve.pop('bench_plain')
         serve.pop('shapes')
         launches = serve.pop('launches')['act']
         if launches == 0:
@@ -1066,6 +1173,7 @@ def main() -> int:
                             tiled_tile=BENCH['tile'])
         counts = serve.pop('bench_counts')
         paths = serve.pop('bench_paths')['lk']
+        serve.pop('bench_plain')
         serve.pop('shapes')
         lk_launches = serve.pop('launches')['lk']
         checked = {('lk', lk_shape_key(s)) for s in lk}
@@ -1085,7 +1193,7 @@ def main() -> int:
 
     sw = SWINIR
     n_blocks = sum(sw['depths'])
-    wshapes = wattn_shapes(BENCH['batch'], BENCH['tile'], sw, others=(ATD, HAT))
+    wshapes = wattn_shapes(BENCH['batch'], BENCH['tile'], sw, others=(ATD, HAT, DAT, RGT, DRCT))
     w_rows = phase_wattn_kernels('cuda', wshapes, reps=10)
     log('wattn_kernels', f32_tol=F32_TOL, bf16_rtol=BF16_RTOL, bf16_atol=WATTN_BF16_ATOL, rows=json.dumps(w_rows))
 
@@ -1101,7 +1209,7 @@ def main() -> int:
             dropped_attn_masks=len(masks))
 
         res = phase_model(model, sd, 64, wa.window_mha, tol=SWINIR_TOL)
-        if res['launches_per_forward'] != n_blocks:
+        if res['launches_per_forward'] != n_blocks or res['plain_attentions_per_forward'] != 0:
             raise AssertionError(f"{res['launches_per_forward']} window_mha launches per SwinIR forward, "
                                  f'expected {n_blocks}')
         rsd = make_swinir(sw['embed_dim'], (2, 2), (6, 6), sw['window_size'], upscale=sw['scale'],
@@ -1116,6 +1224,8 @@ def main() -> int:
         serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280))
         counts = serve.pop('bench_counts')
         serve.pop('bench_paths')
+        if serve.pop('bench_plain')[0]:
+            raise AssertionError('the SwinIR-M bench forwards sent window attentions to the plain path')
         w_launches = serve.pop('launches')['wattn']
         phase_shapes = serve.pop('shapes')['wattn']
         checked = {('wattn', wattn_shape_key(s)) for s in wshapes}
@@ -1160,6 +1270,7 @@ def main() -> int:
         serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280))
         counts = serve.pop('bench_counts')
         serve.pop('bench_paths')
+        serve.pop('bench_plain')
         m_launches = serve.pop('launches')['molrcm']
         phase_shapes = serve.pop('shapes')['molrcm']
         checked = set().union(*(molrcm_shape_keys(s) for s in mshapes))
@@ -1188,17 +1299,26 @@ def main() -> int:
     log('gather_kernels', tol='exact', rows=json.dumps(g_rows))
     g_checked = {('gather', gather_shape_key(s)) for s in gshapes}
 
-    def serve_window_model(model, ckpt, tmp, mine: dict, cfg: dict):
+    def serve_window_model(model, ckpt, tmp, mine: dict, cfg: dict, plain: int = 0):
         """phase_serve for a model on the window-attention kernel (and, for
         ATD, the row gather): ``mine`` maps each of its wrappers' names to
-        the launches expected per forward.  Every shape of the phase must
-        have been checked by a kernels phase; each checked row's launches
-        per bench forward are added to its ``per_forward``.  Returns the
-        phase's fields, and per wrapper (launches, per bench forward, ms per
-        bench forward)."""
+        the launches expected per forward, ``plain`` is the window
+        attentions per forward the kernel does not take (the plain path).
+        Every shape of the phase must have been checked by a kernels phase;
+        each checked row's launches per bench forward are added to its
+        ``per_forward``.  Returns the phase's fields (with the plain path's
+        attentions per bench forward, in total and per shape), and per
+        wrapper (launches, per bench forward, ms per bench forward)."""
         serve = phase_serve(model, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280))
         counts = serve.pop('bench_counts')
         serve.pop('bench_paths')
+        plain_calls, plain_shapes = serve.pop('bench_plain')
+        if plain_calls != plain * reps:
+            raise AssertionError(f'{plain_calls} plain-path window attentions in {reps} bench forwards, '
+                                 f'expected {plain} each: {plain_shapes}')
+        serve['plain_attentions_per_bench_forward'] = plain_calls / reps
+        serve['plain_attention_shapes'] = json.dumps({str(k): v / reps for k, v in plain_shapes.items()})
+        figures = {'plain': {k: v / reps for k, v in plain_shapes.items()}}
         launches = serve.pop('launches')
         phase_shapes = serve.pop('shapes')
         checked = w_checked | g_checked
@@ -1206,7 +1326,6 @@ def main() -> int:
         unchecked = {(k, key) for k in mine for key in phase_shapes[k]} - checked
         if unchecked:
             raise AssertionError(f'the serve phase ran shapes no kernels phase checked: {sorted(unchecked)}')
-        figures = {}
         for name, per_forward in mine.items():
             if counts[name][0] != per_forward * reps:
                 raise AssertionError(f'{counts[name][0]} {name} launches in {reps} bench forwards, '
@@ -1241,7 +1360,7 @@ def main() -> int:
         flips32, tokens = atd_category_flips(cpu, model, x64)
         flipsb, _ = atd_category_flips(cpu, model, x64, torch.bfloat16)
         res = phase_model(model, sd, 64, (wa.window_mha, row_gather), tol=ATD_TOL)
-        if res['launches_per_forward'] != [n_layers, 2 * n_layers]:
+        if res['launches_per_forward'] != [n_layers, 2 * n_layers] or res['plain_attentions_per_forward'] != 0:
             raise AssertionError(f"{res['launches_per_forward']} window_mha and row_gather launches per ATD forward, "
                                  f'expected {[n_layers, 2 * n_layers]}')
         log('atd_model', tol=ATD_TOL, **res, layer0_category_flips_f32_card_vs_cpu=f'{flips32}/{tokens}',
@@ -1268,19 +1387,88 @@ def main() -> int:
             raise AssertionError(f'HAT config {cfg}')
         log('hat_load', arch=model.arch_id, metadata=repr(model.metadata), config=repr(cfg), files='safetensors,pth')
 
+        n_ocabs = len(ha['depths'])
         res = phase_model(model, sd, 64, wa.window_mha, tol=HAT_TOL)
-        if res['launches_per_forward'] != n_habs:
-            raise AssertionError(f"{res['launches_per_forward']} window_mha launches per HAT forward, expected {n_habs}")
+        if res['launches_per_forward'] != n_habs or res['plain_attentions_per_forward'] != n_ocabs:
+            raise AssertionError(f"{res['launches_per_forward']} window_mha launches and "
+                                 f"{res['plain_attentions_per_forward']} plain-path attentions per HAT forward, "
+                                 f'expected {n_habs} and {n_ocabs}')
         log('hat_model', tol=HAT_TOL, **res)
 
         torch.cuda.reset_peak_memory_stats()
-        serve, hat_fig = serve_window_model(model, ckpt, tmp, {'wattn': n_habs}, ha)
+        serve, hat_fig = serve_window_model(model, ckpt, tmp, {'wattn': n_habs}, ha, plain=n_ocabs)
         log('hat_serve', launches=hat_fig['wattn'][0], launches_per_bench_forward=hat_fig['wattn'][1],
             wattn_ms_per_bench_forward=hat_fig['wattn'][2],
             peak_memory_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2), **serve)
         del model, sd
         torch.cuda.empty_cache()
 
+    # -- DAT-S, RGT-S and DRCT: the window attention at rectangular windows and head_dim 53 / 46 --------
+    def window_family(stem: str, cfg: dict, sd: dict, arch: str, meta_name: str, expect: dict, n_wattn: int,
+                      n_plain: int, tol: float):
+        """Load, model and serve phases of one window transformer, with its
+        window_mha launches and plain-path attentions per forward asserted;
+        the serve phase reports the peak device memory.  Returns the serve
+        phase's fields and figures."""
+        dropped = frozenset(k for k in sd if '.attn_mask' in k)
+        with tempfile.TemporaryDirectory() as tmp:
+            model, ckpt = phase_load('cuda', sd, stem, arch, ModelMetadata(3, 3, cfg['scale'], meta_name), tmp,
+                                     dropped=dropped)
+            got = {k: getattr(model.config, k) for k in expect}
+            if got != expect:
+                raise AssertionError(f'{meta_name} config {got}, expected {expect}')
+            log(f'{stem}_load', arch=model.arch_id, metadata=repr(model.metadata), config=repr(model.config),
+                files='safetensors,pth', dropped_attn_masks=len(dropped))
+
+            res = phase_model(model, sd, 64, wa.window_mha, tol=tol)
+            if (res['launches_per_forward'], res['plain_attentions_per_forward']) != (n_wattn, n_plain):
+                raise AssertionError(f"{res['launches_per_forward']} window_mha launches and "
+                                     f"{res['plain_attentions_per_forward']} plain-path attentions per {meta_name} "
+                                     f'forward, expected {n_wattn} and {n_plain}')
+            log(f'{stem}_model', tol=tol, **res)
+
+            torch.cuda.reset_peak_memory_stats()
+            serve, fig = serve_window_model(model, ckpt, tmp, {'wattn': n_wattn}, cfg, plain=n_plain)
+            serve['peak_memory_gb'] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
+            del model
+            torch.cuda.empty_cache()
+            return serve, fig
+
+    from resselt_tpu_torch.zoo import make_dat, make_drct, make_rgt
+
+    da, rg, dr = DAT, RGT, DRCT
+    n_spatial = sum(len([b for b in range(d) if b % 2 == 0]) for d in da['depth'])
+    serve, dat_fig = window_family(
+        'dat', da, make_dat(da['embed_dim'], da['depth'], da['num_heads'], da['split_size'], da['expansion_factor'],
+                            da['scale'], seed=0), 'dat', 'DAT',
+        {'embed_dim': 180, 'depth': da['depth'], 'num_heads': da['num_heads'], 'split_size': (8, 16),
+         'expansion_factor': 2.0, 'upsampler': 'pixelshuffle', 'img_size': 64}, 2 * n_spatial, 0, DAT_TOL)
+    log('dat_serve', launches=dat_fig['wattn'][0], launches_per_bench_forward=dat_fig['wattn'][1],
+        wattn_ms_per_bench_forward=dat_fig['wattn'][2], **serve)
+
+    n_lsa = sum(len([b for b in range(d) if b % 2 == 0]) for d in rg['depth'])
+    serve, rgt_fig = window_family(
+        'rgt', rg, make_rgt(rg['embed_dim'], rg['depth'], rg['num_heads'], rg['split_size'], rg['mlp_ratio'],
+                            rg['c_ratio'], rg['scale'], seed=0), 'RGT', 'RGT',
+        {'embed_dim': 180, 'depth': rg['depth'], 'num_heads': rg['num_heads'], 'split_size': (8, 32),
+         'mlp_ratio': 2.0, 'c_ratio': 0.5}, 2 * n_lsa, 0, RGT_TOL)
+    log('rgt_serve', launches=rgt_fig['wattn'][0], launches_per_bench_forward=rgt_fig['wattn'][1],
+        wattn_ms_per_bench_forward=rgt_fig['wattn'][2], **serve)
+
+    n_kernel = len(window_classes(dr)[1])  # the blocks of a group the kernel takes
+    serve, drct_fig = window_family(
+        'drct', dr, make_drct(dr['embed_dim'], dr['num_layers'], dr['num_heads'][0], dr['window_size'], dr['gc'],
+                              dr['mlp_ratio'], dr['scale'], img_size=dr['img_size'], seed=0), 'DRCT', 'DRCT',
+        {'embed_dim': 180, 'num_layers': 6, 'num_heads': dr['num_heads'], 'window_size': 16, 'gc': 32,
+         'img_size': 64}, n_kernel * dr['num_layers'], (5 - n_kernel) * dr['num_layers'], DRCT_TOL)
+    p_rows = time_plain_attentions('cuda', drct_fig['plain'], reps=10)
+    log('drct_serve', launches=drct_fig['wattn'][0], launches_per_bench_forward=drct_fig['wattn'][1],
+        wattn_ms_per_bench_forward=drct_fig['wattn'][2],
+        plain_attention_ms_per_bench_forward=sum(r['plain_ms'] * r['per_forward'] for r in p_rows),
+        plain_attention_library_ms_per_bench_forward=sum(r['library_ms'] * r['per_forward'] for r in p_rows),
+        plain_attention_rows=json.dumps(p_rows), **serve)
+
+    w_figs = {'ATD-light': atd_fig, 'HAT-S': hat_fig, 'DAT-S': dat_fig, 'RGT-S': rgt_fig, 'DRCT': drct_fig}
     head = next(r for r in rows if r['name'] == 'rdb stage0 64->192')
     lk_head = next(r for r in lk_rows if r['name'] == 'bench 16->16')
     w_head = next(r for r in w_rows if r['name'] == 'bench masked')
@@ -1323,8 +1511,8 @@ def main() -> int:
         'route': 'cuda',
         'source': 'resselt_tpu_torch/csrc/window_attn.cu',
         'replaces': 'resselt_tpu/ops/window_attention.py:32',
-        'launches': w_launches + atd_fig['wattn'][0] + hat_fig['wattn'][0],
-        'launches_by_path': {'SwinIR-M': w_launches, 'ATD-light': atd_fig['wattn'][0], 'HAT-S': hat_fig['wattn'][0]},
+        'launches': w_launches + sum(f['wattn'][0] for f in w_figs.values()),
+        'launches_by_path': {'SwinIR-M': w_launches, **{k: f['wattn'][0] for k, f in w_figs.items()}},
         'max_abs_err': max(r['max_abs_err_bf16'] for r in w_rows),
         'ms': w_head['ms'],
         'plain_ms': w_head['plain_ms'],
@@ -1335,11 +1523,10 @@ def main() -> int:
         'timed_shape': (f"SwinIR-M bench masked bf16 {w_head['windows']} windows x {w_head['n']} tokens, "
                         f"C {w_head['c']}, {w_head['heads']} heads, nW {w_head['mask_windows']}"),
         'ms_per_bench_forward': w_ms,
-        'ms_per_bench_forward_by_path': {'SwinIR-M': w_ms, 'ATD-light': atd_fig['wattn'][2],
-                                         'HAT-S': hat_fig['wattn'][2]},
+        'ms_per_bench_forward_by_path': {'SwinIR-M': w_ms, **{k: f['wattn'][2] for k, f in w_figs.items()}},
         'over_bound_ms_per_bench_forward_by_path': {
-            'SwinIR-M': over_bound_ms(w_rows) - over_bound_ms(w_rows, 'ATD-light') - over_bound_ms(w_rows, 'HAT-S'),
-            'ATD-light': over_bound_ms(w_rows, 'ATD-light'), 'HAT-S': over_bound_ms(w_rows, 'HAT-S')},
+            'SwinIR-M': over_bound_ms(w_rows) - sum(over_bound_ms(w_rows, f'{k} ') for k in w_figs),
+            **{k: over_bound_ms(w_rows, f'{k} ') for k in w_figs}},
         'shapes': w_rows,
     }, {
         'name': 'fused_molrcm',

@@ -232,8 +232,10 @@ class SRModel:
             x = x.to(dtype)
         elif x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
             x = x.float()
-        with torch.no_grad(), _precision(precision):
-            y = self._apply_fn(self.config, self.weights(x.dtype), x.contiguous())
+        with torch.no_grad():
+            weights = self.weights(x.dtype)  # built outside ``precision``: a kept weight does not depend on it
+            with _precision(precision):
+                y = self._apply_fn(self.config, weights, x.contiguous())
         return y[0] if squeeze else y
 
 

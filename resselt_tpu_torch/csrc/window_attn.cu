@@ -55,7 +55,10 @@
 //    cp.async group started two chunks ahead.  One group barrier per chunk:
 //    it publishes the chunk that has landed and frees the slot of the
 //    chunk before.  Rows are staged with the widest cp.async copies (16, 8
-//    or 4 bytes) that the pointers, the pitches and head_dim allow.
+//    or 4 bytes) that the pointers, the pitches and head_dim allow; rows
+//    that are only 2-byte aligned (an odd head_dim) are refused, and the
+//    caller (ops/window_attention.py) hands such heads over zero-padded to
+//    a multiple of 8 elements.
 //  * Per chunk a warp starts its score accumulators from (bias + mask) /
 //    scale (the mask's 8-byte loads go straight into the accumulator
 //    registers, unconditional and all in flight at once; the bias comes from
@@ -97,10 +100,9 @@ __host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; 
 // shared memory at dst + row * S, by the `nthreads` threads whose index is
 // `tid`, zero past n rows and hd columns.  With
 // VB = 4, 8 or 16 (hd, ld, src and S aligned to VB bytes) every copy is a
-// cp.async, all in flight at once, that zero-fills outside the head; a
-// 2-byte head (odd 16-bit head_dim) is staged with plain loads.  The caller
-// waits (cp_async_wait_all(), or cp_async_commit() and cp_async_wait<N>())
-// and passes a barrier.
+// cp.async, all in flight at once, that zero-fills outside the head.  The
+// caller waits (cp_async_wait_all(), or cp_async_commit() and
+// cp_async_wait<N>()) and passes a barrier.
 template <int VB>
 __device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
     const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -127,11 +129,7 @@ __device__ __forceinline__ void stage_vec(T* dst, const T* __restrict__ src, int
     for (int i = tid; i < NP * per_row; i += nthreads) {
         const int row = i / per_row, col = (i % per_row) * E;
         const bool valid = row < n && col < hd;
-        if constexpr (VB >= 4) {
-            cp_async<VB>(dst + row * S + col, valid ? src + row * ld + col : src, valid);
-        } else {
-            dst[row * S + col] = valid ? src[row * ld + col] : T();
-        }
+        cp_async<VB>(dst + row * S + col, valid ? src + row * ld + col : src, valid);
     }
 }
 
@@ -141,10 +139,7 @@ __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, int n, 
     switch (vb) {
         case 16: stage_vec<T, 16>(dst, src, n, NP, hd, DP, S, ld, tid, nthreads); break;
         case 8: stage_vec<T, 8>(dst, src, n, NP, hd, DP, S, ld, tid, nthreads); break;
-        case 4: stage_vec<T, 4>(dst, src, n, NP, hd, DP, S, ld, tid, nthreads); break;
-        default:
-            if constexpr (sizeof(T) == 2) stage_vec<T, 2>(dst, src, n, NP, hd, DP, S, ld, tid, nthreads);
-            break;
+        default: stage_vec<T, 4>(dst, src, n, NP, hd, DP, S, ld, tid, nthreads); break;
     }
 }
 
@@ -655,8 +650,10 @@ template <typename T>
 int launch_h16_any(const void* q, const void* k, const void* v, const void* bias, const void* mask,
                    const void* flags, void* out, int windows, int n, int heads, int hd, long long ld,
                    long long wstride, int nw, float scale, void* stream) {
-    // the kernel divides bias and mask by scale and takes maxima of scores over scale
-    if (bad_shape(bias, windows, n, heads, hd, ld, wstride, nw) || !(scale > 0.f) || !isfinite(scale))
+    // the kernel divides bias and mask by scale and takes maxima of scores over scale, and stages rows
+    // with cp.async copies of at least 4 bytes
+    if (bad_shape(bias, windows, n, heads, hd, ld, wstride, nw) || !(scale > 0.f) || !isfinite(scale) ||
+        pick_vb(q, k, v, ld, wstride, hd, 2) < 4)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (head_pad(hd)) {

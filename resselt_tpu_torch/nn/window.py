@@ -2,14 +2,21 @@
 
 Counterpart of ``resselt_tpu/nn/window.py``: the same window partition,
 relative-position index and shift mask (numpy geometry, copied), and the
-same attention.  :func:`multi_head_attention` sends every square window
-attention with a bias that :func:`window_mha_supported` takes to
-``ops.window_mha`` (on the card: ``csrc/window_attn.cu``); the rest (no
-bias, or HAT's M > N overlapping keys) takes a plain path with the JAX
-package's ``_mha_xla`` semantics.
+same attention, and DAT's rectangular-window shift mask.
+:func:`multi_head_attention` sends every window attention with a bias
+that :func:`window_mha_supported` takes to ``ops.window_mha`` (on the
+card: ``csrc/window_attn.cu``); the rest (no bias, HAT's M > N overlapping
+keys, or a head_dim above the kernel's) takes a plain path with the JAX
+package's ``_mha_xla`` semantics.  The plain path's calls on a CUDA tensor
+are counted in ``multi_head_attention.plain_calls``, and per shape in the
+``multi_head_attention.plain_by_shape`` Counter under ``(windows, n, m, c,
+heads, masked)``: the attentions the kernel does not take are visible, not
+silent.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 import torch
@@ -60,16 +67,41 @@ def swin_attn_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray | None:
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+def rect_attn_mask(h: int, w: int, sp_h: int, sp_w: int, shift_h: int, shift_w: int) -> np.ndarray:
+    """Additive shift mask for (sp_h, sp_w) windows of an (h, w) map rolled
+    by (-shift_h, -shift_w) (DAT-style), (nW, sp_h*sp_w, sp_h*sp_w) f32 with
+    0 / -100 entries."""
+    img_mask = np.zeros((h, w), dtype=np.int32)
+    cnt = 0
+    for hs in (slice(0, -sp_h), slice(-sp_h, -shift_h), slice(-shift_h, None)):
+        for wsl in (slice(0, -sp_w), slice(-sp_w, -shift_w), slice(-shift_w, None)):
+            img_mask[hs, wsl] = cnt
+            cnt += 1
+    m = img_mask.reshape(h // sp_h, sp_h, w // sp_w, sp_w).transpose(0, 2, 1, 3).reshape(-1, sp_h * sp_w)
+    diff = m[:, None, :] - m[:, :, None]
+    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+
+
+def _cached(cache: dict, key: tuple, build, device) -> torch.Tensor:
+    mask = cache.get(key)
+    if mask is None:
+        mask = cache[key] = torch.from_numpy(build()).to(device)
+    return mask
+
+
 def shift_mask(cache: dict, h: int, w: int, ws: int, shift: int, device) -> torch.Tensor | None:
     """:func:`swin_attn_mask` as an f32 tensor on ``device``, built once
     per ``(h, w, ws, shift, device)`` and kept in ``cache``."""
     if shift == 0:
         return None
-    key = (h, w, ws, shift, str(device))
-    mask = cache.get(key)
-    if mask is None:
-        mask = cache[key] = torch.from_numpy(swin_attn_mask(h, w, ws, shift)).to(device)
-    return mask
+    return _cached(cache, (h, w, ws, shift, str(device)), lambda: swin_attn_mask(h, w, ws, shift), device)
+
+
+def rect_shift_mask(cache: dict, h: int, w: int, sp_h: int, sp_w: int, sh_h: int, sh_w: int, device) -> torch.Tensor:
+    """:func:`rect_attn_mask` as an f32 tensor on ``device``, built once per
+    geometry and device and kept in ``cache``."""
+    return _cached(cache, ('rect', h, w, sp_h, sp_w, sh_h, sh_w, str(device)),
+                   lambda: rect_attn_mask(h, w, sp_h, sp_w, sh_h, sh_w), device)
 
 
 def relative_position_bias(table, rpi, dtype: torch.dtype) -> torch.Tensor:
@@ -92,7 +124,14 @@ def multi_head_attention(q, k, v, num_heads: int, scale: float, bias=None, mask=
     b, n, c = q.shape
     if bias is not None and k.shape[1] == n and window_mha_supported(n, c, num_heads):
         return window_mha(q, k, v, bias, mask, num_heads=num_heads, scale=float(scale))
+    if q.is_cuda:
+        multi_head_attention.plain_calls += 1
+        multi_head_attention.plain_by_shape[(b, n, k.shape[1], c, num_heads, mask is not None)] += 1
     return _mha_plain(q, k, v, num_heads, scale, bias, mask)
+
+
+multi_head_attention.plain_calls = 0
+multi_head_attention.plain_by_shape = Counter()
 
 
 def _mha_plain(q, k, v, num_heads: int, scale: float, bias, mask):

@@ -5,7 +5,9 @@ Counterpart of ``resselt_tpu/zoo.py``, holding ``make_esrgan``,
 ``make_swinir`` and ``make_plksr`` (the same arrays as the JAX package's),
 ``make_realplksr`` and ``make_eimn``; ``make_hat`` and ``make_atd`` (the JAX
 package's arrays; ``make_atd`` also builds the other upsamplers' tails and
-the 3conv residual).
+the 3conv residual); ``make_dat``, ``make_rgt`` and ``make_drct``, which
+the JAX package's zoo lacks, written from what its loaders, detection
+conditions and forwards read.
 """
 
 from __future__ import annotations
@@ -414,4 +416,241 @@ def make_eimn(embed_dims: int = 64, num_stages: int = 16, depths: int = 1, mlp_r
         m.sd[f'norm{i}.weight'] += 1.0
         m.t(f'norm{i}.bias', d)
     m.conv('tail.0', 3 * scale**2, d, 3)
+    return m.sd
+
+
+def _ln(m: _Maker, key: str, width: int):
+    """A LayerNorm's scale near one and its bias."""
+    m.t(f'{key}.weight', width)
+    m.sd[f'{key}.weight'] += 1.0
+    m.t(f'{key}.bias', width)
+
+
+def _bn(m: _Maker, key: str, width: int):
+    """A BatchNorm2d's affine params and running statistics (mean N(0, 0.1),
+    var U(0.5, 1.5)) and ``num_batches_tracked``."""
+    _ln(m, key, width)
+    m.sd[f'{key}.running_mean'] = (m.rng.standard_normal(width) * 0.1).astype(np.float32)
+    m.sd[f'{key}.running_var'] = (m.rng.random(width) + 0.5).astype(np.float32)
+    m.sd[f'{key}.num_batches_tracked'] = np.zeros((), np.int64)
+
+
+def _linear(m: _Maker, key: str, cout: int, cin: int, bias: bool = True):
+    m.t(f'{key}.weight', cout, cin)
+    if bias:
+        m.t(f'{key}.bias', cout)
+
+
+def rpe_biases(sp_h: int, sp_w: int) -> np.ndarray:
+    """The ((2 sp_h - 1)(2 sp_w - 1), 2) float grid of relative offsets a
+    DAT / RGT window branch holds as ``rpe_biases``: its last row is
+    (sp_h - 1, sp_w - 1)."""
+    grid = np.stack(np.meshgrid(np.arange(1 - sp_h, sp_h), np.arange(1 - sp_w, sp_w), indexing='ij'))
+    return grid.reshape(2, -1).T.astype(np.float32)
+
+
+def _window_branches(m: _Maker, a: str, c: int, heads: int, split, pos_dim: int):
+    """The two Spatial_Attention branches of a DAT / RGT attention ``a``:
+    (sp0, sp1) windows on the first half of the channels, (sp1, sp0) on the
+    second, heads // 2 each, with the position-bias MLP (``pos_dim`` wide)."""
+    from .nn.window import relative_position_index
+
+    for i, (sh, sw) in enumerate((split, split[::-1])):
+        b = f'{a}.attns.{i}'
+        m.sd[f'{b}.rpe_biases'] = rpe_biases(sh, sw)
+        m.sd[f'{b}.relative_position_index'] = relative_position_index(sh, sw)
+        _linear(m, f'{b}.pos.pos_proj', pos_dim, 2)
+        for name, out in (('pos1', pos_dim), ('pos2', pos_dim), ('pos3', heads // 2)):
+            _ln(m, f'{b}.pos.{name}.0', pos_dim)
+            _linear(m, f'{b}.pos.{name}.2', out, pos_dim)
+
+
+def _window_masks(m: _Maker, a: str, img_size: int, split):
+    """A shifted DAT / RGT block's ``attn_mask_0`` / ``attn_mask_1`` buffers
+    at its training resolution (when ``img_size`` tiles into both window
+    shapes)."""
+    from .nn.window import rect_attn_mask
+
+    sp0, sp1 = split
+    if img_size % max(sp0, sp1) == 0:
+        m.sd[f'{a}.attn_mask_0'] = rect_attn_mask(img_size, img_size, sp0, sp1, sp0 // 2, sp1 // 2)
+        m.sd[f'{a}.attn_mask_1'] = rect_attn_mask(img_size, img_size, sp1, sp0, sp1 // 2, sp0 // 2)
+
+
+def _sgfn(m: _Maker, f: str, c: int, hidden: int):
+    _linear(m, f'{f}.fc1', hidden, c)
+    _ln(m, f'{f}.sg.norm', hidden // 2)
+    m.conv(f'{f}.sg.conv', hidden // 2, 1, 3)
+    _linear(m, f'{f}.fc2', c, hidden // 2)
+
+
+def _resi(m: _Maker, key: str, c: int, resi_connection: str):
+    if resi_connection == '1conv':
+        m.conv(key, c, c, 3)
+    else:
+        m.conv(f'{key}.0', c // 4, c, 3)
+        m.conv(f'{key}.2', c // 4, c // 4, 1)
+        m.conv(f'{key}.4', c, c // 4, 3)
+
+
+def _pixelshuffle_tail(m: _Maker, c: int, upscale: int, in_nc: int, nf: int = 64):
+    m.conv('conv_before_upsample.0', nf, c, 3)
+    if upscale & (upscale - 1) == 0:
+        for i in range(int(math.log2(upscale))):
+            m.conv(f'upsample.{2 * i}', 4 * nf, nf, 3)
+    elif upscale == 3:
+        m.conv('upsample.0', 9 * nf, nf, 3)
+    m.conv('conv_last', in_nc, nf, 3)
+
+
+def _pos_dim(embed_dim: int) -> int:
+    """The position-bias MLP's width: the reference's (embed // 2 // 4) // 4
+    (5 at embed 180), at least 4.  No loader reads it."""
+    return max(embed_dim // 2 // 4 // 4, 4)
+
+
+def make_dat(embed_dim: int = 180, depth=(6,) * 6, num_heads=(6,) * 6, split_size=(8, 16),
+             expansion_factor: float = 2.0, upscale: int = 4, upsampler: str = 'pixelshuffle',
+             resi_connection: str = '1conv', qkv_bias: bool = True, in_nc: int = 3, img_size: int = 64,
+             seed: int = 0):
+    """DAT layout (defaults: DAT-S 4x).  Even blocks hold the adaptive
+    spatial attention (qkv, proj, the depthwise conv branch with its
+    BatchNorm, the AIM channel (C -> C/8 -> C) and spatial (C -> C/16 -> 1)
+    interactions, two window branches), odd blocks the adaptive channel
+    attention (the same convs and a per-head ``temperature``); every block
+    an SGFN.  Shifted spatial blocks carry the ``attn_mask_0`` /
+    ``attn_mask_1`` buffers of an ``img_size`` image, as a trained
+    checkpoint does.  The position-bias MLP is ``_pos_dim(embed)`` wide.
+    'pixelshuffle' (64 features) or 'pixelshuffledirect' tails; '1conv' or
+    '3conv' residuals."""
+    from .archs.dat import _shifted
+
+    m = _Maker(seed)
+    c = embed_dim
+    hidden = int(c * expansion_factor)
+    m.conv('conv_first', c, in_nc, 3)
+    _ln(m, 'before_RG.1', c)
+    for gi, (d, heads) in enumerate(zip(depth, num_heads)):
+        for bi in range(d):
+            b = f'layers.{gi}.blocks.{bi}'
+            a = f'{b}.attn'
+            _ln(m, f'{b}.norm1', c)
+            _ln(m, f'{b}.norm2', c)
+            _linear(m, f'{a}.qkv', 3 * c, c, qkv_bias)
+            _linear(m, f'{a}.proj', c, c)
+            m.conv(f'{a}.dwconv.0', c, 1, 3)
+            _bn(m, f'{a}.dwconv.1', c)
+            m.conv(f'{a}.channel_interaction.1', c // 8, c, 1)
+            _bn(m, f'{a}.channel_interaction.2', c // 8)
+            m.conv(f'{a}.channel_interaction.4', c, c // 8, 1)
+            m.conv(f'{a}.spatial_interaction.0', c // 16, c, 1)
+            _bn(m, f'{a}.spatial_interaction.1', c // 16)
+            m.conv(f'{a}.spatial_interaction.3', 1, c // 16, 1)
+            if bi % 2 == 0:
+                _window_branches(m, a, c, heads, split_size, _pos_dim(c))
+                if _shifted(gi, bi):
+                    _window_masks(m, a, img_size, split_size)
+            else:
+                m.sd[f'{a}.temperature'] = (1 + 0.1 * m.rng.standard_normal((heads, 1, 1))).astype(np.float32)
+            _sgfn(m, f'{b}.ffn', c, hidden)
+        _resi(m, f'layers.{gi}.conv', c, resi_connection)
+    _ln(m, 'norm', c)
+    _resi(m, 'conv_after_body', c, resi_connection)
+    if upsampler == 'pixelshuffle':
+        _pixelshuffle_tail(m, c, upscale, in_nc)
+    else:
+        m.conv('upsample.0', in_nc * upscale**2, c, 3)
+    return m.sd
+
+
+def make_rgt(embed_dim: int = 180, depth=(6,) * 6, num_heads=(6,) * 6, split_size=(8, 32), mlp_ratio: float = 2.0,
+             c_ratio: float = 0.5, upscale: int = 4, resi_connection: str = '1conv', qkv_bias: bool = True,
+             in_nc: int = 3, img_size: int = 64, seed: int = 0):
+    """RGT layout (defaults: RGT-S 4x).  Even blocks hold L_SA (qkv, proj,
+    the depthwise ``get_v``, two window branches as DAT's), odd blocks RG_SA
+    (the stride-4 depthwise ``reduction1``, ``dwconv``, the C -> C x c_ratio
+    ``conv`` with its layer norm, q / k / v, the depthwise ``cpe``, proj);
+    every block a layer-scale ``gamma`` and DAT's SGFN as ``mlp``.  Shifted
+    L_SA blocks carry the ``attn_mask_0`` / ``attn_mask_1`` buffers of an
+    ``img_size`` image.  The position-bias MLP is ``_pos_dim(embed)`` wide;
+    a pixelshuffle tail of 64 features."""
+    from .archs.dat import _shifted
+
+    m = _Maker(seed)
+    c = embed_dim
+    cr = int(c * c_ratio)
+    m.conv('conv_first', c, in_nc, 3)
+    _ln(m, 'before_RG.1', c)
+    for gi, (d, heads) in enumerate(zip(depth, num_heads)):
+        for bi in range(d):
+            b = f'layers.{gi}.blocks.{bi}'
+            a = f'{b}.attn'
+            _ln(m, f'{b}.norm1', c)
+            _ln(m, f'{b}.norm2', c)
+            m.t(f'{b}.gamma', c)
+            if bi % 2 == 0:
+                _linear(m, f'{a}.qkv', 3 * c, c, qkv_bias)
+                m.conv(f'{a}.get_v', c, 1, 3)
+                _window_branches(m, a, c, heads, split_size, _pos_dim(c))
+                if _shifted(gi, bi):
+                    _window_masks(m, a, img_size, split_size)
+            else:
+                m.conv(f'{a}.reduction1', c, 1, 4)
+                m.conv(f'{a}.dwconv', c, 1, 3)
+                m.conv(f'{a}.conv', cr, c, 1)
+                _ln(m, f'{a}.norm_act.0', cr)
+                _linear(m, f'{a}.q', cr, c, qkv_bias)
+                _linear(m, f'{a}.k', cr, cr, qkv_bias)
+                _linear(m, f'{a}.v', c, cr, qkv_bias)
+                m.conv(f'{a}.cpe', c, 1, 3)
+            _linear(m, f'{a}.proj', c, c)
+            _sgfn(m, f'{b}.mlp', c, int(c * mlp_ratio))
+        _resi(m, f'layers.{gi}.conv', c, resi_connection)
+    _ln(m, 'norm', c)
+    _resi(m, 'conv_after_body', c, resi_connection)
+    _pixelshuffle_tail(m, c, upscale, in_nc)
+    return m.sd
+
+
+def make_drct(embed_dim: int = 180, num_layers: int = 6, num_heads: int = 6, window_size: int = 16, gc: int = 32,
+              mlp_ratio: float = 2.0, upscale: int = 4, in_nc: int = 3, img_size: int = 64,
+              attn_masks: bool = True, seed: int = 0):
+    """DRCT layout (defaults: DRCT 4x, six residual dense groups).  Per
+    group five Swin blocks ``swin1..5`` on embed + (k - 1) x gc channels
+    with ``num_heads`` heads for the first and ``num_heads - width %
+    num_heads`` for the others, the 1x1 ``adjust1..5`` convs (to gc, the
+    last to embed); the patch-embedding layer norm, a 1conv body residual
+    and a pixelshuffle tail of 64 features.  With ``attn_masks`` the
+    shifted blocks (swin2, swin4) carry the ``attn_mask`` buffers of an
+    ``img_size`` image, as a trained checkpoint does: the loader reads its
+    ``img_size`` from them, and without them every shift is off."""
+    from .nn.window import relative_position_index, swin_attn_mask
+
+    m = _Maker(seed)
+    d, ws = embed_dim, window_size
+    rpi = relative_position_index(ws, ws)
+    mask = None
+    if attn_masks and img_size > ws and img_size % ws == 0:
+        mask = swin_attn_mask(img_size, img_size, ws, ws // 2)
+    m.conv('conv_first', d, in_nc, 3)
+    _ln(m, 'patch_embed.norm', d)
+    for li in range(num_layers):
+        for k in range(1, 6):
+            width = d + (k - 1) * gc
+            heads = num_heads if k == 1 else num_heads - width % num_heads
+            b = f'layers.{li}.swin{k}'
+            _ln(m, f'{b}.norm1', width)
+            _ln(m, f'{b}.norm2', width)
+            m.t(f'{b}.attn.relative_position_bias_table', (2 * ws - 1) ** 2, heads)
+            m.sd[f'{b}.attn.relative_position_index'] = rpi
+            _linear(m, f'{b}.attn.qkv', 3 * width, width)
+            _linear(m, f'{b}.attn.proj', width, width)
+            _linear(m, f'{b}.mlp.fc1', int(width * mlp_ratio), width)
+            _linear(m, f'{b}.mlp.fc2', width, int(width * mlp_ratio))
+            if k in (2, 4) and mask is not None:
+                m.sd[f'{b}.attn_mask'] = mask
+            m.conv(f'layers.{li}.adjust{k}', gc if k < 5 else d, width, 1)
+    _ln(m, 'norm', d)
+    m.conv('conv_after_body', d, d, 3)
+    _pixelshuffle_tail(m, d, upscale, in_nc)
     return m.sd

@@ -26,7 +26,8 @@ from resselt_tpu_torch.archs import atd as tatd
 from resselt_tpu_torch.core import ModelMetadata, params_from_numpy
 from resselt_tpu_torch.nn.params import PTree
 from resselt_tpu_torch.ops import row_gather, window_mha
-from resselt_tpu_torch.zoo import make_atd, make_eimn, make_esrgan, make_hat, make_plksr, make_swinir
+from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_hat, make_plksr,
+                                   make_rgt, make_swinir)
 
 
 torch.set_num_threads(2)
@@ -189,11 +190,20 @@ def test_zoo_atd_light_full_width_layout():
 
 
 def test_detection_of_all_six_families():
+    """Every ported family (nine since DAT, RGT and DRCT) detects as itself,
+    and only as itself, in both packages; the port registers them in JAX's
+    order."""
     cases = ((_sd(), 'ATD', 'ATD'), (_sd('nearest+conv', 4), 'ATD', 'ATD'),
              (make_hat(24, (2,), (3,), 8, upscale=2), 'HAT', 'HAT'),
              (make_swinir(24, (2,), (3,), 8, upscale=2, img_size=32), 'SwinIR', 'SwinIR'),
              (make_esrgan(16, 1, 2, gc=8), 'ESRGAN', 'ESRGAN'), (make_plksr(16, 1, 2), 'PLKSR', 'PLKSR'),
-             (make_eimn(16, 1, 1, 1.5, 2), 'eimn', 'EIMN'))
+             (make_eimn(16, 1, 1, 1.5, 2), 'eimn', 'EIMN'),
+             (make_dat(24, (2,), (2,), (2, 4), 2.0, 2), 'dat', 'DAT'),
+             (make_dat(24, (2,), (2,), (2, 4), 2.0, 2, 'pixelshuffledirect', '3conv'), 'dat', 'DAT'),
+             (make_rgt(24, (2,), (2,), (4, 4), 2.0, 0.5, 2), 'RGT', 'RGT'),
+             (make_rgt(24, (2,), (2,), (2, 8), 2.0, 0.5, 2, '3conv'), 'RGT', 'RGT'),
+             (make_drct(24, 1, 3, 8, 8, 2.0, 2, img_size=32), 'DRCT', 'DRCT'),
+             (make_drct(24, 1, 3, 8, 8, 2.0, 2, attn_masks=False), 'DRCT', 'DRCT'))
     for sd, arch, name in cases:
         tm = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
         jm = resselt_tpu.load_from_state_dict(sd)
@@ -202,7 +212,7 @@ def test_detection_of_all_six_families():
         assert hits == [a.id for a in resselt_tpu.archs.internal_registry if a.detect(sd)] == [arch]
     port = [a.id for a in resselt_tpu_torch.archs.internal_registry]
     assert port == [a.id for a in resselt_tpu.archs.internal_registry if a.id in port]
-    assert port == ['SwinIR', 'HAT', 'ATD', 'ESRGAN', 'PLKSR', 'eimn']
+    assert port == ['SwinIR', 'HAT', 'DRCT', 'dat', 'RGT', 'ATD', 'ESRGAN', 'PLKSR', 'eimn']
 
 
 def test_params_from_numpy_carries_jax_params():

@@ -9,7 +9,7 @@
   tests/test_pallas_ops.py runs them), and the port's float16 output is held
   to rtol 2e-2 + atol 1e-2: the output's float16 rounding.  The row gather
   is exact.
-* ``model(x, dtype='float16')`` for the six served families at the small
+* ``model(x, dtype='float16')`` for the nine served families at the small
   sizes of their parity tests: at least 35 dB PSNR against the port's own
   float32 output and against resselt_tpu's float16 output.
 * ``mask_window_flags``: equal to ``(mask != 0).any((1, 2))``, 2 x side - 1
@@ -34,7 +34,8 @@ from resselt_tpu_torch.ops import fused_conv as fc
 from resselt_tpu_torch.ops import molrcm as mo
 from resselt_tpu_torch.ops import row_gather
 from resselt_tpu_torch.ops import window_attention as wa
-from resselt_tpu_torch.zoo import make_atd, make_eimn, make_esrgan, make_hat, make_plksr, make_swinir
+from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_hat, make_plksr,
+                                   make_rgt, make_swinir)
 
 
 torch.set_num_threads(2)
@@ -180,7 +181,7 @@ def test_row_gather_float16_is_exact(idx_dtype, rows_src, rows_out, width):
     assert np.array_equal(got.numpy(), want)
 
 
-# -- float16 through the six families -----------------------------------------------
+# -- float16 through the nine families ----------------------------------------------
 
 
 def _psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -194,6 +195,9 @@ _FAMILIES = {
     'eimn': (lambda: make_eimn(embed_dims=64, num_stages=2, depths=1, mlp_ratio=2.66, scale=4, seed=3), (12, 14)),
     'atd': (lambda: make_atd(24, (2, 2), (3, 3), 8, num_tokens=16, reducted_dim=4, upscale=2, seed=3), (16, 24)),
     'hat': (lambda: make_hat(24, (2, 2), (3, 3), 8, 0.5, 3, 8, 2.0, 2, seed=3), (16, 24)),
+    'dat': (lambda: make_dat(24, (2, 2), (4, 2), (2, 4), 2.0, 2, seed=3), (18, 22)),
+    'rgt': (lambda: make_rgt(24, (2, 2), (4, 2), (4, 8), 2.0, 0.5, 2, seed=3), (20, 24)),
+    'drct': (lambda: make_drct(24, 2, 3, 8, 8, 2.0, 2, img_size=32, seed=3), (16, 24)),
 }
 
 

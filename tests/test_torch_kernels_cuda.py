@@ -1,6 +1,6 @@
 """The port's CUDA kernels (conv3x3, conv_lk, window_attn, molrcm,
 row_gather) and main paths (ESRGAN, PLKSR, RealPLKSR, SwinIR, EIMN, ATD,
-HAT) on the card.  Needs an NVIDIA GPU
+HAT, DAT, RGT, DRCT) on the card.  Needs an NVIDIA GPU
 and nvcc; every test here is marked ``cuda`` and skips without a card.
 
 This file imports torch and resselt_tpu_torch only, so that it runs where
@@ -27,7 +27,8 @@ from resselt_tpu_torch.ops import fused_conv as fc
 from resselt_tpu_torch.ops import molrcm as mo
 from resselt_tpu_torch.ops import window_attention as wa
 from resselt_tpu_torch.parallel import upscale_tiled
-from resselt_tpu_torch.zoo import make_atd, make_eimn, make_esrgan, make_hat, make_plksr, make_realplksr, make_swinir
+from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_hat, make_plksr,
+                                   make_realplksr, make_rgt, make_swinir)
 
 
 pytestmark = pytest.mark.cuda
@@ -350,6 +351,58 @@ def test_window_kernel_skips_zero_mask_windows(cuda, dtype, kind, ws, c, heads):
     torch.testing.assert_close(got.float(), want, rtol=tol[0], atol=tol[1])
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('split,c,heads,side', [((8, 16), 90, 3, 64), ((16, 8), 90, 3, 64), ((8, 32), 90, 3, 64),
+                                                ((32, 8), 90, 3, 96), ((2, 4), 12, 1, 16)])
+def test_window_kernel_rectangular_shift_masks(cuda, dtype, split, c, heads, side):
+    """DAT's and RGT's rectangular windows with the model's own shift mask
+    (``rect_attn_mask``), q, k, v read in place at C = 90: the 16-bit kernel
+    skips the windows whose tile is all zero and gives what the plain
+    version gives with the whole mask."""
+    from resselt_tpu_torch.nn.window import rect_attn_mask
+
+    sh, sw = split
+    mask = torch.from_numpy(rect_attn_mask(side, side, sh, sw, sh // 2, sw // 2)).to(cuda)
+    flags = wa.mask_window_flags(mask)
+    assert torch.equal(flags.bool(), (mask != 0).flatten(1).any(1))
+    assert int(flags.sum()) == side // sh + side // sw - 1  # the last row and column of windows
+    n, nw = sh * sw, mask.shape[0]
+    g = torch.Generator(device=cuda).manual_seed(n)
+    qkv = torch.randn((2 * nw, n, 3 * c), generator=g, device=cuda).to(dtype)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    bias = torch.randn((heads, n, n), generator=g, device=cuda) * 0.5
+    scale = (c // heads) ** -0.5
+    got = wa.window_mha(q, k, v, bias, mask, num_heads=heads, scale=scale)
+    want = wa.window_mha_ref(q.float(), k.float(), v.float(), bias, mask, num_heads=heads, scale=scale)
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else WATTN_BF16_TOL
+    torch.testing.assert_close(got.float(), want, rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('windows,n,c,heads,nw', [
+    (32, 256, 212, 4, 16), (16, 256, 212, 4, None),  # DRCT swin2: head_dim 53, heads 2-byte aligned only
+    (32, 256, 276, 6, 16), (16, 256, 276, 6, None),  # DRCT swin4: head_dim 46
+    (6, 100, 106, 2, 3), (5, 200, 276, 6, None),     # other n
+])
+def test_window_kernel_head_dim_53_and_46_in_place(cuda, dtype, windows, n, c, heads, nw):
+    _wattn_check(cuda, dtype, windows, n, c, heads, nw, seed=c)
+
+
+def test_window_kernel_refuses_two_byte_rows_the_wrapper_pads(cuda):
+    """The 16-bit kernel stages rows with 4-, 8- or 16-byte copies and
+    refuses a head whose rows are only 2-byte aligned (head_dim 53); the
+    wrapper zero-pads such heads (the head_dim 53 cases above)."""
+    q = torch.zeros((2, 16, 106), device=cuda, dtype=torch.bfloat16)
+    bias = torch.zeros((2, 16, 16), device=cuda)
+    out = torch.empty_like(q)
+    for fn in (wa._lib().resselt_window_attn_bf16, wa._lib().resselt_window_attn_f16):
+        for hd, refused in ((53, True), (52, False)):  # 52: the same rows read at 4-byte alignment
+            rc = fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), None, None, out.data_ptr(), 2, 16, 2,
+                    hd, 106, 16 * 106, 1, 1.0, torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            assert (rc != 0) == refused, (hd, rc)
+
+
 def test_window_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((4, 64, 32), device=cuda)
     bias = torch.zeros((4, 64, 64), device=cuda)
@@ -605,7 +658,46 @@ def test_hat_tiled_on_card_matches_cpu(cuda):
 
 
 
-# -- float16 and precision through the six families -------------------------------------
+@pytest.mark.parametrize('variant', ['dat', 'dat_direct_3conv', 'rgt', 'drct', 'drct_plain'])
+def test_dat_rgt_drct_on_card_match_cpu(cuda, variant):
+    """Window launches per forward: DAT and RGT two per spatial block, DRCT
+    one per block whose head_dim is at most 64; the others (embed 128, two
+    heads: head_dim 72 to 96 from swin2 on) take the plain path, counted in
+    ``multi_head_attention.plain_calls``."""
+    from resselt_tpu_torch.nn.window import multi_head_attention
+
+    sd, launches, plain, hw = {
+        'dat': (make_dat(36, (4,), (6,), (4, 8), 2.0, 2, seed=1), 4, 0, (18, 22)),
+        'dat_direct_3conv': (make_dat(36, (2, 2), (6, 6), (8, 16), 2.0, 4, upsampler='pixelshuffledirect',
+                                      resi_connection='3conv', seed=2), 4, 0, (21, 26)),
+        'rgt': (make_rgt(36, (4,), (6,), (8, 32), 2.0, 0.5, 2, seed=3), 4, 0, (40, 48)),
+        'drct': (make_drct(36, 2, 6, 8, 12, 2.0, 2, img_size=32, seed=4), 10, 0, (21, 26)),
+        'drct_plain': (make_drct(128, 1, 2, 8, 16, 2.0, 2, img_size=32, seed=5), 1, 4, (21, 26)),
+    }[variant]
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    x = np.random.default_rng(0).random((2, *hw, 3), dtype=np.float32)
+    before = wa.window_mha.launches, multi_head_attention.plain_calls
+    got = gpu(x)
+    torch.cuda.synchronize()
+    assert (wa.window_mha.launches - before[0], multi_head_attention.plain_calls - before[1]) == (launches, plain)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu(x).numpy(), rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize('family', ['dat', 'rgt', 'drct'])
+def test_dat_rgt_drct_tiled_on_card_match_cpu(cuda, family):
+    sd = {'dat': lambda: make_dat(24, (2,), (2,), (4, 8), 2.0, 2, seed=3),
+          'rgt': lambda: make_rgt(24, (2,), (2,), (4, 8), 2.0, 0.5, 2, seed=3),
+          'drct': lambda: make_drct(24, 1, 3, 8, 8, 2.0, 2, img_size=32, seed=3)}[family]()
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    img = np.random.default_rng(1).random((70, 90, 3), dtype=np.float32)
+    got = upscale_tiled(gpu, img, tile=32)
+    assert got.device.type == 'cuda'
+    np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=2e-3)
+
+
+# -- float16 and precision through the nine families -------------------------------------
 
 
 _FAMILIES = {
@@ -615,6 +707,9 @@ _FAMILIES = {
     'eimn': lambda: make_eimn(64, 2, 1, 2.66, 4, seed=3),
     'atd': lambda: make_atd(24, (2, 2), (3, 3), 8, reducted_dim=4, upscale=2, seed=3),
     'hat': lambda: make_hat(36, (2, 2), (6, 3), 8, 0.5, 3, 6, 2.0, 2, seed=3),
+    'dat': lambda: make_dat(36, (2, 2), (6, 6), (4, 8), 2.0, 2, seed=3),
+    'rgt': lambda: make_rgt(36, (2, 2), (6, 6), (4, 8), 2.0, 0.5, 2, seed=3),
+    'drct': lambda: make_drct(36, 2, 6, 8, 12, 2.0, 2, img_size=32, seed=3),
 }
 
 

@@ -5,10 +5,14 @@ bench.py's serving shape (batch 16 of 256x256 tiles): ESRGAN RRDBNet-23 4x
 4x classical, embed 180, depths and heads (6,) x 6, window 8
 (``--model swinir``), EIMN_L, embed 64, 16 stages, mlp ratio 2.66, 4x
 (``--model eimn``), ATD-light 4x, embed 48, depths (6,) x 5, window 16
-(``--model atd``) or HAT-S 4x, embed 144, depths (6,) x 6, window 16
-(``--model hat``).
+(``--model atd``), HAT-S 4x, embed 144, depths (6,) x 6, window 16
+(``--model hat``), DAT-S 4x, embed 180, depth and heads (6,) x 6, split
+(8, 16) (``--model dat``), RGT-S 4x, embed 180, depth and heads (6,) x 6,
+split (8, 32) (``--model rgt``) or DRCT 4x, embed 180, six groups, 6 heads,
+window 16, gc 32 (``--model drct``).
 
-    python3 tools/profile_torch_esrgan.py [--model esrgan|plksr|swinir|eimn|atd|hat] [--reps 2] [--seed 0]
+    python3 tools/profile_torch_esrgan.py [--model esrgan|plksr|swinir|eimn|atd|hat|dat|rgt|drct] [--reps 2]
+                                          [--seed 0]
 
 Runs on a CUDA device only.  Warms up, then records ``--reps`` forwards
 under torch.profiler and prints one JSON line: the window's wall time per
@@ -30,7 +34,8 @@ import time
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--model', choices=('esrgan', 'plksr', 'swinir', 'eimn', 'atd', 'hat'), default='esrgan')
+    parser.add_argument('--model', choices=('esrgan', 'plksr', 'swinir', 'eimn', 'atd', 'hat', 'dat', 'rgt', 'drct'),
+                        default='esrgan')
     parser.add_argument('--reps', type=int, default=2)
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--top', type=int, default=8)
@@ -43,9 +48,19 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import resselt_tpu_torch
-    from resselt_tpu_torch.zoo import make_atd, make_eimn, make_esrgan, make_hat, make_plksr, make_swinir
+    from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_hat, make_plksr,
+                                       make_rgt, make_swinir)
 
-    if args.model == 'atd':
+    if args.model == 'dat':
+        sd, kernel, config = (make_dat(180, (6,) * 6, (6,) * 6, (8, 16), 2.0, 4, seed=args.seed), 'wattn',
+                              'DAT-S 4x embed180 depth6x6 split8x16')
+    elif args.model == 'rgt':
+        sd, kernel, config = (make_rgt(180, (6,) * 6, (6,) * 6, (8, 32), 2.0, 0.5, 4, seed=args.seed), 'wattn',
+                              'RGT-S 4x embed180 depth6x6 split8x32')
+    elif args.model == 'drct':
+        sd, kernel, config = (make_drct(180, 6, 6, 16, 32, 2.0, 4, seed=args.seed), 'wattn',
+                              'DRCT 4x embed180 6 groups heads6 window16 gc32')
+    elif args.model == 'atd':
         sd, kernel, config = (make_atd(48, (6,) * 5, (4,) * 5, 16, 64, 8, 7, 1.0, 4, seed=args.seed),
                               'wattn+row_gather', 'ATD-light 4x embed48 depths6x5 window16 category128')
     elif args.model == 'hat':
