@@ -72,9 +72,19 @@ launches per forward, 18 masked; tiled at tile 96, halo 8, eight windows a
 batch), rgt_* (36; tile 160, halo 8, two a batch), drct_* (18; swin3 at
 head_dim 122 and swin5 at 77, 12 attentions a forward, take the plain path,
 whose time per bench forward is measured beside the library's; tile 128,
-halo 8, one a batch).  Every model and serve phase of a window transformer
-also asserts the window attentions the plain path took (0; HAT-S 6, DRCT
-12), and each serve phase reports its peak device memory.  Then the card's
+halo 8, one a batch).  Then FDAT-M and OmniSR, whose attentions are
+unmasked n 64 windows (wattn_kernels holds FDAT-M's spatial windows at C
+120, 4 heads, and OmniSR's block and grid windows at C 64, 4 heads):
+fdat_load (the MetaUpsample buffer dropped) / fdat_model (12 window_mha
+launches per forward; small lda and dysample 2x models held card against
+CPU, so that grid_sample with aligned corners runs on the card) /
+fdat_serve (12 per bench forward; tiled at tile 128, halo 8, two windows a
+batch), omni_load / omni_model (10; a model without the relative-position
+bias, its zero bias through the kernel) / omni_serve (10; tiled at the
+defaults, tile 256, halo 16, eight windows a batch).  Every model and
+serve phase of a window transformer also asserts the window attentions the
+plain path took (0; HAT-S 6, DRCT 12), and each serve phase reports its
+peak device memory.  Then the card's
 name and power limit, one JSON line of kernel figures, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device, or without the package beside this script, it exits 1 before
@@ -129,6 +139,17 @@ RGT = {'name': 'RGT-S', 'embed_dim': 180, 'depth': (6,) * 6, 'num_heads': (6,) *
 DRCT = {'name': 'DRCT', 'embed_dim': 180, 'num_layers': 6, 'num_heads': (6,) * 6, 'window_size': 16, 'gc': 32,
         'mlp_ratio': 2.0, 'scale': 4, 'img_size': 64, 'tile': 128, 'halo': 8, 'tile_batch': 1}
 
+# FDAT-M x4: the reference FDAT class defaults (tools/bench_families.py's
+# 'fdat-m 4x', built as FDAT()); tiled at the loader's hints, two windows a batch
+FDAT = {'name': 'FDAT-M', 'embed_dim': 120, 'num_groups': 4, 'depth_per_group': 3, 'num_heads': 4, 'window_size': 8,
+        'ffn_expansion_ratio': 2.0, 'aim_reduction_ratio': 8, 'mid_dim': 64, 'upsampler': 'transpose+conv',
+        'scale': 4, 'tile': 128, 'halo': 8, 'tile_batch': 2}
+# OmniSR x4 (OmniSR paper, Wang et al., CVPR 2023; tools/bench_families.py's
+# 'omni 4x'); no serving hints, so it serves tiled at the defaults (tile 256,
+# halo 16, 8 windows a batch)
+OMNI = {'name': 'OmniSR', 'num_feat': 64, 'block_num': 1, 'res_num': 5, 'pe': True, 'window_size': 8, 'scale': 4,
+        'tile': 256, 'halo': 16, 'tile_batch': 8}
+
 # H100 SXM dense peaks (NVIDIA data sheet) for bound_ms
 PEAK_FLOPS = {'bfloat16': 989e12, 'float16': 989e12, 'float32': 67e12}
 PEAK_BYTES = 3.35e12
@@ -143,6 +164,7 @@ BF16_PSNR = 35.0   # tests/test_parallel.py's bf16-vs-f32 floor; fp16 is held to
 MOLRCM_TOL = 1.5e-3  # x max|plain|: tests/test_pallas_ops.py's tolerance for the JAX MOLRCM kernel
 ATD_TOL = HAT_TOL = 2e-3  # tests/test_atd.py's and tests/test_hat.py's TOL
 DAT_TOL = RGT_TOL = DRCT_TOL = 2e-3  # tests/test_dat.py's, test_rgt.py's and test_drct.py's TOL
+FDAT_TOL = OMNI_TOL = 1e-3  # tests/test_fdat.py's and tests/test_omni.py's TOL
 
 
 def log(phase: str, **fields) -> None:
@@ -406,13 +428,21 @@ def window_classes(cfg: dict) -> tuple[int, list[tuple]]:
     DAT and RGT: two branches, (sp0, sp1) and (sp1, sp0) windows on half the
     channels with half the heads, padded to max(split).  DRCT: the blocks the
     kernel takes (head_dim <= 64): swin1 (embed, heads), swin2 and swin4
-    (embed + gc and + 3 gc, heads - width % heads; shifted)."""
+    (embed + gc and + 3 gc, heads - width % heads; shifted).  FDAT: the
+    spatial blocks, unshifted.  OmniSR: the block and the grid attention,
+    one shape (the grid's windows are strided, not smaller), unmasked."""
     if 'split_size' in cfg:
         sp0, sp1 = cfg['split_size']
         c, h = cfg['embed_dim'] // 2, cfg['num_heads'][0] // 2
         return max(sp0, sp1), [(f' ({sp0}, {sp1})', (sp0, sp1), c, h, 'both'),
                                (f' ({sp1}, {sp0})', (sp1, sp0), c, h, 'both')]
-    ws, c, h = cfg['window_size'], cfg['embed_dim'], cfg['num_heads'][0]
+    ws = cfg['window_size']
+    if 'res_num' in cfg:  # OmniSR
+        f = cfg['num_feat']
+        return ws, [(' block and grid', (ws, ws), f, f // (f // 4), 'unmasked')]
+    if 'aim_reduction_ratio' in cfg:  # FDAT
+        return ws, [('', (ws, ws), cfg['embed_dim'], cfg['num_heads'], 'unmasked')]
+    c, h = cfg['embed_dim'], cfg['num_heads'][0]
     if 'gc' in cfg:
         out = [(' swin1', (ws, ws), c, h, 'unmasked')]
         for k in (2, 4):
@@ -1193,7 +1223,7 @@ def main() -> int:
 
     sw = SWINIR
     n_blocks = sum(sw['depths'])
-    wshapes = wattn_shapes(BENCH['batch'], BENCH['tile'], sw, others=(ATD, HAT, DAT, RGT, DRCT))
+    wshapes = wattn_shapes(BENCH['batch'], BENCH['tile'], sw, others=(ATD, HAT, DAT, RGT, DRCT, FDAT, OMNI))
     w_rows = phase_wattn_kernels('cuda', wshapes, reps=10)
     log('wattn_kernels', f32_tol=F32_TOL, bf16_rtol=BF16_RTOL, bf16_atol=WATTN_BF16_ATOL, rows=json.dumps(w_rows))
 
@@ -1405,12 +1435,16 @@ def main() -> int:
 
     # -- DAT-S, RGT-S and DRCT: the window attention at rectangular windows and head_dim 53 / 46 --------
     def window_family(stem: str, cfg: dict, sd: dict, arch: str, meta_name: str, expect: dict, n_wattn: int,
-                      n_plain: int, tol: float):
+                      n_plain: int, tol: float, dropped: frozenset | None = None, extra_models: tuple = ()):
         """Load, model and serve phases of one window transformer, with its
         window_mha launches and plain-path attentions per forward asserted;
-        the serve phase reports the peak device memory.  Returns the serve
-        phase's fields and figures."""
-        dropped = frozenset(k for k in sd if '.attn_mask' in k)
+        ``dropped``: the checkpoint keys the loader leaves out of the params
+        (default: the ``attn_mask`` buffers); ``extra_models``: (label, state
+        dict, window_mha launches per forward) of small variants held card
+        against CPU in f32 in the model phase.  The serve phase reports the
+        peak device memory.  Returns the serve phase's fields and figures."""
+        if dropped is None:
+            dropped = frozenset(k for k in sd if '.attn_mask' in k)
         with tempfile.TemporaryDirectory() as tmp:
             model, ckpt = phase_load('cuda', sd, stem, arch, ModelMetadata(3, 3, cfg['scale'], meta_name), tmp,
                                      dropped=dropped)
@@ -1418,13 +1452,20 @@ def main() -> int:
             if got != expect:
                 raise AssertionError(f'{meta_name} config {got}, expected {expect}')
             log(f'{stem}_load', arch=model.arch_id, metadata=repr(model.metadata), config=repr(model.config),
-                files='safetensors,pth', dropped_attn_masks=len(dropped))
+                files='safetensors,pth', dropped_keys=len(dropped))
 
             res = phase_model(model, sd, 64, wa.window_mha, tol=tol)
             if (res['launches_per_forward'], res['plain_attentions_per_forward']) != (n_wattn, n_plain):
                 raise AssertionError(f"{res['launches_per_forward']} window_mha launches and "
                                      f"{res['plain_attentions_per_forward']} plain-path attentions per {meta_name} "
                                      f'forward, expected {n_wattn} and {n_plain}')
+            for label, esd, n in extra_models:
+                extra = resselt_tpu_torch.load_from_state_dict(esd, device='cuda')
+                eres = phase_model(extra, esd, 64, wa.window_mha, bf16=False, tol=tol)
+                if (eres['launches_per_forward'], eres['plain_attentions_per_forward']) != (n, 0):
+                    raise AssertionError(f'{meta_name} {label}: {eres}, expected {n} window_mha launches')
+                res[label] = json.dumps(eres)
+                del extra
             log(f'{stem}_model', tol=tol, **res)
 
             torch.cuda.reset_peak_memory_stats()
@@ -1468,7 +1509,40 @@ def main() -> int:
         plain_attention_library_ms_per_bench_forward=sum(r['library_ms'] * r['per_forward'] for r in p_rows),
         plain_attention_rows=json.dumps(p_rows), **serve)
 
-    w_figs = {'ATD-light': atd_fig, 'HAT-S': hat_fig, 'DAT-S': dat_fig, 'RGT-S': rgt_fig, 'DRCT': drct_fig}
+    # -- FDAT-M and OmniSR: the window attention at n 64, head_dim 30 and 16, unmasked ----------------
+    from resselt_tpu_torch.zoo import make_fdat, make_omni
+
+    fd = FDAT
+    n_fdat = fd['num_groups'] * fd['depth_per_group']  # one spatial block of each (spatial, channel) pair
+    fdat_small = tuple(
+        (f'{up}_2x_1_group_model', make_fdat(fd['embed_dim'], 1, 1, fd['num_heads'], fd['window_size'],
+                                             fd['ffn_expansion_ratio'], fd['aim_reduction_ratio'], fd['mid_dim'], up,
+                                             2, seed=1), 1)
+        for up in ('lda', 'dysample'))
+    serve, fdat_fig = window_family(
+        'fdat', fd, make_fdat(fd['embed_dim'], fd['num_groups'], fd['depth_per_group'], fd['num_heads'],
+                              fd['window_size'], fd['ffn_expansion_ratio'], fd['aim_reduction_ratio'], fd['mid_dim'],
+                              fd['upsampler'], fd['scale'], seed=0), 'FDAT', 'FDAT',
+        {'embed_dim': 120, 'num_groups': 4, 'depth': 6, 'num_heads': 4, 'window_size': 8, 'ffn_expansion_ratio': 2.0,
+         'aim_reduction_ratio': 8, 'mid_dim': 64, 'upsampler_type': 'transpose+conv', 'unshuffle_mod': False},
+        n_fdat, 0, FDAT_TOL, dropped=frozenset({'upsampler.MetaUpsample'}), extra_models=fdat_small)
+    log('fdat_serve', launches=fdat_fig['wattn'][0], launches_per_bench_forward=fdat_fig['wattn'][1],
+        wattn_ms_per_bench_forward=fdat_fig['wattn'][2], **serve)
+
+    om = OMNI
+    n_omni = 2 * om['res_num'] * om['block_num']  # block and grid attention in each OSA block
+    serve, omni_fig = window_family(
+        'omni', om, make_omni(om['num_feat'], om['block_num'], om['pe'], om['window_size'], om['res_num'], om['scale'],
+                              seed=0), 'OmniSR', 'OmniSR',
+        {'num_feat': 64, 'block_num': 1, 'pe': True, 'window_size': 8, 'res_num': 5, 'up_scale': 4}, n_omni, 0,
+        OMNI_TOL, dropped=frozenset(),
+        extra_models=(('no_pe_2x_1_group_model', make_omni(om['num_feat'], 1, False, om['window_size'], 1, 2, seed=1),
+                       2),))
+    log('omni_serve', launches=omni_fig['wattn'][0], launches_per_bench_forward=omni_fig['wattn'][1],
+        wattn_ms_per_bench_forward=omni_fig['wattn'][2], **serve)
+
+    w_figs = {'ATD-light': atd_fig, 'HAT-S': hat_fig, 'DAT-S': dat_fig, 'RGT-S': rgt_fig, 'DRCT': drct_fig,
+              'FDAT-M': fdat_fig, 'OmniSR': omni_fig}
     head = next(r for r in rows if r['name'] == 'rdb stage0 64->192')
     lk_head = next(r for r in lk_rows if r['name'] == 'bench 16->16')
     w_head = next(r for r in w_rows if r['name'] == 'bench masked')

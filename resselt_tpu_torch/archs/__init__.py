@@ -15,7 +15,9 @@ import importlib
 
 from ..core import Registry
 
-_ARCH_MODULES: list[str] = ['swinir', 'hat', 'drct', 'dat', 'rgt', 'atd', 'esrgan', 'plksr', 'eimn']
+_ARCH_MODULES: list[str] = [
+    'swinir', 'hat', 'omni', 'drct', 'fdat', 'dat', 'rgt', 'atd', 'esrgan', 'plksr', 'eimn',
+]
 
 internal_registry = Registry()
 

@@ -1,7 +1,7 @@
 """Functional NN ops with PyTorch semantics on NHWC tensors.
 
-Counterpart of ``resselt_tpu/nn/functional.py``, holding what ESRGAN,
-PLKSR, SwinIR, EIMN, ATD and HAT use.
+Counterpart of ``resselt_tpu/nn/functional.py``, holding what the port's
+families use.
 Feature maps are contiguous NHWC ``(N, H, W, C)``; conv weights keep the
 torch OIHW layout, linear weights torch's ``(out, in)``.
 """
@@ -35,6 +35,21 @@ def conv2d(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
         stride=_pair(stride),
         padding=_pair(padding),
         dilation=(dh, dw),
+        groups=groups,
+    )
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv_transpose2d(x, w, b=None, stride=1, padding=0, output_padding=0, groups=1):
+    """Torch ConvTranspose2d on NHWC ``x``; ``w``: (in, out/groups, kH, kW),
+    torch's own layout.  The result is contiguous NHWC."""
+    y = TF.conv_transpose2d(
+        x.permute(0, 3, 1, 2),
+        w.to(x.dtype),
+        None if b is None else b.to(x.dtype),
+        stride=_pair(stride),
+        padding=_pair(padding),
+        output_padding=_pair(output_padding),
         groups=groups,
     )
     return y.permute(0, 2, 3, 1).contiguous()
@@ -118,14 +133,18 @@ def _reflect_index(size: int, out: int) -> np.ndarray:
     return np.where(i < size, i, period - i)
 
 
-def pad_to_multiple(x, multiple: int):
-    """Reflect-pad bottom/right so H and W are multiples of ``multiple``, as
-    ``jnp.pad`` reflects (the JAX package's), for any pad length."""
+def pad_to_multiple(x, multiple: int, mode: str = 'reflect', value: float = 0.0):
+    """Pad bottom/right so H and W are multiples of ``multiple``.  'reflect'
+    (the default) reflects as ``jnp.pad`` does (the JAX package's), for any
+    pad length; 'constant' (with ``value``), 'replicate' and 'circular' are
+    torch's ``F.pad``."""
     h, w = x.shape[1], x.shape[2]
     ph = (multiple - h % multiple) % multiple
     pw = (multiple - w % multiple) % multiple
     if ph == 0 and pw == 0:
         return x
+    if mode != 'reflect':
+        return pad2d(x, (0, pw, 0, ph), mode=mode, value=value)
     hi = torch.from_numpy(_reflect_index(h, h + ph)).to(x.device)
     wi = torch.from_numpy(_reflect_index(w, w + pw)).to(x.device)
     return x[:, hi][:, :, wi].contiguous()
@@ -140,20 +159,42 @@ def interpolate_bicubic(x, scale_factor: int):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def _out_size(h: int, w: int, scale_factor, size) -> tuple[int, int]:
+    """The output (H, W) of an interpolation: ``size``, or the input's
+    times ``scale_factor`` (a number or a pair), truncated."""
+    if size is not None:
+        return _pair(size)
+    sfh, sfw = scale_factor if isinstance(scale_factor, (tuple, list)) else (scale_factor, scale_factor)
+    return int(h * float(sfh)), int(w * float(sfw))
+
+
 def interpolate_nearest(x, scale_factor=None, size=None):
     """torch F.interpolate(mode='nearest'): src = floor(dst * in/out)."""
     n, h, w, c = x.shape
-    if size is not None:
-        oh, ow = _pair(size)
-    else:
-        sfh, sfw = (scale_factor, scale_factor) if not isinstance(scale_factor, (tuple, list)) else scale_factor
-        oh, ow = int(h * float(sfh)), int(w * float(sfw))
+    oh, ow = _out_size(h, w, scale_factor, size)
     if size is None and oh % h == 0 and ow % w == 0:
         ry, rx = oh // h, ow // w
         return x[:, :, None, :, None, :].expand(n, h, ry, w, rx, c).reshape(n, oh, ow, c)
     hi = torch.floor(torch.arange(oh, device=x.device, dtype=torch.float64) * (h / oh)).long()
     wi = torch.floor(torch.arange(ow, device=x.device, dtype=torch.float64) * (w / ow)).long()
     return x[:, hi][:, :, wi].contiguous()
+
+
+def interpolate_bilinear(x, scale_factor=None, size=None, align_corners: bool = False):
+    """torch ``F.interpolate(mode='bilinear')`` (no antialias) on NHWC, to
+    ``size`` or the input's size times ``scale_factor``; the source index
+    is taken from the sizes (in / out), as the JAX package's."""
+    n, h, w, c = x.shape
+    y = TF.interpolate(x.permute(0, 3, 1, 2), size=_out_size(h, w, scale_factor, size), mode='bilinear',
+                       align_corners=align_corners)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def max_pool2d(x, kernel, stride=None, padding=0):
+    """torch ``F.max_pool2d`` on NHWC (the padding counts as -inf)."""
+    y = TF.max_pool2d(x.permute(0, 3, 1, 2), _pair(kernel), _pair(stride if stride is not None else kernel),
+                      _pair(padding))
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 def batch_norm_2d(x, weight, bias, running_mean, running_var, eps: float = 1e-5):

@@ -5,9 +5,9 @@ Counterpart of ``resselt_tpu/zoo.py``, holding ``make_esrgan``,
 ``make_swinir`` and ``make_plksr`` (the same arrays as the JAX package's),
 ``make_realplksr`` and ``make_eimn``; ``make_hat`` and ``make_atd`` (the JAX
 package's arrays; ``make_atd`` also builds the other upsamplers' tails and
-the 3conv residual); ``make_dat``, ``make_rgt`` and ``make_drct``, which
-the JAX package's zoo lacks, written from what its loaders, detection
-conditions and forwards read.
+the 3conv residual); ``make_dat``, ``make_rgt``, ``make_drct``, ``make_fdat``
+and ``make_omni``, which the JAX package's zoo lacks, written from what its
+loaders, detection conditions and forwards read.
 """
 
 from __future__ import annotations
@@ -349,14 +349,7 @@ def make_realplksr(dim: int = 64, n_blocks: int = 28, upscale: int = 4, kernel_s
     c = in_nc * upscale**2
     m.conv(f'feats.{n_blocks + 2}', c, d, 3)
     if dysample and upscale != 1:
-        s = upscale
-        g = in_nc if s % 2 else 4
-        m.conv('to_img.offset', 2 * g * s * s, c, 1)
-        m.t('to_img.scope.weight', 2 * g * s * s, c, 1, 1)
-        h = (np.arange(s, dtype=np.float32) - (s - 1) / 2) / s
-        pos = np.stack(np.meshgrid(h, h, indexing='ij')).transpose(0, 2, 1)  # (2, s, s): [x, y] offsets
-        m.sd['to_img.init_pos'] = np.tile(pos, (1, g, 1)).reshape(1, -1, 1, 1).astype(np.float32)
-        m.conv('to_img.end_conv', in_nc, c, 1)
+        _dysample(m, 'to_img', c, in_nc, upscale, in_nc if upscale % 2 else 4)
     return m.sd
 
 
@@ -653,4 +646,203 @@ def make_drct(embed_dim: int = 180, num_layers: int = 6, num_heads: int = 6, win
     _ln(m, 'norm', d)
     m.conv('conv_after_body', d, d, 3)
     _pixelshuffle_tail(m, d, upscale, in_nc)
+    return m.sd
+
+
+def _dysample(m: _Maker, key: str, c: int, out: int, scale: int, groups: int = 4):
+    """A DySample module on ``c`` channels: the 1x1 offset and scope convs,
+    the reference's initial sample positions and a 1x1 end conv to
+    ``out``."""
+    s, g = scale, groups
+    m.conv(f'{key}.offset', 2 * g * s * s, c, 1)
+    m.t(f'{key}.scope.weight', 2 * g * s * s, c, 1, 1)
+    h = (np.arange(s, dtype=np.float32) - (s - 1) / 2) / s
+    pos = np.stack(np.meshgrid(h, h, indexing='ij')).transpose(0, 2, 1)  # (2, s, s): [x, y] offsets
+    m.sd[f'{key}.init_pos'] = np.tile(pos, (1, g, 1)).reshape(1, -1, 1, 1).astype(np.float32)
+    m.conv(f'{key}.end_conv', out, c, 1)
+
+
+def _lda_aqu(m: _Maker, key: str, c: int, reduction: int = 4, n_groups: int = 2, heads: int = 1, k_u: int = 3,
+             k_e: int = 3):
+    """An LDA_AQU module on ``c`` channels with the reference's defaults:
+    hidden c / 4 in two offset groups, one head, 3 x 3 sample points, a 3x3
+    offset conv, the relative-position table."""
+    hidden = c // reduction
+    gc = hidden // n_groups
+    _ln(m, f'{key}.layer_norm', c)
+    m.t(f'{key}.proj_q.weight', hidden, c, 1, 1)
+    m.t(f'{key}.proj_k.weight', hidden, c, 1, 1)
+    m.t(f'{key}.conv_offset.0.weight', gc, 1, 3, 3)
+    _ln(m, f'{key}.conv_offset.1', gc)
+    m.conv(f'{key}.conv_offset.3', 2 * k_u * k_u, gc, k_e)
+    m.t(f'{key}.relative_position_bias_table', 1, heads, 1, k_u * k_u, hidden // heads)
+
+
+def _uni_upsample_v3(m: _Maker, key: str, mode: str, scale: int, c: int, out: int, mid: int):
+    """UniUpsampleV3's layers under ``key`` for ``mode`` at ``scale``, from
+    ``c`` channels to ``out`` through ``mid``; a single 3x3 conv at scale 1
+    whatever the mode.  ``transpose+conv`` goes c -> mid -> out: 4x4 stride-2
+    transposed convs at 2x (one) and 4x (two, a gelu between), a 3x3
+    stride-3 one at 3x, then a 3x3 conv (no loader reads the widths)."""
+    pow2 = scale & (scale - 1) == 0
+    if scale == 1 or mode == 'conv':
+        m.conv(f'{key}.0', out, c, 3)
+    elif mode == 'pixelshuffledirect':
+        m.conv(f'{key}.0', out * scale * scale, c, 3)
+    elif mode == 'pixelshuffle':
+        m.conv(f'{key}.0', mid, c, 3)
+        steps = [(2, 4)] * int(math.log2(scale)) if pow2 else [(2, 9)]
+        for i, (_, r2) in enumerate(steps):
+            m.conv(f'{key}.{2 + 2 * i}', r2 * mid, mid, 3)
+        m.conv(f'{key}.{2 + 2 * len(steps)}', out, mid, 3)
+    elif mode == 'nearest+conv':
+        if pow2:
+            n = int(math.log2(scale))
+            for i in range(n):
+                m.conv(f'{key}.{3 * i}', mid, c if i == 0 else mid, 3)
+            m.conv(f'{key}.{3 * n}', mid, mid, 3)
+            m.conv(f'{key}.{3 * n + 2}', out, mid, 3)
+        else:
+            m.conv(f'{key}.0', mid, c, 3)
+            m.conv(f'{key}.3', mid, mid, 3)
+            m.conv(f'{key}.5', out, mid, 3)
+    elif mode in ('dysample', 'lda'):
+        inner = c
+        if mid != c:
+            m.conv(f'{key}.0', mid, c, 3)
+            inner = mid
+        at = f'{key}.2' if mid != c else f'{key}.0'
+        if mode == 'dysample':
+            _dysample(m, at, inner, out, scale)
+        else:
+            _lda_aqu(m, at, inner)
+            m.conv(f'{key}.3' if mid != c else f'{key}.1', out, inner, 3)
+    elif mode == 'transpose+conv':
+        k = 3 if scale == 3 else 4
+        m.t(f'{key}.0.weight', c, mid, k, k)
+        m.t(f'{key}.0.bias', mid)
+        if scale == 4:
+            m.t(f'{key}.2.weight', mid, mid, 4, 4)
+            m.t(f'{key}.2.bias', mid)
+        m.conv(f'{key}.3' if scale == 4 else f'{key}.1', out, mid, 3)
+    elif mode == 'pa_up':
+        idx = 0
+        for i in range(int(math.log2(scale)) if pow2 else 1):
+            m.conv(f'{key}.{idx + 1}', mid, c if i == 0 else mid, 3)
+            m.conv(f'{key}.{idx + 2}.conv.0', mid, mid, 1)
+            m.conv(f'{key}.{idx + 4}', mid, mid, 3)
+            idx += 6
+        m.conv(f'{key}.{idx}', out, mid, 3)
+    else:
+        raise ValueError(f'unknown UniUpsampleV3 mode {mode!r}')
+
+
+def make_fdat(embed_dim: int = 120, num_groups: int = 4, depth_per_group: int = 3, num_heads: int = 4,
+              window_size: int = 8, ffn_expansion_ratio: float = 2.0, aim_reduction_ratio: int = 8,
+              mid_dim: int = 64, upsampler: str = 'transpose+conv', scale: int = 4, unshuffle: bool = False,
+              qkv_bias: bool = False, in_nc: int = 3, out_nc: int = 3, seed: int = 0):
+    """FDAT layout (defaults: the reference class's, FDAT-M 4x).  Each group
+    holds ``2 * depth_per_group`` blocks, spatial and channel in turn: layer
+    norms ``n1`` / ``n2``, the attention's qkv and proj (spatial: a learned
+    (heads, ws², ws²) ``bias``; channel: a per-head ``temp``), the depthwise
+    ``conv.0``, SimplifiedAIM's spatial gate ``inter.sg.0`` (C -> 1) and
+    channel gate ``inter.cg.1`` / ``.3`` (C -> C / r -> C), the FFN
+    (``fc1``, the depthwise ``smix``, ``fc2``, no biases); a 3x3 conv
+    closing each group, ``conv_after``, and the UniUpsampleV3 tail with its
+    ``MetaUpsample`` buffer (uint8: version 3, the mode's index in
+    ``SAMPLE_MODS3``, the upsampler's scale, embed, out channels, mid dim,
+    groups 4).  With ``unshuffle`` at scale 1 or 2 the stem is
+    ``conv_first.1`` on the pixel-unshuffled input and the tail runs at
+    4x."""
+    from .nn.upsample import SAMPLE_MODS3
+
+    m = _Maker(seed)
+    c = embed_dim
+    hidden = int(c * ffn_expansion_ratio)
+    n = window_size * window_size
+    unshuffle = unshuffle and scale < 3
+    if unshuffle:
+        m.conv('conv_first.1', c, in_nc * (4 // scale) ** 2, 3)
+    else:
+        m.conv('conv_first', c, in_nc, 3)
+    for gi in range(num_groups):
+        for bi in range(2 * depth_per_group):
+            b = f'groups.{gi}.blocks.{bi}'
+            _ln(m, f'{b}.n1', c)
+            _ln(m, f'{b}.n2', c)
+            _linear(m, f'{b}.attn.qkv', 3 * c, c, qkv_bias)
+            _linear(m, f'{b}.attn.proj', c, c)
+            if bi % 2 == 0:
+                m.t(f'{b}.attn.bias', num_heads, n, n)
+            else:
+                m.sd[f'{b}.attn.temp'] = (1 + 0.1 * m.rng.standard_normal((num_heads, 1, 1))).astype(np.float32)
+            m.t(f'{b}.conv.0.weight', c, 1, 3, 3)
+            m.t(f'{b}.inter.sg.0.weight', 1, c, 1, 1)
+            m.t(f'{b}.inter.cg.1.weight', c // aim_reduction_ratio, c, 1, 1)
+            m.t(f'{b}.inter.cg.3.weight', c, c // aim_reduction_ratio, 1, 1)
+            m.t(f'{b}.ffn.fc1.weight', hidden, c)
+            m.t(f'{b}.ffn.smix.weight', hidden, 1, 3, 3)
+            m.t(f'{b}.ffn.fc2.weight', c, hidden)
+        m.conv(f'groups.{gi}.conv', c, c, 3)
+    m.conv('conv_after', c, c, 3)
+    up_scale = 4 if unshuffle else scale
+    _uni_upsample_v3(m, 'upsampler', upsampler, up_scale, c, out_nc, mid_dim)
+    m.sd['upsampler.MetaUpsample'] = np.array([3, SAMPLE_MODS3.index(upsampler), up_scale, c, out_nc, mid_dim, 4],
+                                              dtype=np.uint8)
+    return m.sd
+
+
+def make_omni(num_feat: int = 64, block_num: int = 1, pe: bool = True, window_size: int = 8, res_num: int = 5,
+              up_scale: int = 4, bias: bool = True, in_nc: int = 3, seed: int = 0):
+    """OmniSR layout (defaults: the published OmniSR 4x).  Per residual
+    group ``block_num`` OSA blocks (layer.0 MBConv with expansion 1 and its
+    squeeze-excitation gate to num_feat / 4; layer.2 / layer.8 the block /
+    grid attention under a pre-norm: ``to_qkv``, ``to_out.0`` and with
+    ``pe`` the ((2 ws - 1)², heads) ``rel_pos_bias`` table, 4 heads; layer.4,
+    6, 10, 12 the gated conv FFNs and layer.5, 11 the channel attentions,
+    each under a LayerNorm2d, no biases), a 1x1 conv and the ESA gate (16
+    channels); the 3x3 ``input`` / ``output`` convs and the pixel-shuffle
+    ``up.0``.  ``bias`` gives the group, ESA and outer convs their biases."""
+    m = _Maker(seed)
+    f = num_feat
+    heads = f // (f // 4)
+
+    def conv(key, cout, cin, k):
+        m.t(f'{key}.weight', cout, cin, k, k)
+        if bias:
+            m.t(f'{key}.bias', cout)
+
+    conv('input', f, in_nc, 3)
+    for ri in range(res_num):
+        g = f'residual_layer.{ri}'
+        for bi in range(block_num):
+            o = f'{g}.residual_layer.{bi}.layer'
+            m.conv(f'{o}.0.fn.0', f, f, 1)
+            m.conv(f'{o}.0.fn.2', f, 1, 3)
+            m.t(f'{o}.0.fn.4.gate.1.weight', f // 4, f)
+            m.t(f'{o}.0.fn.4.gate.3.weight', f, f // 4)
+            m.conv(f'{o}.0.fn.5', f, f, 1)
+            for a in ('2', '8'):
+                _ln(m, f'{o}.{a}.norm', f)
+                m.t(f'{o}.{a}.fn.to_qkv.weight', 3 * f, f)
+                m.t(f'{o}.{a}.fn.to_out.0.weight', f, f)
+                if pe:
+                    m.t(f'{o}.{a}.fn.rel_pos_bias.weight', (2 * window_size - 1) ** 2, heads)
+            for a in ('4', '6', '10', '12'):
+                _ln(m, f'{o}.{a}.norm', f)
+                m.t(f'{o}.{a}.fn.project_in.weight', 2 * f, f, 1, 1)
+                m.t(f'{o}.{a}.fn.dwconv.weight', 2 * f, 1, 3, 3)
+                m.t(f'{o}.{a}.fn.project_out.weight', f, f, 1, 1)
+            for a in ('5', '11'):
+                _ln(m, f'{o}.{a}.norm', f)
+                m.sd[f'{o}.{a}.fn.temperature'] = (1 + 0.1 * m.rng.standard_normal((4, 1, 1))).astype(np.float32)
+                m.t(f'{o}.{a}.fn.qkv.weight', 3 * f, f, 1, 1)
+                m.t(f'{o}.{a}.fn.qkv_dwconv.weight', 3 * f, 1, 3, 3)
+                m.t(f'{o}.{a}.fn.project_out.weight', f, f, 1, 1)
+        conv(f'{g}.residual_layer.{block_num}', f, f, 1)
+        for key, cout, cin, k in (('conv1', 16, f, 1), ('conv_f', 16, 16, 1), ('conv2', 16, 16, 3),
+                                  ('conv3', 16, 16, 3), ('conv4', f, 16, 1)):
+            conv(f'{g}.esa.{key}', cout, cin, k)
+    conv('output', f, f, 3)
+    conv('up.0', in_nc * up_scale * up_scale, f, 3)
     return m.sd

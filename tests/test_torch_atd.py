@@ -7,7 +7,7 @@ the category size, so AC_MSA pads the sorted sequence with its tail), with
 weights strong enough that AC_MSA moves the output by a tenth of its
 range; ``_ac_msa`` and ``_atd_ca`` alone against the JAX functions, with
 tied similarities; config, metadata and serving hints equal; ``no_norm``;
-detection of all six families in both packages; the zoo's state dicts;
+detection of every ported family in both packages; the zoo's state dicts;
 params carried across from a JAX model; tiled and CLI output."""
 
 import jax.numpy as jnp
@@ -26,8 +26,8 @@ from resselt_tpu_torch.archs import atd as tatd
 from resselt_tpu_torch.core import ModelMetadata, params_from_numpy
 from resselt_tpu_torch.nn.params import PTree
 from resselt_tpu_torch.ops import row_gather, window_mha
-from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_hat, make_plksr,
-                                   make_rgt, make_swinir)
+from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_fdat, make_hat,
+                                   make_omni, make_plksr, make_rgt, make_swinir)
 
 
 torch.set_num_threads(2)
@@ -190,7 +190,7 @@ def test_zoo_atd_light_full_width_layout():
 
 
 def test_detection_of_all_six_families():
-    """Every ported family (nine since DAT, RGT and DRCT) detects as itself,
+    """Every ported family (eleven since FDAT and OmniSR) detects as itself,
     and only as itself, in both packages; the port registers them in JAX's
     order."""
     cases = ((_sd(), 'ATD', 'ATD'), (_sd('nearest+conv', 4), 'ATD', 'ATD'),
@@ -203,7 +203,9 @@ def test_detection_of_all_six_families():
              (make_rgt(24, (2,), (2,), (4, 4), 2.0, 0.5, 2), 'RGT', 'RGT'),
              (make_rgt(24, (2,), (2,), (2, 8), 2.0, 0.5, 2, '3conv'), 'RGT', 'RGT'),
              (make_drct(24, 1, 3, 8, 8, 2.0, 2, img_size=32), 'DRCT', 'DRCT'),
-             (make_drct(24, 1, 3, 8, 8, 2.0, 2, attn_masks=False), 'DRCT', 'DRCT'))
+             (make_drct(24, 1, 3, 8, 8, 2.0, 2, attn_masks=False), 'DRCT', 'DRCT'),
+             (make_fdat(32, 1, 1, 4, 8, 1.5, 8, 32, 'transpose+conv', 4), 'FDAT', 'FDAT'),
+             (make_omni(16, 1, True, 8, 1, 2), 'OmniSR', 'OmniSR'))
     for sd, arch, name in cases:
         tm = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
         jm = resselt_tpu.load_from_state_dict(sd)
@@ -212,7 +214,7 @@ def test_detection_of_all_six_families():
         assert hits == [a.id for a in resselt_tpu.archs.internal_registry if a.detect(sd)] == [arch]
     port = [a.id for a in resselt_tpu_torch.archs.internal_registry]
     assert port == [a.id for a in resselt_tpu.archs.internal_registry if a.id in port]
-    assert port == ['SwinIR', 'HAT', 'DRCT', 'dat', 'RGT', 'ATD', 'ESRGAN', 'PLKSR', 'eimn']
+    assert port == ['SwinIR', 'HAT', 'OmniSR', 'DRCT', 'FDAT', 'dat', 'RGT', 'ATD', 'ESRGAN', 'PLKSR', 'eimn']
 
 
 def test_params_from_numpy_carries_jax_params():

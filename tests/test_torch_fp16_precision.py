@@ -34,8 +34,8 @@ from resselt_tpu_torch.ops import fused_conv as fc
 from resselt_tpu_torch.ops import molrcm as mo
 from resselt_tpu_torch.ops import row_gather
 from resselt_tpu_torch.ops import window_attention as wa
-from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_hat, make_plksr,
-                                   make_rgt, make_swinir)
+from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_fdat, make_hat,
+                                   make_omni, make_plksr, make_rgt, make_swinir)
 
 
 torch.set_num_threads(2)
@@ -181,7 +181,7 @@ def test_row_gather_float16_is_exact(idx_dtype, rows_src, rows_out, width):
     assert np.array_equal(got.numpy(), want)
 
 
-# -- float16 through the nine families ----------------------------------------------
+# -- float16 through the eleven families --------------------------------------------
 
 
 def _psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -198,6 +198,8 @@ _FAMILIES = {
     'dat': (lambda: make_dat(24, (2, 2), (4, 2), (2, 4), 2.0, 2, seed=3), (18, 22)),
     'rgt': (lambda: make_rgt(24, (2, 2), (4, 2), (4, 8), 2.0, 0.5, 2, seed=3), (20, 24)),
     'drct': (lambda: make_drct(24, 2, 3, 8, 8, 2.0, 2, img_size=32, seed=3), (16, 24)),
+    'fdat': (lambda: make_fdat(32, 1, 1, 4, 8, 1.5, 8, 24, 'pa_up', 2, seed=3), (17, 21)),
+    'omni': (lambda: make_omni(16, 1, True, 8, 1, 2, seed=3), (22, 18)),
 }
 
 

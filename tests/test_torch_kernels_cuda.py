@@ -1,6 +1,6 @@
 """The port's CUDA kernels (conv3x3, conv_lk, window_attn, molrcm,
 row_gather) and main paths (ESRGAN, PLKSR, RealPLKSR, SwinIR, EIMN, ATD,
-HAT, DAT, RGT, DRCT) on the card.  Needs an NVIDIA GPU
+HAT, DAT, RGT, DRCT, FDAT, OmniSR) on the card.  Needs an NVIDIA GPU
 and nvcc; every test here is marked ``cuda`` and skips without a card.
 
 This file imports torch and resselt_tpu_torch only, so that it runs where
@@ -27,8 +27,8 @@ from resselt_tpu_torch.ops import fused_conv as fc
 from resselt_tpu_torch.ops import molrcm as mo
 from resselt_tpu_torch.ops import window_attention as wa
 from resselt_tpu_torch.parallel import upscale_tiled
-from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_hat, make_plksr,
-                                   make_realplksr, make_rgt, make_swinir)
+from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_fdat, make_hat,
+                                   make_omni, make_plksr, make_realplksr, make_rgt, make_swinir)
 
 
 pytestmark = pytest.mark.cuda
@@ -697,7 +697,51 @@ def test_dat_rgt_drct_tiled_on_card_match_cpu(cuda, family):
     np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=2e-3)
 
 
-# -- float16 and precision through the nine families -------------------------------------
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('windows,n,c,heads', [
+    (64, 64, 120, 4), (1024, 64, 120, 4), (17, 64, 120, 4),  # FDAT-M: head_dim 30
+    (64, 64, 64, 4), (1024, 64, 64, 4), (13, 64, 64, 4),     # OmniSR: head_dim 16
+])
+def test_window_kernel_fdat_and_omni_shapes(cuda, dtype, windows, n, c, heads):
+    _wattn_check(cuda, dtype, windows, n, c, heads)
+
+
+@pytest.mark.parametrize('variant', ['fdat', 'fdat_unshuffle_lda', 'fdat_dysample', 'omni', 'omni_no_pe'])
+def test_fdat_omni_on_card_match_cpu(cuda, variant):
+    """Window launches per forward: FDAT one per spatial block, OmniSR two
+    per OSA block (block and grid attention); none takes the plain path."""
+    from resselt_tpu_torch.nn.window import multi_head_attention
+
+    sd, launches, hw = {
+        'fdat': (make_fdat(48, 2, 2, 4, 8, 2.0, 8, 32, 'transpose+conv', 4, seed=1), 4, (21, 26)),
+        'fdat_unshuffle_lda': (make_fdat(32, 1, 2, 4, 8, 1.5, 8, 24, 'lda', 2, unshuffle=True, seed=2), 2, (21, 26)),
+        'fdat_dysample': (make_fdat(32, 1, 1, 4, 8, 1.5, 8, 24, 'dysample', 2, seed=3), 1, (21, 26)),
+        'omni': (make_omni(32, 1, True, 8, 2, 4, seed=4), 4, (22, 18)),
+        'omni_no_pe': (make_omni(32, 1, False, 8, 1, 2, seed=5), 2, (22, 18)),
+    }[variant]
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    x = np.random.default_rng(0).random((2, *hw, 3), dtype=np.float32)
+    before = wa.window_mha.launches, multi_head_attention.plain_calls
+    got = gpu(x)
+    torch.cuda.synchronize()
+    assert (wa.window_mha.launches - before[0], multi_head_attention.plain_calls - before[1]) == (launches, 0)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu(x).numpy(), rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize('family', ['fdat', 'omni'])
+def test_fdat_omni_tiled_on_card_match_cpu(cuda, family):
+    sd = {'fdat': lambda: make_fdat(32, 1, 1, 4, 8, 1.5, 8, 32, 'pixelshuffledirect', 2, seed=3),
+          'omni': lambda: make_omni(16, 1, True, 8, 1, 2, seed=3)}[family]()
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    img = np.random.default_rng(1).random((70, 90, 3), dtype=np.float32)
+    got = upscale_tiled(gpu, img, tile=32)
+    assert got.device.type == 'cuda'
+    np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=1e-3)
+
+
+# -- float16 and precision through the eleven families -----------------------------------
 
 
 _FAMILIES = {
@@ -710,6 +754,8 @@ _FAMILIES = {
     'dat': lambda: make_dat(36, (2, 2), (6, 6), (4, 8), 2.0, 2, seed=3),
     'rgt': lambda: make_rgt(36, (2, 2), (6, 6), (4, 8), 2.0, 0.5, 2, seed=3),
     'drct': lambda: make_drct(36, 2, 6, 8, 12, 2.0, 2, img_size=32, seed=3),
+    'fdat': lambda: make_fdat(48, 2, 1, 4, 8, 2.0, 8, 32, 'transpose+conv', 2, seed=3),
+    'omni': lambda: make_omni(32, 1, True, 8, 2, 2, seed=3),
 }
 
 

@@ -8,11 +8,14 @@ bench.py's serving shape (batch 16 of 256x256 tiles): ESRGAN RRDBNet-23 4x
 (``--model atd``), HAT-S 4x, embed 144, depths (6,) x 6, window 16
 (``--model hat``), DAT-S 4x, embed 180, depth and heads (6,) x 6, split
 (8, 16) (``--model dat``), RGT-S 4x, embed 180, depth and heads (6,) x 6,
-split (8, 32) (``--model rgt``) or DRCT 4x, embed 180, six groups, 6 heads,
-window 16, gc 32 (``--model drct``).
+split (8, 32) (``--model rgt``), DRCT 4x, embed 180, six groups, 6 heads,
+window 16, gc 32 (``--model drct``), FDAT-M 4x, embed 120, 4 groups of 3
+spatial / channel pairs, 4 heads, window 8, transpose+conv (``--model
+fdat``) or OmniSR 4x, 64 features, five groups of one OSA block, window 8
+(``--model omni``).
 
-    python3 tools/profile_torch_esrgan.py [--model esrgan|plksr|swinir|eimn|atd|hat|dat|rgt|drct] [--reps 2]
-                                          [--seed 0]
+    python3 tools/profile_torch_esrgan.py
+        [--model esrgan|plksr|swinir|eimn|atd|hat|dat|rgt|drct|fdat|omni] [--reps 2] [--seed 0]
 
 Runs on a CUDA device only.  Warms up, then records ``--reps`` forwards
 under torch.profiler and prints one JSON line: the window's wall time per
@@ -34,8 +37,8 @@ import time
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--model', choices=('esrgan', 'plksr', 'swinir', 'eimn', 'atd', 'hat', 'dat', 'rgt', 'drct'),
-                        default='esrgan')
+    parser.add_argument('--model', choices=('esrgan', 'plksr', 'swinir', 'eimn', 'atd', 'hat', 'dat', 'rgt', 'drct',
+                                            'fdat', 'omni'), default='esrgan')
     parser.add_argument('--reps', type=int, default=2)
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--top', type=int, default=8)
@@ -48,10 +51,16 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import resselt_tpu_torch
-    from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_hat, make_plksr,
-                                       make_rgt, make_swinir)
+    from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_fdat, make_hat,
+                                       make_omni, make_plksr, make_rgt, make_swinir)
 
-    if args.model == 'dat':
+    if args.model == 'fdat':
+        sd, kernel, config = (make_fdat(120, 4, 3, 4, 8, 2.0, 8, 64, 'transpose+conv', 4, seed=args.seed), 'wattn',
+                              'FDAT-M 4x embed120 4 groups x 3 pairs heads4 window8 transpose+conv')
+    elif args.model == 'omni':
+        sd, kernel, config = (make_omni(64, 1, True, 8, 5, 4, seed=args.seed), 'wattn',
+                              'OmniSR 4x feat64 5 groups x 1 OSA block window8 pe')
+    elif args.model == 'dat':
         sd, kernel, config = (make_dat(180, (6,) * 6, (6,) * 6, (8, 16), 2.0, 4, seed=args.seed), 'wattn',
                               'DAT-S 4x embed180 depth6x6 split8x16')
     elif args.model == 'rgt':
