@@ -84,7 +84,21 @@ bias, its zero bias through the kernel) / omni_serve (10; tiled at the
 defaults, tile 256, halo 16, eight windows a batch).  Every model and
 serve phase of a window transformer also asserts the window attentions the
 plain path took (0; HAT-S 6, DRCT 12), and each serve phase reports its
-peak device memory.  Then the card's
+peak device memory.  Then the six 3x3-conv families, whose every
+same-padded 3x3 conv runs the conv3x3 kernel: conv_family_kernels (every
+distinct 3x3 conv of their bench forwards: Cin 3 stems, 48 -> 48 with
+SiLU, Mish or none, the 48 -> 12 heads, MoSR's 64 -> 192, 96 -> 64, 64 ->
+128 and 128 -> 64, RCAN's 64 -> 256 tail and 64 -> 3 at 1024²; against the
+plain version in f32, bf16 and fp16, with kernel / plain / library / bound
+times), then for SpanPP 2x, SPAN 4x, RCAN 4x, MoSR 4x, Compact 4x and
+SPANPlus 2x at tools/bench_families.py's widths a load phase (the
+checkpoint's collapsed params equal the CPU loader's), a model phase (21,
+21, 415, 54, 18 and 21 conv3x3 launches per forward; small variants card
+against CPU: SPAN without norm, RCAN's unshuffle head, MoSR's dys and gps
+tails, SPANPlus's dys and conv tails) and a serve phase (the same launches
+per bench forward, only at shapes conv_family_kernels checked; SpanPP
+served through with_config(eval_scale=2); tiled at tile 256 and the
+loader's halo; peak memory).  Then the card's
 name and power limit, one JSON line of kernel figures, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device, or without the package beside this script, it exits 1 before
@@ -150,6 +164,22 @@ FDAT = {'name': 'FDAT-M', 'embed_dim': 120, 'num_groups': 4, 'depth_per_group': 
 OMNI = {'name': 'OmniSR', 'num_feat': 64, 'block_num': 1, 'res_num': 5, 'pe': True, 'window_size': 8, 'scale': 4,
         'tile': 256, 'halo': 16, 'tile_batch': 8}
 
+# The six 3x3-conv families at tools/bench_families.py's widths (:90-103),
+# served at the bench shape; every same-padded 3x3 conv runs conv3x3.cu.
+# tiled at tile 256 and each loader's halo (4 for Compact and SPAN, else 16)
+SPAN = {'name': 'SPAN', 'feature_channels': 48, 'scale': 4, 'tile': 256}  # 'span 4x': SPAN(3, 3)
+SPANPLUS = {'name': 'SPANPlus', 'feature_channels': 48, 'blocks': (4,), 'scale': 2, 'tile': 256}  # 'ps' tail
+COMPACT = {'name': 'Compact', 'num_feat': 64, 'num_conv': 16, 'scale': 4, 'tile': 256}
+MOSR = {'name': 'MoSR', 'dim': 64, 'n_block': 24, 'scale': 4, 'tile': 256}  # 'ps' tail
+# 'rcan 4x': the published RCAN, RCAN()'s defaults with the MeanShifts
+RCAN = {'name': 'RCAN', 'n_feats': 64, 'n_resgroups': 10, 'n_resblocks': 20, 'reduction': 16, 'scale': 4,
+        'tile': 256}
+# 'spanpp 2x': SpanPP() serves at its base scale 2 of the scale list (1, 2, 3, 4);
+# the widths are zoo.make_spanpp's choice (48 features, a 3x3 IGConv, implicit
+# dim 256, four latent layers)
+SPANPP = {'name': 'SpanPP', 'feature_channels': 48, 'scale': 2, 'scale_list': [1, 2, 3, 4], 'ig_kernel': 3,
+          'implicit_dim': 256, 'latent_layers': 4, 'tile': 256}
+
 # H100 SXM dense peaks (NVIDIA data sheet) for bound_ms
 PEAK_FLOPS = {'bfloat16': 989e12, 'float16': 989e12, 'float32': 67e12}
 PEAK_BYTES = 3.35e12
@@ -165,6 +195,8 @@ MOLRCM_TOL = 1.5e-3  # x max|plain|: tests/test_pallas_ops.py's tolerance for th
 ATD_TOL = HAT_TOL = 2e-3  # tests/test_atd.py's and tests/test_hat.py's TOL
 DAT_TOL = RGT_TOL = DRCT_TOL = 2e-3  # tests/test_dat.py's, test_rgt.py's and test_drct.py's TOL
 FDAT_TOL = OMNI_TOL = 1e-3  # tests/test_fdat.py's and tests/test_omni.py's TOL
+SPANPLUS_TOL = 2e-4  # tests/test_spanplus.py's TOL; the other conv families: MODEL_TOL (test_conv_archs.py,
+# test_spanpp.py, test_rcan_eimn.py)
 
 
 def log(phase: str, **fields) -> None:
@@ -208,6 +240,35 @@ def conv_shapes(n: int, tile: int) -> list[dict]:
     ]
     keys = ('name', 'entry', 'n', 'h', 'w', 'cin', 'cout', 'act')
     return [dict(zip(keys, r)) for r in rows]
+
+
+def conv_family_shapes(n: int, tile: int) -> list[dict]:
+    """Every distinct 3x3 conv (shape, activation) of the bench forwards of
+    the six conv families (SPAN 4x, SPANPlus 2x, SpanPP 2x, Compact 4x,
+    MoSR 4x, RCAN 4x) at a batch of ``n`` ``tile``-square inputs; several
+    families share a row where their convs coincide."""
+    t = tile
+    rows = [
+        ('SPAN/SPANPlus/SpanPP stem 3->48', t, 3, 48, 'linear'),
+        ('SPAN/SpanPP c1 c2 48->48 silu', t, 48, 48, 'silu'),
+        ('SPANPlus c1 c2 48->48 mish', t, 48, 48, 'mish'),
+        ('SPAN/SPANPlus/SpanPP c3 conv_2, SPAN head 48->48', t, 48, 48, 'linear'),
+        ('SPANPlus/SpanPP 2x head 48->12', t, 48, 12, 'linear'),
+        ('Compact/MoSR/RCAN stem 3->64', t, 3, 64, 'linear'),
+        ('Compact/RCAN body 64->64', t, 64, 64, 'linear'),
+        ('Compact/MoSR 4x head 64->48', t, 64, 48, 'linear'),
+        ('MoSR fc1 64->192', t, 64, 192, 'linear'),
+        ('MoSR fc2 96->64 mish', t, 96, 64, 'mish'),
+        ('MoSR tail 64->128 mish', t, 64, 128, 'mish'),
+        ('MoSR tail 128->64 mish', t, 128, 64, 'mish'),
+        ('MoSR shortcut 3->64 mish', t, 3, 64, 'mish'),
+        ('MoSR shortcut 64->64 mish', t, 64, 64, 'mish'),
+        ('RCAN tail.0.0 64->256', t, 64, 256, 'linear'),
+        ('RCAN tail.0.2 64->256', 2 * t, 64, 256, 'linear'),
+        ('RCAN tail.1 64->3', 4 * t, 64, 3, 'linear'),
+    ]
+    return [{'name': name, 'entry': 'act', 'n': n, 'h': h, 'w': h, 'cin': cin, 'cout': cout, 'act': act}
+            for name, h, cin, cout, act in rows]
 
 
 def shape_key(s: dict) -> tuple:
@@ -909,9 +970,12 @@ def atd_category_flips(model_a, model_b, x, dtype_b=None) -> tuple[int, int]:
     return int((ids[0] != ids[1]).sum()), ids[0].numel()
 
 
-def phase_load(device, sd: dict, stem: str, arch: str, meta, tmp: str, dropped: frozenset = frozenset()):
+def phase_load(device, sd: dict, stem: str, arch: str, meta, tmp: str, dropped: frozenset = frozenset(),
+               expect: dict | None = None):
     """Write a seeded checkpoint as .safetensors and .pth, load both; the
-    params are the checkpoint's arrays less the ``dropped`` keys."""
+    params are the checkpoint's arrays less the ``dropped`` keys, or, for a
+    loader that transforms them (collapsed reparameterizations), equal to
+    ``expect``."""
     import numpy as np
     import torch
 
@@ -926,6 +990,11 @@ def phase_load(device, sd: dict, stem: str, arch: str, meta, tmp: str, dropped: 
     for m in models:
         if m.arch_id != arch or m.metadata != meta:
             raise AssertionError(f'detected {m.arch_id} {m.metadata}')
+        if expect is not None:
+            if set(m.params) != set(expect) or not all(np.array_equal(m.params[k].cpu().numpy(), expect[k])
+                                                       for k in expect):
+                raise AssertionError(f'params differ from the expected ones: {sorted(set(m.params) ^ set(expect))}')
+            continue
         if set(sd) - set(m.params) != dropped:
             raise AssertionError(f'params lack {sorted(set(sd) - set(m.params))}, expected {sorted(dropped)}')
         for k in m.params:
@@ -1541,6 +1610,129 @@ def main() -> int:
     log('omni_serve', launches=omni_fig['wattn'][0], launches_per_bench_forward=omni_fig['wattn'][1],
         wattn_ms_per_bench_forward=omni_fig['wattn'][2], **serve)
 
+    # -- the six 3x3-conv families: conv3x3.cu at their shapes --------------------------------
+    from resselt_tpu_torch.parallel.tiling import _resolve_halo_hint
+    from resselt_tpu_torch.zoo import make_compact, make_mosr, make_rcan, make_span, make_spanplus, make_spanpp
+
+    fshapes = conv_family_shapes(BENCH['batch'], BENCH['tile'])
+    f_rows = phase_kernels('cuda', fshapes, reps=10)
+    log('conv_family_kernels', f32_tol=F32_TOL, bf16_rtol=BF16_RTOL, bf16_atol=BF16_ATOL, rows=json.dumps(f_rows))
+    f_checked = {('act', shape_key(s)) for s in fshapes}
+
+    def conv_family(stem: str, cfg: dict, sd: dict, arch: str, expect: dict, n_conv: int, tol: float,
+                    extra_models: tuple = (), serve_config: dict | None = None):
+        """Load, model and serve phases of one conv family: its conv3x3
+        launches per forward asserted (``n_conv``) in the model phase and the
+        bench forwards, which may launch no other kernel and only shapes
+        conv_family_kernels checked; ``expect``: config fields the loader
+        must infer; ``extra_models``: (label, state dict, launches per
+        forward) of small variants held card against CPU in f32;
+        ``serve_config``: ``with_config`` fields of the served model (SpanPP's
+        ``eval_scale``: the tiled driver needs an integer scale).  Returns
+        the serve phase's fields and (launches, per bench forward, conv ms
+        per bench forward, launches per forward by row)."""
+        with tempfile.TemporaryDirectory() as tmp:
+            cpu_params = resselt_tpu_torch.load_from_state_dict(sd, device='cpu').params
+            params = {k: v.numpy() for k, v in cpu_params.items()}
+            meta = ModelMetadata(3, 3, cfg.get('scale_list', cfg['scale']), cfg['name'])
+            model, ckpt = phase_load('cuda', sd, stem, arch, meta, tmp, expect=params)
+            got = {k: getattr(model.config, k) for k in expect}
+            if got != expect:
+                raise AssertionError(f"{cfg['name']} config {got}, expected {expect}")
+            log(f'{stem}_load', arch=model.arch_id, metadata=repr(model.metadata), config=repr(model.config),
+                files='safetensors,pth', params=len(params), checkpoint_keys=len(sd))
+
+            res = phase_model(model, sd, 64, fc.fused_conv3x3_act, tol=tol)
+            if res['launches_per_forward'] != n_conv:
+                raise AssertionError(f"{res['launches_per_forward']} conv3x3 launches per {cfg['name']} forward, "
+                                     f'expected {n_conv}')
+            for label, esd, n in extra_models:
+                extra = resselt_tpu_torch.load_from_state_dict(esd, device='cuda')
+                eres = phase_model(extra, esd, 64, fc.fused_conv3x3_act, bf16=False, tol=tol)
+                if eres['launches_per_forward'] != n:
+                    raise AssertionError(f"{cfg['name']} {label}: {eres}, expected {n} conv3x3 launches")
+                res[label] = json.dumps(eres)
+                del extra
+            log(f'{stem}_model', tol=tol, **res)
+
+            served = model.with_config(**serve_config) if serve_config else model
+            torch.cuda.reset_peak_memory_stats()
+            serve = phase_serve(served, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280),
+                                tiled_tile=cfg['tile'])
+            serve['peak_memory_gb'] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
+            counts = serve.pop('bench_counts')
+            serve.pop('bench_paths')
+            serve.pop('bench_plain')
+            serve.pop('shapes')
+            launches = serve.pop('launches')['act']
+            bench = check_bench_counts(counts, {'act'}, n_conv, reps, f_checked)
+            per_row = {r['name']: counts['act'][1].get(shape_key(s), 0) / reps for r, s in zip(f_rows, fshapes)}
+            conv_ms = sum(r['ms'] * per_row[r['name']] for r in f_rows)
+            serve.update(dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], tiled_tile=cfg['tile'],
+                         tiled_halo=_resolve_halo_hint(served, cfg['tile'], torch.bfloat16))
+            del model, served
+            torch.cuda.empty_cache()
+            return serve, (launches, bench / reps, conv_ms, {k: v for k, v in per_row.items() if v})
+
+    c_figs = {}
+    sp = SPANPP
+    serve, c_figs['SpanPP'] = conv_family(
+        'spanpp', sp, make_spanpp(sp['feature_channels'], ig_kernel=sp['ig_kernel'], implicit_dim=sp['implicit_dim'],
+                                  latent_layers=sp['latent_layers'], seed=0), 'SpanPP',
+        {'feature_channels': 48, 'scale_list': (1, 2, 3, 4), 'eval_scale': 2, 'ig_kernel': 3, 'implicit_dim': 256,
+         'latent_layers': 4}, 21, MODEL_TOL, serve_config={'eval_scale': sp['scale']})
+    log('spanpp_serve', launches=c_figs['SpanPP'][0], launches_per_bench_forward=c_figs['SpanPP'][1],
+        conv_ms_per_bench_forward=c_figs['SpanPP'][2], per_forward_by_row=json.dumps(c_figs['SpanPP'][3]), **serve)
+
+    sn = SPAN
+    serve, c_figs['SPAN'] = conv_family(
+        'span', sn, make_span(sn['feature_channels'], sn['scale'], seed=0), 'SPAN',
+        {'feature_channels': 48, 'upscale': 4, 'norm': True}, 21, MODEL_TOL,
+        extra_models=(('no_norm_16_features_2x_model', make_span(16, 2, seed=1, norm=False), 21),))
+    log('span_serve', launches=c_figs['SPAN'][0], launches_per_bench_forward=c_figs['SPAN'][1],
+        conv_ms_per_bench_forward=c_figs['SPAN'][2], per_forward_by_row=json.dumps(c_figs['SPAN'][3]), **serve)
+
+    rc = RCAN
+    n_rcan = 1 + rc['n_resgroups'] * (2 * rc['n_resblocks'] + 1) + 1 + 2 + 1  # head, body, tail.0 x 2, tail.1
+    serve, c_figs['RCAN'] = conv_family(
+        'rcan', rc, make_rcan(rc['n_feats'], rc['n_resgroups'], rc['n_resblocks'], rc['reduction'], rc['scale'],
+                              seed=0), 'RCAN',
+        {'n_feats': 64, 'n_resgroups': 10, 'n_resblocks': 20, 'reduction': 16, 'scale': 4, 'norm': True,
+         'rgb_range': 255, 'unshuffle_mod': False}, n_rcan, MODEL_TOL,
+        extra_models=(('unshuffle_2x_2_groups_model', make_rcan(32, 2, 2, 8, 2, unshuffle=True, seed=1),
+                       1 + 2 * 5 + 1 + 2 + 1),))
+    log('rcan_serve', launches=c_figs['RCAN'][0], launches_per_bench_forward=c_figs['RCAN'][1],
+        conv_ms_per_bench_forward=c_figs['RCAN'][2], per_forward_by_row=json.dumps(c_figs['RCAN'][3]), **serve)
+
+    mo_ = MOSR
+    n_mosr = 1 + 2 * mo_['n_block'] + 2 + 2 + 1  # stem, fc1 / fc2, tail, shortcut, head
+    serve, c_figs['MoSR'] = conv_family(
+        'mosr', mo_, make_mosr(mo_['dim'], mo_['n_block'], mo_['scale'], seed=0), 'MoSR',
+        {'dim': 64, 'n_block': 24, 'upscale': 4, 'upsampler': 'ps', 'expansion_ratio': 1.5, 'conv_ratio': 1.0,
+         'kernel_size': 7}, n_mosr, MODEL_TOL,
+        extra_models=(('dys_2x_2_blocks_model', make_mosr(32, 2, 2, seed=1, upsampler='dys'), 1 + 4 + 2 + 2),
+                      ('gps_4x_2_blocks_model', make_mosr(32, 2, 4, seed=2, upsampler='gps'), 1 + 4 + 2 + 2 + 1)))
+    log('mosr_serve', launches=c_figs['MoSR'][0], launches_per_bench_forward=c_figs['MoSR'][1],
+        conv_ms_per_bench_forward=c_figs['MoSR'][2], per_forward_by_row=json.dumps(c_figs['MoSR'][3]), **serve)
+
+    co = COMPACT
+    serve, c_figs['Compact'] = conv_family(
+        'compact', co, make_compact(co['num_feat'], co['num_conv'], co['scale'], seed=0), 'Compact',
+        {'num_feat': 64, 'num_conv': 16, 'upscale': 4}, co['num_conv'] + 2, MODEL_TOL)
+    log('compact_serve', launches=c_figs['Compact'][0], launches_per_bench_forward=c_figs['Compact'][1],
+        conv_ms_per_bench_forward=c_figs['Compact'][2], per_forward_by_row=json.dumps(c_figs['Compact'][3]), **serve)
+
+    spp = SPANPLUS
+    n_spanplus = 1 + 3 * (spp['blocks'][0] + 2) + 1 + 1  # stem, SPABs, conv_2, head
+    serve, c_figs['SPANPlus'] = conv_family(
+        'spanplus', spp, make_spanplus(spp['feature_channels'], spp['blocks'], spp['scale'], seed=0), 'spanplus',
+        {'feature_channels': 48, 'blocks': (4,), 'upscale': 2, 'upsampler': 'ps'}, n_spanplus, SPANPLUS_TOL,
+        extra_models=(('dys_2x_1_block_model', make_spanplus(32, (1,), 2, seed=1, upsampler='dys'), 11),
+                      ('conv_1x_1_block_model', make_spanplus(32, (1,), 1, seed=2, upsampler='conv'), 12)))
+    log('spanplus_serve', launches=c_figs['SPANPlus'][0], launches_per_bench_forward=c_figs['SPANPlus'][1],
+        conv_ms_per_bench_forward=c_figs['SPANPlus'][2], per_forward_by_row=json.dumps(c_figs['SPANPlus'][3]),
+        **serve)
+
     w_figs = {'ATD-light': atd_fig, 'HAT-S': hat_fig, 'DAT-S': dat_fig, 'RGT-S': rgt_fig, 'DRCT': drct_fig,
               'FDAT-M': fdat_fig, 'OmniSR': omni_fig}
     head = next(r for r in rows if r['name'] == 'rdb stage0 64->192')
@@ -1553,8 +1745,9 @@ def main() -> int:
         'route': 'cuda',
         'source': 'resselt_tpu_torch/csrc/conv3x3.cu',
         'replaces': 'resselt_tpu/ops/fused_conv.py:59',
-        'launches': launches,
-        'max_abs_err': max(r['max_abs_err_bf16'] for r in rows),
+        'launches': launches + sum(f[0] for f in c_figs.values()),
+        'launches_by_path': {'ESRGAN': launches, **{k: f[0] for k, f in c_figs.items()}},
+        'max_abs_err': max(r['max_abs_err_bf16'] for r in rows + f_rows),
         'ms': head['ms'],
         'plain_ms': head['plain_ms'],
         'bound_ms': head['bound_ms'],
@@ -1562,8 +1755,10 @@ def main() -> int:
         'library_ms': head['library_ms'],
         'timed_shape': head['name'] + ' bf16 ' + 'x'.join(map(str, head['shape'])),
         'ms_per_bench_forward': conv_ms,
+        'ms_per_bench_forward_by_path': {'ESRGAN': conv_ms, **{k: f[2] for k, f in c_figs.items()}},
         'over_bound_ms_per_bench_forward': over_bound_ms(rows),
         'shapes': rows,
+        'family_shapes': f_rows,
     }, {
         'name': 'fused_conv_lk',
         'route': 'cuda',

@@ -16,7 +16,8 @@ import importlib
 from ..core import Registry
 
 _ARCH_MODULES: list[str] = [
-    'swinir', 'hat', 'omni', 'drct', 'fdat', 'dat', 'rgt', 'atd', 'esrgan', 'plksr', 'eimn',
+    'swinir', 'hat', 'omni', 'drct', 'fdat', 'dat', 'rgt', 'atd', 'spanpp', 'span', 'esrgan', 'plksr', 'rcan', 'eimn',
+    'mosr', 'compact', 'spanplus',
 ]
 
 internal_registry = Registry()

@@ -65,3 +65,9 @@ def pixelshuffle_scale(ps_size: int, channels: int) -> int:
     """The upscale of a PixelShuffle tail whose conv emits ``ps_size``
     channels for ``channels`` output planes."""
     return math.isqrt(ps_size // channels)
+
+
+def dysample_scale(ds_size: int) -> int:
+    """The upscale of a DySample tail (4 groups) whose offset conv emits
+    ``ds_size`` channels."""
+    return math.isqrt(ds_size // 8)

@@ -93,6 +93,15 @@ def sigmoid(x):
     return torch.sigmoid(x)
 
 
+def prelu(x, weight):
+    """PReLU on NHWC ``x``: a scalar slope, or one per channel (the last
+    dimension), taken to ``x``'s dtype."""
+    w = weight.to(x.dtype)
+    if w.numel() != 1:
+        w = w.reshape((1,) * (x.ndim - 1) + (-1,))
+    return torch.where(x >= 0, x, x * w)
+
+
 def softmax(x, dim: int = -1):
     return torch.softmax(x, dim=dim)
 

@@ -7,7 +7,11 @@ Counterpart of ``resselt_tpu/zoo.py``, holding ``make_esrgan``,
 package's arrays; ``make_atd`` also builds the other upsamplers' tails and
 the 3conv residual); ``make_dat``, ``make_rgt``, ``make_drct``, ``make_fdat``
 and ``make_omni``, which the JAX package's zoo lacks, written from what its
-loaders, detection conditions and forwards read.
+loaders, detection conditions and forwards read; ``make_compact``,
+``make_span``, ``make_spanplus`` and ``make_mosr`` (the JAX package's
+arrays at their defaults; the last three also build the reference's other
+variants), and ``make_spanpp`` and ``make_rcan``, written from the JAX
+loaders and detection keys.
 """
 
 from __future__ import annotations
@@ -845,4 +849,213 @@ def make_omni(num_feat: int = 64, block_num: int = 1, pe: bool = True, window_si
             conv(f'{g}.esa.{key}', cout, cin, k)
     conv('output', f, f, 3)
     conv('up.0', in_nc * up_scale * up_scale, f, 3)
+    return m.sd
+
+
+# -- the 3x3-conv families ------------------------------------------------------
+
+
+def _conv3xc(m: _Maker, key: str, cin: int, cout: int, gain: int = 2):
+    """Conv3XC bundle keys (reference span/arch.py:59-121)."""
+    m.conv(f'{key}.sk', cout, cin, 1)
+    m.conv(f'{key}.conv.0', cin * gain, cin, 1)
+    m.conv(f'{key}.conv.1', cout * gain, cin * gain, 3)
+    m.conv(f'{key}.conv.2', cout, cout * gain, 1)
+    m.conv(f'{key}.eval_conv', cout, cin, 3)
+
+
+def make_compact(num_feat: int = 64, num_conv: int = 16, upscale: int = 4, in_nc: int = 3, seed: int = 0):
+    """SRVGGNetCompact layout (reference compact/arch.py:37-56)."""
+    m = _Maker(seed)
+    m.conv('body.0', num_feat, in_nc, 3)
+    m.t('body.1.weight', num_feat)
+    for i in range(num_conv):
+        m.conv(f'body.{2 * i + 2}', num_feat, num_feat, 3)
+        m.t(f'body.{2 * i + 3}.weight', num_feat)
+    m.conv(f'body.{2 * num_conv + 2}', in_nc * upscale * upscale, num_feat, 3)
+    return m.sd
+
+
+def make_spanplus(feature_channels: int = 48, blocks=(4,), upscale: int = 2, in_nc: int = 3, seed: int = 0,
+                  upsampler: str = 'ps'):
+    """SpanPlus layout (reference spanplus/arch.py:154-201); 'ps' gives the
+    JAX package's arrays, 'dys' a DySample tail (4 groups) to ``in_nc``,
+    'conv' a 3x3 conv to ``in_nc`` at 1x."""
+    m = _Maker(seed)
+    f = feature_channels
+    _conv3xc(m, 'feats.0', in_nc, f)
+    for bi, n_blocks in enumerate(blocks):
+        g = f'feats.{bi + 1}'
+        for blk in ['block_1'] + [f'block_n.{i}' for i in range(n_blocks)] + ['block_end']:
+            for c in ('c1_r', 'c2_r', 'c3_r'):
+                _conv3xc(m, f'{g}.{blk}.{c}', f, f)
+        _conv3xc(m, f'{g}.conv_2', f, f)
+        m.conv(f'{g}.conv_cat', f, f * 4, 1)
+    if upsampler == 'ps':
+        m.conv('upsampler.0', in_nc * upscale**2, f, 3)
+    elif upsampler == 'dys':
+        _dysample(m, 'upsampler', f, in_nc, upscale)
+    elif upsampler == 'conv':
+        m.conv('upsampler', in_nc, f, 3)
+    else:
+        raise ValueError(f'unknown SpanPlus upsampler {upsampler!r}')
+    return m.sd
+
+
+def make_span(feature_channels: int = 48, upscale: int = 4, in_nc: int = 3, seed: int = 0, norm: bool = True):
+    """SPAN layout (reference span/arch.py:183-234): Conv3XC stem, six SPABs,
+    conv_cat/conv_2, pixelshuffle tail; the JAX package's arrays, and
+    without ``norm`` the reference's ``no_norm`` buffer."""
+    m = _Maker(seed)
+    f = feature_channels
+    _conv3xc(m, 'conv_1', in_nc, f)
+    for b in range(1, 7):
+        for c in ('c1_r', 'c2_r', 'c3_r'):
+            _conv3xc(m, f'block_{b}.{c}', f, f)
+    m.conv('conv_cat', f, 4 * f, 1)
+    _conv3xc(m, 'conv_2', f, f)
+    m.conv('upsampler.0', in_nc * upscale * upscale, f, 3)
+    if not norm:
+        m.sd['no_norm'] = np.zeros((1,), np.float32)
+    return m.sd
+
+
+def make_mosr(
+    dim: int = 48,
+    n_block: int = 4,
+    upscale: int = 2,
+    in_nc: int = 3,
+    expansion_ratio: float = 1.5,
+    conv_ratio: float = 1.0,
+    kernel_size: int = 7,
+    seed: int = 0,
+    upsampler: str = 'ps',
+):
+    """MoSR layout (reference mosr/arch.py:108-156): gblocks Sequential =
+    stem conv + GatedCNNBlocks + 5-entry conv tail, ConvBlock shortcut;
+    'ps' gives the JAX package's arrays, 'dys' a DySample tail (4 groups)
+    to ``in_nc``, 'gps' the geo-ensemble 3x3 ``in_to_k`` conv."""
+    m = _Maker(seed)
+    hidden = int(expansion_ratio * dim)
+    cc = int(conv_ratio * dim)
+    m.conv('gblocks.0', dim, in_nc, 3)
+    for i in range(1, n_block + 1):
+        m.t(f'gblocks.{i}.norm.weight', dim)
+        m.t(f'gblocks.{i}.norm.bias', dim)
+        m.conv(f'gblocks.{i}.fc1', hidden * 2, dim, 3)
+        m.conv(f'gblocks.{i}.conv', cc, 1, kernel_size)  # depthwise
+        m.conv(f'gblocks.{i}.fc2', dim, hidden, 3)
+    m.conv(f'gblocks.{n_block + 1}', dim * 2, dim, 3)
+    m.conv(f'gblocks.{n_block + 3}', dim, dim * 2, 3)
+    m.conv(f'gblocks.{n_block + 5}', dim, dim, 1)
+    m.conv('shortcut.block.0', dim, in_nc, 3)
+    m.conv('shortcut.block.2', dim, dim, 3)
+    m.conv('shortcut.conv11', dim, in_nc, 1)
+    if upsampler == 'ps':
+        m.conv('upsampler.0', in_nc * upscale * upscale, dim, 3)
+    elif upsampler == 'dys':
+        _dysample(m, 'upsampler', dim, in_nc, upscale)
+    elif upsampler == 'gps':
+        m.conv('upsampler.in_to_k', 8 * in_nc * upscale * upscale, dim, 3)
+    else:
+        raise ValueError(f'unknown MoSR upsampler {upsampler!r}')
+    return m.sd
+
+
+def _repconv(m: _Maker, key: str, cin: int, cout: int, mid_mult: int = 2):
+    """A RepConv bundle (reference rtmosr/arch.py:167-207), the keys
+    ``nn.reparam.repconv_collapse`` and SpanPP's detection read: ``alpha``
+    (three branch weights near 1), ``conv1`` a SeqConv3x3 (1x1 ``k0`` /
+    ``b0`` to ``mid_mult * cout``, 3x3 ``k1`` / ``b1``), ``conv2`` a 3x3,
+    ``conv3`` a Conv3XC, and the collapsed ``conv_3x3_rep``."""
+    m.t(f'{key}.alpha', 3)
+    m.sd[f'{key}.alpha'] += 1.0
+    mid = mid_mult * cout
+    m.t(f'{key}.conv1.k0', mid, cin, 1, 1)
+    m.t(f'{key}.conv1.b0', mid)
+    m.t(f'{key}.conv1.k1', cout, mid, 3, 3)
+    m.t(f'{key}.conv1.b1', cout)
+    m.conv(f'{key}.conv2', cout, cin, 3)
+    _conv3xc(m, f'{key}.conv3', cin, cout)
+    m.conv(f'{key}.conv_3x3_rep', cout, cin, 3)
+
+
+def make_spanpp(feature_channels: int = 48, scale_list=(1, 2, 3, 4), ig_kernel: int = 3, implicit_dim: int = 256,
+                latent_layers: int = 4, in_nc: int = 3, seed: int = 0):
+    """SpanPP layout (reference spanpp/arch.py), written from what
+    ``resselt_tpu/archs/spanpp.py::_load`` and its detection keys read:
+    RepConv stem ``conv0``, six SPABs of RepConvs, ``conv_2``, the 1x1
+    ``conv_cat``, and the IGConv upsampler: ``freq`` and ``amplitude``
+    ((feature_channels * ig_kernel², implicit_dim, 1, 1), unit scale),
+    ``phase`` (a 1x1 conv from 1 to implicit_dim / 2 channels) and the
+    ``query_kernel`` 1x1 stack (``latent_layers`` of implicit_dim wide,
+    He-scaled, then one to 3).  A ``scale_list`` other than (1, 2, 3, 4)
+    is written as the ``MetaIGConv`` buffer.  The widths are this builder's
+    choice: the reference's ``SpanPP()`` defaults are not in this repo."""
+    m = _Maker(seed)
+    f, d = feature_channels, implicit_dim
+    _repconv(m, 'conv0', in_nc, f)
+    for b in range(1, 7):
+        for c in ('c1_r', 'c2_r', 'c3_r'):
+            _repconv(m, f'block_{b}.{c}', f, f)
+    _repconv(m, 'conv_2', f, f)
+    m.conv('conv_cat', f, 4 * f, 1)
+    n = f * ig_kernel * ig_kernel
+    m.sd['upsampler.freq'] = m.rng.standard_normal((n, d, 1, 1)).astype(np.float32)
+    m.sd['upsampler.amplitude'] = m.rng.standard_normal((n, d, 1, 1)).astype(np.float32)
+    m.conv('upsampler.phase', d // 2, 1, 1)
+    for i in range(latent_layers + 1):
+        cout = 3 if i == latent_layers else d
+        m.sd[f'upsampler.query_kernel.{2 * i}.weight'] = (
+            m.rng.standard_normal((cout, d, 1, 1)) * math.sqrt(2.0 / d)).astype(np.float32)
+        m.t(f'upsampler.query_kernel.{2 * i}.bias', cout)
+    if tuple(scale_list) != (1, 2, 3, 4):
+        m.sd['MetaIGConv'] = np.asarray(scale_list, np.int64)
+    return m.sd
+
+
+_RCAN_RGB_MEAN = (0.4488, 0.4371, 0.4040)
+
+
+def make_rcan(n_feats: int = 64, n_resgroups: int = 10, n_resblocks: int = 20, reduction: int = 16, scale: int = 4,
+              norm: bool = True, unshuffle: bool = False, kernel_size: int = 3, n_colors: int = 3, seed: int = 0):
+    """RCAN layout (defaults: the published RCAN, 10 groups of 20 RCABs, 64
+    features, reduction 16), written from what
+    ``resselt_tpu/archs/rcan.py::_load`` and its detection keys read: with
+    ``norm`` the MeanShifts (identity 1x1 weights, biases -/+ 255 x the
+    DIV2K mean); the head ``head.0``, or with ``unshuffle`` (scale 1 or 2)
+    ``head.1`` after a pixel unshuffle to the 4x tail; per RCAB two k x k
+    convs and the channel attention's 1x1 ``conv_du`` pair; each group's
+    and the body's closing conv; the 3x3 pixel-shuffle ``tail.0`` and the
+    k x k ``tail.1``."""
+    m = _Maker(seed)
+    f, k = n_feats, kernel_size
+    if norm:
+        for key, sign in (('sub_mean', -1), ('add_mean', 1)):
+            m.sd[f'{key}.weight'] = np.eye(n_colors, dtype=np.float32).reshape(n_colors, n_colors, 1, 1)
+            m.sd[f'{key}.bias'] = (sign * 255 * np.asarray(_RCAN_RGB_MEAN[:n_colors])).astype(np.float32)
+    if unshuffle:
+        if scale not in (1, 2):
+            raise ValueError(f'the unshuffle head serves scale 1 or 2, got {scale}')
+        m.conv('head.1', f, n_colors * (4 // scale) ** 2, k)
+    else:
+        m.conv('head.0', f, n_colors, k)
+    for g in range(n_resgroups):
+        for b in range(n_resblocks):
+            r = f'body.{g}.body.{b}.body'
+            m.conv(f'{r}.0', f, f, k)
+            m.conv(f'{r}.2', f, f, k)
+            m.conv(f'{r}.3.conv_du.0', f // reduction, f, 1)
+            m.conv(f'{r}.3.conv_du.2', f, f // reduction, 1)
+        m.conv(f'body.{g}.body.{n_resblocks}', f, f, k)
+    m.conv(f'body.{n_resgroups}', f, f, k)
+    tail_scale = 4 if unshuffle else scale
+    if tail_scale & (tail_scale - 1) == 0:
+        for i in range(int(math.log2(tail_scale))):
+            m.conv(f'tail.0.{2 * i}', 4 * f, f, 3)
+    elif tail_scale == 3:
+        m.conv('tail.0.0', 9 * f, f, 3)
+    else:
+        raise ValueError(f'RCAN scale {scale} has no pixel-shuffle tail')
+    m.conv('tail.1', n_colors, f, k)
     return m.sd

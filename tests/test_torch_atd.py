@@ -26,8 +26,9 @@ from resselt_tpu_torch.archs import atd as tatd
 from resselt_tpu_torch.core import ModelMetadata, params_from_numpy
 from resselt_tpu_torch.nn.params import PTree
 from resselt_tpu_torch.ops import row_gather, window_mha
-from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_fdat, make_hat,
-                                   make_omni, make_plksr, make_rgt, make_swinir)
+from resselt_tpu_torch.zoo import (make_atd, make_compact, make_dat, make_drct, make_eimn, make_esrgan, make_fdat,
+                                   make_hat, make_mosr, make_omni, make_plksr, make_rcan, make_rgt, make_span,
+                                   make_spanplus, make_spanpp, make_swinir)
 
 
 torch.set_num_threads(2)
@@ -190,9 +191,9 @@ def test_zoo_atd_light_full_width_layout():
 
 
 def test_detection_of_all_six_families():
-    """Every ported family (eleven since FDAT and OmniSR) detects as itself,
-    and only as itself, in both packages; the port registers them in JAX's
-    order."""
+    """Every ported family (seventeen since the six 3x3-conv families)
+    detects as itself, and only as itself, in both packages; the port
+    registers them in JAX's order."""
     cases = ((_sd(), 'ATD', 'ATD'), (_sd('nearest+conv', 4), 'ATD', 'ATD'),
              (make_hat(24, (2,), (3,), 8, upscale=2), 'HAT', 'HAT'),
              (make_swinir(24, (2,), (3,), 8, upscale=2, img_size=32), 'SwinIR', 'SwinIR'),
@@ -205,7 +206,11 @@ def test_detection_of_all_six_families():
              (make_drct(24, 1, 3, 8, 8, 2.0, 2, img_size=32), 'DRCT', 'DRCT'),
              (make_drct(24, 1, 3, 8, 8, 2.0, 2, attn_masks=False), 'DRCT', 'DRCT'),
              (make_fdat(32, 1, 1, 4, 8, 1.5, 8, 32, 'transpose+conv', 4), 'FDAT', 'FDAT'),
-             (make_omni(16, 1, True, 8, 1, 2), 'OmniSR', 'OmniSR'))
+             (make_omni(16, 1, True, 8, 1, 2), 'OmniSR', 'OmniSR'),
+             (make_compact(16, 2, 2), 'Compact', 'Compact'), (make_span(16, 2), 'SPAN', 'SPAN'),
+             (make_spanplus(16, (2,), 2), 'spanplus', 'SPANPlus'), (make_mosr(16, 2, 2), 'MoSR', 'MoSR'),
+             (make_spanpp(16, implicit_dim=32, latent_layers=2), 'SpanPP', 'SpanPP'),
+             (make_rcan(16, 2, 2, 4, 2), 'RCAN', 'RCAN'))
     for sd, arch, name in cases:
         tm = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
         jm = resselt_tpu.load_from_state_dict(sd)
@@ -214,7 +219,8 @@ def test_detection_of_all_six_families():
         assert hits == [a.id for a in resselt_tpu.archs.internal_registry if a.detect(sd)] == [arch]
     port = [a.id for a in resselt_tpu_torch.archs.internal_registry]
     assert port == [a.id for a in resselt_tpu.archs.internal_registry if a.id in port]
-    assert port == ['SwinIR', 'HAT', 'OmniSR', 'DRCT', 'FDAT', 'dat', 'RGT', 'ATD', 'ESRGAN', 'PLKSR', 'eimn']
+    assert port == ['SwinIR', 'HAT', 'OmniSR', 'DRCT', 'FDAT', 'dat', 'RGT', 'ATD', 'SpanPP', 'SPAN', 'ESRGAN', 'PLKSR',
+                    'RCAN', 'eimn', 'MoSR', 'Compact', 'spanplus']
 
 
 def test_params_from_numpy_carries_jax_params():

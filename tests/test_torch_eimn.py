@@ -81,7 +81,8 @@ def test_detection_with_eimn_registered():
     # the port registers its families in the JAX package's order
     port = [a.id for a in resselt_tpu_torch.archs.internal_registry]
     assert port == [a.id for a in resselt_tpu.archs.internal_registry if a.id in port]
-    assert port == ['SwinIR', 'HAT', 'OmniSR', 'DRCT', 'FDAT', 'dat', 'RGT', 'ATD', 'ESRGAN', 'PLKSR', 'eimn']
+    assert port == ['SwinIR', 'HAT', 'OmniSR', 'DRCT', 'FDAT', 'dat', 'RGT', 'ATD', 'SpanPP', 'SPAN', 'ESRGAN', 'PLKSR',
+                    'RCAN', 'eimn', 'MoSR', 'Compact', 'spanplus']
 
 
 def test_params_from_numpy_carries_jax_params():

@@ -9,7 +9,7 @@
   tests/test_pallas_ops.py runs them), and the port's float16 output is held
   to rtol 2e-2 + atol 1e-2: the output's float16 rounding.  The row gather
   is exact.
-* ``model(x, dtype='float16')`` for the nine served families at the small
+* ``model(x, dtype='float16')`` for the seventeen served families at the small
   sizes of their parity tests: at least 35 dB PSNR against the port's own
   float32 output and against resselt_tpu's float16 output.
 * ``mask_window_flags``: equal to ``(mask != 0).any((1, 2))``, 2 x side - 1
@@ -34,8 +34,9 @@ from resselt_tpu_torch.ops import fused_conv as fc
 from resselt_tpu_torch.ops import molrcm as mo
 from resselt_tpu_torch.ops import row_gather
 from resselt_tpu_torch.ops import window_attention as wa
-from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_fdat, make_hat,
-                                   make_omni, make_plksr, make_rgt, make_swinir)
+from resselt_tpu_torch.zoo import (make_atd, make_compact, make_dat, make_drct, make_eimn, make_esrgan, make_fdat,
+                                   make_hat, make_mosr, make_omni, make_plksr, make_rcan, make_rgt, make_span,
+                                   make_spanplus, make_spanpp, make_swinir)
 
 
 torch.set_num_threads(2)
@@ -200,6 +201,12 @@ _FAMILIES = {
     'drct': (lambda: make_drct(24, 2, 3, 8, 8, 2.0, 2, img_size=32, seed=3), (16, 24)),
     'fdat': (lambda: make_fdat(32, 1, 1, 4, 8, 1.5, 8, 24, 'pa_up', 2, seed=3), (17, 21)),
     'omni': (lambda: make_omni(16, 1, True, 8, 1, 2, seed=3), (22, 18)),
+    'compact': (lambda: make_compact(16, 2, 2, seed=3), (13, 17)),
+    'span': (lambda: make_span(16, 2, seed=3, norm=False), (13, 17)),
+    'spanplus': (lambda: make_spanplus(16, (2,), 2, seed=3), (13, 17)),
+    'mosr': (lambda: make_mosr(16, 2, 2, seed=3), (13, 17)),
+    'spanpp': (lambda: make_spanpp(16, implicit_dim=32, latent_layers=2, seed=3), (13, 17)),
+    'rcan': (lambda: make_rcan(16, 2, 2, 4, 2, seed=3), (13, 17)),
 }
 
 

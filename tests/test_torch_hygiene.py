@@ -48,6 +48,7 @@ def test_loading_and_serving_import_no_jax():
         'import resselt_tpu_torch, resselt_tpu_torch.upscale, resselt_tpu_torch.parallel\n'
         'from resselt_tpu_torch.zoo import make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_hat, make_plksr\n'
         'from resselt_tpu_torch.zoo import make_fdat, make_omni, make_rgt, make_swinir\n'
+        'from resselt_tpu_torch.zoo import make_compact, make_mosr, make_rcan, make_span, make_spanplus, make_spanpp\n'
         "m = resselt_tpu_torch.load_from_state_dict(make_esrgan(8, 1, 2, gc=4), device='cpu')\n"
         'y = resselt_tpu_torch.upscale_tiled(m, np.zeros((40, 40, 3), np.float32), tile=16, halo=2)\n'
         'assert tuple(y.shape) == (80, 80, 3)\n'
@@ -73,11 +74,18 @@ def test_loading_and_serving_import_no_jax():
         'assert tuple(y.shape) == (80, 80, 3)\n'
         "for sd, arch in ((make_dat(24, (2,), (2,), (2, 4), 2.0, 2), 'dat'), (make_drct(24, 1, 3, 8, 8, 2.0, 2), 'DRCT'),\n"
         "                 (make_rgt(24, (2,), (2,), (4, 4), 2.0, 0.5, 2), 'RGT'),\n"
-        "                 (make_fdat(32, 1, 1, 4, 8, 1.5, 8, 32, 'lda', 2), 'FDAT'), (make_omni(16, 1, True, 8, 1, 2), 'OmniSR')):\n"
+        "                 (make_fdat(32, 1, 1, 4, 8, 1.5, 8, 32, 'lda', 2), 'FDAT'),\n"
+        "                 (make_omni(16, 1, True, 8, 1, 2), 'OmniSR'), (make_compact(16, 2, 2), 'Compact'),\n"
+        "                 (make_span(16, 2), 'SPAN'), (make_spanplus(16, (1,), 2), 'spanplus'),\n"
+        "                 (make_mosr(16, 1, 2), 'MoSR'), (make_rcan(16, 1, 1, 4, 2), 'RCAN')):\n"
         "    m = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')\n"
         '    assert m.arch_id == arch\n'
         '    y = resselt_tpu_torch.upscale_tiled(m, np.zeros((40, 40, 3), np.float32), tile=16)\n'
         '    assert tuple(y.shape) == (80, 80, 3)\n'
+        "m = resselt_tpu_torch.load_from_state_dict(make_spanpp(16, implicit_dim=32, latent_layers=2), device='cpu')\n"
+        "assert m.arch_id == 'SpanPP'\n"
+        'y = resselt_tpu_torch.upscale_tiled(m.with_config(eval_scale=2), np.zeros((40, 40, 3), np.float32), tile=16)\n'
+        'assert tuple(y.shape) == (80, 80, 3)\n'
         "bad = [k for k in sys.modules if k in ('jax', 'resselt_tpu') or k.startswith(('jax.', 'resselt_tpu.'))]\n"
         'print(bad)\n'
         'sys.exit(1 if bad else 0)\n'

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (conv3x3, conv_lk, window_attn, molrcm,
 row_gather) and main paths (ESRGAN, PLKSR, RealPLKSR, SwinIR, EIMN, ATD,
-HAT, DAT, RGT, DRCT, FDAT, OmniSR) on the card.  Needs an NVIDIA GPU
+HAT, DAT, RGT, DRCT, FDAT, OmniSR, Compact, SPAN, SPANPlus, MoSR, SpanPP,
+RCAN) on the card.  Needs an NVIDIA GPU
 and nvcc; every test here is marked ``cuda`` and skips without a card.
 
 This file imports torch and resselt_tpu_torch only, so that it runs where
@@ -27,8 +28,9 @@ from resselt_tpu_torch.ops import fused_conv as fc
 from resselt_tpu_torch.ops import molrcm as mo
 from resselt_tpu_torch.ops import window_attention as wa
 from resselt_tpu_torch.parallel import upscale_tiled
-from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_fdat, make_hat,
-                                   make_omni, make_plksr, make_realplksr, make_rgt, make_swinir)
+from resselt_tpu_torch.zoo import (make_atd, make_compact, make_dat, make_drct, make_eimn, make_esrgan, make_fdat,
+                                   make_hat, make_mosr, make_omni, make_plksr, make_rcan, make_realplksr, make_rgt,
+                                   make_span, make_spanplus, make_spanpp, make_swinir)
 
 
 pytestmark = pytest.mark.cuda
@@ -741,7 +743,86 @@ def test_fdat_omni_tiled_on_card_match_cpu(cuda, family):
     np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=1e-3)
 
 
-# -- float16 and precision through the eleven families -----------------------------------
+# -- the six 3x3-conv families (Compact, SPAN, SPANPlus, MoSR, SpanPP, RCAN) on conv3x3.cu ------------------
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('n,h,w,cin,cout,act', [
+    (2, 21, 26, 48, 48, 'silu'), (2, 21, 26, 48, 48, 'mish'), (2, 21, 26, 48, 48, 'linear'),  # SPAN / SPANPlus
+    (1, 19, 23, 3, 48, 'linear'), (2, 21, 26, 48, 12, 'linear'), (1, 17, 33, 48, 27, 'linear'),  # stems, heads
+    (2, 21, 26, 64, 192, 'linear'), (2, 21, 26, 96, 64, 'mish'), (1, 18, 20, 64, 128, 'mish'),  # MoSR
+    (1, 18, 20, 128, 64, 'mish'), (1, 19, 23, 3, 64, 'mish'), (1, 17, 19, 64, 384, 'linear'),
+    (1, 20, 22, 64, 256, 'linear'), (1, 9, 11, 12, 64, 'linear'), (1, 9, 11, 48, 64, 'linear'),  # RCAN
+    (2, 21, 26, 64, 48, 'linear'),  # Compact's 4x head
+])
+def test_kernel_matches_plain_at_the_conv_family_shapes(cuda, dtype, n, h, w, cin, cout, act):
+    g = torch.Generator(device=cuda).manual_seed(cin * 1000 + cout)
+    x = torch.randn((n, h, w, cin), generator=g, device=cuda).to(dtype)
+    wt = torch.randn((cout, cin, 3, 3), generator=g, device=cuda) / (3 * cin ** 0.5)
+    b = torch.randn((cout,), generator=g, device=cuda)
+    taps = fc.pack_conv3x3_weight(wt, dtype)
+    before = fc.fused_conv3x3_act.by_shape[(n, h, w, cin, cout, act)]
+    got = fc.fused_conv3x3_act(x, taps, b, act=act)
+    torch.cuda.synchronize()
+    assert fc.fused_conv3x3_act.by_shape[(n, h, w, cin, cout, act)] == before + 1 and got.dtype == dtype
+    want = fc.fused_conv3x3_act_ref(x.float(), taps.float(), b, act=act)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=1e-3)
+
+
+_CONV_FAMILIES = {
+    # name: (state dict, conv3x3 launches per forward, with_config overrides)
+    'compact': (lambda: make_compact(24, 4, 4, seed=1), 6, None),
+    'span': (lambda: make_span(48, 4, seed=2), 21, None),
+    'span_no_norm': (lambda: make_span(16, 2, seed=3, norm=False), 21, None),
+    'spanplus': (lambda: make_spanplus(48, (2,), 2, seed=4), 15, None),
+    'spanplus_dys': (lambda: make_spanplus(16, (1,), 2, seed=5, upsampler='dys'), 11, None),
+    'spanplus_conv': (lambda: make_spanplus(16, (1,), 1, seed=6, upsampler='conv'), 12, None),
+    'mosr': (lambda: make_mosr(64, 2, 4, seed=7), 10, None),
+    'mosr_dys': (lambda: make_mosr(16, 2, 2, seed=8, upsampler='dys'), 9, None),
+    'mosr_gps': (lambda: make_mosr(16, 2, 4, seed=9, upsampler='gps'), 10, None),
+    'spanpp': (lambda: make_spanpp(48, implicit_dim=32, latent_layers=2, seed=10), 21, None),
+    'spanpp_3x': (lambda: make_spanpp(16, implicit_dim=32, latent_layers=2, seed=11), 21, {'eval_scale': 3}),
+    'rcan': (lambda: make_rcan(64, 2, 2, 16, 4, seed=12), 2 + 2 * 5 + 3, None),
+    'rcan_unshuffle_2x': (lambda: make_rcan(16, 2, 2, 4, 2, unshuffle=True, seed=13), 2 + 2 * 5 + 3, None),
+    'rcan_k5': (lambda: make_rcan(16, 1, 1, 4, 4, kernel_size=5, seed=14), 2, None),
+}
+
+
+@pytest.mark.parametrize('variant', sorted(_CONV_FAMILIES))
+def test_conv_families_on_card_match_cpu(cuda, variant):
+    """Every same-padded 3x3 conv of the six families launches the kernel:
+    the counts per forward are the ones their code implies."""
+    make, launches, overrides = _CONV_FAMILIES[variant]
+    sd = make()
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    if overrides:
+        gpu, cpu = gpu.with_config(**overrides), cpu.with_config(**overrides)
+    x = np.random.default_rng(0).random((2, 21, 26, 3), dtype=np.float32)
+    before = fc.fused_conv3x3_act.launches
+    got = gpu(x)
+    torch.cuda.synchronize()
+    assert fc.fused_conv3x3_act.launches - before == launches
+    np.testing.assert_allclose(got.cpu().numpy(), cpu(x).numpy(), rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize('family', ['compact', 'span_no_norm', 'spanplus', 'mosr_gps', 'spanpp_3x', 'rcan'])
+def test_conv_families_tiled_on_card_match_cpu(cuda, family):
+    make, _, overrides = _CONV_FAMILIES[family]
+    gpu = resselt_tpu_torch.load_from_state_dict(make(), device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(make(), device='cpu')
+    if overrides:
+        gpu, cpu = gpu.with_config(**overrides), cpu.with_config(**overrides)
+    img = np.random.default_rng(1).random((70, 90, 3), dtype=np.float32)
+    got = upscale_tiled(gpu, img, tile=32)
+    assert got.device.type == 'cuda'
+    np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=5e-4)
+
+
+# -- float16 and precision through the seventeen families -----------------------------------
 
 
 _FAMILIES = {
@@ -756,6 +837,12 @@ _FAMILIES = {
     'drct': lambda: make_drct(36, 2, 6, 8, 12, 2.0, 2, img_size=32, seed=3),
     'fdat': lambda: make_fdat(48, 2, 1, 4, 8, 2.0, 8, 32, 'transpose+conv', 2, seed=3),
     'omni': lambda: make_omni(32, 1, True, 8, 2, 2, seed=3),
+    'compact': lambda: make_compact(24, 4, 2, seed=3),
+    'span': lambda: make_span(48, 2, seed=3),
+    'spanplus': lambda: make_spanplus(48, (2,), 2, seed=3),
+    'mosr': lambda: make_mosr(64, 2, 2, seed=3),
+    'spanpp': lambda: make_spanpp(48, implicit_dim=32, latent_layers=2, seed=3),
+    'rcan': lambda: make_rcan(64, 2, 3, 16, 2, seed=3),
 }
 
 

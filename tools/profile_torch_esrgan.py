@@ -11,11 +11,17 @@ bench.py's serving shape (batch 16 of 256x256 tiles): ESRGAN RRDBNet-23 4x
 split (8, 32) (``--model rgt``), DRCT 4x, embed 180, six groups, 6 heads,
 window 16, gc 32 (``--model drct``), FDAT-M 4x, embed 120, 4 groups of 3
 spatial / channel pairs, 4 heads, window 8, transpose+conv (``--model
-fdat``) or OmniSR 4x, 64 features, five groups of one OSA block, window 8
-(``--model omni``).
+fdat``), OmniSR 4x, 64 features, five groups of one OSA block, window 8
+(``--model omni``), or one of the six 3x3-conv families on the conv3x3
+kernel: Compact 4x, 64 features, 16 convs (``--model compact``), SPAN 4x, 48
+features (``--model span``), SPANPlus 2x, blocks (4,), 48 features, ``ps``
+(``--model spanplus``), MoSR 4x, 24 blocks, dim 64, ``ps`` (``--model
+mosr``), SpanPP 2x, 48 features, zoo.make_spanpp's IGConv (``--model
+spanpp``), RCAN 4x, 10 groups of 20 RCABs, 64 features (``--model rcan``).
 
     python3 tools/profile_torch_esrgan.py
-        [--model esrgan|plksr|swinir|eimn|atd|hat|dat|rgt|drct|fdat|omni] [--reps 2] [--seed 0]
+        [--model esrgan|plksr|swinir|eimn|atd|hat|dat|rgt|drct|fdat|omni|compact|span|spanplus|mosr|spanpp|rcan]
+        [--reps 2] [--seed 0]
 
 Runs on a CUDA device only.  Warms up, then records ``--reps`` forwards
 under torch.profiler and prints one JSON line: the window's wall time per
@@ -38,7 +44,8 @@ import time
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--model', choices=('esrgan', 'plksr', 'swinir', 'eimn', 'atd', 'hat', 'dat', 'rgt', 'drct',
-                                            'fdat', 'omni'), default='esrgan')
+                                            'fdat', 'omni', 'compact', 'span', 'spanplus', 'mosr', 'spanpp', 'rcan'),
+                        default='esrgan')
     parser.add_argument('--reps', type=int, default=2)
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--top', type=int, default=8)
@@ -51,10 +58,22 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import resselt_tpu_torch
-    from resselt_tpu_torch.zoo import (make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_fdat, make_hat,
-                                       make_omni, make_plksr, make_rgt, make_swinir)
+    from resselt_tpu_torch.zoo import (make_atd, make_compact, make_dat, make_drct, make_eimn, make_esrgan, make_fdat,
+                                       make_hat, make_mosr, make_omni, make_plksr, make_rcan, make_rgt, make_span,
+                                       make_spanplus, make_spanpp, make_swinir)
 
-    if args.model == 'fdat':
+    conv_families = {
+        'compact': (lambda: make_compact(64, 16, 4, seed=args.seed), 'Compact 4x feat64 16 convs'),
+        'span': (lambda: make_span(48, 4, seed=args.seed), 'SPAN 4x feat48'),
+        'spanplus': (lambda: make_spanplus(48, (4,), 2, seed=args.seed), 'SPANPlus 2x blocks (4,) feat48 ps'),
+        'mosr': (lambda: make_mosr(64, 24, 4, seed=args.seed), 'MoSR 4x 24 blocks dim64 ps'),
+        'spanpp': (lambda: make_spanpp(48, seed=args.seed), 'SpanPP 2x feat48 IGConv k3 implicit256 latent4'),
+        'rcan': (lambda: make_rcan(seed=args.seed), 'RCAN 4x 10 groups x 20 RCABs feat64 reduction16'),
+    }
+    if args.model in conv_families:
+        make, config = conv_families[args.model]
+        sd, kernel = make(), 'conv3x3'
+    elif args.model == 'fdat':
         sd, kernel, config = (make_fdat(120, 4, 3, 4, 8, 2.0, 8, 64, 'transpose+conv', 4, seed=args.seed), 'wattn',
                               'FDAT-M 4x embed120 4 groups x 3 pairs heads4 window8 transpose+conv')
     elif args.model == 'omni':
@@ -86,6 +105,8 @@ def main(argv=None) -> int:
     else:
         sd, kernel, config = make_esrgan(64, 23, 4, seed=args.seed), 'conv3x3', 'ESRGAN RRDBNet-23 nf64 4x'
     model = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    if args.model == 'spanpp':
+        model = model.with_config(eval_scale=2)
     x = torch.rand((16, 256, 256, 3), generator=torch.Generator().manual_seed(args.seed)).cuda()
     for _ in range(2):
         model(x, dtype=torch.bfloat16)
