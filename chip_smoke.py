@@ -98,7 +98,20 @@ against CPU: SPAN without norm, RCAN's unshuffle head, MoSR's dys and gps
 tails, SPANPlus's dys and conv tails) and a serve phase (the same launches
 per bench forward, only at shapes conv_family_kernels checked; SpanPP
 served through with_config(eval_scale=2); tiled at tile 256 and the
-loader's halo; peak memory).  Then the card's
+loader's halo; peak memory).  Then CUGAN (UpCunet2x at its fixed widths;
+plain torch, its convs unpadded, strided or transposed: no kernel launch,
+asserted) and five families whose same-padded 3x3 convs run the conv3x3
+kernel, at the widths of chip_smoke's configs (the zoo's, since their
+reference defaults are not in this repo): GateR 1x (9 launches a forward),
+MoSRv2 4x (52), MoESR 4x (122), GateRv2 1x (8) and GateRV3 1x (27), each
+with load / model / serve phases as the six conv families'; the model
+phase also holds the launches against the convs the CPU's forward routes,
+small variants card against CPU (CUGAN 3x, 4x pro and 2x_fast; GateR's
+depthwise latent; MoSRv2's dysample unshuffle and pixelshuffle 3x; MoESR
+dysample; GateRv2 pixelshuffle 2x; GateRV3 dysample with a 3x3 end conv
+and lda), and torch.utils.flop_counter's count of the forward against
+bench_families.md's XLA count of the reference default; conv_family_kernels
+holds their new 3x3 shapes.  Then the card's
 name and power limit, one JSON line of kernel figures, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device, or without the package beside this script, it exits 1 before
@@ -181,6 +194,21 @@ SPANPP = {'name': 'SpanPP', 'feature_channels': 48, 'scale': 2, 'scale_list': [1
           'implicit_dim': 256, 'latent_layers': 4, 'tile': 256}
 
 # H100 SXM dense peaks (NVIDIA data sheet) for bound_ms
+# the restoration U-nets, CUGAN and the MoSR lineage (tools/bench_families.py:95-111): UpCunet2x at its fixed widths;
+# the others at the zoo's stated widths, since their reference defaults are not in this repo.  'xla_gflop':
+# bench_families.md's XLA count of the reference-default forward at batch 8 of 256^2 (GateRv2's and GateRV3's
+# include a dense block-diagonal rewrite of their grouped convs and are not comparable)
+CUGAN = {'name': 'CUGAN', 'variant': '2x', 'scale': 2, 'tile': 256, 'xla_gflop': 880.3}
+GATER = {'name': 'GateR', 'dim': 64, 'num_blocks': (2, 2, 2, 4, 2, 2, 2), 'latent_att': True, 'scale': 1,
+         'tile': 256, 'xla_gflop': 1226.2}
+MOSRV2 = {'name': 'MoSRv2', 'dim': 64, 'n_block': 24, 'scale': 4, 'upsampler': 'pixelshuffledirect', 'tile': 256,
+          'xla_gflop': 4379.5}
+MOESR = {'name': 'MoESR', 'dim': 64, 'n_blocks': 6, 'n_block': 6, 'expansion': 2.5, 'scale': 4, 'tile': 256,
+         'xla_gflop': 12740.9}
+GATERV2 = {'name': 'GateRv2', 'dim': 32, 'enc_blocks': (2, 2, 4), 'dec_blocks': (4, 2, 2), 'num_latent': 6,
+           'scale': 1, 'tile': 256, 'xla_gflop': None}
+GATERV3 = {'name': 'GateRV3', 'dim': 32, 'enc_blocks': (2, 2, 4), 'dec_blocks': (4, 2, 2), 'num_latent': 4,
+           'span_blocks': 4, 'attention': True, 'scale': 1, 'tile': 256, 'xla_gflop': None}
 PEAK_FLOPS = {'bfloat16': 989e12, 'float16': 989e12, 'float32': 67e12}
 PEAK_BYTES = 3.35e12
 
@@ -196,7 +224,8 @@ ATD_TOL = HAT_TOL = 2e-3  # tests/test_atd.py's and tests/test_hat.py's TOL
 DAT_TOL = RGT_TOL = DRCT_TOL = 2e-3  # tests/test_dat.py's, test_rgt.py's and test_drct.py's TOL
 FDAT_TOL = OMNI_TOL = 1e-3  # tests/test_fdat.py's and tests/test_omni.py's TOL
 SPANPLUS_TOL = 2e-4  # tests/test_spanplus.py's TOL; the other conv families: MODEL_TOL (test_conv_archs.py,
-# test_spanpp.py, test_rcan_eimn.py)
+# test_spanpp.py, test_rcan_eimn.py, test_cugan.py, test_mosr_family.py)
+GATER_TOL = 1e-3  # tests/test_gater.py's, test_gaterv2.py's and test_gaterv3.py's TOL
 
 
 def log(phase: str, **fields) -> None:
@@ -244,9 +273,10 @@ def conv_shapes(n: int, tile: int) -> list[dict]:
 
 def conv_family_shapes(n: int, tile: int) -> list[dict]:
     """Every distinct 3x3 conv (shape, activation) of the bench forwards of
-    the six conv families (SPAN 4x, SPANPlus 2x, SpanPP 2x, Compact 4x,
-    MoSR 4x, RCAN 4x) at a batch of ``n`` ``tile``-square inputs; several
-    families share a row where their convs coincide."""
+    the conv families (SPAN 4x, SPANPlus 2x, SpanPP 2x, Compact 4x, MoSR
+    4x, RCAN 4x; GateR 1x, MoSRv2 4x, MoESR 4x, GateRv2 1x, GateRV3 1x) at a
+    batch of ``n`` ``tile``-square inputs; several families share a row
+    where their convs coincide (MoSRv2's are all MoSR's)."""
     t = tile
     rows = [
         ('SPAN/SPANPlus/SpanPP stem 3->48', t, 3, 48, 'linear'),
@@ -266,6 +296,30 @@ def conv_family_shapes(n: int, tile: int) -> list[dict]:
         ('RCAN tail.0.0 64->256', t, 64, 256, 'linear'),
         ('RCAN tail.0.2 64->256', 2 * t, 64, 256, 'linear'),
         ('RCAN tail.1 64->3', 4 * t, 64, 3, 'linear'),
+        ('GateR enc1.0 64->32', t, 64, 32, 'linear'),
+        ('GateR enc2.0 128->64', t // 2, 128, 64, 'linear'),
+        ('GateR latent.0 256->128', t // 4, 256, 128, 'linear'),
+        ('GateR latent.2 512->1024', t // 8, 512, 1024, 'linear'),
+        ('GateR dec0.2 256->512', t // 4, 256, 512, 'linear'),
+        ('GateR dec1.2 128->256', t // 2, 128, 256, 'linear'),
+        ('GateR dim_to_ch.0 128->64', t, 128, 64, 'linear'),
+        ('GateR dim_to_ch.1 64->3', t, 64, 3, 'linear'),
+        ('MoESR fc1 64->320', t, 64, 320, 'linear'),
+        ('MoESR fc2 160->64 mish', t, 160, 64, 'mish'),
+        ('MoESR MSG down.0 64->16', t, 64, 16, 'linear'),
+        ('MoESR MSG fc1 64->320', t // 2, 64, 320, 'linear'),
+        ('MoESR MSG fc2 160->64 mish', t // 2, 160, 64, 'mish'),
+        ('MoESR MSG up.0 64->256', t // 2, 64, 256, 'linear'),
+        ('GateRv2/GateRV3 stem 3->32', t, 3, 32, 'linear'),
+        ('GateRV3 SPAB c1 c2 32->32 silu', t, 32, 32, 'silu'),
+        ('GateRV3 SPAB c3, sisr_end_conv 32->32', t, 32, 32, 'linear'),
+        ('GateRv2/GateRV3 encode.0 32->16', t, 32, 16, 'linear'),
+        ('GateRv2/GateRV3 encode.1 64->32', t // 2, 64, 32, 'linear'),
+        ('GateRv2/GateRV3 encode.2 128->64', t // 4, 128, 64, 'linear'),
+        ('GateRv2/GateRV3 decode.0 256->512', t // 8, 256, 512, 'linear'),
+        ('GateRv2/GateRV3 decode.1 128->256', t // 4, 128, 256, 'linear'),
+        ('GateRv2/GateRV3 decode.2 64->128', t // 2, 64, 128, 'linear'),
+        ('GateRv2/GateRV3 dim_to_in 32->3', t, 32, 3, 'linear'),
     ]
     return [{'name': name, 'entry': 'act', 'n': n, 'h': h, 'w': h, 'cin': cin, 'cout': cout, 'act': act}
             for name, h, cin, cout, act in rows]
@@ -1619,16 +1673,56 @@ def main() -> int:
     log('conv_family_kernels', f32_tol=F32_TOL, bf16_rtol=BF16_RTOL, bf16_atol=BF16_ATOL, rows=json.dumps(f_rows))
     f_checked = {('act', shape_key(s)) for s in fshapes}
 
+    def cpu_routed_convs(sd: dict, size: int = 64) -> int:
+        """The convs that ``ops.conv_route`` sends to the 3x3 kernel's wrapper
+        in one f32 forward of ``sd`` on the CPU (where the wrapper runs its
+        plain version and counts nothing), on the model phase's image size."""
+        from resselt_tpu_torch.ops import conv_route
+
+        cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+        calls, wrapped = [0], conv_route.fused_conv3x3_act
+
+        def count(*args, **kwargs):
+            calls[0] += 1
+            return wrapped(*args, **kwargs)
+
+        conv_route.fused_conv3x3_act = count
+        try:
+            cpu(np.random.default_rng(0).random((1, size, size, 3), dtype=np.float32))
+        finally:
+            conv_route.fused_conv3x3_act = wrapped
+        return calls[0]
+
+    def flop_count(sd: dict, cfg: dict) -> dict:
+        """torch.utils.flop_counter's count of one f32 forward on the CPU,
+        scaled to a batch of 8 of 256^2 images, and its ratio to
+        bench_families.md's XLA count of the reference-default forward (a
+        work count, not a time).  Taken on one 256^2 image where the model
+        pads by a fixed halo (CUGAN), else on 64^2 (the count scales with
+        the pixels)."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        size = cfg.get('flop_size', 64)
+        cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+        with FlopCounterMode(display=False) as counter:
+            cpu(np.random.default_rng(0).random((1, size, size, 3), dtype=np.float32))
+        gflop = counter.get_total_flops() * 8 * (256 // size) ** 2 / 1e9
+        ref = cfg.get('xla_gflop')
+        return {'gflop_per_8x256sq': round(gflop, 1), 'xla_gflop_reference_default': ref,
+                'ratio_to_xla_count': round(gflop / ref, 3) if ref else None}
+
     def conv_family(stem: str, cfg: dict, sd: dict, arch: str, expect: dict, n_conv: int, tol: float,
                     extra_models: tuple = (), serve_config: dict | None = None):
         """Load, model and serve phases of one conv family: its conv3x3
-        launches per forward asserted (``n_conv``) in the model phase and the
-        bench forwards, which may launch no other kernel and only shapes
-        conv_family_kernels checked; ``expect``: config fields the loader
-        must infer; ``extra_models``: (label, state dict, launches per
-        forward) of small variants held card against CPU in f32;
-        ``serve_config``: ``with_config`` fields of the served model (SpanPP's
-        ``eval_scale``: the tiled driver needs an integer scale).  Returns
+        launches per forward asserted (``n_conv``, and the count the CPU's
+        forward routes) in the model phase and the bench forwards, which
+        may launch no other kernel and only shapes conv_family_kernels
+        checked; ``expect``: config fields the loader must infer;
+        ``extra_models``: (label, state dict, launches per forward) of small
+        variants held card against CPU in f32; ``serve_config``:
+        ``with_config`` fields of the served model (SpanPP's ``eval_scale``:
+        the tiled driver needs an integer scale); a ``cfg`` with
+        ``xla_gflop`` reports the forward's FLOP count against it.  Returns
         the serve phase's fields and (launches, per bench forward, conv ms
         per bench forward, launches per forward by row)."""
         with tempfile.TemporaryDirectory() as tmp:
@@ -1643,16 +1737,21 @@ def main() -> int:
                 files='safetensors,pth', params=len(params), checkpoint_keys=len(sd))
 
             res = phase_model(model, sd, 64, fc.fused_conv3x3_act, tol=tol)
-            if res['launches_per_forward'] != n_conv:
+            cpu_count = cpu_routed_convs(sd)
+            if not res['launches_per_forward'] == cpu_count == n_conv:
                 raise AssertionError(f"{res['launches_per_forward']} conv3x3 launches per {cfg['name']} forward, "
-                                     f'expected {n_conv}')
+                                     f'{cpu_count} routed on the CPU, expected {n_conv}')
+            res['cpu_routed_per_forward'] = cpu_count
             for label, esd, n in extra_models:
                 extra = resselt_tpu_torch.load_from_state_dict(esd, device='cuda')
                 eres = phase_model(extra, esd, 64, fc.fused_conv3x3_act, bf16=False, tol=tol)
-                if eres['launches_per_forward'] != n:
+                eres['cpu_routed_per_forward'] = cpu_routed_convs(esd)
+                if not eres['launches_per_forward'] == eres['cpu_routed_per_forward'] == n:
                     raise AssertionError(f"{cfg['name']} {label}: {eres}, expected {n} conv3x3 launches")
                 res[label] = json.dumps(eres)
                 del extra
+            if 'xla_gflop' in cfg:
+                res['flops'] = json.dumps(flop_count(sd, cfg))
             log(f'{stem}_model', tol=tol, **res)
 
             served = model.with_config(**serve_config) if serve_config else model
@@ -1732,6 +1831,78 @@ def main() -> int:
     log('spanplus_serve', launches=c_figs['SPANPlus'][0], launches_per_bench_forward=c_figs['SPANPlus'][1],
         conv_ms_per_bench_forward=c_figs['SPANPlus'][2], per_forward_by_row=json.dumps(c_figs['SPANPlus'][3]),
         **serve)
+
+    # -- CUGAN (plain torch, no kernel) and the restoration U-nets and the MoSR lineage on conv3x3.cu -----------
+    from resselt_tpu_torch.zoo import make_cugan, make_gater, make_gaterv2, make_gaterv3, make_moesr, make_mosrv2
+
+    cg = dict(CUGAN, flop_size=256)
+    serve, cugan_fig = conv_family(
+        'cugan', cg, make_cugan(cg['variant'], seed=0), 'CuGAN',
+        {'variant': '2x', 'in_channels': 3, 'out_channels': 3, 'pro': False}, 0, MODEL_TOL,
+        extra_models=(('3x_model', make_cugan('3x', seed=1), 0), ('4x_pro_model', make_cugan('4x', True, seed=2), 0),
+                      ('2x_fast_model', make_cugan('2x_fast', seed=3), 0)))
+    log('cugan_serve', launches=cugan_fig[0], launches_per_bench_forward=cugan_fig[1], **serve)
+
+    ga = GATER
+    n_gater = 9  # in_to_dim, six stage convs (body.0), dim_to_ch.0 and .1
+    serve, c_figs['GateR'] = conv_family(
+        'gater', ga, make_gater(ga['dim'], ga['num_blocks'], seed=0, latent_att=ga['latent_att']), 'GateR',
+        {'dim': 64, 'num_blocks': (2, 2, 2, 4, 2, 2, 2), 'latent_att': True}, n_gater, GATER_TOL,
+        extra_models=(('dwconv_latent_16_model', make_gater(16, (1, 1, 1, 2, 1, 1, 1), seed=1), n_gater),))
+    log('gater_serve', launches=c_figs['GateR'][0], launches_per_bench_forward=c_figs['GateR'][1],
+        conv_ms_per_bench_forward=c_figs['GateR'][2], per_forward_by_row=json.dumps(c_figs['GateR'][3]), **serve)
+
+    m2 = MOSRV2
+    n_mosrv2 = 1 + 2 * m2['n_block'] + 2 + 1  # stem, fc1 / fc2, tail, the pixelshuffledirect head
+    serve, c_figs['MoSRv2'] = conv_family(
+        'mosrv2', m2, make_mosrv2(m2['dim'], m2['n_block'], m2['scale'], upsampler=m2['upsampler'], seed=0), 'MoSRv2',
+        {'dim': 64, 'n_block': 24, 'scale': 4, 'upsampler': 'pixelshuffledirect', 'expansion_ratio': 1.5,
+         'mid_dim': 32, 'group': 4, 'unshuffle_mod': False, 'rms_norm': True}, n_mosrv2, MODEL_TOL,
+        extra_models=(('dysample_unshuffle_ln_2x_model', make_mosrv2(32, 2, 2, upsampler='dysample', mid_dim=16,
+                                                                     unshuffle_mod=True, rms_norm=False, seed=1),
+                       1 + 4 + 2 + 1),
+                      ('pixelshuffle_3x_model', make_mosrv2(32, 2, 3, upsampler='pixelshuffle', seed=2),
+                       1 + 4 + 2 + 3)))
+    log('mosrv2_serve', launches=c_figs['MoSRv2'][0], launches_per_bench_forward=c_figs['MoSRv2'][1],
+        conv_ms_per_bench_forward=c_figs['MoSRv2'][2], per_forward_by_row=json.dumps(c_figs['MoSRv2'][3]), **serve)
+
+    me = MOESR
+    n_moesr = 1 + me['n_blocks'] * (2 * me['n_block'] + 1 + 6 + 1) + 1  # in_to_dim, blocks and MSGs, head
+    serve, c_figs['MoESR'] = conv_family(
+        'moesr', me, make_moesr(me['dim'], me['n_blocks'], me['n_block'], me['scale'],
+                                expansion_factor=me['expansion'], expansion_msg=me['expansion'], seed=0), 'MoESR',
+        {'dim': 64, 'n_blocks': 6, 'n_block': 6, 'scale': 4, 'expansion_factor': 2.5, 'expansion_msg': 2.5,
+         'upsampler': 'pixelshuffledirect', 'upsample_dim': 64}, n_moesr, MODEL_TOL,
+        extra_models=(('dysample_2x_model', make_moesr(32, 1, 2, 2, upsampler='dysample', upsample_dim=16, seed=1),
+                       1 + 4 + 8 + 1),))
+    log('moesr_serve', launches=c_figs['MoESR'][0], launches_per_bench_forward=c_figs['MoESR'][1],
+        conv_ms_per_bench_forward=c_figs['MoESR'][2], per_forward_by_row=json.dumps(c_figs['MoESR'][3]), **serve)
+
+    g2 = GATERV2
+    n_gaterv2 = 1 + len(g2['enc_blocks']) + len(g2['dec_blocks']) + 1  # in_to_dim, scale.0 per stage, dim_to_in
+    serve, c_figs['GateRv2'] = conv_family(
+        'gaterv2', g2, make_gaterv2(g2['dim'], g2['enc_blocks'], g2['dec_blocks'], g2['num_latent'], seed=0),
+        'GateRv2', {'dim': 32, 'enc_blocks': (2, 2, 4), 'dec_blocks': (4, 2, 2), 'num_latent': 6, 'scale': 1},
+        n_gaterv2, GATER_TOL,
+        extra_models=(('pixelshuffle_2x_model', make_gaterv2(16, (1, 1), (1, 1), 1, 2, upsampler='pixelshuffle',
+                                                              upsample_mid_dim=16, seed=1), 10),))
+    log('gaterv2_serve', launches=c_figs['GateRv2'][0], launches_per_bench_forward=c_figs['GateRv2'][1],
+        conv_ms_per_bench_forward=c_figs['GateRv2'][2], per_forward_by_row=json.dumps(c_figs['GateRv2'][3]), **serve)
+
+    g3 = GATERV3
+    n_gaterv3 = 1 + 3 * (g3['span_blocks'] + 2) + 1 + len(g3['enc_blocks']) + len(g3['dec_blocks']) + 1
+    serve, c_figs['GateRV3'] = conv_family(
+        'gaterv3', g3, make_gaterv3(g3['dim'], g3['enc_blocks'], g3['dec_blocks'], g3['num_latent'],
+                                    attention=g3['attention'], span_blocks=g3['span_blocks'], seed=0), 'GateRV3',
+        {'dim': 32, 'enc_blocks': (2, 2, 4), 'dec_blocks': (4, 2, 2), 'num_latent': 4, 'scale': 1,
+         'attention': True, 'span_blocks': 4}, n_gaterv3, GATER_TOL,
+        extra_models=(('dysample_end_kernel_3_2x_model', make_gaterv3(16, (1, 1), (1, 1), 1, 2, upsampler='dysample',
+                                                                       upsample_mid_dim=16, attention=False,
+                                                                       span_blocks=1, end_kernel=3, seed=1), 16),
+                      ('lda_2x_model', make_gaterv3(16, (1, 1), (1, 1), 1, 2, upsampler='lda', upsample_mid_dim=32,
+                                                    span_blocks=1, seed=2), 18)))
+    log('gaterv3_serve', launches=c_figs['GateRV3'][0], launches_per_bench_forward=c_figs['GateRV3'][1],
+        conv_ms_per_bench_forward=c_figs['GateRV3'][2], per_forward_by_row=json.dumps(c_figs['GateRV3'][3]), **serve)
 
     w_figs = {'ATD-light': atd_fig, 'HAT-S': hat_fig, 'DAT-S': dat_fig, 'RGT-S': rgt_fig, 'DRCT': drct_fig,
               'FDAT-M': fdat_fig, 'OmniSR': omni_fig}

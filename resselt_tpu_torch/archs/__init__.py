@@ -16,8 +16,8 @@ import importlib
 from ..core import Registry
 
 _ARCH_MODULES: list[str] = [
-    'swinir', 'hat', 'omni', 'drct', 'fdat', 'dat', 'rgt', 'atd', 'spanpp', 'span', 'esrgan', 'plksr', 'rcan', 'eimn',
-    'mosr', 'compact', 'spanplus',
+    'swinir', 'hat', 'omni', 'drct', 'fdat', 'dat', 'rgt', 'atd', 'spanpp', 'span', 'esrgan', 'plksr', 'mosrv2',
+    'moesr', 'gaterv3', 'gaterv2', 'gater', 'cugan', 'rcan', 'eimn', 'mosr', 'compact', 'spanplus',
 ]
 
 internal_registry = Registry()

@@ -104,29 +104,37 @@ def params_from_numpy(params: Mapping[str, np.ndarray], device, dtype=None) -> d
 
 
 _PRECISIONS = {
-    # name: (torch.backends.cudnn.allow_tf32, torch.set_float32_matmul_precision)
+    # name: (torch.backends.cudnn.allow_tf32, torch.set_float32_matmul_precision); JAX's names for
+    # jax.default_matmul_precision and the three dot-algorithm presets that have a counterpart here
     'highest': (False, 'highest'),
+    'float32': (False, 'highest'),
+    'F32_F32_F32': (False, 'highest'),
+    'high': (True, 'high'),
     'tensorfloat32': (True, 'high'),
+    'TF32_TF32_F32': (True, 'high'),
     'bfloat16': (True, 'medium'),
+    'BF16_BF16_F32': (True, 'medium'),
 }
 
 
 @contextlib.contextmanager
 def _precision(precision: str | None):
     """``SRModel.__call__``'s ``precision``, for f32 inputs to the plain
-    torch ops: None keeps torch's settings; 'highest' turns TF32 off for
-    cuDNN and matmul; 'tensorfloat32' turns it on; 'bfloat16' turns it on
-    for cuDNN and lets f32 matmuls run as bf16 passes
-    (``torch.set_float32_matmul_precision('medium')``), the nearest thing
-    the card has to the JAX package's bf16 passes.  The matmul precision
+    torch ops: None and 'default' keep torch's settings; 'highest' and
+    'float32' turn TF32 off for cuDNN and matmul; 'tensorfloat32' and
+    'high' turn it on; 'bfloat16' turns it on for cuDNN and lets f32
+    matmuls run as bf16 passes (``torch.set_float32_matmul_precision
+    ('medium')``), the nearest thing the card has to the JAX package's bf16
+    passes.  JAX's presets 'F32_F32_F32', 'TF32_TF32_F32' and
+    'BF16_BF16_F32' are the same three settings.  The matmul precision
     (which ``torch.backends.cuda.matmul.allow_tf32`` mirrors) and cuDNN's
     TF32 switch are restored on exit.  The hand-written f32 kernels are
     exact FMA whatever it says.  Any other string raises ValueError."""
-    if precision is None:
+    if precision is None or precision == 'default':
         yield
         return
     if precision not in _PRECISIONS:
-        raise ValueError(f'precision must be None or one of {sorted(_PRECISIONS)}, got {precision!r}')
+        raise ValueError(f"precision must be None, 'default' or one of {sorted(_PRECISIONS)}, got {precision!r}")
     cudnn_tf32, matmul = _PRECISIONS[precision]
     saved = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
     try:
@@ -217,10 +225,11 @@ class SRModel:
         Float inputs are expected in [0, 1]; uint8 images are converted
         automatically.  ``dtype`` is the compute dtype: float32, bfloat16
         or float16, on either device.  ``precision`` (for f32 inputs to the
-        plain torch ops): None keeps torch's settings, 'highest' turns TF32
-        off, 'tensorfloat32' on, 'bfloat16' also lets f32 matmuls run as
-        bf16 passes; the hand-written f32 kernels are exact FMA whatever it
-        says."""
+        plain torch ops): None or 'default' keeps torch's settings,
+        'highest' / 'float32' turns TF32 off, 'tensorfloat32' / 'high' on,
+        'bfloat16' also lets f32 matmuls run as bf16 passes; any other name
+        raises ValueError (:func:`_precision`).  The hand-written f32
+        kernels are exact FMA whatever it says."""
         x = torch.as_tensor(x).to(self.device)
         squeeze = x.ndim == 3
         if squeeze:

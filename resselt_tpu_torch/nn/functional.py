@@ -123,40 +123,48 @@ def pixel_unshuffle(x, r: int):
 
 
 def pad2d(x, pads, mode: str = 'constant', value: float = 0.0):
-    """Torch ``F.pad`` on NHWC spatial dims. ``pads`` = (left, right, top, bottom)."""
-    if max(pads) == 0 and min(pads) == 0:
+    """Torch ``F.pad`` on NHWC spatial dims. ``pads`` = (left, right, top,
+    bottom).  Negative pads crop (CUGAN's interior crops); 'reflect'
+    reflects as ``jnp.pad`` does (the JAX package's), also for a pad longer
+    than the input; 'constant' (with ``value``), 'replicate' and 'circular'
+    are torch's ``F.pad``."""
+    left, right, top, bottom = pads
+    h, w = x.shape[1], x.shape[2]
+    x = x[:, max(0, -top) : h - max(0, -bottom), max(0, -left) : w - max(0, -right)]
+    left, right, top, bottom = (max(0, p) for p in pads)
+    if max(left, right, top, bottom) == 0:
         return x
-    y = TF.pad(x.permute(0, 3, 1, 2), tuple(pads), mode=mode, value=value if mode == 'constant' else None)
+    if mode == 'reflect':
+        h, w = x.shape[1], x.shape[2]
+        hi = torch.from_numpy(_reflect_index(h, h + bottom, top)).to(x.device)
+        wi = torch.from_numpy(_reflect_index(w, w + right, left)).to(x.device)
+        return x[:, hi][:, :, wi].contiguous()
+    y = TF.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom), mode=mode,
+               value=value if mode == 'constant' else None)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def _reflect_index(size: int, out: int) -> np.ndarray:
-    """numpy's ``pad(mode='reflect')`` source rows for ``out`` rows padded
-    from ``size`` at the end, also when the pad is longer than the input
-    (the reflection repeats with period 2 * (size - 1))."""
-    i = np.arange(out)
+def _reflect_index(size: int, end: int, start: int = 0) -> np.ndarray:
+    """numpy's ``pad(mode='reflect')`` source rows for rows ``-start`` to
+    ``end - 1`` of an axis of ``size`` rows, also when a pad is longer
+    than the input (the reflection repeats with period 2 * (size - 1))."""
+    i = np.arange(-start, end)
     if size == 1:
-        return np.zeros(out, np.int64)
+        return np.zeros(len(i), np.int64)
     period = 2 * (size - 1)
     i = i % period
     return np.where(i < size, i, period - i)
 
 
 def pad_to_multiple(x, multiple: int, mode: str = 'reflect', value: float = 0.0):
-    """Pad bottom/right so H and W are multiples of ``multiple``.  'reflect'
-    (the default) reflects as ``jnp.pad`` does (the JAX package's), for any
-    pad length; 'constant' (with ``value``), 'replicate' and 'circular' are
-    torch's ``F.pad``."""
+    """Pad bottom/right so H and W are multiples of ``multiple``, by
+    :func:`pad2d` in ``mode`` (reflect, the default, for any pad length)."""
     h, w = x.shape[1], x.shape[2]
     ph = (multiple - h % multiple) % multiple
     pw = (multiple - w % multiple) % multiple
     if ph == 0 and pw == 0:
         return x
-    if mode != 'reflect':
-        return pad2d(x, (0, pw, 0, ph), mode=mode, value=value)
-    hi = torch.from_numpy(_reflect_index(h, h + ph)).to(x.device)
-    wi = torch.from_numpy(_reflect_index(w, w + pw)).to(x.device)
-    return x[:, hi][:, :, wi].contiguous()
+    return pad2d(x, (0, pw, 0, ph), mode=mode, value=value)
 
 
 def interpolate_bicubic(x, scale_factor: int):
@@ -204,6 +212,22 @@ def max_pool2d(x, kernel, stride=None, padding=0):
     y = TF.max_pool2d(x.permute(0, 3, 1, 2), _pair(kernel), _pair(stride if stride is not None else kernel),
                       _pair(padding))
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def rms_norm(x, weight=None, offset: float = 0.0, eps: float = 1e-6):
+    """RMSNorm over the last dimension, eps inside the rsqrt; ``weight``
+    (+ ``offset``) scales the result."""
+    y = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    if weight is not None:
+        y = y * (weight.to(x.dtype) + offset)
+    return y
+
+
+def rms_norm_ref(x, scale, offset, eps: float = 1e-6):
+    """RMSNorm with eps added outside the sqrt (the MoSRv2 lineage's
+    channel RMSNorm): ``scale * x / (rms + eps) + offset``."""
+    rms = (x * x).mean(dim=-1, keepdim=True).sqrt()
+    return scale.reshape(-1).to(x.dtype) * (x / (rms + eps)) + offset.reshape(-1).to(x.dtype)
 
 
 def batch_norm_2d(x, weight, bias, running_mean, running_var, eps: float = 1e-5):

@@ -36,8 +36,12 @@ class PTree:
         return (self._prefix + str(key)) in self._d
 
     def shape(self, key: str):
-        """The shape of one tensor."""
-        return self._d[self._prefix + str(key)].shape
+        """The shape of one tensor; of a conv that ``ops.conv_route``
+        prepared, ``{name}.weight`` is its OIHW weight's shape."""
+        k = self._prefix + str(key)
+        if k not in self._d and k.endswith('.weight'):
+            return self._d[k[: -len('.weight')]].shape
+        return self._d[k].shape
 
     def keys(self):
         n = len(self._prefix)
@@ -48,8 +52,21 @@ class PTree:
         return self[f'{name}.weight'], self.get(f'{name}.bias')
 
     def conv(self, name: str, x, stride=1, padding=0, dilation=1, groups=1):
-        w, b = self.wb(name)
-        return F.conv2d(x, w, b, stride=stride, padding=padding, dilation=dilation, groups=groups)
+        """A conv of these params, or one that ``ops.conv_route`` prepared
+        under ``name`` (the 3x3 kernel or ``F.conv2d``; it must be the conv
+        asked for: stride and dilation 1, its own padding and groups)."""
+        prepared = self.get(name)
+        if prepared is None:
+            w, b = self.wb(name)
+            return F.conv2d(x, w, b, stride=stride, padding=padding, dilation=dilation, groups=groups)
+        from ..ops.conv_route import conv
+
+        kh, kw = prepared.shape[-2:]
+        want = (kh // 2, kw // 2) if padding == 'same' else F._pair(padding)
+        if (stride, dilation) != (1, 1) or want != (kh // 2, kw // 2) or groups != prepared.groups:
+            raise ValueError(f'{self._prefix}{name}: prepared as a same-padded conv with groups '
+                             f'{prepared.groups}, asked for stride {stride}, padding {padding}, groups {groups}')
+        return conv(prepared, x)
 
     def linear(self, name: str, x):
         w, b = self.wb(name)

@@ -3,7 +3,9 @@
 Counterpart of ``resselt_tpu/nn/upsample.py``: DySample, the conv +
 pixel-shuffle tail, the UniUpsample mode family (MoSR lineage) and
 UniUpsampleV3 with the LDA_AQU attention upsampler (FDAT).  Module indices
-follow the torch module lists; every mode is plain PyTorch.
+follow the torch module lists; every mode is plain PyTorch, and a conv
+that a family's ``prepare`` built (``ops.conv_route``) runs as it was built,
+through ``PTree.conv``.
 """
 
 from __future__ import annotations
@@ -143,9 +145,9 @@ def lda_aqu(p: PTree, x, scale_factor: int, range_factor: float = 11.0):
         hh, ww, ch = t.shape[1:]
         return t.reshape(b, hh, ww, g, ch // g).permute(0, 3, 1, 2, 4).reshape(b * g, hh, ww, ch // g)
 
-    off = F.conv2d(group_split(q), p['conv_offset.0.weight'], padding=1, groups=group_channel)
+    off = p.conv('conv_offset.0', group_split(q), padding=1, groups=group_channel)
     off = F.layer_norm(off, p['conv_offset.1.weight'], p['conv_offset.1.bias'], eps=1e-6)
-    off = F.conv2d(F.silu(off), p['conv_offset.3.weight'], p['conv_offset.3.bias'], padding=k_e // 2)
+    off = p.conv('conv_offset.3', F.silu(off), padding=k_e // 2)
     base = torch.from_numpy(_lda_base_offset(k_u)).to(x.device, x.dtype)
     off = (torch.tanh(off) * range_factor + base).reshape(b * g, oh, ow, k_u, k_u, 2)
 

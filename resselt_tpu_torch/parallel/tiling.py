@@ -211,10 +211,13 @@ def upscale_tiled(
     ``serving_halo``) or 256/16.  Tile windows run ``batch_size`` at a time
     (default: ``tile_batch`` or 8); the last batch is padded by repeating
     its last tile so every batch has one shape.  ``bucket`` pads (H, W) up
-    to tile multiples (reflect) and crops the output.  ``mesh``, ``unroll``
-    and ``on_device`` are accepted at their defaults only."""
-    if mesh is not None or unroll != 1 or on_device is not None:
-        raise NotImplementedError('mesh, unroll and on_device are not supported yet; leave them at their defaults')
+    to tile multiples (reflect) and crops the output.  ``precision`` is
+    forwarded to the model (see ``SRModel.__call__``).  The tile batches run
+    in a host loop, one forward each: the JAX package's ``on_device=False``,
+    which None and False select here; ``on_device=True`` (one dispatch per
+    image), ``unroll`` and ``mesh`` raise NotImplementedError."""
+    if mesh is not None or unroll != 1 or on_device:
+        raise NotImplementedError('only the host loop is ported: pass on_device=None or False, unroll=1, no mesh')
     eff_dtype = dtype if dtype is not None else torch.float32
     if tile is None:
         tile = _resolve_tile_hint(model, eff_dtype)

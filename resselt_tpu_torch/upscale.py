@@ -1,6 +1,7 @@
 """Command-line upscaler.
 
     python -m resselt_tpu_torch.upscale MODEL INPUT OUTPUT [--tile 256] [--halo 4] [--bf16]
+        [--precision highest|tensorfloat32|bfloat16]
 
 ``INPUT``/``OUTPUT`` may be single images or directories (batch mode).
 ``MODEL`` is any supported checkpoint.  The model runs on ``--device``
@@ -80,6 +81,9 @@ def main(argv=None) -> int:
     parser.add_argument('--bucket', action='store_true',
                         help='pad inputs to tile multiples (slight border deviation within the halo)')
     parser.add_argument('--bf16', action='store_true', help='run compute in bfloat16')
+    parser.add_argument('--precision', default=None, choices=['highest', 'tensorfloat32', 'bfloat16'],
+                        help='f32 matmul/conv precision of the plain torch ops (default: torch\'s settings; '
+                             'highest = TF32 off)')
     parser.add_argument('--device', default='cuda', help="torch device to run on (default cuda; 'cpu' runs the plain versions)")
     parser.add_argument('-v', '--verbose', action='store_true')
     args = parser.parse_args(argv)
@@ -138,10 +142,11 @@ def main(argv=None) -> int:
 
     def run_plane(img):
         if args.tile and (img.shape[0] > args.tile or img.shape[1] > args.tile):
-            return upscale_tiled(model, img, tile=args.tile, halo=args.halo, dtype=dtype, bucket=args.bucket)
+            return upscale_tiled(model, img, tile=args.tile, halo=args.halo, dtype=dtype,
+                                 precision=args.precision, bucket=args.bucket)
         if args.tile and args.bucket:
-            return upscale_padded(model, img, multiple=args.tile, dtype=dtype)
-        return model(img, dtype=dtype)
+            return upscale_padded(model, img, multiple=args.tile, dtype=dtype, precision=args.precision)
+        return model(img, dtype=dtype, precision=args.precision)
 
     def run(img):
         main_plane, alpha = adapt_channels(img, meta.in_channels)

@@ -11,7 +11,10 @@ loaders, detection conditions and forwards read; ``make_compact``,
 ``make_span``, ``make_spanplus`` and ``make_mosr`` (the JAX package's
 arrays at their defaults; the last three also build the reference's other
 variants), and ``make_spanpp`` and ``make_rcan``, written from the JAX
-loaders and detection keys.
+loaders and detection keys; ``make_gater`` (the JAX package's arrays; also
+an FLPVT2 latent), and ``make_cugan``, ``make_mosrv2``, ``make_moesr``,
+``make_gaterv2`` and ``make_gaterv3``, written from the JAX loaders,
+detection keys and forwards, with their MetaUpsample buffers.
 """
 
 from __future__ import annotations
@@ -653,17 +656,17 @@ def make_drct(embed_dim: int = 180, num_layers: int = 6, num_heads: int = 6, win
     return m.sd
 
 
-def _dysample(m: _Maker, key: str, c: int, out: int, scale: int, groups: int = 4):
+def _dysample(m: _Maker, key: str, c: int, out: int, scale: int, groups: int = 4, end_kernel: int = 1):
     """A DySample module on ``c`` channels: the 1x1 offset and scope convs,
-    the reference's initial sample positions and a 1x1 end conv to
-    ``out``."""
+    the reference's initial sample positions and an ``end_kernel`` end conv
+    to ``out``."""
     s, g = scale, groups
     m.conv(f'{key}.offset', 2 * g * s * s, c, 1)
     m.t(f'{key}.scope.weight', 2 * g * s * s, c, 1, 1)
     h = (np.arange(s, dtype=np.float32) - (s - 1) / 2) / s
     pos = np.stack(np.meshgrid(h, h, indexing='ij')).transpose(0, 2, 1)  # (2, s, s): [x, y] offsets
     m.sd[f'{key}.init_pos'] = np.tile(pos, (1, g, 1)).reshape(1, -1, 1, 1).astype(np.float32)
-    m.conv(f'{key}.end_conv', out, c, 1)
+    m.conv(f'{key}.end_conv', out, c, end_kernel)
 
 
 def _lda_aqu(m: _Maker, key: str, c: int, reduction: int = 4, n_groups: int = 2, heads: int = 1, k_u: int = 3,
@@ -682,10 +685,12 @@ def _lda_aqu(m: _Maker, key: str, c: int, reduction: int = 4, n_groups: int = 2,
     m.t(f'{key}.relative_position_bias_table', 1, heads, 1, k_u * k_u, hidden // heads)
 
 
-def _uni_upsample_v3(m: _Maker, key: str, mode: str, scale: int, c: int, out: int, mid: int):
+def _uni_upsample_v3(m: _Maker, key: str, mode: str, scale: int, c: int, out: int, mid: int,
+                     end_kernel: int = 1):
     """UniUpsampleV3's layers under ``key`` for ``mode`` at ``scale``, from
-    ``c`` channels to ``out`` through ``mid``; a single 3x3 conv at scale 1
-    whatever the mode.  ``transpose+conv`` goes c -> mid -> out: 4x4 stride-2
+    ``c`` channels to ``out`` through ``mid`` (also UniUpsample's: its five
+    modes are the first five here); a single 3x3 conv at scale 1 whatever
+    the mode; ``end_kernel``: DySample's end conv.  ``transpose+conv`` goes c -> mid -> out: 4x4 stride-2
     transposed convs at 2x (one) and 4x (two, a gelu between), a 3x3
     stride-3 one at 3x, then a 3x3 conv (no loader reads the widths)."""
     pow2 = scale & (scale - 1) == 0
@@ -717,7 +722,7 @@ def _uni_upsample_v3(m: _Maker, key: str, mode: str, scale: int, c: int, out: in
             inner = mid
         at = f'{key}.2' if mid != c else f'{key}.0'
         if mode == 'dysample':
-            _dysample(m, at, inner, out, scale)
+            _dysample(m, at, inner, out, scale, end_kernel=end_kernel)
         else:
             _lda_aqu(m, at, inner)
             m.conv(f'{key}.3' if mid != c else f'{key}.1', out, inner, 3)
@@ -1058,4 +1063,339 @@ def make_rcan(n_feats: int = 64, n_resgroups: int = 10, n_resblocks: int = 20, r
     else:
         raise ValueError(f'RCAN scale {scale} has no pixel-shuffle tail')
     m.conv('tail.1', n_colors, f, k)
+    return m.sd
+
+
+# -- the restoration U-nets, CUGAN and the MoSR lineage --------------------------------
+
+
+def make_cugan(variant: str = '2x', pro: bool = False, in_nc: int = 3, seed: int = 0):
+    """Real-CUGAN UpCunet (reference cugan/arch.py:51-441) at its fixed
+    widths: ``variant`` '2x', '3x', '4x' or '2x_fast'; ``pro`` adds the
+    marker buffer of the pro checkpoints.  UNet1's bottom is a transposed
+    4x4 stride-2 conv (5x5 stride 3 at 3x); 4x and 2x_fast run both UNets at
+    64 channels and end in ``conv_final`` (64 -> 12) and a pixel shuffle;
+    2x_fast takes the 2x unshuffled input (12 channels)."""
+    m = _Maker(seed)
+
+    def unet_conv(key, cin, mid, cout, se):
+        m.conv(f'{key}.conv.0', mid, cin, 3)
+        m.conv(f'{key}.conv.2', cout, mid, 3)
+        if se:
+            m.conv(f'{key}.seblock.conv1', cout // 8, cout, 1)
+            m.conv(f'{key}.seblock.conv2', cout, cout // 8, 1)
+
+    def deconv(key, cin, cout, k):
+        m.t(f'{key}.weight', cin, cout, k, k)
+        m.t(f'{key}.bias', cout)
+
+    wide = variant in ('4x', '2x_fast')
+    c_in = 4 * in_nc if variant == '2x_fast' else in_nc
+    mid_out = 64 if wide else in_nc
+    u = 'unet1'
+    unet_conv(f'{u}.conv1', c_in, 32, 64, False)
+    m.conv(f'{u}.conv1_down', 64, 64, 2)
+    unet_conv(f'{u}.conv2', 64, 128, 64, True)
+    deconv(f'{u}.conv2_up', 64, 64, 2)
+    m.conv(f'{u}.conv3', 64, 64, 3)
+    deconv(f'{u}.conv_bottom', 64, mid_out, 5 if variant == '3x' else 4)
+    u = 'unet2'
+    unet_conv(f'{u}.conv1', mid_out, 32, 64, False)
+    m.conv(f'{u}.conv1_down', 64, 64, 2)
+    unet_conv(f'{u}.conv2', 64, 64, 128, True)
+    m.conv(f'{u}.conv2_down', 128, 128, 2)
+    unet_conv(f'{u}.conv3', 128, 256, 128, True)
+    deconv(f'{u}.conv3_up', 128, 128, 2)
+    unet_conv(f'{u}.conv4', 128, 64, 64, True)
+    deconv(f'{u}.conv4_up', 64, 64, 2)
+    m.conv(f'{u}.conv5', 64, 64, 3)
+    m.conv(f'{u}.conv_bottom', mid_out, 64, 3)
+    if wide:
+        m.conv('conv_final', 4 * in_nc, 64, 3)
+    if pro:
+        m.sd['pro'] = np.zeros(1, np.float32)
+    return m.sd
+
+
+def make_gater(dim: int = 16, num_blocks=(1, 1, 1, 1, 1, 1, 1), in_nc: int = 3, seed: int = 0,
+               latent_att: bool = False):
+    """GateR restoration U-net layout, 1x (reference gater/arch.py:162-200):
+    enc0/enc1/enc2/latent/dec0/dec1/dec2 stages of GatedCNNBlocks with
+    PixelUnshuffle/Shuffle stage transitions; without ``latent_att`` the
+    JAX package's arrays.  ``latent_att`` gives the latent blocks FLPVT2
+    (q, kv, proj linears, softplus ``scale``, a per-dim ``focusing_factor``
+    near 3, a depthwise ``dwc`` over each head's v) in place of the 7x7
+    conv; its 8 heads and 5x5 ``dwc`` are the zoo's choice (no loader reads
+    them)."""
+    m = _Maker(seed)
+    d = dim
+
+    def gated(prefix: str, width: int, n: int, att: bool = False):
+        h = int(width * 8 / 3)
+        for i in range(n):
+            b = f'{prefix}.{i}'
+            m.t(f'{b}.norm.weight', width)
+            m.t(f'{b}.fc1.weight', 2 * h, width)
+            m.t(f'{b}.fc1.bias', 2 * h)
+            if att:
+                a = f'{b}.conv'
+                _linear(m, f'{a}.q', width, width)
+                _linear(m, f'{a}.kv', 2 * width, width)
+                m.t(f'{a}.scale', 1, 1, width)
+                m.t(f'{a}.focusing_factor', 1, 1, width)
+                m.sd[f'{a}.focusing_factor'] += 3.0
+                m.conv(f'{a}.dwc', width // 8, 1, 5)
+                _linear(m, f'{a}.proj', width, width)
+            else:
+                m.conv(f'{b}.conv.conv', width, 1, 7)
+            m.t(f'{b}.fc2.weight', width, h)
+            m.t(f'{b}.fc2.bias', width)
+
+    m.conv('in_to_dim', d, in_nc, 3)
+    gated('enc0.gated', d, num_blocks[0])
+    m.conv('enc1.0.body.0', d // 2, d, 3)
+    gated('enc1.1.gated', 2 * d, num_blocks[1])
+    m.conv('enc2.0.body.0', d, 2 * d, 3)
+    gated('enc2.1.gated', 4 * d, num_blocks[2])
+    m.conv('latent.0.body.0', 2 * d, 4 * d, 3)
+    gated('latent.1.gated', 8 * d, num_blocks[3], latent_att)
+    m.conv('latent.2.body.0', 16 * d, 8 * d, 3)
+    m.conv('dec0.0', 4 * d, 8 * d, 1)
+    gated('dec0.1.gated', 4 * d, num_blocks[4])
+    m.conv('dec0.2.body.0', 8 * d, 4 * d, 3)
+    m.conv('dec1.0', 2 * d, 4 * d, 1)
+    gated('dec1.1.gated', 2 * d, num_blocks[5])
+    m.conv('dec1.2.body.0', 4 * d, 2 * d, 3)
+    gated('dec2.0.gated', 2 * d, num_blocks[6])
+    m.conv('dim_to_ch.0', d, 2 * d, 3)
+    m.conv('dim_to_ch.1', in_nc, d, 3)
+    return m.sd
+
+
+_SAMPLE_MODS = ('conv', 'pixelshuffledirect', 'pixelshuffle', 'nearest+conv', 'dysample')
+_SAMPLE_MODS3 = _SAMPLE_MODS + ('transpose+conv', 'lda', 'pa_up')
+
+
+def _meta_upsample(m: _Maker, key: str, modes, mode: str, scale: int, dim: int, out: int, mid: int,
+                   group: int = 4):
+    """The MetaUpsample uint8 buffer (reference mosrv2/arch.py:157-171):
+    version, mode index, scale, in width, out width, mid width, groups."""
+    m.sd[key] = np.asarray([1, modes.index(mode), scale, dim, out, mid, group], np.uint8)
+
+
+def _inception_dwconv(m: _Maker, key: str, c: int, square: int = 3, band: int = 11, branch_ratio: float = 0.125):
+    """InceptionDWConv2d (reference mosrv2/arch.py:174-209): three depthwise
+    convs on ``int(c * branch_ratio)`` channels each, square and bands."""
+    gc = int(c * branch_ratio)
+    m.t(f'{key}.dwconv_hw.weight', gc, 1, square, square)
+    m.t(f'{key}.dwconv_hw.bias', gc)
+    m.t(f'{key}.dwconv_w.weight', gc, 1, 1, band)
+    m.t(f'{key}.dwconv_w.bias', gc)
+    m.t(f'{key}.dwconv_h.weight', gc, 1, band, 1)
+    m.t(f'{key}.dwconv_h.bias', gc)
+
+
+def _gated_cnn_v2(m: _Maker, key: str, dim: int, expansion: float, k: int, rms: bool, mixer: str = 'conv'):
+    """A MoSRv2 / MoESR GatedCNNBlock: RMSNorm ``scale`` / ``offset`` or
+    LayerNorm, ``fc1`` (k x k) to 2 x hidden, the Inception mixer on
+    ``dim`` channels under ``mixer``, ``fc2`` (k x k) back, the layer scale
+    ``gamma`` near 0.1 (with scales near 1 the 54 blocks of MoESR's bench
+    model drive its output to +-8, outside the image range that a 16-bit
+    run's PSNR is taken against)."""
+    hidden = int(expansion * dim)
+    if rms:
+        m.t(f'{key}.norm.scale', dim)
+        m.sd[f'{key}.norm.scale'] += 1.0
+        m.t(f'{key}.norm.offset', dim)
+    else:
+        _ln(m, f'{key}.norm', dim)
+    m.conv(f'{key}.fc1', 2 * hidden, dim, k)
+    _inception_dwconv(m, f'{key}.{mixer}', dim)
+    m.conv(f'{key}.fc2', dim, hidden, k)
+    m.t(f'{key}.gamma', 1, dim, 1, 1)
+    m.sd[f'{key}.gamma'] += 0.1
+
+
+def make_mosrv2(dim: int = 64, n_block: int = 24, scale: int = 4, in_nc: int = 3,
+                upsampler: str = 'pixelshuffledirect', expansion_ratio: float = 1.5, mid_dim: int = 32,
+                group: int = 4, unshuffle_mod: bool = False, rms_norm: bool = True, seed: int = 0):
+    """MoSRv2 layout (reference mosrv2/arch.py:281-337): ``gblocks`` =
+    stem conv (after a pixel unshuffle by 4 // scale with
+    ``unshuffle_mod`` below 3x) + GatedCNNBlocks + the 5-entry conv tail,
+    ``to_img`` a UniUpsample and its MetaUpsample buffer.  Its defaults
+    (dim 64, 24 blocks, pixelshuffledirect, RMSNorm) are the zoo's choice:
+    ``MoSRv2()``'s are not in this repo."""
+    m = _Maker(seed)
+    unshuffle = unshuffle_mod and scale < 3
+    if unshuffle:
+        m.conv('gblocks.1', dim, in_nc * (4 // scale) ** 2, 3)
+    else:
+        m.conv('gblocks.0', dim, in_nc, 3)
+    first = 2 if unshuffle else 1
+    for i in range(n_block):
+        _gated_cnn_v2(m, f'gblocks.{first + i}', dim, expansion_ratio, 3, rms_norm)
+    i0 = first + n_block
+    m.conv(f'gblocks.{i0}', dim * 2, dim, 3)
+    m.conv(f'gblocks.{i0 + 2}', dim, dim * 2, 3)
+    m.conv(f'gblocks.{i0 + 4}', dim, dim, 1)
+    to_img_scale = 4 if unshuffle else scale
+    _uni_upsample_v3(m, 'to_img', upsampler, to_img_scale, dim, in_nc, mid_dim)
+    _meta_upsample(m, 'to_img.MetaUpsample', _SAMPLE_MODS, upsampler, scale, dim, in_nc, mid_dim, group)
+    return m.sd
+
+
+def make_moesr(dim: int = 64, n_blocks: int = 6, n_block: int = 6, scale: int = 4, in_nc: int = 3,
+               out_nc: int = 3, expansion_factor: float = 2.5, expansion_msg: float = 2.5,
+               upsampler: str = 'pixelshuffledirect', upsample_dim: int = 64, seed: int = 0):
+    """MoESR layout (reference moesr/arch.py:190-227): ``in_to_dim``,
+    ``n_blocks`` Blocks of ``n_block`` LayerNorm GatedCNNBlocks and an MSG
+    (``down.0`` dim -> dim / 4, three gated blocks at 1/2 resolution,
+    ``up.0`` dim -> 4 dim), ``upscale`` a UniUpsample and its MetaUpsample
+    buffer.  Its defaults are the zoo's choice: ``MoESR()``'s are not in
+    this repo."""
+    m = _Maker(seed)
+    m.conv('in_to_dim', dim, in_nc, 3)
+    for bi in range(n_blocks):
+        for i in range(n_block):
+            _gated_cnn_v2(m, f'blocks.{bi}.blocks.{i}', dim, expansion_factor, 3, False)
+        msg = f'blocks.{bi}.msg'
+        m.conv(f'{msg}.down.0', dim // 4, dim, 3)
+        for i in range(3):
+            _gated_cnn_v2(m, f'{msg}.gated.{i}', dim, expansion_msg, 3, False)
+        m.conv(f'{msg}.up.0', dim * 4, dim, 3)
+    _uni_upsample_v3(m, 'upscale', upsampler, scale, dim, out_nc, upsample_dim)
+    _meta_upsample(m, 'upscale.MetaUpsample', _SAMPLE_MODS, upsampler, scale, dim, out_nc, upsample_dim)
+    return m.sd
+
+
+def _meta_gated(m: _Maker, key: str, d: int):
+    """A GateRv2 / GateRV3 MetaGated block of width ``d``: the local gate
+    (RMSNorm, 1x1 to 2d, 3x3 with groups d, simple gate, ``sca.1``), the
+    global gated CNN (1x1 ``fc1`` to 3d, the Inception mixer, 1x1 ``fc2``
+    from 1.5d) and the two ``gamma``s."""
+    m.t(f'{key}.local.0.scale', d)
+    m.sd[f'{key}.local.0.scale'] += 1.0
+    m.t(f'{key}.local.0.offset', d)
+    m.conv(f'{key}.local.1', 2 * d, d, 1)
+    m.conv(f'{key}.local.2', 2 * d, 2, 3)
+    m.conv(f'{key}.sca.1', d, d, 1)
+    for g in ('gamma0', 'gamma1'):
+        m.t(f'{key}.{g}', 1, d, 1, 1)
+        m.sd[f'{key}.{g}'] += 1.0
+    _gated_cnn_v2(m, f'{key}.glob', d, 1.5, 1, True, 'token_mix')
+    del m.sd[f'{key}.glob.gamma']
+
+
+def _gated_unet(m: _Maker, enc: str, dim: int, enc_blocks, dec_blocks):
+    """The GateRv2 / GateRV3 U-Net's MetaGated stages: each encoder stage's
+    blocks and bias-free 3x3 ``scale.0`` to half width (then unshuffled),
+    each decoder stage's ``scale.0`` to twice the width (then shuffled),
+    1x1 ``shor`` and blocks."""
+    for i, nb in enumerate(enc_blocks):
+        d = dim * 2**i
+        for j in range(nb):
+            _meta_gated(m, f'{enc}.{i}.gated.{j}', d)
+        m.t(f'{enc}.{i}.scale.0.weight', d // 2, d, 3, 3)
+    for i, nb in enumerate(dec_blocks):
+        d = dim * 2 ** (len(dec_blocks) - i)
+        m.t(f'decode.{i}.scale.0.weight', 2 * d, d, 3, 3)
+        m.conv(f'decode.{i}.shor', d // 2, d, 1)
+        for j in range(nb):
+            _meta_gated(m, f'decode.{i}.gated.{j}', d // 2)
+
+
+def _gated_cnn_latent(m: _Maker, key: str, c: int):
+    """A latent GatedCNNBlock's RMSNorm, 1x1 ``fc1`` to 3c and 1x1 ``fc2``
+    from 1.5c; the token mixer is the caller's."""
+    m.t(f'{key}.norm.scale', c)
+    m.sd[f'{key}.norm.scale'] += 1.0
+    m.t(f'{key}.norm.offset', c)
+    m.conv(f'{key}.fc1', 3 * c, c, 1)
+    m.conv(f'{key}.fc2', c, 3 * c // 2, 1)
+
+
+def make_gaterv2(dim: int = 32, enc_blocks=(2, 2, 4), dec_blocks=(4, 2, 2), num_latent: int = 6, scale: int = 1,
+                 in_nc: int = 3, upsampler: str = 'pixelshuffledirect', upsample_mid_dim: int = 32,
+                 seed: int = 0):
+    """GateRv2 layout (reference gaterv2/arch.py:394-470): ``in_to_dim``,
+    the MetaGated U-Net (``encode`` / ``decode``), latent GatedCNNBlocks
+    with the Taylor linear attention (1x1 query / key convs to c / 8, value
+    to c), then at 1x ``dim_to_in``, else the ``short_to_dim`` ConvBlock and
+    ``upsample``, a UniUpsample, with its MetaUpsample buffer under the key
+    the JAX loader reads.  Its defaults and the c / 8 are the zoo's choice:
+    ``GateRV2()``'s are not in this repo."""
+    m = _Maker(seed)
+    m.conv('in_to_dim', dim, in_nc, 3)
+    _gated_unet(m, 'encode', dim, enc_blocks, dec_blocks)
+    latent = dim * 2 ** len(enc_blocks)
+    for i in range(num_latent):
+        key = f'latent.{i}'
+        _gated_cnn_latent(m, key, latent)
+        m.conv(f'{key}.token_mix.query_conv', latent // 8, latent, 1)
+        m.conv(f'{key}.token_mix.key_conv', latent // 8, latent, 1)
+        m.conv(f'{key}.token_mix.value_conv', latent, latent, 1)
+    if scale == 1:
+        m.conv('dim_to_in', in_nc, dim, 3)
+    else:
+        m.conv('short_to_dim.block.0', dim, in_nc, 3)
+        m.conv('short_to_dim.block.2', dim, dim, 3)
+        m.conv('short_to_dim.conv11', dim, in_nc, 1)
+        _uni_upsample_v3(m, 'upsample', upsampler, scale, dim, in_nc, upsample_mid_dim)
+        _meta_upsample(m, 'upsample.MetaUpsample', _SAMPLE_MODS, upsampler, scale, dim, in_nc, upsample_mid_dim)
+    return m.sd
+
+
+def _conv3xc_bias_free(m: _Maker, key: str, c: int, gain: int = 2):
+    """A bias-free Conv3XC bundle on ``c`` channels (reference
+    gaterv3/arch.py:436-447)."""
+    m.t(f'{key}.sk.weight', c, c, 1, 1)
+    m.t(f'{key}.conv.0.weight', c * gain, c, 1, 1)
+    m.t(f'{key}.conv.1.weight', c * gain, c * gain, 3, 3)
+    m.t(f'{key}.conv.2.weight', c, c * gain, 1, 1)
+    m.t(f'{key}.eval_conv.weight', c, c, 3, 3)
+
+
+def make_gaterv3(dim: int = 32, enc_blocks=(2, 2, 4), dec_blocks=(4, 2, 2), num_latent: int = 4, scale: int = 1,
+                 in_nc: int = 3, upsampler: str = 'pixelshuffledirect', upsample_mid_dim: int = 32,
+                 attention: bool = True, span_blocks: int = 4, end_kernel: int = 1, gamma: bool = True,
+                 seed: int = 0):
+    """GateRV3 layout (reference gaterv3/arch.py:705-802): ``in_to_dim``,
+    the SPAN branch (bias-free SPABs ``span_block0``, ``span_n_b.*``,
+    ``span_end``, a biased Conv3XC ``sisr_end_conv``, 1x1 ``sisr_cat_conv``
+    from 4 dim), the MetaGated U-Net (``gater_encode`` / ``decode``), latent
+    GatedCNNBlocks with the channel attention (16 heads: 1x1 ``qkv``, 3x3
+    ``qkv_dwconv`` with groups 3c, ``temperature``, 1x1 ``project_out``) or
+    the Inception mixer, ``dim_to_in`` (a 3x3 conv at 1x, else a
+    UniUpsampleV3 with its MetaUpsample buffer; ``end_kernel``: DySample's
+    end conv) and ``gamma`` (left out with ``gamma=False``, which the loader
+    fills with ones).  Its defaults are the zoo's choice: ``GateRV3()``'s
+    are not in this repo."""
+    m = _Maker(seed)
+    m.conv('in_to_dim', dim, in_nc, 3)
+    for b in ['span_block0', *(f'span_n_b.{i}' for i in range(span_blocks)), 'span_end']:
+        for c in ('c1_r', 'c2_r', 'c3_r'):
+            _conv3xc_bias_free(m, f'{b}.{c}', dim)
+    _conv3xc(m, 'sisr_end_conv', dim, dim)
+    m.conv('sisr_cat_conv', dim, 4 * dim, 1)
+    _gated_unet(m, 'gater_encode', dim, enc_blocks, dec_blocks)
+    latent = dim * 2 ** len(enc_blocks)
+    for i in range(num_latent):
+        key = f'latent.{i}'
+        _gated_cnn_latent(m, key, latent)
+        if attention:
+            m.t(f'{key}.token_mix.temperature', 16, 1, 1)
+            m.sd[f'{key}.token_mix.temperature'] += 1.0
+            m.t(f'{key}.token_mix.qkv.weight', 3 * latent, latent, 1, 1)
+            m.conv(f'{key}.token_mix.qkv_dwconv', 3 * latent, 1, 3)
+            m.t(f'{key}.token_mix.project_out.weight', latent, latent, 1, 1)
+        else:
+            _inception_dwconv(m, f'{key}.token_mix', latent)
+    if scale == 1:
+        m.conv('dim_to_in', in_nc, dim, 3)
+    else:
+        _uni_upsample_v3(m, 'dim_to_in', upsampler, scale, dim, in_nc, upsample_mid_dim, end_kernel)
+        _meta_upsample(m, 'dim_to_in.MetaUpsample', _SAMPLE_MODS3, upsampler, scale, dim, in_nc, upsample_mid_dim)
+    if gamma:
+        m.t('gamma', 1, in_nc, 1, 1)
+        m.sd['gamma'] += 1.0
     return m.sd

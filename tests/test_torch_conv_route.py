@@ -3,9 +3,9 @@ families (Compact, SPAN, SPANPlus, MoSR, SpanPP, RCAN) to the 3x3 kernel:
 which convs it routes, what ``prepare_convs`` keeps, and that its plain
 path is ``F.conv2d`` plus the activation.  Also the helpers the six
 families' test files share (each family's routed convs counted on the CPU,
-parity of tiled and CLI output with resselt_tpu), and the seventeen ported
-families detected as themselves in both packages, registered in JAX's
-order."""
+parity of tiled and CLI output with resselt_tpu), and the twenty-three
+ported families detected as themselves in both packages, registered in
+JAX's order."""
 
 import numpy as np
 import pytest
@@ -18,9 +18,10 @@ import resselt_tpu_torch.parallel.tiling as tt
 from resselt_tpu_torch.nn import functional as F
 from resselt_tpu_torch.ops import conv_route as cr
 from resselt_tpu_torch.ops import fused_conv as fc
-from resselt_tpu_torch.zoo import (make_atd, make_compact, make_dat, make_drct, make_eimn, make_esrgan, make_fdat,
-                                   make_hat, make_mosr, make_omni, make_plksr, make_rcan, make_rgt, make_span,
-                                   make_spanplus, make_spanpp, make_swinir)
+from resselt_tpu_torch.zoo import (make_atd, make_compact, make_cugan, make_dat, make_drct, make_eimn, make_esrgan,
+                                   make_fdat, make_gater, make_gaterv2, make_gaterv3, make_hat, make_moesr, make_mosr,
+                                   make_mosrv2, make_omni, make_plksr, make_rcan, make_rgt, make_span, make_spanplus,
+                                   make_spanpp, make_swinir)
 
 
 torch.set_num_threads(2)
@@ -126,8 +127,8 @@ def test_prepare_convs_packs_the_routed_and_casts_the_rest(dtype):
     assert set(w) == {'a', 'a.bias', 'b', 'b.weight', 'b.bias', 'dw', 'dw.weight', 'n.weight', 'idx'}
     assert w['a'].kernel and w['a'].w.shape == (9, 4, 8) and w['a'].w.dtype == dtype
     assert w['a'].b.dtype == torch.float32 and torch.equal(w['a'].w, fc.pack_conv3x3_weight(params['a.weight'], dtype))
-    assert not w['b'].kernel and w['b'].padding == 0 and w['b'].w.dtype == dtype
-    assert not w['dw'].kernel and (w['dw'].padding, w['dw'].groups) == (1, 8)
+    assert not w['b'].kernel and w['b'].padding == (0, 0) and w['b'].w.dtype == dtype
+    assert not w['dw'].kernel and (w['dw'].padding, w['dw'].groups) == ((1, 1), 8)
     assert w['n.weight'].dtype == dtype and w['idx'].dtype == torch.int64
 
 
@@ -161,7 +162,7 @@ def test_prelu_and_dysample_scale_match_jax():
         1, 2, 3, 4]
 
 
-# -- detection and registration of the seventeen families ------------------------------
+# -- detection and registration of the twenty-three families ------------------------------
 
 _FAMILIES = [
     ('swinir', lambda: make_swinir(24, (2,), (3,), 8, upscale=2, img_size=32), 'SwinIR', 'SwinIR'),
@@ -176,6 +177,12 @@ _FAMILIES = [
     ('span', lambda: make_span(16, 2), 'SPAN', 'SPAN'),
     ('esrgan', lambda: make_esrgan(16, 1, 2, gc=8), 'ESRGAN', 'ESRGAN'),
     ('plksr', lambda: make_plksr(16, 1, 2), 'PLKSR', 'PLKSR'),
+    ('mosrv2', lambda: make_mosrv2(16, 2, 2), 'MoSRv2', 'MoSRv2'),
+    ('moesr', lambda: make_moesr(16, 2, 2, 2, upsample_dim=16), 'MoESR', 'MoESR'),
+    ('gaterv3', lambda: make_gaterv3(16, (1, 1), (1, 1), 1, span_blocks=1), 'GateRV3', 'GateRV3'),
+    ('gaterv2', lambda: make_gaterv2(16, (1, 1), (1, 1), 1), 'GateRv2', 'GateRv2'),
+    ('gater', lambda: make_gater(16), 'GateR', 'GateR'),
+    ('cugan', lambda: make_cugan('2x'), 'CuGAN', 'CUGAN'),
     ('rcan', lambda: make_rcan(16, 2, 2, 4, 2), 'RCAN', 'RCAN'),
     ('eimn', lambda: make_eimn(16, 1, 1, 1.5, 2), 'eimn', 'EIMN'),
     ('mosr', lambda: make_mosr(16, 2, 2), 'MoSR', 'MoSR'),
@@ -185,6 +192,15 @@ _FAMILIES = [
     ('rcan_unshuffle', lambda: make_rcan(16, 1, 1, 4, 1, unshuffle=True), 'RCAN', 'RCAN'),
     ('mosr_gps', lambda: make_mosr(16, 1, 4, upsampler='gps'), 'MoSR', 'MoSR'),
     ('spanplus_dys', lambda: make_spanplus(16, (1,), 2, upsampler='dys'), 'spanplus', 'SPANPlus'),
+    ('cugan_3x_pro', lambda: make_cugan('3x', True), 'CuGAN', 'CUGAN'),
+    ('cugan_4x', lambda: make_cugan('4x'), 'CuGAN', 'CUGAN'),
+    ('cugan_2x_fast', lambda: make_cugan('2x_fast'), 'CuGAN', 'CUGAN'),
+    ('gater_latent_att', lambda: make_gater(16, latent_att=True), 'GateR', 'GateR'),
+    ('mosrv2_unshuffle_ln', lambda: make_mosrv2(16, 2, 2, unshuffle_mod=True, rms_norm=False), 'MoSRv2', 'MoSRv2'),
+    ('gaterv2_sr', lambda: make_gaterv2(16, (1, 1), (1, 1), 1, 2), 'GateRv2', 'GateRv2'),
+    ('gaterv3_attention_dysample', lambda: make_gaterv3(16, (1, 1), (1, 1), 1, 2, upsampler='dysample',
+                                                        upsample_mid_dim=16, span_blocks=1, end_kernel=3),
+     'GateRV3', 'GateRV3'),
 ]
 
 
@@ -203,5 +219,5 @@ def test_seventeen_families_detect_as_themselves(family, make, arch, name):
 def test_registration_order_is_jax_order():
     port = [a.id for a in resselt_tpu_torch.archs.internal_registry]
     assert port == [a.id for a in resselt_tpu.archs.internal_registry if a.id in port]
-    assert port == [f[2] for f in _FAMILIES[:17]]
+    assert port == [f[2] for f in _FAMILIES[:23]]
     assert port[-1] == 'spanplus'  # its one-key fingerprint comes last

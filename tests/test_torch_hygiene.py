@@ -82,6 +82,15 @@ def test_loading_and_serving_import_no_jax():
         '    assert m.arch_id == arch\n'
         '    y = resselt_tpu_torch.upscale_tiled(m, np.zeros((40, 40, 3), np.float32), tile=16)\n'
         '    assert tuple(y.shape) == (80, 80, 3)\n'
+        'from resselt_tpu_torch.zoo import make_cugan, make_gater, make_gaterv2, make_gaterv3, make_moesr, make_mosrv2\n'
+        "for sd, arch, s in ((make_cugan('2x'), 'CuGAN', 2), (make_gater(16, latent_att=True), 'GateR', 1),\n"
+        "                    (make_mosrv2(16, 1, 2), 'MoSRv2', 2), (make_moesr(16, 1, 1, 2, upsample_dim=16), 'MoESR', 2),\n"
+        "                    (make_gaterv2(16, (1, 1), (1, 1), 1, 2), 'GateRv2', 2),\n"
+        "                    (make_gaterv3(16, (1,), (1,), 1, span_blocks=1), 'GateRV3', 1)):\n"
+        "    m = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')\n"
+        '    assert m.arch_id == arch\n'
+        '    y = resselt_tpu_torch.upscale_tiled(m, np.zeros((40, 40, 3), np.float32), tile=16)\n'
+        '    assert tuple(y.shape) == (40 * s, 40 * s, 3)\n'
         "m = resselt_tpu_torch.load_from_state_dict(make_spanpp(16, implicit_dim=32, latent_layers=2), device='cpu')\n"
         "assert m.arch_id == 'SpanPP'\n"
         'y = resselt_tpu_torch.upscale_tiled(m.with_config(eval_scale=2), np.zeros((40, 40, 3), np.float32), tile=16)\n'

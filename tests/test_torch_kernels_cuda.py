@@ -28,9 +28,10 @@ from resselt_tpu_torch.ops import fused_conv as fc
 from resselt_tpu_torch.ops import molrcm as mo
 from resselt_tpu_torch.ops import window_attention as wa
 from resselt_tpu_torch.parallel import upscale_tiled
-from resselt_tpu_torch.zoo import (make_atd, make_compact, make_dat, make_drct, make_eimn, make_esrgan, make_fdat,
-                                   make_hat, make_mosr, make_omni, make_plksr, make_rcan, make_realplksr, make_rgt,
-                                   make_span, make_spanplus, make_spanpp, make_swinir)
+from resselt_tpu_torch.zoo import (make_atd, make_compact, make_cugan, make_dat, make_drct, make_eimn, make_esrgan,
+                                   make_fdat, make_gater, make_gaterv2, make_gaterv3, make_hat, make_moesr, make_mosr,
+                                   make_mosrv2, make_omni, make_plksr, make_rcan, make_realplksr, make_rgt, make_span,
+                                   make_spanplus, make_spanpp, make_swinir)
 
 
 pytestmark = pytest.mark.cuda
@@ -743,7 +744,8 @@ def test_fdat_omni_tiled_on_card_match_cpu(cuda, family):
     np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=1e-3)
 
 
-# -- the six 3x3-conv families (Compact, SPAN, SPANPlus, MoSR, SpanPP, RCAN) on conv3x3.cu ------------------
+# -- the 3x3-conv families (Compact, SPAN, SPANPlus, MoSR, SpanPP, RCAN; GateR, MoSRv2, MoESR, GateRv2, GateRV3) on
+# conv3x3.cu, and CUGAN, which launches no kernel ------------------
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
@@ -754,6 +756,13 @@ def test_fdat_omni_tiled_on_card_match_cpu(cuda, family):
     (1, 18, 20, 128, 64, 'mish'), (1, 19, 23, 3, 64, 'mish'), (1, 17, 19, 64, 384, 'linear'),
     (1, 20, 22, 64, 256, 'linear'), (1, 9, 11, 12, 64, 'linear'), (1, 9, 11, 48, 64, 'linear'),  # RCAN
     (2, 21, 26, 64, 48, 'linear'),  # Compact's 4x head
+    # GateR, MoESR, GateRv2 and GateRV3
+    (2, 21, 26, 64, 32, 'linear'), (1, 12, 14, 256, 128, 'linear'), (1, 6, 9, 512, 1024, 'linear'),
+    (1, 12, 14, 256, 512, 'linear'), (2, 21, 26, 128, 64, 'linear'), (2, 21, 26, 64, 3, 'linear'),
+    (2, 21, 26, 64, 320, 'linear'), (2, 21, 26, 160, 64, 'mish'), (2, 21, 26, 64, 16, 'linear'),
+    (1, 19, 23, 3, 32, 'linear'), (2, 21, 26, 32, 32, 'silu'), (2, 21, 26, 32, 32, 'linear'),
+    (2, 21, 26, 32, 16, 'linear'), (1, 11, 13, 128, 64, 'linear'), (1, 6, 7, 256, 512, 'linear'),
+    (1, 11, 13, 128, 256, 'linear'), (2, 21, 26, 32, 3, 'linear'), (2, 21, 26, 4, 18, 'linear'),
 ])
 def test_kernel_matches_plain_at_the_conv_family_shapes(cuda, dtype, n, h, w, cin, cout, act):
     g = torch.Generator(device=cuda).manual_seed(cin * 1000 + cout)
@@ -788,6 +797,22 @@ _CONV_FAMILIES = {
     'rcan': (lambda: make_rcan(64, 2, 2, 16, 4, seed=12), 2 + 2 * 5 + 3, None),
     'rcan_unshuffle_2x': (lambda: make_rcan(16, 2, 2, 4, 2, unshuffle=True, seed=13), 2 + 2 * 5 + 3, None),
     'rcan_k5': (lambda: make_rcan(16, 1, 1, 4, 4, kernel_size=5, seed=14), 2, None),
+    'cugan_2x': (lambda: make_cugan('2x', seed=15), 0, None),
+    'gater': (lambda: make_gater(16, (1, 1, 1, 2, 1, 1, 1), seed=16, latent_att=True), 9, None),
+    'gater_conv': (lambda: make_gater(16, (1, 1, 1, 2, 1, 1, 1), seed=17), 9, None),
+    'mosrv2': (lambda: make_mosrv2(64, 2, 4, seed=18), 8, None),
+    'mosrv2_dys_ln_unshuffle': (lambda: make_mosrv2(16, 2, 2, upsampler='dysample', unshuffle_mod=True,
+                                                    rms_norm=False, seed=19), 8, None),
+    'moesr': (lambda: make_moesr(64, 1, 2, 4, seed=20), 14, None),
+    'moesr_nearest': (lambda: make_moesr(16, 1, 1, 2, upsampler='nearest+conv', upsample_dim=16, seed=21), 14, None),
+    'gaterv2': (lambda: make_gaterv2(32, (1, 1, 1), (1, 1, 1), 1, seed=22), 8, None),
+    'gaterv2_sr': (lambda: make_gaterv2(16, (1, 1), (1, 1), 1, 2, upsampler='pixelshuffle', upsample_mid_dim=16,
+                                        seed=23), 10, None),
+    'gaterv3': (lambda: make_gaterv3(32, (1, 1, 1), (1, 1, 1), 1, span_blocks=1, seed=24), 18, None),
+    'gaterv3_dys': (lambda: make_gaterv3(16, (1, 1), (1, 1), 1, 2, upsampler='dysample', upsample_mid_dim=16,
+                                         attention=False, span_blocks=1, end_kernel=3, seed=25), 16, None),
+    'gaterv3_lda': (lambda: make_gaterv3(16, (1, 1), (1, 1), 1, 2, upsampler='lda', upsample_mid_dim=32,
+                                         span_blocks=1, seed=26), 18, None),
 }
 
 
@@ -809,7 +834,24 @@ def test_conv_families_on_card_match_cpu(cuda, variant):
     np.testing.assert_allclose(got.cpu().numpy(), cpu(x).numpy(), rtol=0, atol=5e-4)
 
 
-@pytest.mark.parametrize('family', ['compact', 'span_no_norm', 'spanplus', 'mosr_gps', 'spanpp_3x', 'rcan'])
+@pytest.mark.parametrize('variant,hw', [('3x', (21, 26)), ('4x', (21, 26)), ('2x_fast', (43, 47)), ('2x', (5, 7))])
+@pytest.mark.parametrize('pro', [False, True])
+def test_cugan_on_card_matches_cpu(cuda, variant, hw, pro):
+    """CUGAN runs plain torch on the card (cuDNN's valid, strided and
+    transposed convs) and launches no hand-written kernel."""
+    sd = make_cugan(variant, pro, seed=27)
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    x = np.random.default_rng(0).random((2, *hw, 3), dtype=np.float32)
+    before = fc.fused_conv3x3_act.launches
+    got = gpu(x)
+    torch.cuda.synchronize()
+    assert fc.fused_conv3x3_act.launches == before
+    want = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')(x)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize('family', ['compact', 'span_no_norm', 'spanplus', 'mosr_gps', 'spanpp_3x', 'rcan', 'cugan_2x',
+                                    'gater', 'mosrv2', 'moesr', 'gaterv2_sr', 'gaterv3_dys'])
 def test_conv_families_tiled_on_card_match_cpu(cuda, family):
     make, _, overrides = _CONV_FAMILIES[family]
     gpu = resselt_tpu_torch.load_from_state_dict(make(), device='cuda')
@@ -822,7 +864,7 @@ def test_conv_families_tiled_on_card_match_cpu(cuda, family):
     np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=5e-4)
 
 
-# -- float16 and precision through the seventeen families -----------------------------------
+# -- float16 and precision through the twenty-three families -----------------------------------
 
 
 _FAMILIES = {
@@ -843,6 +885,12 @@ _FAMILIES = {
     'mosr': lambda: make_mosr(64, 2, 2, seed=3),
     'spanpp': lambda: make_spanpp(48, implicit_dim=32, latent_layers=2, seed=3),
     'rcan': lambda: make_rcan(64, 2, 3, 16, 2, seed=3),
+    'cugan': lambda: make_cugan('2x', seed=3),
+    'gater': lambda: make_gater(32, (1, 1, 1, 2, 1, 1, 1), seed=3, latent_att=True),
+    'mosrv2': lambda: make_mosrv2(64, 2, 2, seed=3),
+    'moesr': lambda: make_moesr(64, 1, 2, 2, seed=3),
+    'gaterv2': lambda: make_gaterv2(32, (1, 1, 1), (1, 1, 1), 2, seed=3),
+    'gaterv3': lambda: make_gaterv3(32, (1, 1, 1), (1, 1, 1), 2, span_blocks=2, seed=3),
 }
 
 

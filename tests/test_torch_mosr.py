@@ -65,7 +65,7 @@ def test_mosr_4x_routes_its_54_convs(monkeypatch):
 def test_depthwise_conv_stays_plain():
     tm = resselt_tpu_torch.load_from_state_dict(_sd(), device='cpu')
     w = tm.weights(torch.float32)
-    assert not w['gblocks.1.conv'].kernel and w['gblocks.1.conv'].groups == 16 and w['gblocks.1.conv'].padding == 3
+    assert not w['gblocks.1.conv'].kernel and w['gblocks.1.conv'].groups == 16 and w['gblocks.1.conv'].padding == (3, 3)
     assert w['gblocks.1.fc1'].kernel and not w['gblocks.7'].kernel  # the tail's 1x1
 
 

@@ -17,10 +17,19 @@ kernel: Compact 4x, 64 features, 16 convs (``--model compact``), SPAN 4x, 48
 features (``--model span``), SPANPlus 2x, blocks (4,), 48 features, ``ps``
 (``--model spanplus``), MoSR 4x, 24 blocks, dim 64, ``ps`` (``--model
 mosr``), SpanPP 2x, 48 features, zoo.make_spanpp's IGConv (``--model
-spanpp``), RCAN 4x, 10 groups of 20 RCABs, 64 features (``--model rcan``).
+spanpp``), RCAN 4x, 10 groups of 20 RCABs, 64 features (``--model rcan``),
+or CUGAN 2x, UpCunet2x, all plain torch (``--model cugan``), or one of the
+restoration U-nets and the MoSR lineage at chip_smoke.py's widths: GateR
+1x, dim 64, blocks (2, 2, 2, 4, 2, 2, 2), FLPVT2 latent (``--model
+gater``), MoSRv2 4x, dim 64, 24 blocks, pixelshuffledirect (``--model
+mosrv2``), MoESR 4x, dim 64, 6 x 6 blocks, expansion 2.5 (``--model
+moesr``), GateRv2 1x, dim 32, enc (2, 2, 4), dec (4, 2, 2), 6 latent blocks
+(``--model gaterv2``), GateRV3 1x, dim 32, the same U-Net, 4 latent blocks
+with channel attention, 4 SPABs (``--model gaterv3``).
 
     python3 tools/profile_torch_esrgan.py
-        [--model esrgan|plksr|swinir|eimn|atd|hat|dat|rgt|drct|fdat|omni|compact|span|spanplus|mosr|spanpp|rcan]
+        [--model esrgan|plksr|swinir|eimn|atd|hat|dat|rgt|drct|fdat|omni|compact|span|spanplus|mosr|spanpp|rcan
+                 |cugan|gater|mosrv2|moesr|gaterv2|gaterv3]
         [--reps 2] [--seed 0]
 
 Runs on a CUDA device only.  Warms up, then records ``--reps`` forwards
@@ -44,7 +53,8 @@ import time
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--model', choices=('esrgan', 'plksr', 'swinir', 'eimn', 'atd', 'hat', 'dat', 'rgt', 'drct',
-                                            'fdat', 'omni', 'compact', 'span', 'spanplus', 'mosr', 'spanpp', 'rcan'),
+                                            'fdat', 'omni', 'compact', 'span', 'spanplus', 'mosr', 'spanpp', 'rcan',
+                                            'cugan', 'gater', 'mosrv2', 'moesr', 'gaterv2', 'gaterv3'),
                         default='esrgan')
     parser.add_argument('--reps', type=int, default=2)
     parser.add_argument('--seed', type=int, default=0)
@@ -58,9 +68,10 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import resselt_tpu_torch
-    from resselt_tpu_torch.zoo import (make_atd, make_compact, make_dat, make_drct, make_eimn, make_esrgan, make_fdat,
-                                       make_hat, make_mosr, make_omni, make_plksr, make_rcan, make_rgt, make_span,
-                                       make_spanplus, make_spanpp, make_swinir)
+    from resselt_tpu_torch.zoo import (make_atd, make_compact, make_cugan, make_dat, make_drct, make_eimn,
+                                       make_esrgan, make_fdat, make_gater, make_gaterv2, make_gaterv3, make_hat,
+                                       make_moesr, make_mosr, make_mosrv2, make_omni, make_plksr, make_rcan, make_rgt,
+                                       make_span, make_spanplus, make_spanpp, make_swinir)
 
     conv_families = {
         'compact': (lambda: make_compact(64, 16, 4, seed=args.seed), 'Compact 4x feat64 16 convs'),
@@ -69,6 +80,15 @@ def main(argv=None) -> int:
         'mosr': (lambda: make_mosr(64, 24, 4, seed=args.seed), 'MoSR 4x 24 blocks dim64 ps'),
         'spanpp': (lambda: make_spanpp(48, seed=args.seed), 'SpanPP 2x feat48 IGConv k3 implicit256 latent4'),
         'rcan': (lambda: make_rcan(seed=args.seed), 'RCAN 4x 10 groups x 20 RCABs feat64 reduction16'),
+        'cugan': (lambda: make_cugan('2x', seed=args.seed), 'CUGAN 2x UpCunet2x, plain torch (no kernel)'),
+        'gater': (lambda: make_gater(64, (2, 2, 2, 4, 2, 2, 2), seed=args.seed, latent_att=True),
+                  'GateR 1x dim64 blocks (2,2,2,4,2,2,2) FLPVT2 latent'),
+        'mosrv2': (lambda: make_mosrv2(64, 24, 4, seed=args.seed), 'MoSRv2 4x dim64 24 blocks pixelshuffledirect rms'),
+        'moesr': (lambda: make_moesr(64, 6, 6, 4, seed=args.seed), 'MoESR 4x dim64 6x6 blocks expansion2.5'),
+        'gaterv2': (lambda: make_gaterv2(32, (2, 2, 4), (4, 2, 2), 6, seed=args.seed),
+                    'GateRv2 1x dim32 enc(2,2,4) dec(4,2,2) latent6'),
+        'gaterv3': (lambda: make_gaterv3(32, (2, 2, 4), (4, 2, 2), 4, seed=args.seed),
+                    'GateRV3 1x dim32 enc(2,2,4) dec(4,2,2) latent4 attention span4'),
     }
     if args.model in conv_families:
         make, config = conv_families[args.model]
