@@ -111,7 +111,16 @@ depthwise latent; MoSRv2's dysample unshuffle and pixelshuffle 3x; MoESR
 dysample; GateRv2 pixelshuffle 2x; GateRV3 dysample with a 3x3 end conv
 and lda), and torch.utils.flop_counter's count of the forward against
 bench_families.md's XLA count of the reference default; conv_family_kernels
-holds their new 3x3 shapes.  Then the card's
+holds their new 3x3 shapes.  Then the last eight families the same way, at
+the zoo's widths: RTMoSR 2x with the unshuffle stem (8 conv3x3 launches a
+forward), SMoSR 4x (12), RHA 4x (53), FlexNet 4x (16, and 36 window_mha
+launches a forward on its one-head, zero-bias n 64 windows; wattn_kernels
+holds their shapes; a small meta U-Net whose 128-wide level takes the plain
+path), GFISR 4x (50), GFISRV2 4x (48), FIGSR 4x (57) and LAWFFT 4x (2),
+each with load / model / serve phases; their flop counts are taken at the
+tile and batch of bench_families.md's row, and for the four spectral
+families also with the JAX package's matmul-DFT FLOPs, which its XLA
+count includes and torch.fft does not.  Then the card's
 name and power limit, one JSON line of kernel figures, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device, or without the package beside this script, it exits 1 before
@@ -193,7 +202,6 @@ RCAN = {'name': 'RCAN', 'n_feats': 64, 'n_resgroups': 10, 'n_resblocks': 20, 're
 SPANPP = {'name': 'SpanPP', 'feature_channels': 48, 'scale': 2, 'scale_list': [1, 2, 3, 4], 'ig_kernel': 3,
           'implicit_dim': 256, 'latent_layers': 4, 'tile': 256}
 
-# H100 SXM dense peaks (NVIDIA data sheet) for bound_ms
 # the restoration U-nets, CUGAN and the MoSR lineage (tools/bench_families.py:95-111): UpCunet2x at its fixed widths;
 # the others at the zoo's stated widths, since their reference defaults are not in this repo.  'xla_gflop':
 # bench_families.md's XLA count of the reference-default forward at batch 8 of 256^2 (GateRv2's and GateRV3's
@@ -209,6 +217,26 @@ GATERV2 = {'name': 'GateRv2', 'dim': 32, 'enc_blocks': (2, 2, 4), 'dec_blocks': 
            'scale': 1, 'tile': 256, 'xla_gflop': None}
 GATERV3 = {'name': 'GateRV3', 'dim': 32, 'enc_blocks': (2, 2, 4), 'dec_blocks': (4, 2, 2), 'num_latent': 4,
            'span_blocks': 4, 'attention': True, 'scale': 1, 'tile': 256, 'xla_gflop': None}
+# the last eight (tools/bench_families.py:99-115) at the zoo's stated widths: their reference defaults are not in
+# this repo.  'xla_gflop': bench_families.md's XLA count of the reference default at its tile and batch ('flop_tile',
+# 'flop_batch'; 256 and 8 where unstated); 'dft': the count includes the JAX package's matmul DFT, which torch.fft
+# replaces (the flop count then adds that DFT's FLOPs, taken at the bench tile: 'flop_size').  FlexNet serves tiled
+# at the defaults (tile 256, halo 16, eight windows a batch), as the others
+RTMOSR = {'name': 'RTMoSR', 'dim': 64, 'n_blocks': 2, 'scale': 2, 'tile': 256, 'xla_gflop': 142.1}
+SMOSR = {'name': 'SMoSR', 'dim': 64, 'n_mb': 2, 'scale': 4, 'tile': 256, 'xla_gflop': 584.3}
+RHA = {'name': 'RHA', 'dim': 64, 'down_list': (8, 4, 2, 1), 'res_blocks': 6, 'scale': 4, 'tile': 256,
+       'xla_gflop': 1452.5, 'flop_tile': 192, 'flop_batch': 4}
+FLEXNET = {'name': 'FlexNet', 'dim': 64, 'num_blocks': (6,) * 6, 'window_size': 8, 'hidden_rate': 4, 'scale': 4,
+           'tile': 256, 'halo': 16, 'tile_batch': 8, 'xla_gflop': 957.7, 'flop_tile': 192, 'flop_batch': 4}
+GFISR = {'name': 'GFISR', 'dim': 64, 'n_blocks': 24, 'scale': 4, 'tile': 256, 'xla_gflop': 4458.6, 'dft': True,
+         'flop_size': 256}
+GFISRV2 = {'name': 'GFISRV2', 'dim': 64, 'n_blocks': 22, 'scale': 4, 'tile': 256, 'xla_gflop': 5515.8, 'dft': True,
+           'flop_size': 256}
+FIGSR = {'name': 'FIGSR', 'dim': 64, 'n_blocks': 18, 'scale': 4, 'tile': 256, 'xla_gflop': 5898.5, 'dft': True,
+         'flop_size': 256}
+LAWFFT = {'name': 'LAWFFT', 'dim': 64, 'n_rblock': 4, 'n_mblock': 6, 'scale': 4, 'tile': 256, 'xla_gflop': 416.1,
+          'dft': True, 'flop_tile': 160, 'flop_batch': 4, 'flop_size': 160}
+# H100 SXM dense peaks (NVIDIA data sheet) for bound_ms
 PEAK_FLOPS = {'bfloat16': 989e12, 'float16': 989e12, 'float32': 67e12}
 PEAK_BYTES = 3.35e12
 
@@ -226,6 +254,9 @@ FDAT_TOL = OMNI_TOL = 1e-3  # tests/test_fdat.py's and tests/test_omni.py's TOL
 SPANPLUS_TOL = 2e-4  # tests/test_spanplus.py's TOL; the other conv families: MODEL_TOL (test_conv_archs.py,
 # test_spanpp.py, test_rcan_eimn.py, test_cugan.py, test_mosr_family.py)
 GATER_TOL = 1e-3  # tests/test_gater.py's, test_gaterv2.py's and test_gaterv3.py's TOL
+# test_smosr.py's, test_rha.py's, test_flexnet.py's, test_gfisr.py's, test_gfisrv2.py's, test_figsr.py's and
+# test_lawfft.py's TOL; RTMoSR: MODEL_TOL (test_mosr_family.py)
+LAST_EIGHT_TOL = 1e-3
 
 
 def log(phase: str, **fields) -> None:
@@ -274,9 +305,12 @@ def conv_shapes(n: int, tile: int) -> list[dict]:
 def conv_family_shapes(n: int, tile: int) -> list[dict]:
     """Every distinct 3x3 conv (shape, activation) of the bench forwards of
     the conv families (SPAN 4x, SPANPlus 2x, SpanPP 2x, Compact 4x, MoSR
-    4x, RCAN 4x; GateR 1x, MoSRv2 4x, MoESR 4x, GateRv2 1x, GateRV3 1x) at a
-    batch of ``n`` ``tile``-square inputs; several families share a row
-    where their convs coincide (MoSRv2's are all MoSR's)."""
+    4x, RCAN 4x; GateR 1x, MoSRv2 4x, MoESR 4x, GateRv2 1x, GateRV3 1x;
+    RTMoSR 2x, SMoSR 4x, RHA 4x, FlexNet 4x, GFISR 4x, GFISRV2 4x, FIGSR 4x,
+    LAWFFT 4x) at a batch of ``n`` ``tile``-square inputs; several families
+    share a row where their convs coincide (MoSRv2's are all MoSR's, RHA's
+    and GFISR's are all earlier rows).  SMoSR runs at its 2-pixel reflect
+    pad, FIGSR at its 4-pixel halo."""
     t = tile
     rows = [
         ('SPAN/SPANPlus/SpanPP stem 3->48', t, 3, 48, 'linear'),
@@ -284,18 +318,18 @@ def conv_family_shapes(n: int, tile: int) -> list[dict]:
         ('SPANPlus c1 c2 48->48 mish', t, 48, 48, 'mish'),
         ('SPAN/SPANPlus/SpanPP c3 conv_2, SPAN head 48->48', t, 48, 48, 'linear'),
         ('SPANPlus/SpanPP 2x head 48->12', t, 48, 12, 'linear'),
-        ('Compact/MoSR/RCAN stem 3->64', t, 3, 64, 'linear'),
-        ('Compact/RCAN body 64->64', t, 64, 64, 'linear'),
-        ('Compact/MoSR 4x head 64->48', t, 64, 48, 'linear'),
-        ('MoSR fc1 64->192', t, 64, 192, 'linear'),
-        ('MoSR fc2 96->64 mish', t, 96, 64, 'mish'),
+        ('Compact/MoSR/RCAN/RHA/FlexNet/GFISR/GFISRV2/LAWFFT stem 3->64', t, 3, 64, 'linear'),
+        ('Compact/RCAN body, RHA tail.0, GFISRV2 tail 64->64', t, 64, 64, 'linear'),
+        ('Compact/MoSR/GFISR/GFISRV2/LAWFFT 4x head 64->48', t, 64, 48, 'linear'),
+        ('MoSR/RHA/GFISR/GFISRV2 fc1 64->192', t, 64, 192, 'linear'),
+        ('MoSR/RHA/GFISR fc2 96->64 mish', t, 96, 64, 'mish'),
         ('MoSR tail 64->128 mish', t, 64, 128, 'mish'),
-        ('MoSR tail 128->64 mish', t, 128, 64, 'mish'),
-        ('MoSR shortcut 3->64 mish', t, 3, 64, 'mish'),
-        ('MoSR shortcut 64->64 mish', t, 64, 64, 'mish'),
-        ('RCAN tail.0.0 64->256', t, 64, 256, 'linear'),
-        ('RCAN tail.0.2 64->256', 2 * t, 64, 256, 'linear'),
-        ('RCAN tail.1 64->3', 4 * t, 64, 3, 'linear'),
+        ('MoSR tail, FlexNet ConvBlock 128->64 mish', t, 128, 64, 'mish'),
+        ('MoSR/FlexNet shortcut 3->64 mish', t, 3, 64, 'mish'),
+        ('MoSR/FlexNet shortcut, FlexNet ConvBlock 64->64 mish', t, 64, 64, 'mish'),
+        ('RCAN/RHA tail.0.0 64->256', t, 64, 256, 'linear'),
+        ('RCAN/RHA tail.0.2 64->256', 2 * t, 64, 256, 'linear'),
+        ('RCAN/RHA tail.1 64->3', 4 * t, 64, 3, 'linear'),
         ('GateR enc1.0 64->32', t, 64, 32, 'linear'),
         ('GateR enc2.0 128->64', t // 2, 128, 64, 'linear'),
         ('GateR latent.0 256->128', t // 4, 256, 128, 'linear'),
@@ -309,7 +343,7 @@ def conv_family_shapes(n: int, tile: int) -> list[dict]:
         ('MoESR MSG down.0 64->16', t, 64, 16, 'linear'),
         ('MoESR MSG fc1 64->320', t // 2, 64, 320, 'linear'),
         ('MoESR MSG fc2 160->64 mish', t // 2, 160, 64, 'mish'),
-        ('MoESR MSG up.0 64->256', t // 2, 64, 256, 'linear'),
+        ('MoESR MSG up.0, RTMoSR fc1 64->256', t // 2, 64, 256, 'linear'),
         ('GateRv2/GateRV3 stem 3->32', t, 3, 32, 'linear'),
         ('GateRV3 SPAB c1 c2 32->32 silu', t, 32, 32, 'silu'),
         ('GateRV3 SPAB c3, sisr_end_conv 32->32', t, 32, 32, 'linear'),
@@ -320,6 +354,23 @@ def conv_family_shapes(n: int, tile: int) -> list[dict]:
         ('GateRv2/GateRV3 decode.1 128->256', t // 4, 128, 256, 'linear'),
         ('GateRv2/GateRV3 decode.2 64->128', t // 2, 64, 128, 'linear'),
         ('GateRv2/GateRV3 dim_to_in 32->3', t, 32, 3, 'linear'),
+        ('RTMoSR unshuffle stem 12->64', t // 2, 12, 64, 'linear'),
+        ('RTMoSR poll.1 64->256', t // 4, 64, 256, 'linear'),
+        ('RTMoSR fc2 128->64 mish', t // 2, 128, 64, 'mish'),
+        ('RTMoSR head 64->48', t // 2, 64, 48, 'linear'),
+        ('SMoSR SMB body.0 3->64 silu', t + 4, 3, 64, 'silu'),
+        ('SMoSR SMB body.0 / body.2 64->64 silu', t + 4, 64, 64, 'silu'),
+        ('SMoSR end_block.1 64->64', t + 4, 64, 64, 'linear'),
+        ('SMoSR head 112->48', t + 4, 112, 48, 'linear'),
+        ('FlexNet head 128->48', t, 128, 48, 'linear'),
+        ('GFISRV2 fc2 96->64 silu', t, 96, 64, 'silu'),
+        ('GFISRV2 tail 64->64 silu', t, 64, 64, 'silu'),
+        ('FIGSR stem 3->64', t + 8, 3, 64, 'linear'),
+        ('FIGSR fc1 64->256', t + 8, 64, 256, 'linear'),
+        ('FIGSR convhw 8->8', t + 8, 8, 8, 'linear'),
+        ('FIGSR fc2 128->64', t + 8, 128, 64, 'linear'),
+        ('FIGSR tail 64->64', t + 8, 64, 64, 'linear'),
+        ('FIGSR head 64->48', t + 8, 64, 48, 'linear'),
     ]
     return [{'name': name, 'entry': 'act', 'n': n, 'h': h, 'w': h, 'cin': cin, 'cout': cout, 'act': act}
             for name, h, cin, cout, act in rows]
@@ -545,13 +596,16 @@ def window_classes(cfg: dict) -> tuple[int, list[tuple]]:
     kernel takes (head_dim <= 64): swin1 (embed, heads), swin2 and swin4
     (embed + gc and + 3 gc, heads - width % heads; shifted).  FDAT: the
     spatial blocks, unshifted.  OmniSR: the block and the grid attention,
-    one shape (the grid's windows are strided, not smaller), unmasked."""
+    one shape (the grid's windows are strided, not smaller), unmasked.
+    FlexNet: one head over the full width, unmasked, with a zero bias."""
     if 'split_size' in cfg:
         sp0, sp1 = cfg['split_size']
         c, h = cfg['embed_dim'] // 2, cfg['num_heads'][0] // 2
         return max(sp0, sp1), [(f' ({sp0}, {sp1})', (sp0, sp1), c, h, 'both'),
                                (f' ({sp1}, {sp0})', (sp1, sp0), c, h, 'both')]
     ws = cfg['window_size']
+    if 'hidden_rate' in cfg:  # FlexNet
+        return ws, [('', (ws, ws), cfg['dim'], 1, 'unmasked')]
     if 'res_num' in cfg:  # OmniSR
         f = cfg['num_feat']
         return ws, [(' block and grid', (ws, ws), f, f // (f // 4), 'unmasked')]
@@ -581,7 +635,8 @@ def wattn_shapes(n_img: int, tile: int, cfg: dict, others: tuple[dict, ...]) -> 
     'random' (30% of the entries -100, so no window's tile is all zero: the
     correctness rows), 'shift' (the model's own shift mask of the bench
     image, ``rect_attn_mask``: the bench forwards' masked launches are timed
-    by these rows), 'zero' (every tile all zero)."""
+    by these rows), 'zero' (every tile all zero).  ``zero_bias``: FlexNet's
+    rows, whose attention adds a zero bias (the others a random one)."""
     ws, c, h = cfg['window_size'], cfg['embed_dim'], cfg['num_heads'][0]
     n = ws * ws
     nw_bench = (tile // ws) ** 2
@@ -624,7 +679,7 @@ def wattn_shapes(n_img: int, tile: int, cfg: dict, others: tuple[dict, ...]) -> 
                 if masks != 'masked':
                     rows.append((f'{nm} {name}', imgs * onw, on, oc, oh, None, None, (sh, sw), None))
     keys = ('name', 'windows', 'n', 'c', 'heads', 'nw', 'mask', 'split', 'image')
-    return [dict(zip(keys, r)) for r in rows]
+    return [dict(zip(keys, r), zero_bias=r[0].startswith('FlexNet')) for r in rows]
 
 
 def wattn_timed_rows(shapes: list[dict]) -> dict:
@@ -732,6 +787,8 @@ def phase_wattn_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
         scale = hd ** -0.5
         qkv = torch.randn((w, n, 3 * c), generator=gen, device=device)
         bias = torch.randn((h, n, n), generator=gen, device=device) * 0.5
+        if s['zero_bias']:
+            bias.zero_()
         mask = None
         if s['mask'] == 'random':
             mask = torch.where(torch.rand((nw, n, n), generator=gen, device=device) < 0.3, -100.0, 0.0)
@@ -767,7 +824,7 @@ def phase_wattn_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
         del gotb, wantb, goth, wanth, qkvh, qh, kh, vh
 
         row = {'name': s['name'], 'windows': w, 'n': n, 'c': c, 'heads': h, 'mask_windows': nw,
-               'mask': s['mask'], 'nonzero_mask_windows': nonzero_windows,
+               'mask': s['mask'], 'zero_bias': s['zero_bias'], 'nonzero_mask_windows': nonzero_windows,
                'max_abs_err_f32': err32, 'max_abs_err_bf16': errb, 'max_abs_err_f16': errh}
         row['ms'] = _ms(lambda: wa.window_mha(qb, kb, vb, bias, mask, num_heads=h, scale=scale), reps)
         row['plain_ms'] = _ms(lambda: wa.window_mha_ref(qb, kb, vb, bias, mask, num_heads=h, scale=scale), reps)
@@ -1346,7 +1403,7 @@ def main() -> int:
 
     sw = SWINIR
     n_blocks = sum(sw['depths'])
-    wshapes = wattn_shapes(BENCH['batch'], BENCH['tile'], sw, others=(ATD, HAT, DAT, RGT, DRCT, FDAT, OMNI))
+    wshapes = wattn_shapes(BENCH['batch'], BENCH['tile'], sw, others=(ATD, HAT, DAT, RGT, DRCT, FDAT, OMNI, FLEXNET))
     w_rows = phase_wattn_kernels('cuda', wshapes, reps=10)
     log('wattn_kernels', f32_tol=F32_TOL, bf16_rtol=BF16_RTOL, bf16_atol=WATTN_BF16_ATOL, rows=json.dumps(w_rows))
 
@@ -1695,36 +1752,73 @@ def main() -> int:
 
     def flop_count(sd: dict, cfg: dict) -> dict:
         """torch.utils.flop_counter's count of one f32 forward on the CPU,
-        scaled to a batch of 8 of 256^2 images, and its ratio to
-        bench_families.md's XLA count of the reference-default forward (a
-        work count, not a time).  Taken on one 256^2 image where the model
-        pads by a fixed halo (CUGAN), else on 64^2 (the count scales with
-        the pixels)."""
+        scaled to bench_families.md's batch (``flop_batch``, default 8) of
+        its tile (``flop_tile``, default 256), and its ratio to that file's
+        XLA count of the reference-default forward (a work count, not a
+        time).  Taken on one ``flop_size`` image (default 64^2: the count
+        scales with the pixels; the tile where the model pads by a fixed
+        halo or transforms whole maps).  With ``dft`` it also counts the
+        FLOPs the JAX package's matmul DFT (``_dft_mats``: 4 h w (w/2 + 1) +
+        8 h^2 (w/2 + 1) per plane, each way, for 2 <= h, w <= 1024) spends
+        on the same transforms, which torch.fft does without matmuls and the
+        flop counter does not see, and the ratio of the sum."""
         from torch.utils.flop_counter import FlopCounterMode
 
+        from resselt_tpu_torch.nn import spectral
+
         size = cfg.get('flop_size', 64)
+        scale = cfg.get('flop_batch', 8) * (cfg.get('flop_tile', 256) / size) ** 2
         cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
-        with FlopCounterMode(display=False) as counter:
-            cpu(np.random.default_rng(0).random((1, size, size, 3), dtype=np.float32))
-        gflop = counter.get_total_flops() * 8 * (256 // size) ** 2 / 1e9
+        dft, wrapped = [0], (spectral.rfft2_planes, spectral.irfft2_planes)
+
+        def mm_dft(planes: int, h: int, w: int) -> None:
+            if 2 <= h <= 1024 and 2 <= w <= 1024:
+                dft[0] += planes * (4 * h * w * (w // 2 + 1) + 8 * h * h * (w // 2 + 1))
+
+        def rfft2(x, *args, **kwargs):
+            mm_dft(x.numel() // (x.shape[-2] * x.shape[-1]), x.shape[-2], x.shape[-1])
+            return wrapped[0](x, *args, **kwargs)
+
+        def irfft2(re, im, s, *args, **kwargs):
+            mm_dft(re.numel() // (re.shape[-2] * re.shape[-1]), int(s[0]), int(s[1]))
+            return wrapped[1](re, im, s, *args, **kwargs)
+
+        if cfg.get('dft'):
+            spectral.rfft2_planes, spectral.irfft2_planes = rfft2, irfft2
+        try:
+            with FlopCounterMode(display=False) as counter:
+                cpu(np.random.default_rng(0).random((1, size, size, 3), dtype=np.float32))
+        finally:
+            spectral.rfft2_planes, spectral.irfft2_planes = wrapped
+        gflop = counter.get_total_flops() * scale / 1e9
         ref = cfg.get('xla_gflop')
-        return {'gflop_per_8x256sq': round(gflop, 1), 'xla_gflop_reference_default': ref,
-                'ratio_to_xla_count': round(gflop / ref, 3) if ref else None}
+        out = {'gflop': round(gflop, 1), 'at': f"{cfg.get('flop_batch', 8)} x {cfg.get('flop_tile', 256)}^2",
+               'xla_gflop_reference_default': ref, 'ratio_to_xla_count': round(gflop / ref, 3) if ref else None}
+        if cfg.get('dft'):
+            out['matmul_dft_gflop'] = round(dft[0] * scale / 1e9, 1)
+            out['ratio_with_matmul_dft'] = round((gflop + out['matmul_dft_gflop']) / ref, 3)
+        return out
 
     def conv_family(stem: str, cfg: dict, sd: dict, arch: str, expect: dict, n_conv: int, tol: float,
-                    extra_models: tuple = (), serve_config: dict | None = None):
+                    extra_models: tuple = (), serve_config: dict | None = None, n_wattn: int | None = None):
         """Load, model and serve phases of one conv family: its conv3x3
         launches per forward asserted (``n_conv``, and the count the CPU's
         forward routes) in the model phase and the bench forwards, which
         may launch no other kernel and only shapes conv_family_kernels
         checked; ``expect``: config fields the loader must infer;
-        ``extra_models``: (label, state dict, launches per forward) of small
-        variants held card against CPU in f32; ``serve_config``:
-        ``with_config`` fields of the served model (SpanPP's ``eval_scale``:
-        the tiled driver needs an integer scale); a ``cfg`` with
-        ``xla_gflop`` reports the forward's FLOP count against it.  Returns
+        ``extra_models``: (label, state dict, launches per forward[,
+        window_mha launches, plain-path attentions]) of small variants held
+        card against CPU in f32; ``serve_config``: ``with_config`` fields of
+        the served model (SpanPP's ``eval_scale``: the tiled driver needs an
+        integer scale); a ``cfg`` with ``xla_gflop`` reports the forward's
+        FLOP count against it; ``n_wattn``: the window_mha launches per
+        forward of a family that also runs the window-attention kernel
+        (FlexNet), asserted as the conv3x3 count, with no attention on the
+        plain path and every window shape checked by wattn_kernels.  Returns
         the serve phase's fields and (launches, per bench forward, conv ms
-        per bench forward, launches per forward by row)."""
+        per bench forward, launches per forward by row, and with
+        ``n_wattn`` the window_mha launches, per bench forward and ms per
+        bench forward)."""
         with tempfile.TemporaryDirectory() as tmp:
             cpu_params = resselt_tpu_torch.load_from_state_dict(sd, device='cpu').params
             params = {k: v.numpy() for k, v in cpu_params.items()}
@@ -1736,18 +1830,26 @@ def main() -> int:
             log(f'{stem}_load', arch=model.arch_id, metadata=repr(model.metadata), config=repr(model.config),
                 files='safetensors,pth', params=len(params), checkpoint_keys=len(sd))
 
-            res = phase_model(model, sd, 64, fc.fused_conv3x3_act, tol=tol)
+            entry = (fc.fused_conv3x3_act, wa.window_mha)
+            res = phase_model(model, sd, 64, entry, tol=tol)
             cpu_count = cpu_routed_convs(sd)
-            if not res['launches_per_forward'] == cpu_count == n_conv:
-                raise AssertionError(f"{res['launches_per_forward']} conv3x3 launches per {cfg['name']} forward, "
+            n_act, n_w = res['launches_per_forward']
+            if not n_act == cpu_count == n_conv:
+                raise AssertionError(f"{n_act} conv3x3 launches per {cfg['name']} forward, "
                                      f'{cpu_count} routed on the CPU, expected {n_conv}')
+            if (n_w, res['plain_attentions_per_forward']) != (n_wattn or 0, 0):
+                raise AssertionError(f"{n_w} window_mha launches and {res['plain_attentions_per_forward']} plain-path "
+                                     f"attentions per {cfg['name']} forward, expected {n_wattn or 0} and 0")
+            res['launches_per_forward'] = n_act if n_wattn is None else [n_act, n_w]
             res['cpu_routed_per_forward'] = cpu_count
-            for label, esd, n in extra_models:
+            for label, esd, n, *attention in extra_models:
                 extra = resselt_tpu_torch.load_from_state_dict(esd, device='cuda')
-                eres = phase_model(extra, esd, 64, fc.fused_conv3x3_act, bf16=False, tol=tol)
+                eres = phase_model(extra, esd, 64, entry, bf16=False, tol=tol)
                 eres['cpu_routed_per_forward'] = cpu_routed_convs(esd)
-                if not eres['launches_per_forward'] == eres['cpu_routed_per_forward'] == n:
-                    raise AssertionError(f"{cfg['name']} {label}: {eres}, expected {n} conv3x3 launches")
+                got = [*eres['launches_per_forward'], eres['plain_attentions_per_forward']]
+                if not got[0] == eres['cpu_routed_per_forward'] == n or got[1:] != (attention or [0, 0]):
+                    raise AssertionError(f"{cfg['name']} {label}: {eres}, expected {n} conv3x3 launches and "
+                                         f'(window_mha, plain) {attention or [0, 0]}')
                 res[label] = json.dumps(eres)
                 del extra
             if 'xla_gflop' in cfg:
@@ -1761,17 +1863,36 @@ def main() -> int:
             serve['peak_memory_gb'] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
             counts = serve.pop('bench_counts')
             serve.pop('bench_paths')
-            serve.pop('bench_plain')
-            serve.pop('shapes')
-            launches = serve.pop('launches')['act']
-            bench = check_bench_counts(counts, {'act'}, n_conv, reps, f_checked)
+            if serve.pop('bench_plain')[0]:
+                raise AssertionError(f"the {cfg['name']} bench forwards sent window attentions to the plain path")
+            phase_shapes = serve.pop('shapes')
+            launches = serve.pop('launches')
+            mine = {'act': n_conv, **({} if n_wattn is None else {'wattn': n_wattn})}
+            check_bench_counts(counts, set(mine), sum(mine.values()), reps, f_checked | w_checked)
+            for name, per_forward in mine.items():
+                if counts[name][0] != per_forward * reps:
+                    raise AssertionError(f"{counts[name][0]} {name} launches in {reps} {cfg['name']} bench forwards, "
+                                         f'expected {per_forward} each')
             per_row = {r['name']: counts['act'][1].get(shape_key(s), 0) / reps for r, s in zip(f_rows, fshapes)}
             conv_ms = sum(r['ms'] * per_row[r['name']] for r in f_rows)
+            figures = (launches['act'], counts['act'][0] / reps, conv_ms, {k: v for k, v in per_row.items() if v})
+            if n_wattn is not None:
+                unchecked = {('wattn', key) for key in phase_shapes['wattn']} - w_checked
+                if unchecked:
+                    raise AssertionError(f'the serve phase ran window shapes wattn_kernels did not check: '
+                                         f'{sorted(unchecked)}')
+                timed, w_ms = wattn_timed_rows(wshapes), 0.0
+                for i, (r, s) in enumerate(zip(w_rows, wshapes)):
+                    key = wattn_shape_key(s)
+                    n = counts['wattn'][1].get(key, 0) / reps if timed[key] == i else 0.0
+                    r['per_forward'] = r.get('per_forward', 0) + n
+                    w_ms += r['ms'] * n
+                figures += ((launches['wattn'], counts['wattn'][0] / reps, w_ms),)
             serve.update(dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], tiled_tile=cfg['tile'],
                          tiled_halo=_resolve_halo_hint(served, cfg['tile'], torch.bfloat16))
             del model, served
             torch.cuda.empty_cache()
-            return serve, (launches, bench / reps, conv_ms, {k: v for k, v in per_row.items() if v})
+            return serve, figures
 
     c_figs = {}
     sp = SPANPP
@@ -1904,8 +2025,101 @@ def main() -> int:
     log('gaterv3_serve', launches=c_figs['GateRV3'][0], launches_per_bench_forward=c_figs['GateRV3'][1],
         conv_ms_per_bench_forward=c_figs['GateRV3'][2], per_forward_by_row=json.dumps(c_figs['GateRV3'][3]), **serve)
 
+    # -- the last eight: RTMoSR, SMoSR, RHA, FlexNet (with the window attention) and the spectral four ----------
+    from resselt_tpu_torch.zoo import (make_figsr, make_flexnet, make_gfisr, make_gfisrv2, make_lawfft, make_rha,
+                                       make_rtmosr, make_smosr)
+
+    def last_eight(stem: str, cfg: dict, sd: dict, expect: dict, n_conv: int, tol: float, extra_models: tuple = (),
+                   n_wattn: int | None = None):
+        """conv_family's three phases for one of the eight, its serve line
+        logged; returns its figures."""
+        serve, fig = conv_family(stem, cfg, sd, cfg['name'], expect, n_conv, tol, extra_models, n_wattn=n_wattn)
+        if n_wattn is not None:
+            serve.update(wattn_launches_per_bench_forward=fig[4][1], wattn_ms_per_bench_forward=fig[4][2])
+        log(f'{stem}_serve', launches=fig[0], launches_per_bench_forward=fig[1], conv_ms_per_bench_forward=fig[2],
+            per_forward_by_row=json.dumps(fig[3]), **serve)
+        return fig
+
+    rt = RTMOSR
+    c_figs['RTMoSR'] = last_eight(
+        'rtmosr', rt, make_rtmosr(rt['dim'], rt['n_blocks'], rt['scale'], seed=0),
+        {'scale': 2, 'dim': 64, 'ffn_expansion': 2.0, 'n_blocks': 2, 'unshuffle_mod': True, 'dccm': True, 'se': True},
+        1 + 3 * rt['n_blocks'] + 1, MODEL_TOL,  # stem; fc1, poll.1, fc2 a block; head
+        extra_models=(('plain_fc2_4x_model', make_rtmosr(32, 2, 4, unshuffle_mod=False, dccm=False, se=False, seed=1),
+                       1 + 2 * 2 + 1),))
+
+    sm = SMOSR
+    n_smb = 2 + sm['n_mb'] + 1
+    c_figs['SMoSR'] = last_eight(
+        'smosr', sm, make_smosr(sm['dim'], sm['n_mb'], sm['scale'], seed=0),
+        {'dim': 64, 'scale': 4, 'rep': False, 'n_mb': 2, 'upsampler': 'pixelshuffledirect'},
+        2 * n_smb + 1 + 1, LAST_EIGHT_TOL,  # body.0 and body.2 a block; end_block.1; head
+        extra_models=(('rep_dysample_2x_model', make_smosr(16, 1, 2, rep=True, upsampler='dysample', seed=1),
+                       2 * 4 + 1 + 2),
+                      ('pa_up_4x_model', make_smosr(16, 1, 4, upsampler='pa_up', seed=2), 2 * 4 + 1 + 5)))
+
+    rh = RHA
+    c_figs['RHA'] = last_eight(
+        'rha', rh, make_rha(rh['dim'], rh['scale'], down_list=rh['down_list'], res_blocks=rh['res_blocks'], seed=0),
+        {'dim': 64, 'scale': 4, 'down_list': (8, 4, 2, 1), 'res_blocks': 6, 'expansion_ratio': 1.5,
+         'upsample': 'pixelshuffle', 'window_size': 8, 'unshuffle_mod': False},
+        1 + 2 * len(rh['down_list']) * rh['res_blocks'] + 4, LAST_EIGHT_TOL,  # stem; fc1, fc2 a block; the tail's 4
+        extra_models=(('unshuffle_2x_model', make_rha(32, 2, mid_dim=32, down_list=(2, 1), res_blocks=2,
+                                                      upsample='pixelshuffledirect', unshuffle_mod=True, seed=1),
+                       1 + 8 + 1),))
+
+    fx = FLEXNET
+    n_groups = len(fx['num_blocks'])
+    c_figs['FlexNet'] = last_eight(
+        'flexnet', fx, make_flexnet(fx['dim'], fx['num_blocks'], fx['scale'], window_size=fx['window_size'],
+                                    hidden_rate=fx['hidden_rate'], seed=0),
+        {'dim': 64, 'scale': 4, 'num_blocks': (6,) * 6, 'window_size': 8, 'hidden_rate': 4, 'pipeline_type': 'linear',
+         'upsampler': 'ps'},
+        2 + 1 + 2 * n_groups + 1, LAST_EIGHT_TOL, n_wattn=sum(fx['num_blocks']),  # short cut; stem; ConvBlocks; head
+        extra_models=(('meta_dys_2x_model', make_flexnet(16, (1, 1, 1, 1), 2, hidden_rate=2, pipeline_type='meta',
+                                                         upsampler='dys', seed=1), 2 + 1 + 14 + 6, 6, 1),
+                      ('linear_n+c_4x_channel_norm_model', make_flexnet(32, (3, 1), 4, hidden_rate=2, channel_norm=True,
+                                                                        upsampler='n+c', seed=2),
+                       2 + 1 + 4 + 1 + 4, 4, 0)))
+    w_figs_flexnet = {'wattn': c_figs['FlexNet'][4]}
+
+    gf = GFISR
+    c_figs['GFISR'] = last_eight(
+        'gfisr', gf, make_gfisr(gf['dim'], gf['n_blocks'], gf['scale'], seed=0),
+        {'dim': 64, 'n_blocks': 24, 'scale': 4, 'expansion_ratio': 1.5, 'fft_mode': True,
+         'upsampler': 'pixelshuffledirect', 'pixel_unshuffle': False},
+        1 + 2 * gf['n_blocks'] + 1, LAST_EIGHT_TOL,
+        extra_models=(('unshuffle_2x_pa_up_model', make_gfisr(16, 5, 2, upsampler='pa_up', mid_dim=16,
+                                                              pixel_unshuffle=True, seed=1), 1 + 10 + 5),
+                      ('lda_2x_model', make_gfisr(16, 5, 2, upsampler='lda', mid_dim=16, seed=2), 1 + 10 + 2)))
+    g2_ = GFISRV2
+    c_figs['GFISRV2'] = last_eight(
+        'gfisrv2', g2_, make_gfisrv2(g2_['dim'], g2_['n_blocks'], g2_['scale'], seed=0),
+        {'dim': 64, 'n_blocks': 22, 'scale': 4, 'expansion_ratio': 1.5, 'upsampler': 'pixelshuffledirect',
+         'pixel_unshuffle': False},
+        1 + 2 * g2_['n_blocks'] + 2 + 1, LAST_EIGHT_TOL,
+        extra_models=(('transpose_conv_3x_model', make_gfisrv2(16, 4, 3, upsampler='transpose+conv', mid_dim=16,
+                                                               seed=1), 1 + 8 + 2 + 1),))
+    fg = FIGSR
+    c_figs['FIGSR'] = last_eight(
+        'figsr', fg, make_figsr(fg['dim'], fg['n_blocks'], fg['scale'], seed=0),
+        {'dim': 64, 'n_blocks': 18, 'scale': 4, 'expansion_ratio': 2.0, 'gc': 8, 'square_kernel_size': 3,
+         'band_kernel_size': 11},
+        1 + 3 * fg['n_blocks'] + 1 + 1, LAST_EIGHT_TOL,
+        extra_models=(('square_5_dysample_2x_model', make_figsr(16, 2, 2, upsampler='dysample', mid_dim=16, gc=4,
+                                                                square_kernel_size=5, seed=1), 1 + 4 + 1 + 1),))
+    lw = LAWFFT
+    c_figs['LAWFFT'] = last_eight(
+        'lawfft', lw, make_lawfft(lw['dim'], lw['n_rblock'], lw['n_mblock'], lw['scale'], seed=0),
+        {'dim': 64, 'n_rblock': 4, 'n_mblock': 6, 'scale': 4, 'window_size': 8, 'upsampler': 'pixelshuffledirect',
+         'unshuffle_mod': False},
+        2, LAST_EIGHT_TOL,
+        extra_models=(('unshuffle_2x_pixelshuffle_model', make_lawfft(16, 1, 2, 2, unshuffle_mod=True,
+                                                                      upsampler='pixelshuffle', mid_dim=16, seed=1),
+                       1 + 4),))
+
     w_figs = {'ATD-light': atd_fig, 'HAT-S': hat_fig, 'DAT-S': dat_fig, 'RGT-S': rgt_fig, 'DRCT': drct_fig,
-              'FDAT-M': fdat_fig, 'OmniSR': omni_fig}
+              'FDAT-M': fdat_fig, 'OmniSR': omni_fig, 'FlexNet': w_figs_flexnet}
     head = next(r for r in rows if r['name'] == 'rdb stage0 64->192')
     lk_head = next(r for r in lk_rows if r['name'] == 'bench 16->16')
     w_head = next(r for r in w_rows if r['name'] == 'bench masked')

@@ -1,12 +1,8 @@
 """Architecture registration with an explicit, deterministic order.
 
-Counterpart of ``resselt_tpu/archs/__init__.py``.  The JAX package registers
-31 families in this order (strong fingerprints first, the weak single-key
-spanplus last): swinir, hat, omni, drct, fdat, dat, rgt, atd, spanpp, span,
-esrgan, plksr, mosrv2, moesr, rtmosr, smosr, rha, flexnet, gaterv3,
-gaterv2, lawfft, gfisrv2, figsr, gfisr, gater, cugan, rcan, eimn, mosr,
-compact, spanplus.  ``_ARCH_MODULES`` lists the families the port has, in
-that order; a later slice inserts its family where that order puts it.
+Counterpart of ``resselt_tpu/archs/__init__.py``: the same 31 families in
+the same order (strong fingerprints first, the weak single-key spanplus
+last), so that a state dict detects as the same family in both packages.
 """
 
 from __future__ import annotations
@@ -17,7 +13,8 @@ from ..core import Registry
 
 _ARCH_MODULES: list[str] = [
     'swinir', 'hat', 'omni', 'drct', 'fdat', 'dat', 'rgt', 'atd', 'spanpp', 'span', 'esrgan', 'plksr', 'mosrv2',
-    'moesr', 'gaterv3', 'gaterv2', 'gater', 'cugan', 'rcan', 'eimn', 'mosr', 'compact', 'spanplus',
+    'moesr', 'rtmosr', 'smosr', 'rha', 'flexnet', 'gaterv3', 'gaterv2', 'lawfft', 'gfisrv2', 'figsr', 'gfisr',
+    'gater', 'cugan', 'rcan', 'eimn', 'mosr', 'compact', 'spanplus',
 ]
 
 internal_registry = Registry()

@@ -102,6 +102,11 @@ def prelu(x, weight):
     return torch.where(x >= 0, x, x * w)
 
 
+def hardsigmoid(x):
+    """``clip(x / 6 + 0.5, 0, 1)``, the JAX package's form."""
+    return torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)
+
+
 def softmax(x, dim: int = -1):
     return torch.softmax(x, dim=dim)
 

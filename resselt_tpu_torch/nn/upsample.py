@@ -176,6 +176,16 @@ def lda_aqu(p: PTree, x, scale_factor: int, range_factor: float = 11.0):
     return out[..., 0, :].permute(0, 2, 1, 3).reshape(b, oh, ow, c)
 
 
+def uni_upsample_v3_convs(params, key: str, mode: str, scale: int) -> tuple[dict, tuple]:
+    """``ops.conv_route.prepare_convs``'s ``groups`` and ``skip`` for a
+    UniUpsampleV3 under ``key``: LDA_AQU's depthwise offset conv, and a
+    ``transpose+conv`` tail's transposed weights (only cast)."""
+    groups = {k[: -len('.weight')]: v.shape[0] for k, v in params.items()
+              if k.startswith(f'{key}.') and k.endswith('.conv_offset.0.weight')}
+    skip = (f'{key}.0', f'{key}.2') if mode == 'transpose+conv' and scale != 1 else ()
+    return groups, skip
+
+
 def uni_upsample_v3(p: PTree, x, mode: str, scale: int, out_dim: int, mid_dim: int, group: int = 4,
                     dysample_end_kernel: int = 1):
     """UniUpsampleV3, the eight modes of :data:`SAMPLE_MODS3`.  At scale 1

@@ -93,8 +93,9 @@ def prepare_convs(params: Mapping[str, torch.Tensor], dtype: torch.dtype,
 
 
 def conv(c: Conv, x: torch.Tensor, act: str = 'linear') -> torch.Tensor:
-    """Run ``c`` on contiguous NHWC ``x``, then ``act``: fused in the kernel
-    for a routed conv, after ``F.conv2d`` for the others."""
+    """Run ``c`` on NHWC ``x``, then ``act``: fused in the kernel for a
+    routed conv (which reads a contiguous copy of a channel slice), after
+    ``F.conv2d`` for the others."""
     if c.kernel:
-        return fused_conv3x3_act(x, c.w, c.b, act)
+        return fused_conv3x3_act(x.contiguous(), c.w, c.b, act)
     return _ACTS[act](F.conv2d(x, c.w, c.b, padding=c.padding, groups=c.groups))

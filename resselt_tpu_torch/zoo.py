@@ -14,7 +14,10 @@ variants), and ``make_spanpp`` and ``make_rcan``, written from the JAX
 loaders and detection keys; ``make_gater`` (the JAX package's arrays; also
 an FLPVT2 latent), and ``make_cugan``, ``make_mosrv2``, ``make_moesr``,
 ``make_gaterv2`` and ``make_gaterv3``, written from the JAX loaders,
-detection keys and forwards, with their MetaUpsample buffers.
+detection keys and forwards, with their MetaUpsample buffers; so are
+``make_rtmosr``, ``make_smosr``, ``make_rha``, ``make_flexnet``,
+``make_gfisr``, ``make_gfisrv2``, ``make_figsr`` and ``make_lawfft`` (with
+their scalar config buffers).
 """
 
 from __future__ import annotations
@@ -1398,4 +1401,522 @@ def make_gaterv3(dim: int = 32, enc_blocks=(2, 2, 4), dec_blocks=(4, 2, 2), num_
     if gamma:
         m.t('gamma', 1, in_nc, 1, 1)
         m.sd['gamma'] += 1.0
+    return m.sd
+
+
+# -- the last eight: RTMoSR, SMoSR, RHA, FlexNet and the four spectral families ---------------
+
+
+def _omnishift(m: _Maker, key: str, c: int, bias: bool = True):
+    """An OmniShift on ``c`` channels (reference rtmosr/arch.py:210-282):
+    per-channel ``alpha1`` .. ``alpha4`` near 1, depthwise 1x1 / 3x3 / 5x5
+    convs and the collapsed ``conv5x5_reparam``; FlexNet's bias-free variant
+    (``bias=False``) has one ``alpha`` vector of the four weights instead."""
+    if bias:
+        for i in range(1, 5):
+            m.t(f'{key}.alpha{i}', c)
+            m.sd[f'{key}.alpha{i}'] += 1.0
+    else:
+        m.t(f'{key}.alpha', 4)
+        m.sd[f'{key}.alpha'] += 1.0
+    for name, k in (('conv1x1', 1), ('conv3x3', 3), ('conv5x5', 5), ('conv5x5_reparam', 5)):
+        m.t(f'{key}.{name}.weight', c, 1, k, k)
+        if bias:
+            m.t(f'{key}.{name}.bias', c)
+
+
+def make_rtmosr(dim: int = 64, n_blocks: int = 2, scale: int = 2, ffn_expansion: float = 2.0,
+                unshuffle_mod: bool = True, dccm: bool = True, se: bool = True, se_reduction: int = 16,
+                seed: int = 0):
+    """RTMoSR layout (reference rtmosr/arch.py:340-386): the RepConv stem
+    ``to_feat`` (``to_feat.1`` after a pixel unshuffle by 4 // scale with
+    ``unshuffle_mod`` below 4x), GatedCNNBlocks (RMSNorm ``scale`` /
+    ``offset``, RepConv ``fc1`` to 2 x hidden, the pooled RepConv
+    ``conv.0.poll.1`` dim -> 4 dim, an OmniShift on 4 dim, a CSE
+    ``conv.2`` with ``se``, RepConv ``fc2`` with ``dccm`` or a 1x1), and the
+    RepConv ``to_img.0``.  Its defaults (dim 64, ffn 2, 2x with the
+    unshuffle stem) and the CSE's reduction 16 are the zoo's choice:
+    ``RTMoSR()``'s are not in this repo."""
+    m = _Maker(seed)
+    hidden = int(ffn_expansion * dim)
+    unshuffle = unshuffle_mod and scale < 4
+    if unshuffle:
+        _repconv(m, 'to_feat.1', 3 * (4 // scale) ** 2, dim)
+    else:
+        _repconv(m, 'to_feat', 3, dim)
+    for i in range(n_blocks):
+        b = f'body.{i}'
+        m.t(f'{b}.norm.scale', dim)
+        m.sd[f'{b}.norm.scale'] += 1.0
+        m.t(f'{b}.norm.offset', dim)
+        _repconv(m, f'{b}.fc1', dim, 2 * hidden)
+        _repconv(m, f'{b}.conv.0.poll.1', dim, 4 * dim)
+        _omnishift(m, f'{b}.conv.1', 4 * dim)
+        if se:
+            m.conv(f'{b}.conv.2.squeezing.0', 4 * dim // se_reduction, 4 * dim, 1)
+            m.conv(f'{b}.conv.2.squeezing.2', 4 * dim, 4 * dim // se_reduction, 1)
+        if dccm:
+            _repconv(m, f'{b}.fc2', hidden, dim)
+        else:
+            m.conv(f'{b}.fc2', dim, hidden, 1)
+    _repconv(m, 'to_img.0', dim, 3 * (4 if unshuffle else scale) ** 2)
+    return m.sd
+
+
+def _doconv(m: _Maker, key: str, cin: int, cout: int, k: int):
+    """A DOConv2d (reference smosr/arch.py:211-293): ``W`` (cout, cin,
+    k²), for k > 1 the depthwise ``D`` and its identity ``d_diag`` (cin,
+    k², k²), the scalar ``mul`` near 1, ``bias`` and the ``eval_conv``
+    buffers."""
+    m.t(f'{key}.W', cout, cin, k * k)
+    if k > 1:
+        m.t(f'{key}.D', cin, k * k, k * k)
+        m.sd[f'{key}.d_diag'] = np.tile(np.eye(k * k, dtype=np.float32), (cin, 1, 1))
+    m.sd[f'{key}.mul'] = np.ones(1, np.float32)
+    m.t(f'{key}.bias', cout)
+    m.conv(f'{key}.eval_conv', cout, cin, k)
+
+
+def _smosr_conv(m: _Maker, key: str, cin: int, cout: int, k: int, rep: bool, gain: int = 2):
+    """One of SMoSR's convs: a DOConv2d, or with ``rep`` a ConvNXC
+    (reference smosr/arch.py:295-377: DOConv 1x1 ``sk``, DOConvs 1x1 ->
+    k x k -> 1x1 through ``gain`` times the widths) with its own
+    ``eval_conv`` buffers beside the nested ones."""
+    if not rep:
+        _doconv(m, key, cin, cout, k)
+        return
+    _doconv(m, f'{key}.sk', cin, cout, 1)
+    _doconv(m, f'{key}.conv.0', cin, cin * gain, 1)
+    _doconv(m, f'{key}.conv.1', cin * gain, cout * gain, k)
+    _doconv(m, f'{key}.conv.2', cout * gain, cout, 1)
+    m.conv(f'{key}.eval_conv', cout, cin, k)
+
+
+_V4_MODS = ('conv', 'pixelshuffledirect', 'pixelshuffle', 'nearest+conv', 'dysample', 'pa_up')
+
+
+def make_smosr(dim: int = 64, n_mb: int = 2, scale: int = 4, in_ch: int = 3, out_ch: int = 3, rep: bool = False,
+               upsampler: str = 'pixelshuffledirect', mid_dim: int = 32, d_kernel: int = 3, group: int = 4,
+               seed: int = 0):
+    """SMoSR layout (reference smosr/arch.py:419-470): the 1x1 ``short``
+    from ``in_ch`` to ``in_ch * scale²`` channels; SMBs ``blocks_1.0``,
+    ``blocks_1.1``, ``blocks_2.*`` and ``end_block.0`` (``body.0`` 3x3 to dim,
+    ``body.2`` 3x3, ``body.4`` 1x1 to 2 dim, a SiLU after the first two; a
+    1x1 ``short``), ``end_block.1`` (3x3), then UniUpsampleV4_light on dim +
+    ``in_ch * scale²`` channels and its 8-entry MetaUpsample buffer
+    (version, mode, scale, dim, out, mid, groups, rep).  Every conv but the
+    two ``short`` kinds and DySample's is a DOConv2d, or a ConvNXC with
+    ``rep``.  Its defaults and the block's widths are the zoo's choice:
+    ``SMoSR()``'s are not in this repo."""
+    m = _Maker(seed)
+    short = in_ch * scale * scale
+    m.conv('short', short, in_ch, 1)
+    blocks = ['blocks_1.0', 'blocks_1.1', *(f'blocks_2.{i}' for i in range(n_mb)), 'end_block.0']
+    for i, b in enumerate(blocks):
+        cin = in_ch if i == 0 else dim
+        _smosr_conv(m, f'{b}.body.0', cin, dim, 3, rep)
+        _smosr_conv(m, f'{b}.body.2', dim, dim, 3, rep)
+        _smosr_conv(m, f'{b}.body.4', dim, 2 * dim, 1, rep)
+        m.conv(f'{b}.short', dim, cin, 1)
+    _smosr_conv(m, 'end_block.1', dim, dim, 3, rep)
+    c = dim + short
+    up = 'upsampler'
+    pow2 = scale & (scale - 1) == 0
+    if scale == 1 or upsampler == 'conv':
+        _smosr_conv(m, f'{up}.0', c, out_ch, 3, rep)
+    elif upsampler == 'pixelshuffledirect':
+        _smosr_conv(m, f'{up}.0', c, out_ch * scale * scale, 3, rep)
+    elif upsampler == 'pixelshuffle':
+        _smosr_conv(m, f'{up}.0', c, mid_dim, 3, rep)
+        steps = [4] * int(math.log2(scale)) if pow2 else [9]
+        for i, r2 in enumerate(steps):
+            _smosr_conv(m, f'{up}.{2 + 2 * i}', mid_dim, r2 * mid_dim, 3, rep)
+        _smosr_conv(m, f'{up}.{2 + 2 * len(steps)}', mid_dim, out_ch, 3, rep)
+    elif upsampler == 'nearest+conv':
+        n = int(math.log2(scale)) if pow2 else 1
+        idx = [3 * i for i in range(n)] if pow2 else [0]
+        for i, j in enumerate(idx):
+            _smosr_conv(m, f'{up}.{j}', c if i == 0 else mid_dim, mid_dim, 3, rep)
+        last = 3 * n if pow2 else 3
+        _smosr_conv(m, f'{up}.{last}', mid_dim, mid_dim, 3, rep)
+        _smosr_conv(m, f'{up}.{last + 2}', mid_dim, out_ch, 3, rep)
+    elif upsampler == 'dysample':
+        if mid_dim != c:
+            _smosr_conv(m, f'{up}.0', c, mid_dim, 3, rep)
+            _dysample(m, f'{up}.2', mid_dim, out_ch, scale, group, d_kernel)
+        else:
+            _dysample(m, f'{up}.0', c, out_ch, scale, group, d_kernel)
+    elif upsampler == 'pa_up':
+        idx = 0
+        for i in range(int(math.log2(scale)) if pow2 else 1):
+            _smosr_conv(m, f'{up}.{idx + 1}', c if i == 0 else mid_dim, mid_dim, 3, rep)
+            _smosr_conv(m, f'{up}.{idx + 2}.conv.0', mid_dim, mid_dim, 1, rep)
+            _smosr_conv(m, f'{up}.{idx + 4}', mid_dim, mid_dim, 3, rep)
+            idx += 6
+        _smosr_conv(m, f'{up}.{idx}', mid_dim, out_ch, 3, rep)
+    else:
+        raise ValueError(f'unknown SMoSR upsampler {upsampler!r}')
+    m.sd[f'{up}.MetaUpsample'] = np.asarray([1, _V4_MODS.index(upsampler), scale, dim, out_ch, mid_dim, group,
+                                             int(rep)], np.uint8)
+    return m.sd
+
+
+def make_rha(dim: int = 64, scale: int = 4, in_ch: int = 3, out_ch: int = 3, mid_dim: int = 64,
+             down_list=(8, 4, 2, 1), expansion_ratio: float = 1.5, res_blocks: int = 6,
+             upsample: str = 'pixelshuffle', unshuffle_mod: bool = False, window_size: int = 8, head_dim: int = 8,
+             dwc_kernel: int = 5, seed: int = 0):
+    """RHA layout (reference rha/arch.py:454-566): the 3x3 stem
+    ``to_feat`` (``to_feat.1`` and the scalar ``unshuffle`` buffer 4 // scale
+    with ``unshuffle_mod``), one group per ``down_list`` entry (its scalar
+    ``down_sample`` buffer; ``res_blocks`` gated blocks: LayerNorm, 3x3
+    ``fc1`` to 2 x hidden, the hybrid attention on dim channels (an
+    OmniShift on half of them; on the other half the focused linear window
+    attention ``att.2``: ``qkv`` and ``proj`` linears, the
+    ``positional_encoding`` (1, window², half), the softplus ``scale``, the
+    depthwise ``dwc`` over each head's v), the 1x1 ``aggr.0``), 3x3 ``fc2``;
+    then an OmniShift on dim and a 1x1 conv), and the UniUpsample
+    ``to_img`` with its MetaUpsample buffer (its scale the internal one: 4
+    with ``unshuffle_mod``).  Its defaults (4 groups down 8 / 4 / 2 / 1 of
+    six blocks, a pixelshuffle tail), the attention's head dim 8 and its
+    5x5 ``dwc`` are the zoo's choice: ``RHA()``'s are not in this repo."""
+    m = _Maker(seed)
+    hidden = int(expansion_ratio * dim)
+    half = dim // 2
+    unshuffle = 4 // scale if unshuffle_mod else 1
+    if unshuffle_mod:
+        m.sd['unshuffle'] = np.asarray([unshuffle], np.int64)
+        m.conv('to_feat.1', dim, in_ch * unshuffle**2, 3)
+    else:
+        m.conv('to_feat', dim, in_ch, 3)
+    for gi, down in enumerate(down_list):
+        g = f'body.{gi}'
+        m.sd[f'{g}.down_sample'] = np.asarray([down], np.int64)
+        for bi in range(res_blocks):
+            b = f'{g}.body.{bi}'
+            _ln(m, f'{b}.norm', dim)
+            m.conv(f'{b}.fc1', 2 * hidden, dim, 3)
+            _omnishift(m, f'{b}.conv.conv', half)
+            a = f'{b}.conv.att.2'
+            _linear(m, f'{a}.qkv', 3 * half, half)
+            m.t(f'{a}.positional_encoding', 1, window_size**2, half)
+            m.t(f'{a}.scale', 1, 1, half)
+            m.conv(f'{a}.dwc', head_dim, 1, dwc_kernel)
+            _linear(m, f'{a}.proj', half, half)
+            m.conv(f'{b}.conv.aggr.0', dim, dim, 1)
+            m.conv(f'{b}.fc2', dim, hidden, 3)
+        _omnishift(m, f'{g}.body.{res_blocks}', dim)
+        m.conv(f'{g}.body.{res_blocks + 1}', dim, dim, 1)
+    to_img_scale = 4 if unshuffle_mod else scale
+    _uni_upsample_v3(m, 'to_img', upsample, to_img_scale, dim, out_ch, mid_dim)
+    _meta_upsample(m, 'to_img.MetaUpsample', _SAMPLE_MODS, upsample, to_img_scale, dim, out_ch, mid_dim)
+    return m.sd
+
+
+def _flex_conv_block(m: _Maker, key: str, cin: int, cout: int):
+    """A FlexNet ConvBlock: 3x3 ``block.0`` and ``block.2``, 1x1 ``conv11``."""
+    m.conv(f'{key}.block.0', cout, cin, 3)
+    m.conv(f'{key}.block.2', cout, cout, 3)
+    m.conv(f'{key}.conv11', cout, cin, 1)
+
+
+def _flex_xblock(m: _Maker, key: str, c: int, n_blocks: int, hidden_rate: int, channel_norm: bool):
+    """A FlexNet LBlock / MBlock on ``c`` channels: ``n_blocks``
+    TransformerBlocks (RMSNorm ``rn1`` / ``rn2``, layer scales ``gamma1`` /
+    ``gamma2`` near 0.1; LMLTVIT ``att``: bias-free OmniShift, ``qkv``, the
+    depthwise LePE ``get_v``, ``proj``; ChannelMix ``ffn``: bias-free
+    OmniShift, ``key`` to ``hidden_rate`` x c, optional ``key_norm``,
+    ``value``, ``receptance``, all without biases) and the ConvBlock
+    ``conv`` from 2c."""
+    for i in range(n_blocks):
+        t = f'{key}.t_blocks.{i}'
+        for n in ('rn1', 'rn2'):
+            m.sd[f'{t}.{n}.weight'] = np.ones(c, np.float32)
+        for g in ('gamma1', 'gamma2'):
+            m.t(f'{t}.{g}', c)
+            m.sd[f'{t}.{g}'] += 0.1
+        _omnishift(m, f'{t}.att.omni_shift', c, bias=False)
+        _linear(m, f'{t}.att.qkv', 3 * c, c)
+        m.conv(f'{t}.att.get_v', c, 1, 3)
+        _linear(m, f'{t}.att.proj', c, c)
+        _omnishift(m, f'{t}.ffn.omni_shift', c, bias=False)
+        _linear(m, f'{t}.ffn.key', hidden_rate * c, c, bias=False)
+        if channel_norm:
+            m.sd[f'{t}.ffn.key_norm.weight'] = np.ones(hidden_rate * c, np.float32)
+        _linear(m, f'{t}.ffn.value', c, hidden_rate * c, bias=False)
+        _linear(m, f'{t}.ffn.receptance', c, c, bias=False)
+    _flex_conv_block(m, f'{key}.conv', 2 * c, c)
+
+
+def make_flexnet(dim: int = 64, num_blocks=(6, 6, 6, 6, 6, 6), scale: int = 4, inp_channels: int = 3,
+                 window_size: int = 8, hidden_rate: int = 4, channel_norm: bool = False,
+                 pipeline_type: str = 'linear', upsampler: str = 'ps', seed: int = 0):
+    """FlexNet layout (reference flexnet/arch.py:342-455): the scalar
+    ``window_size`` and ``scale_factor`` buffers, the ConvBlock
+    ``short_cut``, the 3x3 ``in_to_feat``, then the ``linear`` pipeline
+    (``pipeline.att.{i}``, one block group per entry of ``num_blocks``,
+    the first of at least three blocks) or the ``meta`` U-Net
+    (``enc0``-``enc3`` at dim, 2, 4 and 8 dim, ``dec0``-``dec2`` back up;
+    bias-free 3x3 ``down*.body.0`` to half the width before a pixel
+    unshuffle and ``up*.body.0`` before a pixel shuffle), and the tail on
+    2 dim: ``ps`` (a 3x3 conv and a pixel shuffle), ``n+c`` (``to_img.0``
+    to dim, nearest + conv stages ``to_img.1``) or ``dys`` (DySample with a
+    1x1 end conv).  Its defaults (dim 64, six groups of six blocks, hidden
+    rate 4, ``ps``) are the zoo's choice: ``FlexNet()``'s are not in this
+    repo."""
+    m = _Maker(seed)
+    m.sd['window_size'] = np.asarray([window_size], np.int64)
+    m.sd['scale_factor'] = np.asarray([scale], np.int64)
+    _flex_conv_block(m, 'short_cut', inp_channels, dim)
+    m.conv('in_to_feat', dim, inp_channels, 3)
+    if pipeline_type == 'linear':
+        for i, n in enumerate(num_blocks):
+            _flex_xblock(m, f'pipeline.att.{i}', dim, n, hidden_rate, channel_norm)
+    else:
+        nb = num_blocks
+        for i in range(4):
+            _flex_xblock(m, f'pipeline.enc{i}.0', dim * 2**i, nb[i], hidden_rate, channel_norm)
+        for i in range(3):
+            c = dim * 2**i
+            m.t(f'pipeline.down{i + 1}.body.0.weight', c // 2, c, 3, 3)
+            m.t(f'pipeline.up{3 - i}.body.0.weight', 4 * c, 4 * c, 3, 3)
+            _flex_xblock(m, f'pipeline.dec{2 - i}.0', c, nb[i], hidden_rate, channel_norm)
+    c = 2 * dim
+    if upsampler == 'n+c':
+        m.conv('to_img.0', dim, c, 3)
+        pow2 = scale & (scale - 1) == 0
+        n = int(math.log2(scale)) if pow2 else 1
+        for i in range(n):
+            m.conv(f'to_img.1.{3 * i}', dim, dim, 3)
+        last = 3 * n if pow2 else 3
+        m.conv(f'to_img.1.{last}', dim, dim, 3)
+        m.conv(f'to_img.1.{last + 2}', inp_channels, dim, 3)
+    elif upsampler == 'dys':
+        _dysample(m, 'to_img', c, inp_channels, scale)
+    else:
+        m.conv('to_img.0', inp_channels * scale * scale, c, 3)
+    return m.sd
+
+
+def _gfisr_fourier_unit(m: _Maker, key: str, c: int, groups: int):
+    """GFISR's FourierUnit on ``c`` channels (reference
+    gfisr/arch.py:416-472): LayerNorm ``ln`` over the 2c interleaved
+    spectrum channels, the depthwise 3x3 ``fpe``, the 1x1 ``weight.0`` to
+    ``groups`` mixing logits and the grouped 1x1 ``fdc`` to 2c x
+    ``groups``."""
+    _ln(m, f'{key}.ln', 2 * c)
+    m.conv(f'{key}.fpe', 2 * c, 1, 3)
+    m.conv(f'{key}.weight.0', groups, 2 * c, 1)
+    m.conv(f'{key}.fdc', 2 * c * groups, 2 * c // groups, 1)
+
+
+def _gfisr_stem(m: _Maker, dim: int, in_nc: int, scale: int, pixel_unshuffle: bool):
+    """``in_to_dim`` (3x3), or ``in_to_dim.1`` on the pixel-unshuffled
+    input below 4x."""
+    if pixel_unshuffle and scale in (1, 2):
+        m.conv('in_to_dim.1', dim, in_nc * (4 // scale) ** 2, 3)
+        return 4
+    m.conv('in_to_dim', dim, in_nc, 3)
+    return scale
+
+
+def make_gfisr(dim: int = 64, n_blocks: int = 24, scale: int = 4, in_nc: int = 3, out_nc: int = 3,
+               expansion_ratio: float = 1.5, fft_mode: bool = True, upsampler: str = 'pixelshuffledirect',
+               mid_dim: int = 32, pixel_unshuffle: bool = False, band: int = 11, fu_groups: int = 4,
+               seed: int = 0):
+    """GFISR layout (reference gfisr/arch.py:581-650): the stem, ``net.*``
+    GatedCNNBlocks (LayerNorm, 3x3 ``fc1`` to 2 x hidden, the rotating
+    inception on dim channels, 3x3 ``fc2``, ``gamma`` near 0.1) and the
+    UniUpsampleV3 ``dim_to_out`` (a 3x3 DySample end conv) with its
+    MetaUpsample buffer.  Block i's inception module at position o holds
+    the weights of op (i + o) % 5: none (identity), a depthwise 3x3, a 1 x
+    ``band`` and a ``band`` x 1 depthwise band on dim / 8 channels, a
+    FourierUnit with ``fft_mode``.  Its defaults (dim 64, 24 blocks,
+    pixelshuffledirect) and the FourierUnit's 4 groups are the zoo's
+    choice: ``GFISR()``'s are not in this repo."""
+    m = _Maker(seed)
+    up_scale = _gfisr_stem(m, dim, in_nc, scale, pixel_unshuffle)
+    hidden = int(expansion_ratio * dim)
+    gc = int(dim * 0.125)
+    for i in range(n_blocks):
+        b = f'net.{i}'
+        _ln(m, f'{b}.norm', dim)
+        m.conv(f'{b}.fc1', 2 * hidden, dim, 3)
+        for o, name in enumerate(('pconv', 'dwconv_hw', 'dwconv_w', 'dwconv_h', 'fsas')):
+            slot = (i + o) % 5
+            key = f'{b}.conv.{name}'
+            if slot == 1:
+                m.conv(key, gc, 1, 3)
+            elif slot in (2, 3):
+                m.t(f'{key}.weight', gc, 1, *((1, band) if slot == 2 else (band, 1)))
+                m.t(f'{key}.bias', gc)
+            elif slot == 4 and fft_mode:
+                _gfisr_fourier_unit(m, key, gc, fu_groups)
+        m.conv(f'{b}.fc2', dim, hidden, 3)
+        m.t(f'{b}.gamma', 1, dim, 1, 1)
+        m.sd[f'{b}.gamma'] += 0.1
+    _uni_upsample_v3(m, 'dim_to_out', upsampler, up_scale, dim, out_nc, mid_dim, end_kernel=3)
+    _meta_upsample(m, 'dim_to_out.MetaUpsample', _SAMPLE_MODS3, upsampler, up_scale, dim, out_nc, mid_dim)
+    return m.sd
+
+
+def _rms_ref(m: _Maker, key: str, width: int):
+    """An RMSNorm (eps outside the sqrt): ``scale`` near 1 and ``offset``."""
+    m.t(f'{key}.scale', width)
+    m.sd[f'{key}.scale'] += 1.0
+    m.t(f'{key}.offset', width)
+
+
+def make_gfisrv2(dim: int = 64, n_blocks: int = 22, scale: int = 4, in_nc: int = 3, out_nc: int = 3,
+                 expansion_ratio: float = 1.5, upsampler: str = 'pixelshuffledirect', mid_dim: int = 32,
+                 pixel_unshuffle: bool = False, band: int = 11, seed: int = 0):
+    """GFISRV2 layout (reference gfisrv2/arch.py:631-700): the stem,
+    ``gfisr_body.*`` GatedCNNBlocks (RMSNorm, 3x3 ``fc1``, the rotating
+    inception on dim channels, 3x3 ``fc2``, ``gamma`` near 0.1), then
+    ``gfisr_body.{n}`` and ``.{n + 2}`` (3x3, a SiLU between), and the
+    UniUpsampleV3 ``upscale`` (a 3x3 DySample end conv) with its
+    MetaUpsample buffer.  Block i's module at position o holds op (i + o) %
+    4: a FourierUnit v2 on dim - 3 dim / 8 channels (RMSNorms ``rn`` over
+    the 2c spectrum channels and ``post_norm``, depthwise ``fpe``, 1x1
+    ``fdc``), a depthwise 3x3, a 1 x ``band`` and a ``band`` x 1 band.  Its
+    defaults are the zoo's choice: ``GFISRV2()``'s are not in this repo."""
+    m = _Maker(seed)
+    up_scale = _gfisr_stem(m, dim, in_nc, scale, pixel_unshuffle)
+    hidden = int(expansion_ratio * dim)
+    gc = int(dim * 0.125)
+    for i in range(n_blocks):
+        b = f'gfisr_body.{i}'
+        _rms_ref(m, f'{b}.norm', dim)
+        m.conv(f'{b}.fc1', 2 * hidden, dim, 3)
+        for o, name in enumerate(('pconv', 'dwconv_hw', 'dwconv_w', 'dwconv_h')):
+            slot = (i + o) % 4
+            key = f'{b}.conv.{name}'
+            if slot == 0:
+                c = dim - 3 * gc
+                _rms_ref(m, f'{key}.rn', 2 * c)
+                m.conv(f'{key}.fpe', 2 * c, 1, 3)
+                m.conv(f'{key}.fdc', 2 * c, 2 * c, 1)
+                _rms_ref(m, f'{key}.post_norm', c)
+            elif slot == 1:
+                m.conv(key, gc, 1, 3)
+            else:
+                m.t(f'{key}.weight', gc, 1, *((1, band) if slot == 2 else (band, 1)))
+                m.t(f'{key}.bias', gc)
+        m.conv(f'{b}.fc2', dim, hidden, 3)
+        m.t(f'{b}.gamma', 1, dim, 1, 1)
+        m.sd[f'{b}.gamma'] += 0.1
+    m.conv(f'gfisr_body.{n_blocks}', dim, dim, 3)
+    m.conv(f'gfisr_body.{n_blocks + 2}', dim, dim, 3)
+    _uni_upsample_v3(m, 'upscale', upsampler, up_scale, dim, out_nc, mid_dim, end_kernel=3)
+    _meta_upsample(m, 'upscale.MetaUpsample', _SAMPLE_MODS3, upsampler, up_scale, dim, out_nc, mid_dim)
+    return m.sd
+
+
+def _figsr_rms(m: _Maker, key: str, width: int):
+    """FIGSR's RMSNorm: ``scale`` near 1, ``offset``, and the buffers
+    ``eps`` (1e-6) and ``rms`` (width^-1/2)."""
+    _rms_ref(m, key, width)
+    m.sd[f'{key}.eps'] = np.full(1, 1e-6, np.float32)
+    m.sd[f'{key}.rms'] = np.full(1, width**-0.5, np.float32)
+
+
+def make_figsr(dim: int = 64, n_blocks: int = 18, scale: int = 4, in_nc: int = 3, out_nc: int = 3,
+               expansion_ratio: float = 2.0, upsampler: str = 'pixelshuffledirect', mid_dim: int = 32, gc: int = 8,
+               square_kernel_size: int = 3, band_kernel_size: int = 11, seed: int = 0):
+    """FIGSR layout (reference figsr/arch.py:627-720): the global
+    ``shift`` / ``scale_norm`` affine, the 3x3 ``in_to_dim``, the two
+    halves ``gfisr_body_half.*`` and ``gfisr_body_half_2.*`` of
+    GatedCNNBlocks (FIGSR RMSNorm, 3x3 ``fc1`` to 2 x hidden (hidden a
+    multiple of 8), on dim channels a FourierUnit ``conv.fu`` over dim - 3
+    ``gc`` of them and full convs ``convhw`` (square), ``convw`` /
+    ``convh`` (bands) over ``gc`` each, 3x3 ``fc2``), the second half's
+    closing 3x3 conv, the 1x1 ``cat_to_dim`` from 3 dim, and the
+    UniUpsampleV3 ``upscale`` (a 3x3 DySample end conv) with its
+    MetaUpsample buffer.  Its defaults (dim 64, 18 blocks, expansion 2, gc
+    8, a 3x3 square and 11-tap bands, pixelshuffledirect) are the zoo's
+    choice: ``FIGSR()``'s are not in this repo."""
+    m = _Maker(seed)
+    m.t('shift', 1, in_nc, 1, 1)
+    m.t('scale_norm', 1, in_nc, 1, 1)
+    m.sd['scale_norm'] += 1.0
+    m.conv('in_to_dim', dim, in_nc, 3)
+    hidden = int(expansion_ratio * dim) // 8 * 8
+    c = dim - 3 * gc
+    n_half = n_blocks // 2
+    for b in [f'gfisr_body_half.{i}' for i in range(n_half)] + [f'gfisr_body_half_2.{i}'
+                                                               for i in range(n_blocks - n_half)]:
+        _figsr_rms(m, f'{b}.norm', dim)
+        m.conv(f'{b}.fc1', 2 * hidden, dim, 3)
+        _figsr_rms(m, f'{b}.conv.fu.rn', 2 * c)
+        m.conv(f'{b}.conv.fu.fpe', 2 * c, 1, 3)
+        m.conv(f'{b}.conv.fu.fdc', 2 * c, 2 * c, 1)
+        _figsr_rms(m, f'{b}.conv.fu.post_norm', c)
+        m.conv(f'{b}.conv.convhw', gc, gc, square_kernel_size)
+        m.t(f'{b}.conv.convw.weight', gc, gc, 1, band_kernel_size)
+        m.t(f'{b}.conv.convw.bias', gc)
+        m.t(f'{b}.conv.convh.weight', gc, gc, band_kernel_size, 1)
+        m.t(f'{b}.conv.convh.bias', gc)
+        m.conv(f'{b}.fc2', dim, hidden, 3)
+    m.conv(f'gfisr_body_half_2.{n_blocks - n_half}', dim, dim, 3)
+    m.conv('cat_to_dim', dim, 3 * dim, 1)
+    _uni_upsample_v3(m, 'upscale', upsampler, scale, dim, out_nc, mid_dim, end_kernel=3)
+    _meta_upsample(m, 'upscale.MetaUpsample', _SAMPLE_MODS3, upsampler, scale, dim, out_nc, mid_dim)
+    return m.sd
+
+
+def _dynamic_local(m: _Maker, key: str, c: int, k: int):
+    """A LAWFFT DynamicLocal on ``c`` channels: 1x1 ``kernel_gen.1`` and
+    ``kernel_gen.3`` to c x k² generated kernel taps."""
+    m.conv(f'{key}.kernel_gen.1', c, c, 1)
+    m.conv(f'{key}.kernel_gen.3', c * k * k, c, 1)
+
+
+def make_lawfft(dim: int = 64, n_rblock: int = 4, n_mblock: int = 6, scale: int = 4, in_ch: int = 3,
+                split: float = 0.25, t_mid_factor: float = 1.0, window_size: int = 8, mlp_factor: float = 2.0,
+                unshuffle_mod: bool = False, upsampler: str = 'pixelshuffledirect', mid_dim: int = 32,
+                seed: int = 0):
+    """LAWFFT layout (reference lawfft/arch.py:360-440): the scalar
+    ``window_size`` buffer, the 3x3 stem ``in_to_dim`` (``in_to_dim.1``
+    on the pixel-unshuffled input by 4 // scale with ``unshuffle_mod``),
+    ``n_rblock`` residual groups ``body.*`` of ``n_mblock`` meta blocks
+    (LayerNorm ``token_mix.0``; SFSAS ``token_mix.1``: DynamicLocal 3x3 and
+    5x5 ``local.0`` / ``local.1`` on the first ``split`` of the channels,
+    FSAS ``att`` on the rest (1x1 ``to_hidden`` to 3 x ``t_mid_factor``
+    widths, depthwise 3x3 ``to_hidden_dw``, LayerNorm ``norm``, 1x1
+    ``project_out``), 1x1 ``last``; LayerNorm ``channel_mix1.0`` and the
+    FFN ``channel_mix1.1``: 1x1 ``project_in`` to 2 x ``mlp_factor`` dim,
+    depthwise 3x3 ``dwconv``, 1x1 ``project_out``) and a closing
+    DynamicLocal 3x3, and the UniUpsample ``upscale`` with its
+    MetaUpsample buffer (its scale the internal one: 4 with
+    ``unshuffle_mod``).  Its defaults are the zoo's choice: ``LAWFFT()``'s
+    are not in this repo."""
+    m = _Maker(seed)
+    m.sd['window_size'] = np.asarray([window_size], np.int64)
+    if unshuffle_mod:
+        m.conv('in_to_dim.1', dim, in_ch * (4 // scale) ** 2, 3)
+    else:
+        m.conv('in_to_dim', dim, in_ch, 3)
+    local = int(split * dim)
+    glob = dim - local
+    mid = int(3 * t_mid_factor * glob)
+    hid = int(mlp_factor * dim)
+    for ri in range(n_rblock):
+        for mi in range(n_mblock):
+            r = f'body.{ri}.residual.{mi}'
+            t = f'{r}.token_mix'
+            _ln(m, f'{t}.0', dim)
+            _dynamic_local(m, f'{t}.1.local.0', local, 3)
+            _dynamic_local(m, f'{t}.1.local.1', local, 5)
+            m.conv(f'{t}.1.att.to_hidden', mid, glob, 1)
+            m.conv(f'{t}.1.att.to_hidden_dw', mid, 1, 3)
+            _ln(m, f'{t}.1.att.norm', mid // 3)
+            m.conv(f'{t}.1.att.project_out', glob, mid // 3, 1)
+            m.conv(f'{t}.1.last', dim, dim, 1)
+            _ln(m, f'{r}.channel_mix1.0', dim)
+            m.conv(f'{r}.channel_mix1.1.project_in', 2 * hid, dim, 1)
+            m.conv(f'{r}.channel_mix1.1.dwconv', 2 * hid, 1, 3)
+            m.conv(f'{r}.channel_mix1.1.project_out', dim, hid, 1)
+        _dynamic_local(m, f'body.{ri}.residual.{n_mblock}', dim, 3)
+    up_scale = 4 if unshuffle_mod else scale
+    _uni_upsample_v3(m, 'upscale', upsampler, up_scale, dim, in_ch, mid_dim)
+    _meta_upsample(m, 'upscale.MetaUpsample', _SAMPLE_MODS, upsampler, up_scale, dim, in_ch, mid_dim)
     return m.sd

@@ -191,9 +191,9 @@ def test_zoo_atd_light_full_width_layout():
 
 
 def test_detection_of_all_six_families():
-    """Every ported family (twenty-three since CUGAN, the restoration U-nets
-    and the MoSR lineage) detects as itself, and only as itself, in both packages; the port
-    registers them in JAX's order."""
+    """Every ported family (all thirty-one since RTMoSR, SMoSR, RHA,
+    FlexNet and the four spectral families) detects as itself, and only as
+    itself, in both packages; the port registers them in JAX's order."""
     cases = ((_sd(), 'ATD', 'ATD'), (_sd('nearest+conv', 4), 'ATD', 'ATD'),
              (make_hat(24, (2,), (3,), 8, upscale=2), 'HAT', 'HAT'),
              (make_swinir(24, (2,), (3,), 8, upscale=2, img_size=32), 'SwinIR', 'SwinIR'),
@@ -220,8 +220,8 @@ def test_detection_of_all_six_families():
     port = [a.id for a in resselt_tpu_torch.archs.internal_registry]
     assert port == [a.id for a in resselt_tpu.archs.internal_registry if a.id in port]
     assert port == ['SwinIR', 'HAT', 'OmniSR', 'DRCT', 'FDAT', 'dat', 'RGT', 'ATD', 'SpanPP', 'SPAN', 'ESRGAN', 'PLKSR',
-                    'MoSRv2', 'MoESR', 'GateRV3', 'GateRv2', 'GateR', 'CuGAN', 'RCAN', 'eimn', 'MoSR', 'Compact',
-                    'spanplus']
+                    'MoSRv2', 'MoESR', 'RTMoSR', 'SMoSR', 'RHA', 'FlexNet', 'GateRV3', 'GateRv2', 'LAWFFT',
+                    'GFISRV2', 'FIGSR', 'GFISR', 'GateR', 'CuGAN', 'RCAN', 'eimn', 'MoSR', 'Compact', 'spanplus']
 
 
 def test_params_from_numpy_carries_jax_params():

@@ -82,8 +82,8 @@ def test_detection_with_eimn_registered():
     port = [a.id for a in resselt_tpu_torch.archs.internal_registry]
     assert port == [a.id for a in resselt_tpu.archs.internal_registry if a.id in port]
     assert port == ['SwinIR', 'HAT', 'OmniSR', 'DRCT', 'FDAT', 'dat', 'RGT', 'ATD', 'SpanPP', 'SPAN', 'ESRGAN', 'PLKSR',
-                    'MoSRv2', 'MoESR', 'GateRV3', 'GateRv2', 'GateR', 'CuGAN', 'RCAN', 'eimn', 'MoSR', 'Compact',
-                    'spanplus']
+                    'MoSRv2', 'MoESR', 'RTMoSR', 'SMoSR', 'RHA', 'FlexNet', 'GateRV3', 'GateRv2', 'LAWFFT',
+                    'GFISRV2', 'FIGSR', 'GFISR', 'GateR', 'CuGAN', 'RCAN', 'eimn', 'MoSR', 'Compact', 'spanplus']
 
 
 def test_params_from_numpy_carries_jax_params():

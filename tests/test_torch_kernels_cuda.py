@@ -1,7 +1,8 @@
 """The port's CUDA kernels (conv3x3, conv_lk, window_attn, molrcm,
 row_gather) and main paths (ESRGAN, PLKSR, RealPLKSR, SwinIR, EIMN, ATD,
 HAT, DAT, RGT, DRCT, FDAT, OmniSR, Compact, SPAN, SPANPlus, MoSR, SpanPP,
-RCAN) on the card.  Needs an NVIDIA GPU
+RCAN, CUGAN, GateR, MoSRv2, MoESR, GateRv2, GateRV3, RTMoSR, SMoSR, RHA,
+FlexNet, GFISR, GFISRV2, FIGSR, LAWFFT) on the card.  Needs an NVIDIA GPU
 and nvcc; every test here is marked ``cuda`` and skips without a card.
 
 This file imports torch and resselt_tpu_torch only, so that it runs where
@@ -29,9 +30,10 @@ from resselt_tpu_torch.ops import molrcm as mo
 from resselt_tpu_torch.ops import window_attention as wa
 from resselt_tpu_torch.parallel import upscale_tiled
 from resselt_tpu_torch.zoo import (make_atd, make_compact, make_cugan, make_dat, make_drct, make_eimn, make_esrgan,
-                                   make_fdat, make_gater, make_gaterv2, make_gaterv3, make_hat, make_moesr, make_mosr,
-                                   make_mosrv2, make_omni, make_plksr, make_rcan, make_realplksr, make_rgt, make_span,
-                                   make_spanplus, make_spanpp, make_swinir)
+                                   make_fdat, make_figsr, make_flexnet, make_gater, make_gaterv2, make_gaterv3,
+                                   make_gfisr, make_gfisrv2, make_hat, make_lawfft, make_moesr, make_mosr, make_mosrv2,
+                                   make_omni, make_plksr, make_rcan, make_realplksr, make_rgt, make_rha, make_rtmosr,
+                                   make_smosr, make_span, make_spanplus, make_spanpp, make_swinir)
 
 
 pytestmark = pytest.mark.cuda
@@ -813,13 +815,29 @@ _CONV_FAMILIES = {
                                          attention=False, span_blocks=1, end_kernel=3, seed=25), 16, None),
     'gaterv3_lda': (lambda: make_gaterv3(16, (1, 1), (1, 1), 1, 2, upsampler='lda', upsample_mid_dim=32,
                                          span_blocks=1, seed=26), 18, None),
+    'rtmosr': (lambda: make_rtmosr(16, 2, 2, seed=27), 8, None),
+    'rtmosr_plain_4x': (lambda: make_rtmosr(16, 1, 4, unshuffle_mod=False, dccm=False, se=False, seed=28), 4, None),
+    'smosr': (lambda: make_smosr(16, 1, 2, seed=29), 10, None),
+    'smosr_rep_dysample': (lambda: make_smosr(16, 1, 2, rep=True, upsampler='dysample', seed=30), 11, None),
+    'rha': (lambda: make_rha(16, 2, mid_dim=16, down_list=(2, 1), res_blocks=2, window_size=4, head_dim=4,
+                             seed=31), 12, None),
+    'rha_unshuffle': (lambda: make_rha(16, 2, mid_dim=16, down_list=(1,), res_blocks=2, unshuffle_mod=True,
+                                       window_size=4, head_dim=4, seed=32), 9, None),
+    'flexnet': (lambda: make_flexnet(16, (3, 2), 2, hidden_rate=2, seed=33), 8, None),
+    'flexnet_meta': (lambda: make_flexnet(16, (1, 1, 1, 1), 2, hidden_rate=2, pipeline_type='meta', seed=34), 24,
+                     None),
+    'gfisr': (lambda: make_gfisr(16, 3, 2, seed=35), 8, None),
+    'gfisrv2': (lambda: make_gfisrv2(16, 3, 2, seed=36), 10, None),
+    'figsr': (lambda: make_figsr(16, 2, 2, gc=2, seed=37), 9, None),
+    'lawfft': (lambda: make_lawfft(16, 1, 2, 2, seed=38), 2, None),
 }
 
 
 @pytest.mark.parametrize('variant', sorted(_CONV_FAMILIES))
 def test_conv_families_on_card_match_cpu(cuda, variant):
-    """Every same-padded 3x3 conv of the six families launches the kernel:
-    the counts per forward are the ones their code implies."""
+    """Every same-padded 3x3 conv with groups 1 of the conv families
+    launches the kernel: the counts per forward are the ones their code
+    implies."""
     make, launches, overrides = _CONV_FAMILIES[variant]
     sd = make()
     gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
@@ -851,7 +869,8 @@ def test_cugan_on_card_matches_cpu(cuda, variant, hw, pro):
 
 
 @pytest.mark.parametrize('family', ['compact', 'span_no_norm', 'spanplus', 'mosr_gps', 'spanpp_3x', 'rcan', 'cugan_2x',
-                                    'gater', 'mosrv2', 'moesr', 'gaterv2_sr', 'gaterv3_dys'])
+                                    'gater', 'mosrv2', 'moesr', 'gaterv2_sr', 'gaterv3_dys', 'rtmosr', 'smosr', 'rha',
+                                    'flexnet', 'gfisr', 'gfisrv2', 'figsr', 'lawfft'])
 def test_conv_families_tiled_on_card_match_cpu(cuda, family):
     make, _, overrides = _CONV_FAMILIES[family]
     gpu = resselt_tpu_torch.load_from_state_dict(make(), device='cuda')
@@ -864,7 +883,7 @@ def test_conv_families_tiled_on_card_match_cpu(cuda, family):
     np.testing.assert_allclose(got.cpu().numpy(), upscale_tiled(cpu, img, tile=32).numpy(), rtol=0, atol=5e-4)
 
 
-# -- float16 and precision through the twenty-three families -----------------------------------
+# -- float16 and precision through the thirty-one families -----------------------------------
 
 
 _FAMILIES = {
@@ -891,6 +910,14 @@ _FAMILIES = {
     'moesr': lambda: make_moesr(64, 1, 2, 2, seed=3),
     'gaterv2': lambda: make_gaterv2(32, (1, 1, 1), (1, 1, 1), 2, seed=3),
     'gaterv3': lambda: make_gaterv3(32, (1, 1, 1), (1, 1, 1), 2, span_blocks=2, seed=3),
+    'rtmosr': lambda: make_rtmosr(32, 2, 2, seed=3),
+    'smosr': lambda: make_smosr(32, 1, 2, seed=3),
+    'rha': lambda: make_rha(32, 2, down_list=(2, 1), res_blocks=2, seed=3),
+    'flexnet': lambda: make_flexnet(32, (3, 2), 2, seed=3),
+    'gfisr': lambda: make_gfisr(32, 3, 2, seed=3),
+    'gfisrv2': lambda: make_gfisrv2(32, 3, 2, seed=3),
+    'figsr': lambda: make_figsr(32, 2, 2, gc=4, seed=3),
+    'lawfft': lambda: make_lawfft(32, 1, 2, 2, seed=3),
 }
 
 
@@ -909,3 +936,40 @@ def test_model_serves_float16_and_every_precision_on_the_card(cuda, family):
         assert float(psnr) >= 35.0, f'{family} {kwargs}: {float(psnr):.2f} dB'
     with pytest.raises(ValueError):
         gpu(x, precision='fastest')
+
+
+# -- FlexNet's window attention ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('windows,c', [(1024, 64), (48, 64), (20, 16)])
+def test_window_kernel_flexnet_shapes(cuda, dtype, windows, c):
+    """FlexNet's LMLTVIT attention: one head over the full width, 64
+    tokens, the zero bias, against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qkv = torch.randn((windows, 64, 3 * c), generator=g, device=cuda).to(dtype)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    bias = torch.zeros((1, 64, 64), device=cuda)
+    got = wa.window_mha(q, k, v, bias, num_heads=1, scale=c ** -0.5)
+    want = wa.window_mha_ref(q.float(), k.float(), v.float(), bias, num_heads=1, scale=c ** -0.5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize('variant,kernel,plain', [('flexnet', 5, 0), ('flexnet_meta', 6, 1)])
+def test_flexnet_attention_launches_window_attn(cuda, variant, kernel, plain):
+    """FlexNet's attentions launch ``csrc/window_attn.cu`` wherever head_dim
+    = C <= 64; the meta U-Net's 128-wide level takes the plain path."""
+    from resselt_tpu_torch.nn.window import multi_head_attention
+
+    sd = _CONV_FAMILIES[variant][0]()
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    x = np.random.default_rng(0).random((2, 21, 26, 3), dtype=np.float32)
+    before, plain_before = wa.window_mha.launches, multi_head_attention.plain_calls
+    got = gpu(x)
+    torch.cuda.synchronize()
+    assert (wa.window_mha.launches - before, multi_head_attention.plain_calls - plain_before) == (kernel, plain)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu(x).numpy(), rtol=0, atol=1e-3)

@@ -198,6 +198,6 @@ def test_registration_order_is_jax_order():
     port = [a.id for a in resselt_tpu_torch.archs.internal_registry]
     assert port == [a.id for a in resselt_tpu.archs.internal_registry if a.id in port]
     assert port == ['SwinIR', 'HAT', 'OmniSR', 'DRCT', 'FDAT', 'dat', 'RGT', 'ATD', 'SpanPP', 'SPAN', 'ESRGAN', 'PLKSR',
-                    'MoSRv2', 'MoESR', 'GateRV3', 'GateRv2', 'GateR', 'CuGAN', 'RCAN', 'eimn', 'MoSR', 'Compact',
-                    'spanplus']
+                    'MoSRv2', 'MoESR', 'RTMoSR', 'SMoSR', 'RHA', 'FlexNet', 'GateRV3', 'GateRv2', 'LAWFFT',
+                    'GFISRV2', 'FIGSR', 'GFISR', 'GateR', 'CuGAN', 'RCAN', 'eimn', 'MoSR', 'Compact', 'spanplus']
     assert [t[2] for t in _TRANSFORMERS if '_' not in t[0]] == port[:8]

@@ -25,11 +25,19 @@ gater``), MoSRv2 4x, dim 64, 24 blocks, pixelshuffledirect (``--model
 mosrv2``), MoESR 4x, dim 64, 6 x 6 blocks, expansion 2.5 (``--model
 moesr``), GateRv2 1x, dim 32, enc (2, 2, 4), dec (4, 2, 2), 6 latent blocks
 (``--model gaterv2``), GateRV3 1x, dim 32, the same U-Net, 4 latent blocks
-with channel attention, 4 SPABs (``--model gaterv3``).
+with channel attention, 4 SPABs (``--model gaterv3``), or one of the last
+eight at chip_smoke.py's widths: RTMoSR 2x, dim 64, 2 blocks, unshuffle
+(``--model rtmosr``), SMoSR 4x, dim 64, 2 middle blocks (``--model
+smosr``), RHA 4x, dim 64, 4 groups of 6 blocks (``--model rha``), FlexNet
+4x, dim 64, six groups of six blocks, with the window-attention kernel too
+(``--model flexnet``), GFISR 4x, dim 64, 24 blocks (``--model gfisr``),
+GFISRV2 4x, dim 64, 22 blocks (``--model gfisrv2``), FIGSR 4x, dim 64, 18
+blocks (``--model figsr``), LAWFFT 4x, dim 64, 4 x 6 meta blocks
+(``--model lawfft``).
 
     python3 tools/profile_torch_esrgan.py
         [--model esrgan|plksr|swinir|eimn|atd|hat|dat|rgt|drct|fdat|omni|compact|span|spanplus|mosr|spanpp|rcan
-                 |cugan|gater|mosrv2|moesr|gaterv2|gaterv3]
+                 |cugan|gater|mosrv2|moesr|gaterv2|gaterv3|rtmosr|smosr|rha|flexnet|gfisr|gfisrv2|figsr|lawfft]
         [--reps 2] [--seed 0]
 
 Runs on a CUDA device only.  Warms up, then records ``--reps`` forwards
@@ -54,7 +62,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--model', choices=('esrgan', 'plksr', 'swinir', 'eimn', 'atd', 'hat', 'dat', 'rgt', 'drct',
                                             'fdat', 'omni', 'compact', 'span', 'spanplus', 'mosr', 'spanpp', 'rcan',
-                                            'cugan', 'gater', 'mosrv2', 'moesr', 'gaterv2', 'gaterv3'),
+                                            'cugan', 'gater', 'mosrv2', 'moesr', 'gaterv2', 'gaterv3', 'rtmosr',
+                                            'smosr', 'rha', 'flexnet', 'gfisr', 'gfisrv2', 'figsr', 'lawfft'),
                         default='esrgan')
     parser.add_argument('--reps', type=int, default=2)
     parser.add_argument('--seed', type=int, default=0)
@@ -69,9 +78,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import resselt_tpu_torch
     from resselt_tpu_torch.zoo import (make_atd, make_compact, make_cugan, make_dat, make_drct, make_eimn,
-                                       make_esrgan, make_fdat, make_gater, make_gaterv2, make_gaterv3, make_hat,
-                                       make_moesr, make_mosr, make_mosrv2, make_omni, make_plksr, make_rcan, make_rgt,
-                                       make_span, make_spanplus, make_spanpp, make_swinir)
+                                       make_esrgan, make_fdat, make_figsr, make_flexnet, make_gater, make_gaterv2,
+                                       make_gaterv3, make_gfisr, make_gfisrv2, make_hat, make_lawfft, make_moesr,
+                                       make_mosr, make_mosrv2, make_omni, make_plksr, make_rcan, make_rgt, make_rha,
+                                       make_rtmosr, make_smosr, make_span, make_spanplus, make_spanpp, make_swinir)
 
     conv_families = {
         'compact': (lambda: make_compact(64, 16, 4, seed=args.seed), 'Compact 4x feat64 16 convs'),
@@ -89,10 +99,20 @@ def main(argv=None) -> int:
                     'GateRv2 1x dim32 enc(2,2,4) dec(4,2,2) latent6'),
         'gaterv3': (lambda: make_gaterv3(32, (2, 2, 4), (4, 2, 2), 4, seed=args.seed),
                     'GateRV3 1x dim32 enc(2,2,4) dec(4,2,2) latent4 attention span4'),
+        'rtmosr': (lambda: make_rtmosr(seed=args.seed), 'RTMoSR 2x dim64 2 blocks ffn2 unshuffle dccm se'),
+        'smosr': (lambda: make_smosr(seed=args.seed), 'SMoSR 4x dim64 2 middle blocks pixelshuffledirect'),
+        'rha': (lambda: make_rha(seed=args.seed), 'RHA 4x dim64 down (8,4,2,1) x 6 blocks window8 pixelshuffle'),
+        'gfisr': (lambda: make_gfisr(seed=args.seed), 'GFISR 4x dim64 24 blocks fft_mode pixelshuffledirect'),
+        'gfisrv2': (lambda: make_gfisrv2(seed=args.seed), 'GFISRV2 4x dim64 22 blocks pixelshuffledirect'),
+        'figsr': (lambda: make_figsr(seed=args.seed), 'FIGSR 4x dim64 18 blocks gc8 pixelshuffledirect'),
+        'lawfft': (lambda: make_lawfft(seed=args.seed), 'LAWFFT 4x dim64 4x6 meta blocks window8'),
     }
     if args.model in conv_families:
         make, config = conv_families[args.model]
         sd, kernel = make(), 'conv3x3'
+    elif args.model == 'flexnet':
+        sd, kernel, config = (make_flexnet(seed=args.seed), 'conv3x3+wattn',
+                              'FlexNet 4x dim64 linear 6 groups x 6 blocks window8 ps')
     elif args.model == 'fdat':
         sd, kernel, config = (make_fdat(120, 4, 3, 4, 8, 2.0, 8, 64, 'transpose+conv', 4, seed=args.seed), 'wattn',
                               'FDAT-M 4x embed120 4 groups x 3 pairs heads4 window8 transpose+conv')
