@@ -120,7 +120,35 @@ path), GFISR 4x (50), GFISRV2 4x (48), FIGSR 4x (57) and LAWFFT 4x (2),
 each with load / model / serve phases; their flop counts are taken at the
 tile and batch of bench_families.md's row, and for the four spectral
 families also with the JAX package's matmul-DFT FLOPs, which its XLA
-count includes and torch.fft does not.  Then the card's
+count includes and torch.fft does not.  Every serve phase runs its tiled
+1280x720 bf16 image both ways (``phase_tiled``): the host loop
+(``on_device=False``), cold and warm, and the default one-dispatch path, a
+CUDA graph per image, at its first call (warm-up run, capture, replay) and
+at steady state (median of 3); the wrappers must count the host loop's
+launches twice at the graph's first call (warm-up run and capture) and none
+at a replay, the graph's kernel nodes (what a replay launches) must equal
+the host loop's launches by source, its output the host loop's within
+2e-2 x max|host loop|, and each path's peak memory is reported.  Then the
+serving side: graph (f32
+with TF32 off, the graph within 1e-6 of the host loop for ESRGAN, PLKSR,
+SwinIR-M, EIMN_L, ATD-light and LAWFFT, so every CUDA source and cuFFT
+under capture; nine image sizes through one model, the LRU keeping eight
+graphs, device memory before and after the eviction; ``bucket=True``
+sharing one graph across three sizes; RHA through four distinct 720p-class
+sizes, the memory its graphs keep held to 1.5x one's), int8 (ESRGAN-23
+quantized: its int8
+convs; every int8 conv of a card forward run again on the CPU on the same
+input within 1e-4 x max|y|; the whole forwards' PSNR card against CPU and
+int8 against float above 35 dB; the bench forward's ms int8 against bf16,
+recorded; the int8 model's tiled image through the graph, and four sizes as
+RHA's; Compact, SPAN and
+CUGAN card against CPU), cache_tools (``convert`` to .npz and
+.safetensors, the .npz model on the card bit-identical to the
+checkpoint's, ``inspect --json``, the CLI on the .npz over a directory of
+three PNGs with ``--int8``, ``--tile 64`` and ``--trace``), cli_sizes (ten
+images in ten sizes through ATD-light and ESRGAN-23: the library on the
+host loop and on the graph path, then the CLI, which picks the path by
+whether a size repeats, as they are and with ``--bucket``).  Then the card's
 name and power limit, one JSON line of kernel figures, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device, or without the package beside this script, it exits 1 before
@@ -257,6 +285,9 @@ GATER_TOL = 1e-3  # tests/test_gater.py's, test_gaterv2.py's and test_gaterv3.py
 # test_smosr.py's, test_rha.py's, test_flexnet.py's, test_gfisr.py's, test_gfisrv2.py's, test_figsr.py's and
 # test_lawfft.py's TOL; RTMoSR: MODEL_TOL (test_mosr_family.py)
 LAST_EIGHT_TOL = 1e-3
+GRAPH_BF16_TOL = BF16_RTOL  # x max|host loop|: the graph replays the host loop's kernels on the same inputs
+GRAPH_F32_TOL = 1e-6  # tests/test_parallel.py:309-319's one-dispatch against host-loop bound
+INT8_TOL = 1e-4  # x max|y|: an int8 conv on the card against the CPU on the same input codes
 
 
 def log(phase: str, **fields) -> None:
@@ -1172,25 +1203,192 @@ def _entries() -> dict:
             'wattn': wa.window_mha, 'molrcm': mo.fused_molrcm, 'gather': row_gather}
 
 
+def _launch_counts() -> dict:
+    """Every kernel wrapper's launches and the plain-path window attentions,
+    by name."""
+    from resselt_tpu_torch.nn.window import multi_head_attention
+
+    return {**{k: e.launches for k, e in _entries().items()}, 'plain_attention': multi_head_attention.plain_calls}
+
+
+# the source each wrapper launches its kernels from, by the name its counts are reported under
+SOURCE_OF = {'act': 'conv3x3', 'pack2': 'conv3x3', 'lk': 'conv_lk', 'wattn': 'window_attn', 'molrcm': 'molrcm',
+             'gather': 'row_gather'}
+
+
+def kernel_symbols() -> dict:
+    """Every ``__global__`` function of resselt_tpu_torch/csrc/*.cu, to its
+    source's stem."""
+    import re
+
+    pattern = re.compile(r'__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(')
+    csrc = os.path.join(HERE, 'resselt_tpu_torch', 'csrc')
+    out = {}
+    for name in sorted(os.listdir(csrc)):
+        if name.endswith('.cu'):
+            with open(os.path.join(csrc, name)) as f:
+                out.update({sym: name[:-3] for sym in pattern.findall(f.read())})
+    return out
+
+
+def graph_kernel_counts(graph) -> dict:
+    """The kernels of csrc/ among a captured CUDA graph's kernel nodes, by
+    source stem: a replay launches each node once, so these are what a
+    replay launches, which no Python counter sees.  Read from the graph's
+    ``cudaGraph_t`` (``TiledProgram`` captures with ``keep_graph=True``)
+    through the driver API: ``cuGraphGetNodes``, ``cuGraphNodeGetType``,
+    ``cuGraphKernelNodeGetParams`` and ``cuFuncGetName`` (or
+    ``cuKernelGetName`` for a node that names a library kernel).  A kernel is
+    known by its symbol, mangled (``<length>name``) or demangled."""
+    import ctypes
+    import re
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [('func', ctypes.c_void_p), ('grid', ctypes.c_uint * 3), ('block', ctypes.c_uint * 3),
+                    ('shared_mem_bytes', ctypes.c_uint), ('kernel_params', ctypes.c_void_p),
+                    ('extra', ctypes.c_void_p), ('kern', ctypes.c_void_p), ('ctx', ctypes.c_void_p)]
+
+    cu = ctypes.CDLL('libcuda.so.1')
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f'{what} failed: CUresult {rc}')
+
+    graph_t = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph_t, None, ctypes.byref(n)), 'cuGraphGetNodes')
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph_t, nodes, ctypes.byref(n)), 'cuGraphGetNodes')
+    symbols = kernel_symbols()
+    patterns = [(re.compile(rf'{len(s)}{s}|(?<![\w]){s}(?=[<(]|$)'), src) for s, src in symbols.items()]
+    counts: dict[str, int] = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), 'cuGraphNodeGetType')
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params)),
+              'cuGraphKernelNodeGetParams')
+        name = ctypes.c_char_p()
+        if params.func:
+            check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func)), 'cuFuncGetName')
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern)), 'cuKernelGetName')
+        text = name.value.decode()
+        for pat, src in patterns:
+            if pat.search(text):
+                counts[src] = counts.get(src, 0) + 1
+                break
+    return counts
+
+
+def by_source(counts: dict) -> dict:
+    """Wrapper launch counts (:func:`_launch_counts`) summed by source."""
+    out: dict[str, int] = {}
+    for k, v in counts.items():
+        if k in SOURCE_OF and v:
+            out[SOURCE_OF[k]] = out.get(SOURCE_OF[k], 0) + v
+    return out
+
+
+def phase_tiled(model, img, tile: int | None, dtype, tol: float, reps: int = 3, relative: bool = True) -> dict:
+    """One image through upscale_tiled both ways: the host loop
+    (``on_device=False``), timed cold and warm, and the graph path (the
+    default), timed at its first call (warm-up run, capture and one replay)
+    and at steady state (median of ``reps`` calls, each one replay).
+    Launches: the wrappers count the host loop's (per image), and must
+    count twice that at the graph's first call (the warm-up run and the
+    capture, whose launch calls record the graph) and nothing at a steady
+    call (a replay runs no Python: no host loop behind it).  What a replay
+    launches is read from the graph itself: its kernel nodes of each source
+    (:func:`graph_kernel_counts`) must equal the host loop's launches of
+    that source.  Fails on any of these, if a steady call ran no replay, or if
+    the outputs differ by more than ``tol`` x max|host loop|
+    (``relative``) or ``tol``.  Memory: the peak allocated by the host loop
+    and by the graph's first call (the warm-up run and the capture), and
+    what the cached graph keeps reserved (its share of the model's graph
+    pool and its static tensors: a replay allocates nothing, so no peak sees
+    it).  The programs are released at the end."""
+    import numpy as np
+    import torch
+
+    from resselt_tpu_torch.parallel import upscale_tiled
+
+    def run(on_device):
+        torch.cuda.synchronize()
+        c0, t0 = _launch_counts(), time.perf_counter()
+        out = upscale_tiled(model, img, tile=tile, dtype=dtype, on_device=on_device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return out, dt, {k: v - c0[k] for k, v in _launch_counts().items() if v != c0[k]}
+
+    torch.cuda.reset_peak_memory_stats()
+    _, host_first_s, host_counts = run(False)
+    host, host_s, counts = run(False)
+    host_peak = torch.cuda.max_memory_allocated()
+    if counts != host_counts:
+        raise AssertionError(f'host loop launches {counts}, then {host_counts}')
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    first, first_s, first_counts = run(None)
+    first_peak = torch.cuda.max_memory_allocated()
+    if first_counts != {k: 2 * v for k, v in host_counts.items()}:
+        raise AssertionError(f'graph first call (warm-up and capture) launches {first_counts}, '
+                             f'host loop {host_counts}')
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_reserved() - reserved
+    cache = model.__dict__['_tiled_fn_cache']
+    program = next(reversed(cache.values()))
+    times = []
+    for _ in range(reps):
+        out, dt, counts = run(None)
+        times.append(dt)
+        if counts:
+            raise AssertionError(f'a replay moved the wrapper counts: {counts}')
+    if program.graph is None or program.replays != reps + 1:
+        raise AssertionError(f'the graph path ran {program.replays} replays in {reps + 1} calls')
+    replay = graph_kernel_counts(program.graph)
+    if replay != by_source(host_counts):
+        raise AssertionError(f'kernels per replay (graph nodes) {replay}, host loop launches {host_counts}')
+    scale = float(host.float().abs().max()) if relative else 1.0
+    err = max(float((o.float() - host.float()).abs().max()) for o in (first, out))
+    if out.shape != host.shape or not bool(torch.isfinite(out).all()) or not err <= tol * scale:
+        raise AssertionError(f'graph vs host loop: shape {tuple(out.shape)} vs {tuple(host.shape)}, '
+                             f'max err {err} (bound {tol} x {scale})')
+    for p in cache.values():
+        p.release()
+    cache.clear()
+    return {'tiled_s': float(np.median(times)), 'tiled_host_s': host_s, 'tiled_host_first_s': host_first_s,
+            'tiled_graph_first_s': first_s,
+            'tiled_graph_vs_host_max_abs': err, 'tiled_launches_per_image': json.dumps(host_counts),
+            'tiled_kernels_per_replay': json.dumps(replay), 'tiled_host_peak_gb': round(host_peak / 1e9, 3),
+            'tiled_graph_first_peak_gb': round(first_peak / 1e9, 3),
+            'tiled_graph_resident_gb': round(resident / 1e9, 3), 'tiled_shape': list(out.shape)}
+
+
 def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: int, img_hw: tuple[int, int],
                 tiled_tile: int | None = None):
     """The main path: the bench config through SRModel.__call__, a tiled
-    image through upscale_tiled (at ``tiled_tile``, or the loader's hints
-    when None), and a PNG through the CLI.  Every kernel's launch count
+    image through upscale_tiled both ways (:func:`phase_tiled`: the host
+    loop and the default graph path, at ``tiled_tile``, or the loader's
+    hints when None), and a PNG through the CLI.  Every kernel's launch count
     starts from 0 just before the timed bench forwards; their counts are
     read just after them (``bench_counts``, and per kernel path
     ``bench_paths`` for the wrappers that have several; ``bench_plain``: the
     window attentions sent to the plain path, in total and per shape), and
-    the whole phase's at its end (``launches``, and per shape ``shapes``)."""
+    the whole phase's at its end (``launches``, and per shape ``shapes``).
+    ``peak_memory_gb``: the phase's peak device memory."""
     import numpy as np
     import torch
 
     from resselt_tpu_torch import upscale
     from resselt_tpu_torch.nn.window import multi_head_attention
-    from resselt_tpu_torch.parallel import upscale_tiled
 
     entries = _entries()
     res = {}
+    torch.cuda.reset_peak_memory_stats()
     x = torch.rand((batch, tile, tile, 3), generator=torch.Generator().manual_seed(1)).to(model.device)
     for _ in range(2):
         y = model(x, dtype=torch.bfloat16)
@@ -1220,14 +1418,10 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
     h, w = img_hw
     img = np.random.default_rng(2).random((h, w, 3), dtype=np.float32)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = upscale_tiled(model, img, tile=tiled_tile, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    res['tiled_s'] = time.perf_counter() - t0
-    if out.shape != (h * s, w * s, 3) or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f'tiled: shape {tuple(out.shape)}')
-    res['tiled_shape'] = list(out.shape)
-    del out
+    peak = torch.cuda.max_memory_allocated()
+    res.update(phase_tiled(model, img, tiled_tile, torch.bfloat16, GRAPH_BF16_TOL))
+    if tuple(res['tiled_shape']) != (h * s, w * s, 3):
+        raise AssertionError(f"tiled: shape {res['tiled_shape']}")
 
     from PIL import Image
 
@@ -1241,6 +1435,387 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
     res['cli_out'] = list(size)
     res['launches'] = {k: e.launches for k, e in entries.items()}
     res['shapes'] = {k: set(e.by_shape) for k, e in entries.items()}
+    peak = max(peak, torch.cuda.max_memory_allocated(), *(res[k] * 1e9 for k in (
+        'tiled_host_peak_gb', 'tiled_graph_first_peak_gb')))
+    res['peak_memory_gb'] = round(peak / 1e9, 2)
+    return res
+
+
+# distinct 720p-class image sizes for the graph pool check: each its own grid, a few windows apart
+POOL_SIZES = ((720, 1280), (768, 1152), (800, 1216), (864, 1088))
+POOL_GROWTH = 1.5  # x the first size's: one pool a model holds the largest capture's intermediates once
+
+
+def graph_pool_sizes(model, sizes, dtype) -> dict:
+    """Distinct image sizes through one model's graph path, in order: the
+    first call's seconds for each, and the device memory that the cached
+    programs keep reserved after each (after ``empty_cache``, above what was
+    reserved before).  The programs of a model share one graph pool, so
+    serving more sizes adds their static canvases, not a replay's
+    intermediates each: fails if the last figure exceeds POOL_GROWTH x the
+    first.  The programs are released at the end."""
+    import numpy as np
+    import torch
+
+    from resselt_tpu_torch.parallel import upscale_tiled
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    first_s, kept_gb = [], []
+    for i, (h, w) in enumerate(sizes):
+        x = np.random.default_rng(10 + i).random((h, w, 3), dtype=np.float32)
+        t0 = time.perf_counter()
+        upscale_tiled(model, x, dtype=dtype)
+        torch.cuda.synchronize()
+        first_s.append(time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+        kept_gb.append(round((torch.cuda.memory_reserved() - base) / 1e9, 3))
+    cache = model.__dict__['_tiled_fn_cache']
+    if len(cache) != len(sizes) or not kept_gb[-1] <= POOL_GROWTH * kept_gb[0]:
+        raise AssertionError(f'{len(cache)} programs for {len(sizes)} sizes keep {kept_gb} GB')
+    for p in cache.values():
+        p.release()
+    cache.clear()
+    torch.cuda.empty_cache()
+    return {'sizes': [list(hw) for hw in sizes], 'first_call_s': first_s, 'graphs_keep_gb': kept_gb,
+            'all_released_gb': round((torch.cuda.memory_reserved() - base) / 1e9, 3)}
+
+
+def phase_graph() -> dict:
+    """The graph path's own checks.  (1) f32, TF32 off: the graph output
+    within 1e-6 of the host loop (tests/test_parallel.py's bound) for
+    ESRGAN, PLKSR, SwinIR-M, EIMN_L, ATD-light and LAWFFT at their serve
+    configs on a 320 x 480 image at their f32 hints: the five CUDA sources
+    and cuFFT under capture.  (2) Nine image sizes through one model (SPAN
+    4x, bf16, tile 128): the LRU keeps eight programs and frees the evicted
+    one's graph; device memory with eight graphs, after the eviction, and
+    after all are released.  (3) ``bucket=True``: three sizes that pad to one
+    bucket share one program (three replays of one graph).  (4) RHA, bf16,
+    at its hints: four distinct 720p-class sizes, the memory their graphs
+    keep (:func:`graph_pool_sizes`)."""
+    import numpy as np
+    import torch
+
+    import resselt_tpu_torch
+    from resselt_tpu_torch.parallel import upscale_tiled
+    from resselt_tpu_torch.zoo import (make_atd, make_eimn, make_esrgan, make_lawfft, make_plksr, make_rha, make_span,
+                                      make_swinir)
+
+    at, ei, sw, lw = ATD, EIMN, SWINIR, LAWFFT
+    builders = {
+        'ESRGAN': lambda: make_esrgan(BENCH['num_filters'], BENCH['num_blocks'], BENCH['scale'], seed=0),
+        'PLKSR': lambda: make_plksr(PLKSR['dim'], PLKSR['n_blocks'], PLKSR['scale'], PLKSR['kernel_size'], seed=0),
+        'SwinIR-M': lambda: make_swinir(sw['embed_dim'], sw['depths'], sw['num_heads'], sw['window_size'],
+                                        upscale=sw['scale'], img_size=sw['img_size'], seed=0),
+        'EIMN_L': lambda: make_eimn(ei['embed_dims'], ei['num_stages'], ei['depths'], ei['mlp_ratio'], ei['scale'],
+                                    seed=0),
+        'ATD-light': lambda: make_atd(at['embed_dim'], at['depths'], at['num_heads'], at['window_size'],
+                                      at['num_tokens'], at['reducted_dim'], at['convffn_kernel_size'], at['mlp_ratio'],
+                                      at['scale'], seed=0),
+        'LAWFFT': lambda: make_lawfft(lw['dim'], lw['n_rblock'], lw['n_mblock'], lw['scale'], seed=0),
+    }
+    img = np.random.default_rng(4).random((320, 480, 3), dtype=np.float32)
+    res = {}
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, build in builders.items():
+            model = resselt_tpu_torch.load_from_state_dict(build(), device='cuda')
+            r = phase_tiled(model, img, None, torch.float32, GRAPH_F32_TOL, reps=1, relative=False)
+            res[name] = {k: r[k] for k in ('tiled_graph_vs_host_max_abs', 'tiled_kernels_per_replay', 'tiled_s',
+                                           'tiled_host_s', 'tiled_graph_first_s')}
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    out = {'f32_graph_vs_host': json.dumps(res)}
+
+    model = resselt_tpu_torch.load_from_state_dict(make_span(SPAN['feature_channels'], SPAN['scale'], seed=0),
+                                                   device='cuda')
+    sizes = [(300 + 8 * i, 400) for i in range(9)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    programs, mem = [], {'before_graphs': (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())}
+    for i, (h, w) in enumerate(sizes):
+        x = np.random.default_rng(i).random((h, w, 3), dtype=np.float32)
+        upscale_tiled(model, x, tile=128, dtype=torch.bfloat16)
+        programs.append(next(reversed(model.__dict__['_tiled_fn_cache'].values())))
+        torch.cuda.synchronize()
+        if i == 7:
+            mem['with_8_graphs'] = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    cache = model.__dict__['_tiled_fn_cache']
+    mem['after_eviction'] = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    if len(cache) != 8 or programs[0].graph is not None or any(p.graph is None for p in programs[1:]):
+        raise AssertionError(f'LRU: {len(cache)} programs, first graph {programs[0].graph}')
+    for p in cache.values():
+        p.release()
+    cache.clear()
+    torch.cuda.synchronize()
+    mem['all_released'] = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    torch.cuda.empty_cache()
+    mem['after_empty_cache'] = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    out['lru_sizes'] = len(sizes)
+    out['lru_programs'] = 8
+    out['device_memory_gb_allocated_reserved'] = json.dumps(
+        {k: [round(a / 1e9, 3), round(r / 1e9, 3)] for k, (a, r) in mem.items()})
+
+    for h, w in ((300, 400), (290, 390), (320, 420)):
+        x = np.random.default_rng(h).random((h, w, 3), dtype=np.float32)
+        y = upscale_tiled(model, x, tile=128, dtype=torch.bfloat16, bucket=True)
+        if tuple(y.shape) != (4 * h, 4 * w, 3):
+            raise AssertionError(f'bucket: shape {tuple(y.shape)}')
+    (program,) = cache.values()
+    if program.replays != 3:
+        raise AssertionError(f'bucket: {len(cache)} programs, {program.replays} replays')
+    out['bucket_sizes_one_program_replays'] = program.replays
+    del model
+    torch.cuda.empty_cache()
+
+    rh = RHA
+    model = resselt_tpu_torch.load_from_state_dict(
+        make_rha(rh['dim'], rh['scale'], down_list=rh['down_list'], res_blocks=rh['res_blocks'], seed=0), device='cuda')
+    out['rha_sizes_bf16'] = json.dumps(graph_pool_sizes(model, POOL_SIZES, torch.bfloat16))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _int8_card_vs_cpu(sd: dict) -> tuple:
+    """One int8 model on the card against the CPU, f32, TF32 off, on a
+    1 x 64 x 64 image.  Every int8 conv the card's forward ran is run again
+    on the CPU on the same input, weights and scales: within
+    INT8_TOL x max|y| (the same codes, an exact int32 sum).  The whole
+    forwards only agree to the int8 model's own sensitivity: the dynamic
+    activation quant turns a last-bit difference upstream of an int8 conv
+    (the card's kernels sum in another order than the CPU's) into a flipped
+    code; their PSNR, and the PSNR of int8 against float, must exceed 35 dB
+    (the repo's floor for a lossy serving mode).  Returns the figures, the
+    float model and the int8 model on the card."""
+    import numpy as np
+    import torch
+
+    import resselt_tpu_torch
+    from resselt_tpu_torch import metrics
+    from resselt_tpu_torch.nn import functional as F
+
+    model = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    q = model.quantize_int8()
+    q_cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu').quantize_int8()
+    x = np.random.default_rng(5).random((1, 64, 64, 3), dtype=np.float32)
+    calls, real = [], F.conv2d_int8
+
+    def recording(x_, w8, scale, b=None, **kw):
+        y = real(x_, w8, scale, b, **kw)
+        calls.append((x_.cpu(), w8.cpu(), scale.cpu(), None if b is None else b.cpu(), kw, y.cpu()))
+        return y
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    F.conv2d_int8 = recording
+    try:
+        y_card = q(x).cpu()
+    finally:
+        F.conv2d_int8 = real
+    y_float = model(x).cpu()
+    torch.backends.cudnn.allow_tf32 = saved
+    y_cpu = q_cpu(x)
+    worst = 0.0
+    for x_, w8, scale, b, kw, y in calls:
+        want = real(x_, w8, scale, b, **kw)
+        err = float((y - want).abs().max()) / max(float(want.abs().max()), 1e-12)
+        worst = max(worst, err)
+    if not calls or not worst <= INT8_TOL:
+        raise AssertionError(f'{len(calls)} int8 convs, worst card vs cpu {worst} x max|y|')
+    res = {'int8_convs': sum(v.dtype == torch.int8 for v in q.params.values()),
+           'int8_conv_calls_per_forward': len(calls), 'per_conv_card_vs_cpu_max_rel': worst,
+           'forward_card_vs_cpu_max_abs': float((y_card - y_cpu).abs().max()),
+           'forward_card_vs_cpu_psnr_db': round(metrics.psnr(y_card, y_cpu), 2),
+           'int8_vs_float_psnr_db_card': round(metrics.psnr(y_card, y_float), 2),
+           'int8_vs_float_psnr_db_cpu': round(metrics.psnr(y_cpu, resselt_tpu_torch.load_from_state_dict(
+               sd, device='cpu')(x)), 2)}
+    if not min(res['forward_card_vs_cpu_psnr_db'], res['int8_vs_float_psnr_db_card'],
+               res['int8_vs_float_psnr_db_cpu']) > BF16_PSNR:
+        raise AssertionError(f'int8 PSNR under {BF16_PSNR} dB: {res}')
+    return res, model, q
+
+
+def phase_int8() -> dict:
+    """int8 serving: ESRGAN-23 at the bench config quantized (its int8
+    convs), held card against CPU (:func:`_int8_card_vs_cpu`), its bench
+    forward's ms in bf16 against the float model's (recorded, not a gate),
+    and its tiled 720p image through the graph path against the host loop,
+    then four distinct 720p-class sizes (:func:`graph_pool_sizes`);
+    Compact and SPAN (JAX's test families) and CUGAN (whose transposed convs
+    stay float) card against CPU."""
+    import torch
+
+    from resselt_tpu_torch.zoo import make_compact, make_cugan, make_esrgan, make_span
+
+    res, model, q = _int8_card_vs_cpu(make_esrgan(BENCH['num_filters'], BENCH['num_blocks'], BENCH['scale'], seed=0))
+    out = {'ESRGAN': res}
+    x = torch.rand((BENCH['batch'], BENCH['tile'], BENCH['tile'], 3),
+                   generator=torch.Generator().manual_seed(1)).to('cuda')
+    for name, m in (('bf16', model), ('int8', q), ('bf16_again', model), ('int8_again', q)):
+        m(x, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            y = m(x, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        res[f'bench_ms_{name}'] = (time.perf_counter() - t0) / 3 * 1e3
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f'{name} bench forward is not finite')
+    del x, y
+    import numpy as np
+
+    img = np.random.default_rng(2).random((720, 1280, 3), dtype=np.float32)
+    t = phase_tiled(q, img, BENCH['tile'], torch.bfloat16, GRAPH_BF16_TOL)
+    res.update({f'int8_{k}': t[k] for k in ('tiled_s', 'tiled_host_s', 'tiled_graph_first_s',
+                                            'tiled_graph_vs_host_max_abs', 'tiled_graph_resident_gb')})
+    res['int8_sizes_bf16'] = graph_pool_sizes(q, POOL_SIZES, torch.bfloat16)
+    del model, q
+    torch.cuda.empty_cache()
+    for name, sd in (('Compact', make_compact(seed=0)), ('SPAN', make_span(seed=0)), ('CUGAN', make_cugan('2x', seed=0))):
+        out[name] = _int8_card_vs_cpu(sd)[0]
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cache_tools(tmp: str) -> dict:
+    """The cache and the tools on the card: ESRGAN-23 converted to ``.npz``
+    and ``.safetensors``; the ``.npz`` model loaded on the card gives the
+    checkpoint-loaded model's output bit for bit (bf16, 2 x 128^2); ``inspect
+    --json``; the CLI on the ``.npz`` model over a directory of three PNGs
+    (background I/O) with ``--int8``, ``--tile 64`` (the int8 model through
+    the graph path) and ``--trace``, whose trace file must exist."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import resselt_tpu_torch
+    from resselt_tpu_torch import convert, inspect, upscale
+    from resselt_tpu_torch.io import write_safetensors
+    from resselt_tpu_torch.zoo import make_esrgan
+
+    sd = make_esrgan(BENCH['num_filters'], BENCH['num_blocks'], BENCH['scale'], seed=0)
+    ckpt, npz, st = (os.path.join(tmp, f) for f in ('m.safetensors', 'm.npz', 'converted.safetensors'))
+    write_safetensors(sd, ckpt)
+    t0 = time.perf_counter()
+    if convert.main([ckpt, npz]) != 0 or convert.main([ckpt, st]) != 0:
+        raise AssertionError('convert failed')
+    res = {'convert_s': time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    cached = resselt_tpu_torch.load_model(npz)
+    res['load_npz_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = resselt_tpu_torch.load_from_file(ckpt)
+    res['load_checkpoint_s'] = time.perf_counter() - t0
+    exported = resselt_tpu_torch.load_from_file(st)
+    x = torch.rand((2, 128, 128, 3), generator=torch.Generator().manual_seed(6)).to('cuda')
+    want = model(x, dtype=torch.bfloat16)
+    for name, m in (('npz', cached), ('safetensors', exported)):
+        if not torch.equal(m(x, dtype=torch.bfloat16), want) or m.serving_halo != model.serving_halo:
+            raise AssertionError(f'the {name} model differs from the checkpoint-loaded one')
+    res['npz_output_bit_identical'] = True
+    del cached, exported, model, x, want
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = inspect.main([npz, '--json', '--size', '64', '64'])
+    info = json.loads(buf.getvalue())
+    if rc != 0 or info['arch'] != 'ESRGAN' or info['params'] != sum(v.size for v in sd.values()) or \
+            not info['cost_at_size']['gflops'] > 0:
+        raise AssertionError(f'inspect: {info}')
+    res['inspect'] = json.dumps(info['cost_at_size'])
+    indir, outdir, trace = (os.path.join(tmp, d) for d in ('in', 'out', 'trace'))
+    os.makedirs(indir)
+    for i in range(3):
+        Image.fromarray((np.random.default_rng(i).random((96, 128, 3)) * 255).astype(np.uint8)).save(
+            os.path.join(indir, f'{i}.png'))
+    t0 = time.perf_counter()
+    rc = upscale.main([npz, indir, outdir, '--int8', '--bf16', '--tile', '64', '--trace', trace])
+    res['cli_int8_trace_s'] = time.perf_counter() - t0
+    outs = sorted(os.listdir(outdir)) if os.path.isdir(outdir) else []
+    sizes = {Image.open(os.path.join(outdir, f)).size for f in outs}
+    trace_file = os.path.join(trace, 'resselt_tpu_torch.trace.json')
+    if rc != 0 or len(outs) != 3 or sizes != {(512, 384)} or not os.path.isfile(trace_file):
+        raise AssertionError(f'cli: rc {rc}, outputs {outs} {sizes}, trace {os.listdir(trace) if os.path.isdir(trace) else None}')
+    res['cli_trace_mb'] = round(os.path.getsize(trace_file) / 1e6, 2)
+    torch.cuda.empty_cache()
+    return res
+
+
+# a directory of photos in ten sizes, none padding to another's grid (the CLI over mixed sizes)
+CLI_SIZES = ((320, 480), (336, 512), (360, 540), (384, 576), (400, 600), (420, 640), (448, 672), (480, 720),
+             (512, 768), (540, 810))
+
+
+def phase_cli_sizes(tmp: str) -> dict:
+    """A directory of photos in ten sizes, bf16 at the loader's hints, for
+    ATD-light (the family whose host loop leaves the card most idle) and
+    ESRGAN-23 (the card busy).  First the library: the ten images through
+    ``upscale_tiled`` on the host loop and on the graph path, which pays a
+    warm-up run and a capture for every size (seconds for the ten, the
+    model loaded once).  Then the CLI over the ten as JPEGs (``--tile
+    auto``), which sends a size of its own to the host loop and sizes that
+    inputs share to the graph: as they are (all ten on the host loop) and
+    with ``--bucket`` (ATD-light's 160 tiles pad them into five sizes,
+    ESRGAN's 256 into three).  Each CLI run loads the model anew.
+    Recorded, not a gate; every output must have its size."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import resselt_tpu_torch
+    from resselt_tpu_torch import upscale
+    from resselt_tpu_torch.io import write_safetensors
+    from resselt_tpu_torch.parallel import upscale_tiled
+    from resselt_tpu_torch.zoo import make_atd, make_esrgan
+
+    at = ATD
+    builders = {
+        'ATD-light': lambda: make_atd(at['embed_dim'], at['depths'], at['num_heads'], at['window_size'],
+                                      at['num_tokens'], at['reducted_dim'], at['convffn_kernel_size'], at['mlp_ratio'],
+                                      at['scale'], seed=0),
+        'ESRGAN': lambda: make_esrgan(BENCH['num_filters'], BENCH['num_blocks'], BENCH['scale'], seed=0),
+    }
+    indir = os.path.join(tmp, 'sizes')
+    os.makedirs(indir)
+    imgs = [(np.random.default_rng(20 + i).random((h, w, 3)) * 255).astype(np.uint8) for i, (h, w) in
+            enumerate(CLI_SIZES)]
+    for i, img in enumerate(imgs):
+        Image.fromarray(img).save(os.path.join(indir, f'{i}.jpg'))
+    res = {}
+    for name, build in builders.items():
+        sd = build()
+        model = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+        row = {}
+        for mode, on_device in (('library_host_loop', False), ('library_graph', None)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for img in imgs:
+                upscale_tiled(model, img, dtype=torch.bfloat16, on_device=on_device).cpu()
+            row[f'{mode}_s'] = time.perf_counter() - t0
+        cache = model.__dict__['_tiled_fn_cache']
+        for p in cache.values():
+            p.release()
+        cache.clear()
+        del model
+        torch.cuda.empty_cache()
+        ckpt = os.path.join(tmp, f'{name}.safetensors')
+        write_safetensors(sd, ckpt)
+        for mode, flags in (('cli', []), ('cli_bucket', ['--bucket'])):
+            outdir = os.path.join(tmp, f'{name}_{mode}')
+            t0 = time.perf_counter()
+            rc = upscale.main([ckpt, indir, outdir, '--bf16', '--tile', 'auto', *flags])
+            row[f'{mode}_s'] = time.perf_counter() - t0
+            sizes = [Image.open(os.path.join(outdir, f'{i}.jpg')).size for i in range(len(CLI_SIZES))]
+            if rc != 0 or sizes != [(w * 4, h * 4) for h, w in CLI_SIZES]:
+                raise AssertionError(f'cli {name} {mode}: rc {rc}, sizes {sizes}')
+        res[name] = json.dumps(row)
     return res
 
 
@@ -1605,11 +2180,9 @@ def main() -> int:
                                  f'expected {n_habs} and {n_ocabs}')
         log('hat_model', tol=HAT_TOL, **res)
 
-        torch.cuda.reset_peak_memory_stats()
         serve, hat_fig = serve_window_model(model, ckpt, tmp, {'wattn': n_habs}, ha, plain=n_ocabs)
         log('hat_serve', launches=hat_fig['wattn'][0], launches_per_bench_forward=hat_fig['wattn'][1],
-            wattn_ms_per_bench_forward=hat_fig['wattn'][2],
-            peak_memory_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2), **serve)
+            wattn_ms_per_bench_forward=hat_fig['wattn'][2], **serve)
         del model, sd
         torch.cuda.empty_cache()
 
@@ -1648,9 +2221,7 @@ def main() -> int:
                 del extra
             log(f'{stem}_model', tol=tol, **res)
 
-            torch.cuda.reset_peak_memory_stats()
             serve, fig = serve_window_model(model, ckpt, tmp, {'wattn': n_wattn}, cfg, plain=n_plain)
-            serve['peak_memory_gb'] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
             del model
             torch.cuda.empty_cache()
             return serve, fig
@@ -1857,10 +2428,8 @@ def main() -> int:
             log(f'{stem}_model', tol=tol, **res)
 
             served = model.with_config(**serve_config) if serve_config else model
-            torch.cuda.reset_peak_memory_stats()
             serve = phase_serve(served, ckpt, tmp, BENCH['batch'], BENCH['tile'], timed_reps=reps, img_hw=(720, 1280),
                                 tiled_tile=cfg['tile'])
-            serve['peak_memory_gb'] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
             counts = serve.pop('bench_counts')
             serve.pop('bench_paths')
             if serve.pop('bench_plain')[0]:
@@ -2117,6 +2686,15 @@ def main() -> int:
         extra_models=(('unshuffle_2x_pixelshuffle_model', make_lawfft(16, 1, 2, 2, unshuffle_mod=True,
                                                                       upsampler='pixelshuffle', mid_dim=16, seed=1),
                        1 + 4),))
+
+    # -- the serving side: the graph path, int8, the cache and the tools ---------------------------------------
+    log('graph', f32_tol=GRAPH_F32_TOL, **phase_graph())
+    log('int8', per_conv_tol=f'{INT8_TOL} x max|y|', psnr_floor_db=BF16_PSNR,
+        **{k: json.dumps(v) for k, v in phase_int8().items()})
+    with tempfile.TemporaryDirectory() as tmp:
+        log('cache_tools', **phase_cache_tools(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        log('cli_sizes', sizes=json.dumps(CLI_SIZES), **phase_cli_sizes(tmp))
 
     w_figs = {'ATD-light': atd_fig, 'HAT-S': hat_fig, 'DAT-S': dat_fig, 'RGT-S': rgt_fig, 'DRCT': drct_fig,
               'FDAT-M': fdat_fig, 'OmniSR': omni_fig, 'FlexNet': w_figs_flexnet}

@@ -37,10 +37,15 @@ def load_from_state_dict(state_dict: Mapping[str, Any], device='cuda') -> SRMode
 
 
 def __getattr__(name):
+    # lazy re-exports of the heavier submodules, as resselt_tpu's
     if name in ('upscale_tiled', 'upscale_padded'):
         from . import parallel
 
         return getattr(parallel, name)
+    if name in ('save_model', 'load_model'):
+        from . import cache
+
+        return getattr(cache, name)
     raise AttributeError(name)
 
 

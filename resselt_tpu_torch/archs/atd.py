@@ -37,7 +37,7 @@ import torch
 from ..core import Architecture, KeyCondition, ModelMetadata, SRModel, params_from_numpy
 from ..core.state_dict import get_pixelshuffle_params, get_seq_len, pixelshuffle_scale
 from ..nn import functional as F
-from ..nn.params import PTree
+from ..nn.params import MEAN, PTree, cast_params, input_mean
 from ..nn.window import (
     multi_head_attention,
     relative_position_bias,
@@ -193,7 +193,7 @@ def prepare(cfg: ATDConfig, params, dtype: torch.dtype) -> dict:
     """The params in ``dtype``, plus each layer's relative-position bias
     under ``...attn_win.relative_position_bias`` ((heads, N, N), rounded to
     ``dtype``, held in f32 for the kernel) and an empty shift-mask cache."""
-    out = {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
+    out = cast_params(params, dtype)
     rpi = params['relative_position_index_SA']
     for li, depth in enumerate(cfg.depths):
         for bi in range(depth):
@@ -201,6 +201,7 @@ def prepare(cfg: ATDConfig, params, dtype: torch.dtype) -> dict:
             out[f'{a}.relative_position_bias'] = relative_position_bias(
                 params[f'{a}.relative_position_bias_table'], rpi, dtype)
     out[_MASKS] = {}
+    out[MEAN] = input_mean(params, _RGB_MEAN if cfg.in_chans == 3 else (0.0,), dtype)
     return out
 
 
@@ -217,10 +218,7 @@ def apply(cfg: ATDConfig, params, x):
     x = torch.cat([x, x.flip(2)], dim=2)[:, :, :w].contiguous()
 
     if cfg.norm:
-        if cfg.in_chans == 3:
-            mean = torch.tensor(_RGB_MEAN, dtype=x.dtype, device=x.device)
-        else:
-            mean = torch.zeros((1,), dtype=x.dtype, device=x.device)
+        mean = params[MEAN]
         x = (x - mean) * cfg.img_range
 
     def features(feat_img):

@@ -29,7 +29,7 @@ import torch.nn.functional as TF
 from ..core import Architecture, KeyCondition, ModelMetadata, SRModel, params_from_numpy
 from ..core.state_dict import get_seq_len, pixelshuffle_scale
 from ..nn import functional as F
-from ..nn.params import PTree
+from ..nn.params import MEAN, PTree, cast_params, input_mean
 from ..nn.window import multi_head_attention, rect_shift_mask, relative_position_bias
 
 _RGB_MEAN = (0.4488, 0.4371, 0.4040)
@@ -212,13 +212,14 @@ def prepare(cfg, params, dtype: torch.dtype) -> dict:
     ``relative_position_index``, rounded to ``dtype``, held in f32 for the
     kernel) and an empty shift-mask cache.  Also DAT's shared ``prepare``
     for RGT."""
-    out = {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
+    out = cast_params(params, dtype)
     for key in params:
         if key.endswith(f'.{_RPE}'):
             a = PTree(out, key[: -len(_RPE)])
             out[f'{key[: -len(_RPE)]}relative_position_bias'] = relative_position_bias(
                 _dyn_pos_bias(a.sub('pos'), a[_RPE]), a['relative_position_index'], dtype)
     out[_MASKS] = {}
+    out[MEAN] = input_mean(params, _RGB_MEAN if cfg.in_chans == 3 else (0.0,), dtype)
     return out
 
 
@@ -226,10 +227,7 @@ def apply(cfg: DATConfig, params, x):
     """Forward on NHWC ``x`` with ``params = prepare(cfg, ..., x.dtype)``."""
     p = PTree(params)
     masks = params[_MASKS]
-    if cfg.in_chans == 3:
-        mean = torch.tensor(_RGB_MEAN, dtype=x.dtype, device=x.device)
-    else:
-        mean = torch.zeros((1,), dtype=x.dtype, device=x.device)
+    mean = params[MEAN]
     x = (x - mean) * cfg.img_range
 
     x = p.conv('conv_first', x, padding=1)

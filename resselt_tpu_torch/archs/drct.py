@@ -29,7 +29,7 @@ import torch
 from ..core import Architecture, KeyCondition, ModelMetadata, SRModel, params_from_numpy
 from ..core.state_dict import get_pixelshuffle_params, get_seq_len
 from ..nn import functional as F
-from ..nn.params import PTree
+from ..nn.params import MEAN, PTree, cast_params, input_mean
 from ..nn.window import relative_position_bias
 from .swinir import swin_block
 
@@ -71,13 +71,14 @@ def prepare(cfg: DRCTConfig, params, dtype: torch.dtype) -> dict:
     under ``layers.{i}.swin{k}.attn.relative_position_bias`` ((heads, N, N),
     rounded to ``dtype``, held in f32 for the kernel) and an empty shift-mask
     cache."""
-    out = {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
+    out = cast_params(params, dtype)
     for li in range(cfg.num_layers):
         for k in range(1, 6):
             a = f'layers.{li}.swin{k}.attn'
             out[f'{a}.relative_position_bias'] = relative_position_bias(
                 params[f'{a}.relative_position_bias_table'], params[f'{a}.relative_position_index'], dtype)
     out[_MASKS] = {}
+    out[MEAN] = input_mean(params, _RGB_MEAN if cfg.in_chans == 3 else (0.0,), dtype)
     return out
 
 
@@ -85,10 +86,7 @@ def apply(cfg: DRCTConfig, params, x):
     """Forward on NHWC ``x`` with ``params = prepare(cfg, ..., x.dtype)``."""
     p = PTree(params)
     masks = params[_MASKS]
-    if cfg.in_chans == 3:
-        mean = torch.tensor(_RGB_MEAN, dtype=x.dtype, device=x.device)
-    else:
-        mean = torch.zeros((1,), dtype=x.dtype, device=x.device)
+    mean = params[MEAN]
     x = (x - mean) * cfg.img_range
     h0, w0 = x.shape[1], x.shape[2]
     x = F.pad_to_multiple(x, cfg.window_size)

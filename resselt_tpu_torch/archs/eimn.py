@@ -24,7 +24,7 @@ import torch
 from ..core import Architecture, KeyCondition, ModelMetadata, SRModel, params_from_numpy
 from ..core.state_dict import get_seq_len, pixelshuffle_scale
 from ..nn import functional as F
-from ..nn.params import PTree
+from ..nn.params import PTree, cast_params
 from ..ops import fused_molrcm, molrcm_supported, pack_molrcm_weights
 
 
@@ -87,7 +87,7 @@ def prepare(cfg: EIMNConfig, params, dtype: torch.dtype) -> dict:
     """The params in ``dtype``, plus each block's MOLRCM weights packed for
     the kernel under ``block{i}.{j}.attn.molrcm`` (rounded to ``dtype``,
     held in f32) where ``molrcm_supported`` takes the width."""
-    out = {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
+    out = cast_params(params, dtype)
     if molrcm_supported(cfg.embed_dims, 1, 1):
         p = PTree(params)
         for i in range(1, cfg.num_stages + 1):

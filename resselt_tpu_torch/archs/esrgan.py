@@ -6,7 +6,11 @@ inference and serving hints, and the same producer-decomposed RDB.  Every
 3x3 conv runs through ``ops.fused_conv3x3_act`` (351 launches per 4x
 forward of RRDBNet-23).  Its weights are repacked for the kernel once per
 compute dtype (``prepare``), the RDB producer weights and biases
-concatenated there rather than on every forward.
+concatenated there rather than on every forward.  A quantized model's int8
+convs (``SRModel.quantize_int8``) run ``F.conv2d_int8`` instead, the RDB's
+as JAX's ``_rdb`` int8 path: one concatenated int8 conv a stage when all
+five producer weights are int8, the int8 members dequantized (exact) when
+they are mixed with float ones.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from ..core import Architecture, KeyCondition, ModelMetadata, SRModel, params_fr
 from ..core.state_dict import get_seq_len
 from ..nn import functional as F
 from ..nn.params import PTree
-from ..ops import fused_conv3x3_act, pack_conv3x3_weight
+from ..ops.conv_route import conv, prepare_conv, prepare_named_conv
 
 
 @dataclass(frozen=True)
@@ -116,12 +120,6 @@ def _n_up(cfg: ESRGANConfig) -> int:
 # -- weights for the kernel ---------------------------------------------------
 
 
-def _conv3x3(p: PTree, name: str, dtype: torch.dtype):
-    """(packed taps in ``dtype``, f32 bias or None) for one 3x3 conv."""
-    w, b = p.wb(name)
-    return pack_conv3x3_weight(w, dtype), None if b is None else b.float().contiguous()
-
-
 def _rdb_weights(p: PTree, dtype: torch.dtype, plus: bool) -> dict:
     """One RDB's producer convs.
 
@@ -129,34 +127,45 @@ def _rdb_weights(p: PTree, dtype: torch.dtype, plus: bool) -> dict:
     regrouped by PRODUCER: stage j's conv reads f_j (stage 0: x) and emits
     the slices of every later conv that consume it, so the output widths
     are 4gc+nf, 3gc+nf, 2gc+nf, gc+nf, nf.  All five biases land once, in
-    the stage-0 output."""
-    ws = [p[f'conv{i}.0.weight'] for i in range(1, 6)]
+    the stage-0 output.  int8 weights (``quantize_int8``): the regroup
+    concatenates the five, so the int8 path needs ALL of them quantized,
+    their per-out-channel scales concatenated along the same axis; a
+    partly quantized RDB (gc and nf on both sides of the eligibility
+    bound) dequantizes its int8 members, which is exact in the math."""
+    pairs = [p.conv_weight_int8(f'conv{i}.0') for i in range(1, 6)]
+    int8 = all(s is not None for _, s in pairs)
+    ws = [w if int8 or s is None else w.float() * s[:, None, None, None] for w, s in pairs]
     nf = ws[0].shape[1]
     gc = ws[0].shape[0]
-    producers = []
-    for j in range(5):
-        lo = 0 if j == 0 else nf + (j - 1) * gc
-        hi = nf if j == 0 else lo + gc
-        producers.append(pack_conv3x3_weight(torch.cat([ws[i][:, lo:hi] for i in range(j, 5)], dim=0), dtype))
     biases = [p.get(f'conv{i}.0.bias') for i in range(1, 6)]
     bias0 = None
     if any(b is not None for b in biases):
         bias0 = torch.cat([b.float() if b is not None else torch.zeros(w.shape[0], device=w.device)
                            for b, w in zip(biases, ws)]).contiguous()
-    out = {'producers': producers, 'bias0': bias0, 'gc': gc}
+    producers = []
+    for j in range(5):
+        lo = 0 if j == 0 else nf + (j - 1) * gc
+        hi = nf if j == 0 else lo + gc
+        w = torch.cat([ws[i][:, lo:hi] for i in range(j, 5)], dim=0)
+        scale = torch.cat([pairs[i][1] for i in range(j, 5)]) if int8 else None
+        producers.append(prepare_conv(w, bias0 if j == 0 else None, dtype, scale=scale))
+    out = {'producers': producers, 'gc': gc}
     if plus:
-        out['conv1x1'] = p['conv1x1.weight'].to(dtype)
+        w11, s11 = p.conv_weight_int8('conv1x1')
+        out['conv1x1'] = prepare_conv(w11, None, dtype, scale=s11)
     return out
 
 
 def prepare(cfg: ESRGANConfig, params, dtype: torch.dtype) -> dict:
-    """Every conv's weights in the kernel's layout, for inputs of ``dtype``."""
+    """Every conv's weights for inputs of ``dtype``: the head, trunk and
+    tail convs as ``ops.conv_route`` builds them (the kernel's taps, or
+    int8), each RDB's producers."""
     p = PTree(params)
     n_up = _n_up(cfg)
     names = ['model.0', f'model.1.sub.{cfg.num_blocks}']
     names += [f'model.{3 * i}' for i in range(1, n_up + 1)]
     names += [f'model.{3 * n_up + 2}', f'model.{3 * n_up + 4}']
-    out = {name: _conv3x3(p, name, dtype) for name in names}
+    out = {name: prepare_named_conv(params, name, dtype) for name in names}
     out['rdb'] = [
         [_rdb_weights(p.sub(f'model.1.sub.{i}.RDB{r}'), dtype, cfg.plus) for r in (1, 2, 3)]
         for i in range(cfg.num_blocks)
@@ -171,16 +180,16 @@ def _rdb(rw: dict, x, plus: bool):
     """ResidualDenseBlock_5C, producer-decomposed (see ``_rdb_weights``)."""
     gc = rw['gc']
     producers = rw['producers']
-    a = fused_conv3x3_act(x, producers[0], rw['bias0'])
+    a = conv(producers[0], x)
     f2 = None
     for j in range(1, 5):
         f = F.leaky_relu(a[..., :gc], 0.2)
         if plus and j == 2:
-            f = f + F.conv2d(x, rw['conv1x1'])
+            f = f + conv(rw['conv1x1'], x)
             f2 = f
         if plus and j == 4:
             f = f + f2
-        a = a[..., gc:] + fused_conv3x3_act(f.contiguous(), producers[j])
+        a = a[..., gc:] + conv(producers[j], f)
     return (a * 0.2 + x).contiguous()
 
 
@@ -198,19 +207,19 @@ def _head(cfg: ESRGANConfig, w: dict, x):
     if sf:
         x = F.pad2d(x, (0, (sf - wd % sf) % sf, 0, (sf - h % sf) % sf), mode='reflect')
         x = F.pixel_unshuffle(x, sf).contiguous()
-    return fused_conv3x3_act(x, *w['model.0']), (h, wd)
+    return conv(w['model.0'], x), (h, wd)
 
 
 def _tail(cfg: ESRGANConfig, w: dict, feat, body, hw):
-    out = feat + fused_conv3x3_act(body, *w[f'model.1.sub.{cfg.num_blocks}'])
+    out = feat + conv(w[f'model.1.sub.{cfg.num_blocks}'], body)
 
     n_up = _n_up(cfg)
     up_factor = 3 if cfg.scale == 3 else 2
     for i in range(1, n_up + 1):
         out = F.interpolate_nearest(out, scale_factor=up_factor)
-        out = fused_conv3x3_act(out, *w[f'model.{i * 3}'], act='lrelu')
-    out = fused_conv3x3_act(out, *w[f'model.{3 * n_up + 2}'], act='lrelu')
-    out = fused_conv3x3_act(out, *w[f'model.{3 * n_up + 4}'])
+        out = conv(w[f'model.{i * 3}'], out, 'lrelu')
+    out = conv(w[f'model.{3 * n_up + 2}'], out, 'lrelu')
+    out = conv(w[f'model.{3 * n_up + 4}'], out)
 
     if cfg.shuffle_factor:
         run_scale = cfg.scale // cfg.shuffle_factor

@@ -29,7 +29,7 @@ import torch
 from ..core import Architecture, KeyCondition, ModelMetadata, SRModel, params_from_numpy
 from ..core.state_dict import get_seq_len
 from ..nn import functional as F
-from ..nn.params import PTree
+from ..nn.params import PTree, cast_params
 from ..nn.upsample import SAMPLE_MODS3, uni_upsample_v3
 from ..nn.window import multi_head_attention, window_partition, window_reverse
 
@@ -115,7 +115,7 @@ def prepare(cfg: FDATConfig, params, dtype: torch.dtype) -> dict:
     """The params in ``dtype``, plus each spatial block's bias under
     ``groups.{g}.blocks.{b}.attn.relative_position_bias`` ((heads, N, N),
     rounded to ``dtype``, held in f32, contiguous)."""
-    out = {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
+    out = cast_params(params, dtype)
     for gi in range(cfg.num_groups):
         for bi in range(0, cfg.depth, 2):
             a = f'groups.{gi}.blocks.{bi}.attn'

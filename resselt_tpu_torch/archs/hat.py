@@ -28,7 +28,7 @@ import torch.nn.functional as TF
 from ..core import Architecture, KeyCondition, ModelMetadata, SRModel, params_from_numpy
 from ..core.state_dict import get_pixelshuffle_params, get_seq_len
 from ..nn import functional as F
-from ..nn.params import PTree
+from ..nn.params import MEAN, PTree, cast_params, input_mean
 from ..nn.window import (
     multi_head_attention,
     relative_position_bias,
@@ -135,7 +135,7 @@ def prepare(cfg: HATConfig, params, dtype: torch.dtype) -> dict:
     bias under ``....relative_position_bias`` (the blocks': (heads, N, N);
     the OCABs': (heads, N, M); rounded to ``dtype``, held in f32) and an
     empty shift-mask cache."""
-    out = {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
+    out = cast_params(params, dtype)
     rpi_sa = params['relative_position_index_SA']
     rpi_oca = params['relative_position_index_OCA']
     for li, depth in enumerate(cfg.depths):
@@ -145,6 +145,7 @@ def prepare(cfg: HATConfig, params, dtype: torch.dtype) -> dict:
             out[f'{a}.relative_position_bias'] = relative_position_bias(
                 params[f'{a}.relative_position_bias_table'], rpi, dtype)
     out[_MASKS] = {}
+    out[MEAN] = input_mean(params, _RGB_MEAN if cfg.in_chans == 3 else (0.0,), dtype)
     return out
 
 
@@ -153,10 +154,7 @@ def apply(cfg: HATConfig, params, x):
     p = PTree(params)
     masks = params[_MASKS]
     h0, w0 = x.shape[1], x.shape[2]
-    if cfg.in_chans == 3:
-        mean = torch.tensor(_RGB_MEAN, dtype=x.dtype, device=x.device)
-    else:
-        mean = torch.zeros((1,), dtype=x.dtype, device=x.device)
+    mean = params[MEAN]
     x = (x - mean) * cfg.img_range
     x = F.pad_to_multiple(x, cfg.window_size)
 

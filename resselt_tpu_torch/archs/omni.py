@@ -28,7 +28,7 @@ import torch
 from ..core import Architecture, KeyCondition, ModelMetadata, SRModel, params_from_numpy
 from ..core.state_dict import get_seq_len, pixelshuffle_scale
 from ..nn import functional as F
-from ..nn.params import PTree
+from ..nn.params import PTree, cast_params
 from ..nn.window import (multi_head_attention, relative_position_bias, relative_position_index, window_partition,
                          window_reverse)
 
@@ -166,7 +166,7 @@ def prepare(cfg: OmniConfig, params, dtype: torch.dtype) -> dict:
     contiguous): its ``rel_pos_bias`` table gathered through the window's
     relative-position index and rounded to ``dtype``, or zeros without
     one."""
-    out = {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
+    out = cast_params(params, dtype)
     ws = cfg.window_size
     device = next(iter(params.values())).device
     rpi = torch.from_numpy(relative_position_index(ws, ws)).to(device)

@@ -20,9 +20,10 @@ import torch
 from ..core import Architecture, KeyCondition, ModelMetadata, SRModel, params_from_numpy
 from ..core.state_dict import get_seq_len, pixelshuffle_scale
 from ..nn import functional as F
-from ..nn.params import PTree
+from ..nn.params import PTree, cast_params
 from ..nn.upsample import dysample
 from ..ops import fused_conv_lk, lk_conv_supported, pack_conv_lk_weight
+from ..ops.fused_conv import fused_lk_enabled
 
 
 @dataclass(frozen=True)
@@ -46,10 +47,11 @@ def _partial(x, pdim, fn):
 
 def _plk_conv(p: PTree, x1):
     """The k x k partial large-kernel conv: the lk kernel where ``prepare``
-    packed its weights (every square shape the kernel takes), else a plain
+    packed its weights (every square shape the kernel takes) and the kernel
+    switch is on (``ops.fused_conv.use_fused_lk``), else a plain
     same-padded conv, as JAX's dispatch outside its gate."""
     packed = p.get('conv.lk_kernel')
-    if packed is not None:
+    if packed is not None and fused_lk_enabled():
         taps, bias = packed
         return fused_conv_lk(x1, taps, bias, k=p.shape('conv.weight')[-1])
     return p.conv('conv', x1, padding='same')
@@ -110,7 +112,7 @@ def prepare(cfg: PLKSRConfig, params, dtype: torch.dtype) -> dict:
     """The params in ``dtype``, plus each PLK conv the lk kernel takes
     packed for it under ``feats.{i}.lk.conv.lk_kernel``: (taps in
     ``dtype``, f32 bias or None)."""
-    out = {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
+    out = cast_params(params, dtype)
     if cfg.lk_type != 'PLK':
         return out
     for i in range(1, cfg.n_blocks + 1):

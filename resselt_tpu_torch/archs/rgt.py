@@ -26,10 +26,9 @@ import torch
 from ..core import Architecture, KeyCondition, ModelMetadata, SRModel, params_from_numpy
 from ..core.state_dict import get_pixelshuffle_params, get_seq_len
 from ..nn import functional as F
-from ..nn.params import PTree
+from ..nn.params import MEAN, PTree
 from .dat import _MASKS, _dual_window_attention, _resi_conv, _sgfn, _shifted, prepare
 
-_RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
 
 @dataclass(frozen=True)
@@ -111,10 +110,7 @@ def apply(cfg: RGTConfig, params, x):
     """Forward on NHWC ``x`` with ``params = prepare(cfg, ..., x.dtype)``."""
     p = PTree(params)
     masks = params[_MASKS]
-    if cfg.in_chans == 3:
-        mean = torch.tensor(_RGB_MEAN, dtype=x.dtype, device=x.device)
-    else:
-        mean = torch.zeros((1,), dtype=x.dtype, device=x.device)
+    mean = params[MEAN]
     x = (x - mean) * cfg.img_range
 
     x = p.conv('conv_first', x, padding=1)

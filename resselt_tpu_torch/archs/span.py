@@ -20,7 +20,7 @@ import torch
 from ..core import Architecture, KeyCondition, ModelMetadata, SRModel, params_from_numpy
 from ..core.state_dict import pixelshuffle_scale
 from ..nn import functional as F
-from ..nn.params import PTree
+from ..nn.params import MEAN, PTree, input_mean
 from ..ops.conv_route import conv, prepare_convs
 from .spanplus import transform_params
 
@@ -63,15 +63,16 @@ def body(p: PTree, feat, rep: str = 'eval_conv'):
 
 
 def prepare(cfg: SpanConfig, params, dtype):
-    return prepare_convs(params, dtype)
+    out = prepare_convs(params, dtype)
+    out[MEAN] = input_mean(params, _RGB_MEAN, dtype)
+    return out
 
 
 def apply(cfg: SpanConfig, w: dict, x):
     """Forward on NHWC ``x`` with ``w = prepare(cfg, params, x.dtype)``."""
     p = PTree(w)
     if cfg.norm:
-        mean = torch.tensor(_RGB_MEAN, dtype=x.dtype, device=x.device)
-        x = (x - mean) * cfg.img_range
+        x = (x - p[MEAN]) * cfg.img_range
     out = body(p, conv(p['conv_1.eval_conv'], x))
     return F.pixel_shuffle(conv(p['upsampler.0'], out), cfg.upscale)
 

@@ -23,7 +23,7 @@ import torch
 from ..core import Architecture, KeyCondition, ModelMetadata, SRModel, params_from_numpy
 from ..core.state_dict import get_pixelshuffle_params, get_seq_len
 from ..nn import functional as F
-from ..nn.params import PTree
+from ..nn.params import MEAN, PTree, cast_params, input_mean
 from ..nn.window import relative_position_bias, shift_mask, swin_window_attention, window_partition, window_reverse
 
 _RGB_MEAN = (0.4488, 0.4371, 0.4040)
@@ -88,13 +88,14 @@ def prepare(cfg: SwinIRConfig, params, dtype: torch.dtype) -> dict:
     """The params in ``dtype``, plus each block's relative-position bias
     under ``...attn.relative_position_bias`` ((heads, N, N), rounded to
     ``dtype``, held in f32 for the kernel) and an empty shift-mask cache."""
-    out = {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
+    out = cast_params(params, dtype)
     for li, depth in enumerate(cfg.depths):
         for bi in range(depth):
             a = f'layers.{li}.residual_group.blocks.{bi}.attn'
             out[f'{a}.relative_position_bias'] = relative_position_bias(
                 params[f'{a}.relative_position_bias_table'], params[f'{a}.relative_position_index'], dtype)
     out[_MASKS] = {}
+    out[MEAN] = input_mean(params, _RGB_MEAN if cfg.in_chans == 3 else (0.0,), dtype)
     return out
 
 
@@ -105,10 +106,7 @@ def apply(cfg: SwinIRConfig, params, x):
     h0, w0 = x.shape[1], x.shape[2]
     x = F.pad_to_multiple(x, cfg.window_size)
 
-    if cfg.in_chans == 3:
-        mean = torch.tensor(_RGB_MEAN, dtype=x.dtype, device=x.device)
-    else:
-        mean = torch.zeros((1,), dtype=x.dtype, device=x.device)
+    mean = params[MEAN]
     x = (x - mean) * cfg.img_range
 
     if cfg.start_unshuffle > 1:

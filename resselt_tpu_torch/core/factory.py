@@ -180,7 +180,7 @@ class SRModel:
         self.size_multiple: int | None = None
         self._apply_fn = apply_fn
         self._prepare_fn = prepare_fn
-        self._prepared: dict[torch.dtype, Any] = {}
+        self._by_dtype: dict[torch.dtype, Any] = {}
 
     @property
     def upscale(self) -> int | Sequence[int]:
@@ -196,25 +196,88 @@ class SRModel:
         meta = self.metadata
         if 'eval_scale' in overrides:
             meta = dataclasses.replace(meta, upscale=int(overrides['eval_scale']))
-        clone = SRModel(self.arch_id, cfg, self.params, meta, self._apply_fn, self._prepare_fn)
+        return self._copy_hints(SRModel(self.arch_id, cfg, self.params, meta, self._apply_fn, self._prepare_fn))
+
+    def _copy_hints(self, clone: 'SRModel') -> 'SRModel':
         clone.tile_batch = self.tile_batch
         clone.serving_tile = self.serving_tile
         clone.serving_halo = self.serving_halo
         clone.size_multiple = self.size_multiple
         return clone
 
+    def _prepared(self, params: Mapping[str, torch.Tensor], dtype: torch.dtype):
+        """What ``apply_fn`` reads of ``params`` for inputs of ``dtype``."""
+        return params if self._prepare_fn is None else self._prepare_fn(self.config, params, dtype)
+
+    def quantize_int8(self) -> 'SRModel':
+        """Opt-in int8 serving copy (``resselt_tpu_torch.quant``): eligible
+        conv weights become per-channel int8 with a ``.weight_scale``, run
+        by ``F.conv2d_int8`` with a dynamic activation quant.  Explicitly
+        lossy; raises ValueError if nothing is eligible.
+
+        Eligibility = shape (plain conv, cin/cout >= 32) AND consumption,
+        as in the JAX package: a discovery run of ``prepare_fn`` and
+        ``apply_fn`` on a 1 x 64 x 64 x C_in probe on the CPU records which
+        weights flow only through int8-aware ops (``PTree.conv`` with groups
+        1, a groups-1 conv that ``ops.conv_route`` prepared, esrgan's
+        producer RDB).  It sees through ``prepare``: params reach it through
+        ``nn.params.RecordingParams``, so a weight that ``prepare`` repacks,
+        concatenates or slices (other than into such a conv), or that
+        ``apply`` reads raw, stays float.  The copy keeps the serving hints
+        and lives on this model's device."""
+        from ..nn import params as params_mod
+        from ..quant import quantize_params
+
+        cpu = {k: v.detach().cpu() for k, v in self.params.items()}
+        rec = {'safe': set(), 'raw': set()}
+        probe = torch.zeros((1, 64, 64, self.metadata.in_channels))
+        params_mod._INT8_DISCOVERY = rec
+        try:
+            with torch.no_grad():
+                weights = self._prepared(params_mod.RecordingParams(cpu), torch.float32)
+                self._apply_fn(self.config, params_mod.RecordingParams(params_mod.quiet(weights)), probe)
+        finally:
+            params_mod._INT8_DISCOVERY = None
+        q, n = quantize_params({k: v.numpy() for k, v in cpu.items()}, allowed=rec['safe'] - rec['raw'])
+        if n == 0:
+            raise ValueError(f'{self.arch_id}: no int8-eligible conv weights')
+        clone = SRModel(self.arch_id, self.config, params_from_numpy(q, self.device), self.metadata,
+                        self._apply_fn, self._prepare_fn)
+        return self._copy_hints(clone)
+
+    def cost(self, height: int, width: int, batch: int = 1) -> dict:
+        """Cost of one forward at ``(batch, height, width, C_in)``, the JAX
+        package's ``SRModel.cost`` keys.
+
+        ``flops``: ``torch.utils.flop_counter``'s count over the plain path,
+        run on the CPU in f32 (the hand-written kernels are ctypes calls,
+        invisible to it; their plain versions are torch ops it counts).
+        ``params``: the number of parameter elements.  ``bytes_accessed``:
+        -1.0, as JAX returns when XLA reports none: the flop counter counts
+        no bytes, and eager PyTorch has no compiled program to analyse."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        x = torch.zeros((batch, height, width, self.metadata.in_channels))
+        with torch.no_grad():
+            weights = self._prepared({k: v.detach().cpu() for k, v in self.params.items()}, torch.float32)
+            with FlopCounterMode(display=False) as counter:
+                self._apply_fn(self.config, weights, x)
+        return {
+            'flops': float(counter.get_total_flops()),
+            'bytes_accessed': -1.0,
+            'params': int(sum(v.numel() for v in self.params.values())),
+        }
+
     def weights(self, dtype: torch.dtype):
         """What ``apply_fn`` reads for inputs of ``dtype`` (built once)."""
-        if self._prepare_fn is None:
-            return self.params
-        w = self._prepared.get(dtype)
+        w = self._by_dtype.get(dtype)
         if w is None:
-            w = self._prepared[dtype] = self._prepare_fn(self.config, self.params, dtype)
+            w = self._by_dtype[dtype] = self._prepared(self.params, dtype)
         return w
 
     def apply(self, params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         """Forward with the given params (prepared on every call)."""
-        weights = params if self._prepare_fn is None else self._prepare_fn(self.config, params, x.dtype)
+        weights = self._prepared(params, x.dtype)
         with torch.no_grad():
             return self._apply_fn(self.config, weights, x.contiguous())
 

@@ -8,7 +8,6 @@ torch OIHW layout, linear weights torch's ``(out, in)``.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as TF
 
@@ -19,11 +18,64 @@ def _pair(v) -> tuple[int, int]:
     return (int(v), int(v))
 
 
+def conv2d_int8(x, w8, w_scale, b=None, stride=1, padding=0, dilation=1):
+    """int8 conv, the JAX package's ``conv2d_int8``: dynamic per-tensor
+    activation quant (amax in f32, codes round-half-even(x / s_a) clipped
+    to +-127), per-out-channel int8 weights, an exact int32 accumulate, then
+    ``acc * (w_scale * s_a) + b`` in f32, cast back to ``x``'s dtype.
+
+    ``w8``: int8 OIHW; ``w_scale``: f32 (O,).  groups != 1 is not supported
+    (ineligible by design).  The product is one ``torch._int_mm`` over the
+    im2col of the codes (on the card cuBLASLt's int8 GEMM): the channels are
+    zero-padded to multiples of 8 and the rows to at least 17, as it
+    requires; zeros add nothing to an integer sum, so the result is exact."""
+    if w8.dtype != torch.int8:
+        raise TypeError(f'conv2d_int8 takes an int8 weight, got {w8.dtype}')
+    sh, sw = _pair(stride)
+    dh, dw = _pair(dilation)
+    cout, cin, kh, kw = w8.shape
+    if padding == 'same':
+        padding = ((kh - 1) * dh // 2, (kw - 1) * dw // 2)
+    ph, pw = _pair(padding)
+    n, h, w, _ = x.shape
+    ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    xf = x.float()
+    # a true division on both devices: CUDA divides by a Python scalar as a
+    # multiply by its reciprocal, a last-bit change that flips codes at ties
+    s_a = torch.clamp(xf.abs().amax(), min=1e-12) / torch.full((), 127.0, device=x.device)
+    xq = torch.clamp(torch.round(xf / s_a), -127, 127).to(torch.int8)
+    cin_p, cout_p = -(-cin // 8) * 8, -(-cout // 8) * 8
+    xq = TF.pad(xq, (0, cin_p - cin, pw, pw, ph, ph))
+    cols = torch.stack([xq[:, i * dh : i * dh + sh * (ho - 1) + 1 : sh, j * dw : j * dw + sw * (wo - 1) + 1 : sw]
+                        for i in range(kh) for j in range(kw)], dim=3)
+    m = n * ho * wo
+    cols = cols.reshape(m, kh * kw * cin_p)
+    if m < 17:
+        cols = TF.pad(cols, (0, 0, 0, 17 - m))
+    wmat = TF.pad(w8.permute(0, 2, 3, 1), (0, cin_p - cin, 0, 0, 0, 0, 0, cout_p - cout))
+    acc = torch._int_mm(cols, wmat.reshape(cout_p, kh * kw * cin_p).t())[:m, :cout]
+    y = acc.float() * (w_scale.float() * s_a)
+    if b is not None:
+        y = y + b.float()
+    return y.reshape(n, ho, wo, cout).to(x.dtype)
+
+
+def _no_int8(w, op: str) -> None:
+    if w.dtype == torch.int8:
+        raise TypeError(f'int8 weight reached F.{op} without its scale: route quantized convs through '
+                        f'PTree.conv, ops.conv_route.conv or F.conv2d_int8' if op == 'conv2d' else
+                        f'int8 weight reached F.{op}: transposed convs have no int8 path and are '
+                        f'excluded by quantize_int8 discovery')
+
+
 def conv2d(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
     """2-D convolution, torch semantics. ``x``: NHWC, ``w``: OIHW.
 
     ``padding`` may be an int, an (ph, pw) pair, or 'same' (odd kernels).
-    The product runs in ``x``'s dtype; the result is contiguous NHWC."""
+    The product runs in ``x``'s dtype; the result is contiguous NHWC.  An
+    int8 weight raises TypeError, as in the JAX package."""
+    _no_int8(w, 'conv2d')
     kh, kw = w.shape[-2], w.shape[-1]
     dh, dw = _pair(dilation)
     if padding == 'same':
@@ -42,7 +94,9 @@ def conv2d(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
 
 def conv_transpose2d(x, w, b=None, stride=1, padding=0, output_padding=0, groups=1):
     """Torch ConvTranspose2d on NHWC ``x``; ``w``: (in, out/groups, kH, kW),
-    torch's own layout.  The result is contiguous NHWC."""
+    torch's own layout.  The result is contiguous NHWC.  An int8 weight
+    raises TypeError, as in the JAX package."""
+    _no_int8(w, 'conv_transpose2d')
     y = TF.conv_transpose2d(
         x.permute(0, 3, 1, 2),
         w.to(x.dtype),
@@ -141,24 +195,26 @@ def pad2d(x, pads, mode: str = 'constant', value: float = 0.0):
         return x
     if mode == 'reflect':
         h, w = x.shape[1], x.shape[2]
-        hi = torch.from_numpy(_reflect_index(h, h + bottom, top)).to(x.device)
-        wi = torch.from_numpy(_reflect_index(w, w + right, left)).to(x.device)
+        hi = _reflect_index(h, h + bottom, top, x.device)
+        wi = _reflect_index(w, w + right, left, x.device)
         return x[:, hi][:, :, wi].contiguous()
     y = TF.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom), mode=mode,
                value=value if mode == 'constant' else None)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def _reflect_index(size: int, end: int, start: int = 0) -> np.ndarray:
+def _reflect_index(size: int, end: int, start: int = 0, device='cpu') -> torch.Tensor:
     """numpy's ``pad(mode='reflect')`` source rows for rows ``-start`` to
     ``end - 1`` of an axis of ``size`` rows, also when a pad is longer
-    than the input (the reflection repeats with period 2 * (size - 1))."""
-    i = np.arange(-start, end)
+    than the input (the reflection repeats with period 2 * (size - 1)).
+    Computed on ``device``: no host-to-device copy, which a CUDA graph
+    capture would refuse."""
+    i = torch.arange(-start, end, device=device)
     if size == 1:
-        return np.zeros(len(i), np.int64)
+        return torch.zeros_like(i)
     period = 2 * (size - 1)
-    i = i % period
-    return np.where(i < size, i, period - i)
+    i = torch.remainder(i, period)
+    return torch.where(i < size, i, period - i)
 
 
 def pad_to_multiple(x, multiple: int, mode: str = 'reflect', value: float = 0.0):

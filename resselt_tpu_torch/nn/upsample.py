@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from . import functional as F
@@ -108,12 +107,14 @@ def uni_upsample(p: PTree, x, mode: str, scale: int, out_dim: int, mid_dim: int,
 SAMPLE_MODS3 = SAMPLE_MODS + ('transpose+conv', 'lda', 'pa_up')
 
 
-def _lda_base_offset(k_u: int) -> np.ndarray:
+def _lda_base_offset(k_u: int, device='cpu', dtype=torch.float32) -> torch.Tensor:
     """LDA_AQU's ``base_offset`` buffer (not kept in checkpoints): the
-    (dy, dx) of each of the k_u x k_u sample points, row-major, flat."""
+    (dy, dx) of each of the k_u x k_u sample points, row-major, flat.
+    Computed on ``device``: no host-to-device copy, which a CUDA graph
+    capture would refuse."""
     pad = (k_u - 1) // 2
-    base = np.arange(-pad, pad + 1, dtype=np.float32)
-    return np.stack([np.repeat(base, k_u), np.tile(base, k_u)], axis=1).reshape(-1)
+    base = torch.arange(-pad, pad + 1, device=device, dtype=dtype)
+    return torch.stack([base.repeat_interleave(k_u), base.repeat(k_u)], dim=1).reshape(-1)
 
 
 def lda_aqu(p: PTree, x, scale_factor: int, range_factor: float = 11.0):
@@ -148,7 +149,7 @@ def lda_aqu(p: PTree, x, scale_factor: int, range_factor: float = 11.0):
     off = p.conv('conv_offset.0', group_split(q), padding=1, groups=group_channel)
     off = F.layer_norm(off, p['conv_offset.1.weight'], p['conv_offset.1.bias'], eps=1e-6)
     off = p.conv('conv_offset.3', F.silu(off), padding=k_e // 2)
-    base = torch.from_numpy(_lda_base_offset(k_u)).to(x.device, x.dtype)
+    base = _lda_base_offset(k_u, x.device, x.dtype)
     off = (torch.tanh(off) * range_factor + base).reshape(b * g, oh, ow, k_u, k_u, 2)
 
     # sample grid, normalised with aligned corners, xy order: (b*g, k_u*oh, k_u*ow, 2)

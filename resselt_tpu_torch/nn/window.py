@@ -114,6 +114,24 @@ def relative_position_bias(table, rpi, dtype: torch.dtype) -> torch.Tensor:
     return bias.to(dtype).float().contiguous()
 
 
+_FUSED_ATTENTION = True
+
+
+def fused_attention_enabled() -> bool:
+    return _FUSED_ATTENTION
+
+
+def use_fused_attention(on: bool) -> None:
+    """Send window attentions to ``ops.window_mha`` (on, the default) or
+    every one of them to the plain path, for the process: the JAX
+    package's kill switch (``resselt_tpu/nn/window.py:122``), the CLI's
+    ``--no-fused-attention``.  The plain path's calls on the card stay
+    counted in ``multi_head_attention.plain_calls``; the tiled graphs are
+    keyed on the switch."""
+    global _FUSED_ATTENTION
+    _FUSED_ATTENTION = bool(on)
+
+
 def multi_head_attention(q, k, v, num_heads: int, scale: float, bias=None, mask=None):
     """Batched MHA over token sequences.
 
@@ -122,7 +140,7 @@ def multi_head_attention(q, k, v, num_heads: int, scale: float, bias=None, mask=
     (num_heads, N, M) additive; mask: (nW, N, M) additive where B is a
     multiple of nW."""
     b, n, c = q.shape
-    if bias is not None and k.shape[1] == n and window_mha_supported(n, c, num_heads):
+    if _FUSED_ATTENTION and bias is not None and k.shape[1] == n and window_mha_supported(n, c, num_heads):
         return window_mha(q, k, v, bias, mask, num_heads=num_heads, scale=float(scale))
     if q.is_cuda:
         multi_head_attention.plain_calls += 1

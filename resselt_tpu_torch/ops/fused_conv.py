@@ -211,6 +211,23 @@ LK_MAX_K = 31  # csrc/conv_lk.cu: the mma.sync path's halo + one weight row fit 
 LK_PATHS = ('mma', 'stacked', 'tiles')
 
 
+_FUSED_LK = True
+
+
+def fused_lk_enabled() -> bool:
+    return _FUSED_LK
+
+
+def use_fused_lk(on: bool) -> None:
+    """Run PLKSR's partial large-kernel convs through :func:`fused_conv_lk`
+    (on, the default) or as plain ``F.conv2d`` (cuDNN on the card), for the
+    process: the JAX package's kill switch
+    (``resselt_tpu/ops/fused_conv.py:389``), the CLI's ``--no-fused-lk``.
+    The tiled graphs are keyed on the switch."""
+    global _FUSED_LK
+    _FUSED_LK = bool(on)
+
+
 def lk_conv_supported(cin: int, cout: int, k: int) -> bool:
     """Shapes :func:`fused_conv_lk` (and its kernel) take: cin in {8, 16, 32,
     64}, 0 < cout <= cin, k odd and at most 31.  The JAX package's

@@ -1,10 +1,12 @@
-from .tiling import TileGrid, extract_tiles, plan_grid, stitch_tiles, upscale_padded, upscale_tiled
+from .tiling import TileGrid, TiledProgram, extract_tiles, plan_grid, stitch_tiles, tiled_program, upscale_padded, upscale_tiled
 
 __all__ = [
     'TileGrid',
+    'TiledProgram',
     'extract_tiles',
     'plan_grid',
     'stitch_tiles',
+    'tiled_program',
     'upscale_padded',
     'upscale_tiled',
 ]

@@ -4,8 +4,8 @@
 has a counterpart here, through ``SRModel.__call__``, ``upscale_tiled``,
 ``upscale_padded`` and the CLI's ``--precision``, and an unknown name
 raising in both packages; ``upscale_tiled(..., on_device=False)``, the
-host loop, equal to the JAX package's, and the one-dispatch path, unroll
-and mesh still refused."""
+host loop, equal to the JAX package's, and the one-dispatch path and
+unroll equal to JAX's one-dispatch program; mesh still refused."""
 
 import numpy as np
 import pytest
@@ -96,15 +96,22 @@ def test_host_loop_equals_jax(models, bucket):
     want = np.asarray(jt.upscale_tiled(jm, img, tile=16, on_device=False, bucket=bucket))
     got = tt.upscale_tiled(tm, img, tile=16, on_device=False, bucket=bucket)
     assert got.shape == want.shape and float(np.abs(got.numpy() - want).max()) < 1e-6
-    assert torch.equal(got, tt.upscale_tiled(tm, img, tile=16, bucket=bucket))  # None: the same loop
+    assert torch.equal(got, tt.upscale_tiled(tm, img, tile=16, bucket=bucket))  # None: the same function on the CPU
 
 
 @pytest.mark.parametrize('kwargs', [{'on_device': True}, {'unroll': 2}, {'mesh': object()}])
 def test_one_dispatch_unroll_and_mesh_still_raise(models, kwargs):
-    _, tm, _ = models
+    """``on_device=True`` and ``unroll`` run the one-dispatch path, equal to
+    JAX's one-dispatch program; ``mesh`` still raises."""
+    jm, tm, _ = models
     img = np.random.default_rng(2).random((40, 46, 3), dtype=np.float32)
-    with pytest.raises(NotImplementedError):
-        tt.upscale_tiled(tm, img, tile=16, **kwargs)
+    if 'mesh' in kwargs:
+        with pytest.raises(NotImplementedError):
+            tt.upscale_tiled(tm, img, tile=16, **kwargs)
+        return
+    want = np.asarray(jt.upscale_tiled(jm, img, tile=16, **{'on_device': True, **kwargs}))
+    got = tt.upscale_tiled(tm, img, tile=16, **kwargs)
+    assert got.shape == want.shape and float(np.abs(got.numpy() - want).max()) < 1e-6
 
 
 @pytest.mark.parametrize('precision', ['highest', 'tensorfloat32', 'bfloat16'])

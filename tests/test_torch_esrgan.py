@@ -156,10 +156,10 @@ def test_prepared_weights_are_built_once_per_dtype():
     w32 = tm.weights(torch.float32)
     assert tm.weights(torch.float32) is w32
     wb = tm.weights(torch.bfloat16)
-    assert wb is not w32 and wb['rdb'][0][0]['producers'][0].dtype == torch.bfloat16
-    # stage-0 producer: all five convs' slices that read x, 4gc+nf outputs
-    assert wb['rdb'][0][0]['producers'][0].shape == (9, 16, 4 * 8 + 16)
-    assert [p.shape[2] for p in wb['rdb'][0][0]['producers']] == [48, 40, 32, 24, 16]
+    assert wb is not w32 and wb['rdb'][0][0]['producers'][0].w.dtype == torch.bfloat16
+    # stage-0 producer: all five convs' slices that read x, 4gc+nf outputs, as the 3x3 kernel's taps
+    assert wb['rdb'][0][0]['producers'][0].w.shape == (9, 16, 4 * 8 + 16)
+    assert [p.w.shape[2] for p in wb['rdb'][0][0]['producers']] == [48, 40, 32, 24, 16]
 
 
 def test_with_config_and_registry():

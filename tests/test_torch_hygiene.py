@@ -1,11 +1,15 @@
 """The port stands alone: resselt_tpu_torch and chip_smoke.py import neither
-jax nor resselt_tpu, entry points do not drop to the CPU on their own, and
-chip_smoke.py refuses to run without a card or without the package."""
+jax nor resselt_tpu, entry points do not drop to the CPU on their own, an
+installed copy carries every file its kernels include, and chip_smoke.py
+refuses to run without a card or without the package."""
 
 import ast
+import fnmatch
 import os
+import re
 import subprocess
 import sys
+import tomllib
 
 import pytest
 import torch
@@ -46,6 +50,10 @@ def test_loading_and_serving_import_no_jax():
     code = (
         'import sys, numpy as np\n'
         'import resselt_tpu_torch, resselt_tpu_torch.upscale, resselt_tpu_torch.parallel\n'
+        'import resselt_tpu_torch.cache, resselt_tpu_torch.convert, resselt_tpu_torch.inspect\n'
+        'import resselt_tpu_torch.metrics, resselt_tpu_torch.quant\n'
+        'from resselt_tpu_torch import load_model, save_model\n'
+        'from resselt_tpu_torch.parallel import tiled_program\n'
         'from resselt_tpu_torch.zoo import make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_hat, make_plksr\n'
         'from resselt_tpu_torch.zoo import make_fdat, make_omni, make_rgt, make_swinir\n'
         'from resselt_tpu_torch.zoo import make_compact, make_mosr, make_rcan, make_span, make_spanplus, make_spanpp\n'
@@ -95,6 +103,11 @@ def test_loading_and_serving_import_no_jax():
         "assert m.arch_id == 'SpanPP'\n"
         'y = resselt_tpu_torch.upscale_tiled(m.with_config(eval_scale=2), np.zeros((40, 40, 3), np.float32), tile=16)\n'
         'assert tuple(y.shape) == (80, 80, 3)\n'
+        "m = resselt_tpu_torch.load_from_state_dict(make_compact(32, 2, 2), device='cpu').quantize_int8()\n"
+        'assert m.cost(16, 16)["flops"] > 0\n'
+        'import tempfile, os.path\n'
+        "save_model(m, os.path.join(tempfile.mkdtemp(), 'm.npz'))\n"
+        'resselt_tpu_torch.metrics.psnr(np.zeros((16, 16, 3)), np.ones((16, 16, 3)))\n'
         "bad = [k for k in sys.modules if k in ('jax', 'resselt_tpu') or k.startswith(('jax.', 'resselt_tpu.'))]\n"
         'print(bad)\n'
         'sys.exit(1 if bad else 0)\n'
@@ -102,6 +115,21 @@ def test_loading_and_serving_import_no_jax():
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     r = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_package_data_covers_every_kernel_include():
+    """Every ``#include "..."`` of ``csrc/`` names a file of the package data
+    (pyproject.toml), so an installed copy can build its kernels."""
+    with open(os.path.join(ROOT, 'pyproject.toml'), 'rb') as fh:
+        globs = tomllib.load(fh)['tool']['setuptools']['package-data']['resselt_tpu_torch']
+    csrc = os.path.join(PKG, 'csrc')
+    sources = sorted(os.listdir(csrc))
+    needed = set(sources)
+    for f in sources:
+        with open(os.path.join(csrc, f)) as fh:
+            needed |= set(re.findall(r'^\s*#include\s+"([^"]+)"', fh.read(), re.M))
+    missing = [n for n in sorted(needed) if not any(fnmatch.fnmatch(f'csrc/{n}', g) for g in globs)]
+    assert not missing, missing
 
 
 def test_default_device_without_cuda_raises():

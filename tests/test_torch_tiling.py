@@ -117,7 +117,7 @@ def test_upscale_tiled_whole_image_and_defaults(models):
     got = tt.upscale_tiled(tm, img)  # fits one 256 window: runs whole
     np.testing.assert_allclose(got.numpy(), np.asarray(jm(img)), rtol=0, atol=TOL)
     with pytest.raises(NotImplementedError):
-        tt.upscale_tiled(tm, img, unroll=2)
+        tt.upscale_tiled(tm, img, mesh=object())
     with pytest.raises(ValueError):
         tt.upscale_tiled(tm, img[None])
 
