@@ -148,8 +148,27 @@ checkpoint's, ``inspect --json``, the CLI on the .npz over a directory of
 three PNGs with ``--int8``, ``--tile 64`` and ``--trace``), cli_sizes (ten
 images in ten sizes through ATD-light and ESRGAN-23: the library on the
 host loop and on the graph path, then the CLI, which picks the path by
-whether a size repeats, as they are and with ``--bucket``).  Then the card's
-name and power limit, one JSON line of kernel figures, and last
+whether a size repeats, as they are and with ``--bucket``).  Then training,
+f32 with TF32 off: train_grads (each kernel wrapper's autograd Function
+against autograd through its plain version, at every kernel shape of the
+training batches below, within the kernel's forward f32 tolerance x
+max|plain gradient|; backward launches per shape and the shapes sent to
+conv2d_input; the backward's ms at each kernel's main shape, Function
+against plain), train_models (tools/bench_train.py:83-92's four
+configurations at full width: ESRGAN-23 4x at 8 x 48² with remat, SwinIR-M
+4x at 2 x 64² with remat, Compact 4x with 32 convs and SPAN 4x at 16 x 64²;
+Adam 1e-4, charbonnier, EMA 0.999; first one step at batch 1 on the card
+against the CPU, loss and every gradient within the family's TOL x
+max|gradient|, the card's launches equal to the calls the CPU routes; then
+batches from the native sampler through the prefetcher, 2 warm-up steps
+and the median of 5: ms a step, HR MP/s, peak GB (ESRGAN-23 also without
+remat), launches a step forward and backward against the CPU's, the
+sampler's batches/s, and torch.profiler's split of one step) and
+train_families (PLKSR, EIMN_L and ATD-light at their widths and a small
+depth: one step card against CPU, their kernels launched).  Then the card's
+name and power limit, one JSON line of kernel figures (with each kernel's
+gradient: how it is computed, its largest error, and for the convs and the
+window attention the backward's ms), and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
 CUDA device, or without the package beside this script, it exits 1 before
 printing any result.
@@ -1231,6 +1250,14 @@ def kernel_symbols() -> dict:
     return out
 
 
+def kernel_patterns() -> list:
+    """(pattern, source stem) for every kernel of csrc/: a kernel is known
+    by its symbol, mangled (``<length>name``) or demangled."""
+    import re
+
+    return [(re.compile(rf'{len(s)}{s}|(?<![\w]){s}(?=[<(]|$)'), src) for s, src in kernel_symbols().items()]
+
+
 def graph_kernel_counts(graph) -> dict:
     """The kernels of csrc/ among a captured CUDA graph's kernel nodes, by
     source stem: a replay launches each node once, so these are what a
@@ -1238,10 +1265,9 @@ def graph_kernel_counts(graph) -> dict:
     ``cudaGraph_t`` (``TiledProgram`` captures with ``keep_graph=True``)
     through the driver API: ``cuGraphGetNodes``, ``cuGraphNodeGetType``,
     ``cuGraphKernelNodeGetParams`` and ``cuFuncGetName`` (or
-    ``cuKernelGetName`` for a node that names a library kernel).  A kernel is
-    known by its symbol, mangled (``<length>name``) or demangled."""
+    ``cuKernelGetName`` for a node that names a library kernel), each name
+    matched against :func:`kernel_patterns`."""
     import ctypes
-    import re
 
     class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
         _fields_ = [('func', ctypes.c_void_p), ('grid', ctypes.c_uint * 3), ('block', ctypes.c_uint * 3),
@@ -1259,8 +1285,7 @@ def graph_kernel_counts(graph) -> dict:
     check(cu.cuGraphGetNodes(graph_t, None, ctypes.byref(n)), 'cuGraphGetNodes')
     nodes = (ctypes.c_void_p * n.value)()
     check(cu.cuGraphGetNodes(graph_t, nodes, ctypes.byref(n)), 'cuGraphGetNodes')
-    symbols = kernel_symbols()
-    patterns = [(re.compile(rf'{len(s)}{s}|(?<![\w]){s}(?=[<(]|$)'), src) for s, src in symbols.items()]
+    patterns = kernel_patterns()
     counts: dict[str, int] = {}
     for node in nodes:
         kind = ctypes.c_int(-1)
@@ -1817,6 +1842,498 @@ def phase_cli_sizes(tmp: str) -> dict:
                 raise AssertionError(f'cli {name} {mode}: rc {rc}, sizes {sizes}')
         res[name] = json.dumps(row)
     return res
+
+
+# -- training: gradients through the kernels, the four training configurations -----------------------------
+
+# tools/bench_train.py:83-92's configurations at full width (the port's zoo, seeded): LR crop, batch, remat,
+# the family test's TOL; each with Adam 1e-4, charbonnier and EMA 0.999
+TRAIN_MODELS = {
+    'ESRGAN-23': {'crop': 48, 'batch': 8, 'remat': True, 'tol': MODEL_TOL, 'check_crop': 32},
+    'SwinIR-M': {'crop': 64, 'batch': 2, 'remat': True, 'tol': SWINIR_TOL, 'check_crop': 48},
+    'Compact': {'crop': 64, 'batch': 16, 'remat': False, 'tol': MODEL_TOL, 'check_crop': 32},
+    'SPAN': {'crop': 64, 'batch': 16, 'remat': False, 'tol': MODEL_TOL, 'check_crop': 32},
+}
+# the families whose kernels no training configuration runs, at their widths and a small depth
+TRAIN_FAMILIES = {
+    'PLKSR': {'crop': 48, 'batch': 4, 'remat': False, 'tol': MODEL_TOL, 'check_crop': 32, 'kernels': ('lk',)},
+    'EIMN_L': {'crop': 48, 'batch': 4, 'remat': False, 'tol': MODEL_TOL, 'check_crop': 32, 'kernels': ('molrcm',)},
+    'ATD-light': {'crop': 48, 'batch': 2, 'remat': False, 'tol': ATD_TOL, 'check_crop': 32,
+                  'kernels': ('wattn', 'gather')},
+}
+TRAIN_LR = 1e-4
+TRAIN_EMA = 0.999
+TRAIN_IMAGES = (16, 512)  # seeded synthetic uint8 images and their side
+TRAIN_TIMED_STEPS = 5
+
+
+def train_makers() -> dict:
+    """The state dict of each training configuration and family, seeded."""
+    from resselt_tpu_torch.zoo import make_atd, make_compact, make_eimn, make_esrgan, make_plksr, make_span, make_swinir
+
+    sw, at = SWINIR, ATD
+    return {
+        'ESRGAN-23': lambda: make_esrgan(64, 23, 4, seed=0),
+        'SwinIR-M': lambda: make_swinir(sw['embed_dim'], sw['depths'], sw['num_heads'], sw['window_size'],
+                                        upscale=4, img_size=sw['img_size'], seed=0),
+        'Compact': lambda: make_compact(64, 32, 4, seed=0),
+        'SPAN': lambda: make_span(48, 4, seed=0),
+        'PLKSR': lambda: make_plksr(PLKSR['dim'], 4, 4, PLKSR['kernel_size'], seed=0),
+        'EIMN_L': lambda: make_eimn(EIMN['embed_dims'], 2, EIMN['depths'], EIMN['mlp_ratio'], 4, seed=0),
+        'ATD-light': lambda: make_atd(at['embed_dim'], (2,), (4,), at['window_size'], at['num_tokens'],
+                                      at['reducted_dim'], at['convffn_kernel_size'], at['mlp_ratio'], 4, seed=0),
+    }
+
+
+def _grad_entries() -> dict:
+    """The wrappers whose Functions carry a gradient, by the names their
+    counts are reported under."""
+    return {k: v for k, v in _entries().items() if k != 'pack2'}
+
+
+def train_counts() -> dict:
+    """Each wrapper's forward launches, and for the convs also the backward
+    ones (kernel launches plus the shapes sent to conv2d_input)."""
+    out = {}
+    for k, e in _grad_entries().items():
+        out[k] = e.launches
+        if hasattr(e, 'backward_launches'):
+            out[k + '_bwd'] = e.backward_launches + sum(e.backward_conv2d_input.values())
+    return out
+
+
+def count_delta(before: dict, after: dict, per: int = 1) -> dict:
+    return {k: (after[k] - before[k]) / per for k in after if after[k] != before[k]}
+
+
+class CpuRouted:
+    """Counts, on the CPU, the calls each kernel wrapper's Function makes to
+    its plain version, forward and (for the convs) backward: what the card
+    launches for the same step.  The wrappers count nothing on the CPU."""
+
+    def __enter__(self):
+        import importlib
+
+        from resselt_tpu_torch.ops import fused_conv as fc
+
+        self.counts: dict[str, int] = {}
+        names = {'fused_conv3x3_act': 'act', 'fused_conv3x3_pack2': 'pack2', 'fused_conv_lk': 'lk'}
+        self.fc, self.run = fc, fc._run
+
+        def run(entry, x, taps, b, k, act, backward=False):
+            key = names[entry.__name__] + ('_bwd' if backward else '')
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return self.run(entry, x, taps, b, k, act, backward)
+
+        fc._run = run
+        self.functions = []
+        for module, cls, key in (('window_attention', '_WindowMHA', 'wattn'), ('molrcm', '_MOLRCM', 'molrcm'),
+                                 ('row_gather', '_RowGather', 'gather')):
+            klass = getattr(importlib.import_module(f'resselt_tpu_torch.ops.{module}'), cls)
+            forward = klass.forward
+
+            def counted(*args, _forward=forward, _key=key):
+                self.counts[_key] = self.counts.get(_key, 0) + 1
+                return _forward(*args)
+
+            klass.forward = staticmethod(counted)
+            self.functions.append((klass, forward))
+        return self
+
+    def __exit__(self, *exc):
+        self.fc._run = self.run
+        for klass, forward in self.functions:
+            klass.forward = staticmethod(forward)
+
+
+def loss_and_grads(model, params: dict, lr_b, hr_b, remat: bool):
+    """The charbonnier loss of one batch and its gradient for every
+    trainable param (a param the forward does not read: zeros)."""
+    import torch
+
+    from resselt_tpu_torch.train import charbonnier_loss, split_trainable
+
+    trainable, static = split_trainable(params)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in trainable.items()}
+    fn = model.raw_apply_fn
+    with torch.enable_grad():
+        if remat:
+            pred = torch.utils.checkpoint.checkpoint(fn, model.config, {**leaves, **static}, lr_b, use_reentrant=False)
+        else:
+            pred = fn(model.config, {**leaves, **static}, lr_b)
+        loss = charbonnier_loss(pred, hr_b)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return float(loss.detach()), {k: torch.zeros_like(v) if g is None else g
+                                  for (k, v), g in zip(leaves.items(), grads)}
+
+
+def train_images():
+    import numpy as np
+
+    n, side = TRAIN_IMAGES
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 256, (side, side, 3), dtype=np.uint8) for _ in range(n)]
+
+
+def card_vs_cpu_step(name: str, sd: dict, cfg: dict, images) -> dict:
+    """One step's loss and gradients on the card against the CPU, f32 with
+    TF32 off, at batch 1 and the configuration's check crop: every gradient
+    within the family's TOL x the step's max|CPU gradient| (a pre-activation
+    within rounding of an lrelu / PReLU kink takes the other slope on the
+    other device, which moves a weight's gradient by about one pixel's
+    share: the tensors with the largest error against their own max and the
+    worst relative l2 error are reported); the loss within TOL, relative;
+    the card's kernel launches (forward, backward) equal to the calls the
+    CPU routes."""
+    import numpy as np
+    import torch
+
+    import resselt_tpu_torch
+    from resselt_tpu_torch.data import CropSampler
+    from resselt_tpu_torch.train import init_train_state, make_optimizer
+
+    crop = cfg['check_crop'] * 4
+    lr_np, hr_np = CropSampler(images, crop=crop, scale=4, seed=1, backend='native').next_batch(1)
+    out = {}
+    for device in ('cpu', 'cuda'):
+        model = resselt_tpu_torch.load_from_state_dict(sd, device=device)
+        params = init_train_state(model.params, make_optimizer(TRAIN_LR)).params
+        lr_b, hr_b = torch.from_numpy(lr_np).to(device), torch.from_numpy(hr_np).to(device)
+        if device == 'cpu':
+            with CpuRouted() as routed:
+                out[device] = loss_and_grads(model, params, lr_b, hr_b, cfg['remat'])
+            out['routed'] = routed.counts
+        else:
+            before = train_counts()
+            out[device] = loss_and_grads(model, params, lr_b, hr_b, cfg['remat'])
+            torch.cuda.synchronize()
+            out['launched'] = {k: int(v) for k, v in count_delta(before, train_counts()).items()}
+    (loss_c, grads_c), (loss_g, grads_g) = out['cpu'], out['cuda']
+    tol = cfg['tol']
+    g_max = max(float(g.abs().max()) for g in grads_c.values())
+    errs = {}
+    for k, gc in grads_c.items():
+        d = grads_g[k].cpu() - gc
+        errs[k] = (float(d.abs().max()), float(gc.abs().max()), float(d.norm() / max(float(gc.norm()), 1e-30)))
+        if not errs[k][0] <= tol * g_max:
+            raise AssertionError(f'{name}: gradient {k} card vs CPU {errs[k]}, max|g| of the step {g_max}, TOL {tol}')
+    worst = sorted(errs.items(), key=lambda kv: -kv[1][0] / max(kv[1][1], 1e-30))[:3]
+    if not abs(loss_g - loss_c) <= tol * abs(loss_c):
+        raise AssertionError(f'{name}: loss card {loss_g} vs CPU {loss_c}')
+    if out['launched'] != out['routed']:
+        raise AssertionError(f"{name}: card launches {out['launched']} vs CPU routed calls {out['routed']}")
+    return {'check_shape': f"1x{cfg['check_crop']}x{cfg['check_crop']}", 'loss_card': loss_g, 'loss_cpu': loss_c,
+            'max_grad': g_max, 'max_grad_err_over_max_grad': max(e[0] for e in errs.values()) / g_max,
+            'worst_tensors_err_own_max_rel_l2': worst,
+            'worst_rel_l2': max(e[2] for e in errs.values()), 'grads': len(grads_c),
+            'launches_per_step': out['launched'], 'cpu_routed_per_step': out['routed'], 'tol': tol}
+
+
+def forward_shapes(model, cfg: dict) -> dict:
+    """The kernel shapes (each wrapper's ``by_shape`` keys) of one f32
+    forward at the configuration's training batch."""
+    import torch
+
+    from collections import Counter
+
+    before = {k: Counter(e.by_shape) for k, e in _grad_entries().items()}
+    x = torch.rand((cfg['batch'], cfg['crop'], cfg['crop'], 3), device='cuda')
+    with torch.no_grad():
+        model.raw_apply_fn(model.config, model.params, x)
+    torch.cuda.synchronize()
+    return {k: sorted(set(e.by_shape - before[k])) for k, e in _grad_entries().items() if e.by_shape - before[k]}
+
+
+def _grad_pair(fn, plain, inputs, reps: int = 0):
+    """Gradients of ``sum(out * g)`` for a fixed random ``g`` through the
+    Function and through the plain version; with ``reps``, also the ms of
+    each backward alone (the graph kept, the backward run again)."""
+    import torch
+
+    res = []
+    for f in (fn, plain):
+        out = f(*inputs)
+        g = torch.randn(out.shape, generator=torch.Generator(device='cuda').manual_seed(0), device='cuda')
+        need = [t for t in inputs if isinstance(t, torch.Tensor) and t.requires_grad]
+        grads = torch.autograd.grad(out, need, g, retain_graph=bool(reps))
+        ms = _ms(lambda: torch.autograd.grad(out, need, g, retain_graph=True), reps) if reps else None
+        res.append((grads, ms))
+    return res
+
+
+def phase_train_grads(shapes: dict, main: dict, reps: int) -> tuple[list[dict], dict]:
+    """Each Function's gradients against autograd through its plain version
+    on the card, f32 with TF32 off, at every shape the training models give
+    it (``shapes``: by kind, each key to the batch of images it came
+    from): within the kernel's forward f32 tolerance x max|plain gradient|.
+    The backward launches per shape, and those sent to conv2d_input; at the
+    ``main`` shape of each kernel also the ms of the backward, Function
+    against plain."""
+    import importlib
+
+    import torch
+
+    from resselt_tpu_torch.ops import fused_conv as fc
+    from resselt_tpu_torch.ops import molrcm as mo
+    from resselt_tpu_torch.ops import window_attention as wa
+
+    rg = importlib.import_module('resselt_tpu_torch.ops.row_gather')
+    gen = torch.Generator(device='cuda').manual_seed(0)
+
+    def leaf(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device='cuda')).requires_grad_(True)
+
+    rows, figs = [], {}
+    for kind, keys in shapes.items():
+        for key, images in keys.items():
+            tol = MOLRCM_TOL if kind == 'molrcm' else F32_TOL
+            if kind in ('act', 'lk'):
+                n, h, w, cin, cout = key[:5]
+                k = 3 if kind == 'act' else key[5]
+                act = key[-1]
+                # the lk wrapper reads PLKSR's 16-of-dim slice at the model's pixel pitch
+                x = leaf(n, h, w, PLKSR['dim'] if kind == 'lk' else cin)
+                inputs = (x, leaf(cout, cin, k, k, scale=1 / (k * cin ** 0.5)), leaf(cout, scale=0.1))
+                if kind == 'act':
+                    fn = lambda x, w, b, act=act: fc.fused_conv3x3_act(x, w, b, act)  # noqa: E731
+                    plain = lambda x, w, b, act=act: fc.fused_conv3x3_act_ref(x, w, b, act)  # noqa: E731
+                else:
+                    fn = lambda x, w, b, k=k, c=cin, act=act: fc.fused_conv_lk(x[..., :c], w, b, k, act)  # noqa: E731
+                    plain = lambda x, w, b, k=k, c=cin, act=act: fc.fused_conv_lk_ref(x[..., :c], w, b, k, act)  # noqa: E731
+                entry = fc.fused_conv3x3_act if kind == 'act' else fc.fused_conv_lk
+                bkey = (n, h, w, cout, cin) + ((k,) if kind == 'lk' else ()) + ('linear',)  # dx's launches
+                row = {'kind': kind, 'shape': list(key), 'grads': 'dx, dW, db'}
+            elif kind == 'wattn':
+                b, n, c, heads, masked = key
+                nw = b // images if masked else 0  # a shift mask per window of one image
+                mask = None
+                if nw:
+                    mask = torch.where(torch.rand((nw, n, n), generator=gen, device='cuda') > 0.7, -100.0, 0.0)
+                hd = c // heads
+                inputs = (leaf(b, n, 3 * c), leaf(heads, n, n))
+
+                def run(f, c=c, heads=heads, mask=mask, hd=hd):
+                    return lambda qkv, bias: f(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], bias, mask,
+                                               num_heads=heads, scale=hd ** -0.5)
+
+                fn, plain = run(wa.window_mha), run(wa.window_mha_ref)
+                entry, bkey = None, None
+                row = {'kind': kind, 'shape': [b, n, c, heads, nw], 'grads': 'dq, dk, dv (one qkv), dbias'}
+            elif kind == 'molrcm':
+                n, h, w, dim = key[:4]
+                inputs = (leaf(n, h, w, dim), leaf(mo.packed_size(dim), scale=0.1))
+                fn, plain = mo.fused_molrcm, mo.fused_molrcm_ref
+                entry, bkey = None, None
+                row = {'kind': kind, 'shape': [n, h, w, dim], 'grads': 'dx, dpacked'}
+            else:
+                rows_out, rows_src, width = key[:3]
+                idx = torch.randint(0, rows_src, (rows_out,), generator=gen, device='cuda')
+                inputs = (leaf(rows_src, width), idx)
+                fn, plain = rg.row_gather, rg.row_gather_ref
+                entry, bkey = None, None
+                row = {'kind': kind, 'shape': [rows_out, rows_src, width], 'grads': 'dsrc'}
+            is_main = main.get(kind) == key
+            before = (entry.backward_by_shape[bkey], entry.backward_conv2d_input[bkey]) if entry else (0, 0)
+            (got, ms), (want, plain_ms) = _grad_pair(fn, plain, inputs, reps if is_main else 0)
+            torch.cuda.synchronize()
+            errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+            scale = [float(b.abs().max()) for b in want]
+            row['max_abs_err'] = max(errs)
+            row['max_err_over_max_plain'] = max(e / max(s, 1e-30) for e, s in zip(errs, scale))
+            row['tol'] = tol
+            if entry is not None:
+                row['backward_launches'] = entry.backward_by_shape[bkey] - before[0]
+                row['conv2d_input'] = entry.backward_conv2d_input[bkey] - before[1]
+            if is_main:
+                row['backward_ms'], row['plain_backward_ms'] = ms, plain_ms
+                figs[kind] = row
+            if any(e > tol * s + 1e-7 for e, s in zip(errs, scale)):
+                raise AssertionError(f'{kind} {key}: gradient errors {errs} against max|plain| {scale}, tol {tol}')
+            rows.append(row)
+            del inputs, got, want
+    return rows, figs
+
+
+def step_profile(step, state, lr_b, hr_b) -> dict:
+    """torch.profiler's split of one step's device time (ms), each kernel
+    by the host event it was launched in and that event's enclosing ranges:
+    the forward's kernels of csrc/ and its other kernels (glue); in the
+    backward, the kernels of csrc/ a Function's backward launched (``dx``,
+    and the pre-activation recompute of silu / mish), conv2d_weight, the
+    attention backward, the kernels of csrc/ a remat recompute launched,
+    and the rest (glue, with a remat's recomputed glue); the optimizer and
+    EMA.  The ranges' own device spans (gpu user annotations) are not
+    kernels and are left out."""
+    import torch
+
+    from resselt_tpu_torch.ops.fused_conv import WEIGHT_GRAD_RANGE
+    from resselt_tpu_torch.ops.window_attention import BACKWARD_RANGE
+    from resselt_tpu_torch.train import FORWARD_RANGE, OPTIMIZER_RANGE
+
+    ours = [pat for pat, _ in kernel_patterns()]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        step(state, lr_b, hr_b)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    split: dict[str, float] = {}
+    events = prof.events()
+    ranges = {FORWARD_RANGE, OPTIMIZER_RANGE, WEIGHT_GRAD_RANGE, BACKWARD_RANGE}
+    device_ms = sum(e.time_range.end - e.time_range.start for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in ranges) / 1e3
+    for e in events:
+        kernels = getattr(e, 'kernels', [])
+        if not kernels:
+            continue
+        names, p = set(), e
+        while p is not None:
+            names.add(p.name)
+            p = p.cpu_parent
+        for kern in kernels:
+            mine = any(pat.search(kern.name) for pat in ours)
+            if FORWARD_RANGE in names:
+                cat = 'forward_kernels' if mine else 'forward_glue'
+            elif OPTIMIZER_RANGE in names:
+                cat = 'optimizer'
+            elif WEIGHT_GRAD_RANGE in names:
+                cat = 'conv2d_weight'
+            elif BACKWARD_RANGE in names:
+                cat = 'attention_backward'
+            elif mine:  # launched by a Function's backward node, or by its forward re-run for remat
+                cat = 'backward_dx' if e.name.endswith('Backward') else 'remat_recompute_kernels'
+            else:
+                cat = 'backward_glue'
+            split[cat] = split.get(cat, 0.0) + kern.duration / 1e3
+    split['unattributed'] = device_ms - sum(split.values())  # device work linked to no host range
+    return {'device_ms': device_ms, 'profiled_wall_ms': wall, 'idle_share': 1 - device_ms / wall, 'split_ms': split}
+
+
+def phase_train_models(name: str, sd: dict, cfg: dict, images, check: dict) -> dict:
+    """The configuration's training on the card: batches from the native
+    sampler through the prefetcher, moved from pinned memory; 2 warm-up
+    steps, then the median of the timed steps, each ending in
+    torch.cuda.synchronize(); HR MP/s; the peak device memory of the timed
+    steps (and for a remat configuration, of two steps without it); the
+    kernel launches a step, forward and backward, against the CPU's routed
+    calls of the check step; the sampler's batches/s on its own; a
+    profiler split of one step."""
+    import numpy as np
+    import torch
+
+    import resselt_tpu_torch
+    from resselt_tpu_torch.data import CropSampler, Prefetcher
+    from resselt_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+
+    model = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    crop, batch = cfg['crop'] * 4, cfg['batch']
+    sampler = CropSampler(images, crop=crop, scale=4, seed=0, backend='native')
+    if sampler.backend != 'native':
+        raise AssertionError(f'{name}: the {sampler.backend} sampler ran, not the native one')
+
+    def on_card(a):
+        return torch.from_numpy(a).pin_memory().to('cuda', non_blocking=True)
+
+    def run(remat: bool, steps: int, timed: bool):
+        opt = make_optimizer(TRAIN_LR)
+        state = init_train_state(model.params, opt, ema=True)
+        step = make_train_step(model.raw_apply_fn, model.config, opt, 'charbonnier', TRAIN_EMA, remat)
+        prefetch = Prefetcher(sampler, batch)
+        times, counts, losses = [], None, []
+        try:
+            for i in range(steps):
+                lr_np, hr_np = prefetch.next()
+                lr_b, hr_b = on_card(lr_np), on_card(hr_np)
+                if i == 2:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    counts = train_counts()
+                t0 = time.perf_counter()
+                state, metrics = step(state, lr_b, hr_b)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(float(metrics['loss']))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            per_step = {k: v for k, v in count_delta(counts, train_counts(), steps - 2).items()}
+            prof = step_profile(step, state, lr_b, hr_b) if timed else None
+        finally:
+            prefetch.close()
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f'{name}: loss {losses}')
+        return times, peak, per_step, prof, losses
+
+    times, peak, per_step, prof, losses = run(cfg['remat'], 2 + TRAIN_TIMED_STEPS, True)
+    want = {k: float(v) for k, v in check['cpu_routed_per_step'].items()}
+    if per_step != want:
+        raise AssertionError(f'{name}: launches a step {per_step}, the CPU routes {want}')
+    ms = float(np.median(times))
+    res = {'crop_lr': cfg['crop'], 'batch': batch, 'remat': cfg['remat'], 'ms_per_step': ms,
+           'step_ms_all': [round(t, 3) for t in times], 'hr_mp_per_s': batch * crop * crop / 1e6 / (ms / 1e3),
+           'peak_gb': peak, 'launches_per_step': per_step, 'losses': losses, 'profile': prof}
+    if cfg['remat']:
+        t2, peak2, _, _, _ = run(False, 4, False)
+        res['peak_gb_without_remat'] = peak2
+        res['ms_per_step_without_remat'] = float(np.median(t2))
+    probe = CropSampler(images, crop=crop, scale=4, seed=2, backend='native')
+    t0 = time.perf_counter()
+    for _ in range(5):
+        probe.next_batch(batch)
+    res['sampler_batches_per_s'] = 5 / (time.perf_counter() - t0)
+    res['steps_per_s'] = 1e3 / ms
+    return res
+
+
+def phase_train() -> dict:
+    """The three training parts: train_grads, train_models, train_families
+    (each logged), f32 with TF32 off; returns the kernels line's training
+    figures."""
+    import torch
+
+    import resselt_tpu_torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        images = train_images()
+        sds = {name: make() for name, make in train_makers().items()}
+        # the kernel shapes of every training batch, then the gradients at those shapes
+        shapes: dict[str, dict] = {}
+        for name, sd in sds.items():
+            cfg = {**TRAIN_MODELS, **TRAIN_FAMILIES}[name]
+            model = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+            for kind, keys in forward_shapes(model, cfg).items():
+                shapes.setdefault(kind, {}).update({key: cfg['batch'] for key in keys})
+            del model
+        shapes = {k: dict(sorted(v.items())) for k, v in shapes.items()}
+        e, s = TRAIN_MODELS['ESRGAN-23'], TRAIN_MODELS['SwinIR-M']
+        main = {'act': next(k for k in shapes['act'] if k[:5] == (e['batch'], e['crop'], e['crop'], 64, 192)),
+                'lk': next(iter(shapes['lk'])),
+                'wattn': next(k for k in shapes['wattn'] if k[1:] == (64, 180, 6, True)),
+                'molrcm': next(iter(shapes['molrcm'])), 'gather': next(iter(shapes['gather']))}
+        rows, figs = phase_train_grads(shapes, main, reps=10)
+        log('train_grads', tol_f32=F32_TOL, tol_molrcm=MOLRCM_TOL, shapes=sum(len(v) for v in shapes.values()),
+            conv2d_input_shapes=sum(1 for r in rows if r.get('conv2d_input')), rows=json.dumps(rows))
+        for name, cfg in TRAIN_MODELS.items():
+            check = card_vs_cpu_step(name, sds[name], cfg, images)
+            res = phase_train_models(name, sds[name], cfg, images, check)
+            log('train_models', model=repr(name), check=json.dumps(check), **{
+                k: json.dumps(v) if isinstance(v, (dict, list)) else v for k, v in res.items()})
+            torch.cuda.empty_cache()
+        for name, cfg in TRAIN_FAMILIES.items():
+            check = card_vs_cpu_step(name, sds[name], cfg, images)
+            for kind in cfg['kernels']:
+                if not check['launches_per_step'].get(kind):
+                    raise AssertionError(f'{name}: no {kind} launch in its step: {check}')
+            log('train_families', model=repr(name), **{k: json.dumps(v) if isinstance(v, dict) else v
+                                                       for k, v in check.items()})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    by_kind: dict[str, float] = {}
+    for r in rows:
+        by_kind[r['kind']] = max(by_kind.get(r['kind'], 0.0), r['max_abs_err'])
+    return {'grad_max_err': by_kind, 'main': figs}
 
 
 def ptxas_report(build_log: str) -> dict:
@@ -2696,6 +3213,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         log('cli_sizes', sizes=json.dumps(CLI_SIZES), **phase_cli_sizes(tmp))
 
+    # -- training: gradients through the kernels, the four configurations, three more families --------------
+    t_train = time.perf_counter()
+    train = phase_train()
+    log('train', seconds=round(time.perf_counter() - t_train, 2))
+    tmain, terr = train['main'], train['grad_max_err']
+
     w_figs = {'ATD-light': atd_fig, 'HAT-S': hat_fig, 'DAT-S': dat_fig, 'RGT-S': rgt_fig, 'DRCT': drct_fig,
               'FDAT-M': fdat_fig, 'OmniSR': omni_fig, 'FlexNet': w_figs_flexnet}
     head = next(r for r in rows if r['name'] == 'rdb stage0 64->192')
@@ -2717,6 +3240,13 @@ def main() -> int:
         'bound_by': head['bound_by'],
         'library_ms': head['library_ms'],
         'timed_shape': head['name'] + ' bf16 ' + 'x'.join(map(str, head['shape'])),
+        'backward': ('dz from the saved output (lrelu) or one linear relaunch of this kernel (silu, mish); dx on '
+                     'this kernel with the taps turned 180 degrees and Cin / Cout swapped (conv2d_input where its '
+                     'gate refuses the shape); dW by torch.nn.grad.conv2d_weight; db the sum of dz'),
+        'grad_max_err': terr['act'],
+        'backward_ms': tmain['act']['backward_ms'],
+        'plain_backward_ms': tmain['act']['plain_backward_ms'],
+        'backward_shape': 'f32 ' + 'x'.join(map(str, tmain['act']['shape'])),
         'ms_per_bench_forward': conv_ms,
         'ms_per_bench_forward_by_path': {'ESRGAN': conv_ms, **{k: f[2] for k, f in c_figs.items()}},
         'over_bound_ms_per_bench_forward': over_bound_ms(rows),
@@ -2735,6 +3265,12 @@ def main() -> int:
         'bound_by': lk_head['bound_by'],
         'library_ms': lk_head['library_ms'],
         'timed_shape': f"PLKSR bench bf16 {'x'.join(map(str, lk_head['shape']))} k{lk_head['k']}",
+        'backward': ('dx on this kernel with the taps turned 180 degrees and Cin / Cout swapped (conv2d_input where '
+                     'its gate refuses the shape), back into the slice it read; dW by torch.nn.grad.conv2d_weight'),
+        'grad_max_err': terr['lk'],
+        'backward_ms': tmain['lk']['backward_ms'],
+        'plain_backward_ms': tmain['lk']['plain_backward_ms'],
+        'backward_shape': 'f32 ' + 'x'.join(map(str, tmain['lk']['shape'])),
         'ms_per_bench_forward': lk_ms,
         'over_bound_ms_per_bench_forward': over_bound_ms(lk_rows),
         'shapes': lk_rows,
@@ -2754,6 +3290,12 @@ def main() -> int:
         'library_kernels': w_head['library_kernels'],
         'timed_shape': (f"SwinIR-M bench masked bf16 {w_head['windows']} windows x {w_head['n']} tokens, "
                         f"C {w_head['c']}, {w_head['heads']} heads, nW {w_head['mask_windows']}"),
+        'backward': ('plain torch in f32: P recomputed, dV = P^T dO, dS = P (dO V^T - rowsum(dO V^T P)), '
+                     'dq = scale dS k, dk = scale dS^T q, dbias the sum of dS over windows; no mask gradient'),
+        'grad_max_err': terr['wattn'],
+        'backward_ms': tmain['wattn']['backward_ms'],
+        'plain_backward_ms': tmain['wattn']['plain_backward_ms'],
+        'backward_shape': 'f32 SwinIR-M masked ' + 'x'.join(map(str, tmain['wattn']['shape'])),
         'ms_per_bench_forward': w_ms,
         'ms_per_bench_forward_by_path': {'SwinIR-M': w_ms, **{k: f['wattn'][2] for k, f in w_figs.items()}},
         'over_bound_ms_per_bench_forward_by_path': {
@@ -2775,6 +3317,8 @@ def main() -> int:
         'library_note': 'no single PyTorch call computes MOLRCM; eager_chain_ms is the eager bf16 chain of calls',
         'eager_chain_ms': m_head['eager_chain_ms'],
         'timed_shape': f"EIMN_L bench bf16 {'x'.join(map(str, m_head['shape']))}",
+        'backward': 'autograd through the plain MOLRCM chain, recomputed, into x and the packed weights',
+        'grad_max_err': terr['molrcm'],
         'ms_per_bench_forward': m_ms,
         'over_bound_ms_per_bench_forward': over_bound_ms(m_rows),
         'shapes': m_rows,
@@ -2792,6 +3336,8 @@ def main() -> int:
         'library_ms': g_head['library_ms'],
         'timed_shape': (f"ATD-light bench qkv gather bf16 {g_head['rows_out']} rows x {g_head['width']}, "
                         f"{g_head['idx']} indices"),
+        'backward': 'zeros.index_add_(0, idx, dout): the rows of a repeated index summed',
+        'grad_max_err': terr['gather'],
         'ms_per_bench_forward': atd_fig['gather'][2],
         'over_bound_ms_per_bench_forward': over_bound_ms(g_rows),
         'shapes': g_rows,

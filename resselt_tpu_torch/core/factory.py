@@ -275,11 +275,21 @@ class SRModel:
             w = self._by_dtype[dtype] = self._prepared(self.params, dtype)
         return w
 
+    def raw_apply_fn(self, config: Any, params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+        """``apply_fn`` on the raw params: ``prepare_fn`` then ``apply_fn``,
+        the prepare re-run on every call under the caller's grad mode,
+        never the :meth:`weights` cache.  The JAX package's
+        ``model._apply_fn`` signature, ``(config, params, x)``, which
+        ``train.make_train_step`` takes."""
+        weights = params if self._prepare_fn is None else self._prepare_fn(config, params, x.dtype)
+        return self._apply_fn(config, weights, x.contiguous())
+
     def apply(self, params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-        """Forward with the given params (prepared on every call)."""
-        weights = self._prepared(params, x.dtype)
-        with torch.no_grad():
-            return self._apply_fn(self.config, weights, x.contiguous())
+        """Forward with the given params (prepared on every call), under the
+        caller's grad mode, as the JAX ``apply`` is a function ``jax.grad``
+        differentiates: gradients reach the params through ``prepare`` and
+        every kernel."""
+        return self.raw_apply_fn(self.config, params, x)
 
     def __call__(self, x, dtype=None, precision: str | None = None) -> torch.Tensor:
         """Run the model on an NHWC (or HWC) image batch, a numpy array or a

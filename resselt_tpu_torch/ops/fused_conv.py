@@ -16,6 +16,20 @@ Weights are either torch OIHW ``(Cout, Cin, k, k)`` or already packed into
 ``(k*k, Cin, Cout)`` taps in the input's dtype (:func:`pack_conv3x3_weight`,
 :func:`pack_conv_lk_weight`), the kernels' layout; model code packs once
 at load.
+
+Each wrapper carries a gradient (:class:`_ConvAct`, on both devices): the
+pre-activation gradient ``dz`` from the saved output (lrelu) or from the
+pre-activation recomputed by one ``act='linear'`` run of the same kernel
+(silu, mish); ``dx`` by the same kernel on ``dz`` with the taps turned 180
+degrees and Cin / Cout swapped (``taps'[t] = taps[k*k - 1 - t].T``), or by
+``torch.nn.grad.conv2d_input`` where the kernel's gate refuses that shape;
+the taps' gradient by ``torch.nn.grad.conv2d_weight`` (inside the profiler
+range :data:`WEIGHT_GRAD_RANGE`); the bias's as the sum of ``dz``.
+Backward launches are counted apart, in ``backward_launches`` and the
+``backward_by_shape`` Counter, under the key of the conv they run (``dx``:
+the transposed shape, act 'linear'; the recompute: the forward's shape, act
+'linear'); a ``dx`` sent to ``conv2d_input``, under its key, in the
+``backward_conv2d_input`` Counter.
 """
 
 from __future__ import annotations
@@ -126,9 +140,21 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(entry, x: torch.Tensor, w: torch.Tensor, b, act: str) -> torch.Tensor:
+def _count(entry, key: tuple, backward: bool) -> None:
+    """One launch of ``entry``'s kernel at ``key``: a forward one, or one
+    that a gradient made."""
+    if backward:
+        entry.backward_launches += 1
+        entry.backward_by_shape[key] += 1
+    else:
+        entry.launches += 1
+        entry.by_shape[key] += 1
+
+
+def _launch(entry, x: torch.Tensor, w: torch.Tensor, b, act: str, backward: bool = False) -> torch.Tensor:
     """Check the operands, launch the kernel on the current stream and count
-    the launch on ``entry``, the wrapper that asked for it."""
+    the launch on ``entry``, the wrapper that asked for it (apart when a
+    gradient asked for it)."""
     if x.dtype not in _ENTRY_SUFFIX:
         raise TypeError(f'conv3x3 kernel takes float32, bfloat16 or float16 input, got {x.dtype}')
     if x.ndim != 4 or not x.is_contiguous():
@@ -150,9 +176,113 @@ def _launch(entry, x: torch.Tensor, w: torch.Tensor, b, act: str) -> torch.Tenso
     if rc != 0:
         raise RuntimeError(f'conv3x3 kernel launch failed: CUDA error {rc} '
                            f'(x {tuple(x.shape)} {x.dtype}, cout {cout}, act {act})')
-    entry.launches += 1
-    entry.by_shape[(n, h, wd, cin, cout, act)] += 1
+    _count(entry, (n, h, wd, cin, cout, act), backward)
     return y
+
+
+# -- the gradient -------------------------------------------------------------
+
+CONV3X3_BN = 64  # csrc/conv3x3.cu: output channels a block (f32 and mma.sync kernels), in gridDim.z
+CONV3X3_TH = 16  # csrc/conv3x3.cu: output rows a tile
+
+
+def conv3x3_kernel_takes(n: int, h: int, w: int, cin: int, cout: int) -> bool:
+    """csrc/conv3x3.cu's gate (``bad_shape``, ``grid_too_large``): every
+    positive shape whose grid fits, n x ceil(Cout / 64) and ceil(H / 16) at
+    most 65535."""
+    return (min(n, h, w, cin, cout) > 0 and n * -(-cout // CONV3X3_BN) <= 65535
+            and -(-h // CONV3X3_TH) <= 65535)
+
+
+def _kernel_takes(entry, k: int, n: int, h: int, w: int, cin: int, cout: int) -> bool:
+    """Whether ``entry``'s kernel takes an NHWC (n, h, w, cin) -> cout conv."""
+    if entry is fused_conv_lk:
+        return lk_conv_supported(cin, cout, k) and 0 < n <= 65535 and min(h, w) > 0
+    return conv3x3_kernel_takes(n, h, w, cin, cout)
+
+
+def _run(entry, x: torch.Tensor, taps: torch.Tensor, b, k: int, act: str, backward: bool = False) -> torch.Tensor:
+    """The conv on ``x``'s device: the kernel behind ``entry`` (the 3x3
+    wrappers' or the lk one's, whatever ``k``) on the card, its plain version
+    on the CPU."""
+    if x.device.type == 'cpu':
+        return _conv_ref(x, taps, k, b, act)
+    if entry is fused_conv_lk:
+        return _launch_lk(x, taps, b, k, act, backward)
+    return _launch(entry, x, taps, b, act, backward)
+
+
+WEIGHT_GRAD_RANGE = 'conv.backward.weight'  # the profiler range around a wrapper's weight gradient
+
+
+def _act_grad(z: torch.Tensor, act: str) -> torch.Tensor:
+    """d act / dz of silu or mish at the f32 pre-activation ``z``."""
+    s = torch.sigmoid(z)
+    if act == 'silu':
+        return s * (1 + z * (1 - s))
+    t = torch.tanh(TF.softplus(z))
+    return t + z * s * (1 - t * t)
+
+
+class _ConvAct(torch.autograd.Function):
+    """A wrapper's conv (3x3, or the lk kernel's odd k) with the gradient
+    of the module docstring.  ``x``: NHWC; ``taps``: ``(k*k, Cin, Cout)``;
+    ``b``: f32 or None; ``entry``: the wrapper whose counters the launches
+    go to."""
+
+    @staticmethod
+    def forward(ctx, x, taps, b, k: int, act: str, entry):
+        y = _run(entry, x, taps, b, k, act)
+        ctx.k, ctx.act, ctx.entry = k, act, entry
+        ctx.save_for_backward(x, taps, b, y if act == 'lrelu' else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, taps, b, y = ctx.saved_tensors
+        k, act, entry = ctx.k, ctx.act, ctx.entry
+        dz = dy.float()
+        if act == 'lrelu':  # the slope of jax.nn.leaky_relu: 1 at 0
+            dz = torch.where(y >= 0, dz, 0.2 * dz)
+        elif act in ('silu', 'mish'):
+            dz = dz * _act_grad(_run(entry, x, taps, b, k, 'linear', backward=True).float(), act)
+        n, h, w, cin = x.shape
+        cout = taps.shape[2]
+        on_cpu = x.device.type == 'cpu'
+        dx = dtaps = db = None
+        if ctx.needs_input_grad[0]:
+            dzx = dz.to(x.dtype).contiguous()
+            if on_cpu or _kernel_takes(entry, k, n, h, w, cout, cin):
+                dx = _run(entry, dzx, taps.flip(0).transpose(1, 2).contiguous(), None, k, 'linear', backward=True)
+            else:
+                lk_k = (k,) if entry is fused_conv_lk else ()
+                entry.backward_conv2d_input[(n, h, w, cout, cin) + lk_k + ('linear',)] += 1
+                w_oihw = taps.reshape(k, k, cin, cout).permute(3, 2, 0, 1)
+                dx = torch.nn.grad.conv2d_input((n, cin, h, w), w_oihw, dzx.permute(0, 3, 1, 2), padding=k // 2)
+                dx = dx.permute(0, 2, 3, 1).contiguous()
+        if ctx.needs_input_grad[1]:
+            cdt = torch.float32 if on_cpu else x.dtype
+            with torch.profiler.record_function(WEIGHT_GRAD_RANGE):
+                dw = torch.nn.grad.conv2d_weight(x.to(cdt).permute(0, 3, 1, 2), (cout, cin, k, k),
+                                                 dz.to(cdt).permute(0, 3, 1, 2), padding=k // 2)
+            dtaps = dw.permute(2, 3, 1, 0).reshape(k * k, cin, cout).to(taps.dtype)
+        if b is not None and ctx.needs_input_grad[2]:
+            db = dz.sum((0, 1, 2))
+        return dx, dtaps, db, None, None, None
+
+
+def _conv_act(entry, x: torch.Tensor, w: torch.Tensor, b, k: int, act: str) -> torch.Tensor:
+    """``entry``'s conv of NHWC ``x``: the weight packed (on the card in
+    ``x``'s dtype, the kernel's; on the CPU in its own, the plain
+    version's) and the bias taken to f32 outside the Function, so that
+    autograd carries their gradients back to an OIHW weight and a bias of
+    another dtype."""
+    if act not in ACTS:
+        raise ValueError(f'unknown activation {act!r}')
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{entry.__name__} runs on CPU or CUDA tensors, got {x.device}')
+    taps = _taps(w, k, x.dtype if x.device.type == 'cuda' else w.dtype)
+    return _ConvAct.apply(x, taps, None if b is None else b.float(), k, act, entry)
 
 
 def fused_conv3x3_act(x, w, b=None, act: str = 'linear') -> torch.Tensor:
@@ -161,21 +291,20 @@ def fused_conv3x3_act(x, w, b=None, act: str = 'linear') -> torch.Tensor:
     ``x``: (H, W, Cin) or (N, H, W, Cin), float32, bfloat16 or float16;
     ``w``: OIHW or packed taps; ``b``: (Cout,) or None; ``act``: linear, lrelu (0.2),
     silu or mish.  Output: ``x``'s dtype, ``F.conv2d(x, w, b, padding=1)``
-    + activation computed with f32 accumulation."""
+    + activation computed with f32 accumulation; differentiable in ``x``,
+    ``w`` and ``b`` (module docstring)."""
     squeeze = x.ndim == 3
     if squeeze:
         x = x[None]
-    if x.device.type == 'cpu':
-        y = fused_conv3x3_act_ref(x, w, b, act)
-    elif x.device.type == 'cuda':
-        y = _launch(fused_conv3x3_act, x, w, b, act)
-    else:
-        raise ValueError(f'fused_conv3x3_act runs on CPU or CUDA tensors, got {x.device}')
+    y = _conv_act(fused_conv3x3_act, x, w, b, 3, act)
     return y[0] if squeeze else y
 
 
 fused_conv3x3_act.launches = 0
 fused_conv3x3_act.by_shape = Counter()
+fused_conv3x3_act.backward_launches = 0
+fused_conv3x3_act.backward_by_shape = Counter()
+fused_conv3x3_act.backward_conv2d_input = Counter()
 
 
 def fused_conv3x3_pack2(x, w, b=None, act: str = 'linear') -> torch.Tensor:
@@ -190,17 +319,15 @@ def fused_conv3x3_pack2(x, w, b=None, act: str = 'linear') -> torch.Tensor:
         raise ValueError('pack2 kernel requires cin, cout <= 64')
     if x.shape[2] % 2:
         raise ValueError('pack2 kernel requires even width')
-    if x.device.type == 'cpu':
-        y = fused_conv3x3_pack2_ref(x, w, b, act)
-    elif x.device.type == 'cuda':
-        y = _launch(fused_conv3x3_pack2, x, w, b, act)
-    else:
-        raise ValueError(f'fused_conv3x3_pack2 runs on CPU or CUDA tensors, got {x.device}')
+    y = _conv_act(fused_conv3x3_pack2, x, w, b, 3, act)
     return y[0] if squeeze else y
 
 
 fused_conv3x3_pack2.launches = 0
 fused_conv3x3_pack2.by_shape = Counter()
+fused_conv3x3_pack2.backward_launches = 0
+fused_conv3x3_pack2.backward_by_shape = Counter()
+fused_conv3x3_pack2.backward_conv2d_input = Counter()
 
 
 # -- large-kernel conv (PLKSR's partial conv) ---------------------------------
@@ -265,9 +392,10 @@ def _pixel_pitch(x: torch.Tensor) -> int:
     return pitch
 
 
-def _launch_lk(x: torch.Tensor, w: torch.Tensor, b, k: int, act: str) -> torch.Tensor:
+def _launch_lk(x: torch.Tensor, w: torch.Tensor, b, k: int, act: str, backward: bool = False) -> torch.Tensor:
     """Check the operands, launch the lk kernel on the current stream and
-    count the launch."""
+    count the launch (apart when a gradient asked for it; ``by_path``
+    counts the forward ones)."""
     if x.dtype not in _ENTRY_SUFFIX:
         raise TypeError(f'lk kernel takes float32, bfloat16 or float16 input, got {x.dtype}')
     n, h, wd, cin = x.shape
@@ -288,9 +416,9 @@ def _launch_lk(x: torch.Tensor, w: torch.Tensor, b, k: int, act: str) -> torch.T
         raise RuntimeError(f'lk kernel launch failed: CUDA error {rc} '
                            f'(x {tuple(x.shape)} {x.dtype}, cout {cout}, k {k}, act {act}, path {path})')
     key = (n, h, wd, cin, cout, k, act)
-    fused_conv_lk.launches += 1
-    fused_conv_lk.by_shape[key] += 1
-    fused_conv_lk.by_path[(key, path)] += 1
+    _count(fused_conv_lk, key, backward)
+    if not backward:
+        fused_conv_lk.by_path[(key, path)] += 1
     return y
 
 
@@ -315,15 +443,13 @@ def fused_conv_lk(x, w, b=None, k: int = 17, act: str = 'linear') -> torch.Tenso
     cout = w.shape[0] if w.ndim == 4 else w.shape[-1]
     if not lk_conv_supported(cin, cout, k):
         raise ValueError(f'unsupported lk conv: cin={cin} cout={cout} k={k}')
-    if x.device.type == 'cpu':
-        y = fused_conv_lk_ref(x, w, b, k, act)
-    elif x.device.type == 'cuda':
-        y = _launch_lk(x, w, b, k, act)
-    else:
-        raise ValueError(f'fused_conv_lk runs on CPU or CUDA tensors, got {x.device}')
+    y = _conv_act(fused_conv_lk, x, w, b, k, act)
     return y[0] if squeeze else y
 
 
 fused_conv_lk.launches = 0
 fused_conv_lk.by_shape = Counter()
 fused_conv_lk.by_path = Counter()
+fused_conv_lk.backward_launches = 0
+fused_conv_lk.backward_by_shape = Counter()
+fused_conv_lk.backward_conv2d_input = Counter()

@@ -18,6 +18,11 @@ weights from the one f32 buffer
 :func:`pack_molrcm_weights` builds.  The wrapper counts its kernel launches
 in ``fused_molrcm.launches``, and per shape in the ``fused_molrcm.by_shape``
 Counter under ``(n, h, w, dim, dtype name)``.
+
+:func:`fused_molrcm` carries a gradient (:class:`_MOLRCM`, on both
+devices): the backward recomputes the chain with :func:`fused_molrcm_ref`
+under autograd and back-propagates through it, into ``x`` and the packed
+buffer, and from there to the params that :func:`pack_molrcm_weights` read.
 """
 
 from __future__ import annotations
@@ -175,11 +180,29 @@ def fused_molrcm(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
         raise ValueError(f'unsupported MOLRCM: dim={dim} h={h} w={w}')
     if packed.ndim != 1 or packed.numel() != packed_size(dim):
         raise ValueError(f'packed MOLRCM weights must hold {packed_size(dim)} floats, got {tuple(packed.shape)}')
-    if x.device.type == 'cpu':
-        return fused_molrcm_ref(x, packed)
-    if x.device.type == 'cuda':
-        return _launch(x, packed)
-    raise ValueError(f'fused_molrcm runs on CPU or CUDA tensors, got {x.device}')
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'fused_molrcm runs on CPU or CUDA tensors, got {x.device}')
+    return _MOLRCM.apply(x, packed)
+
+
+class _MOLRCM(torch.autograd.Function):
+    """:func:`fused_molrcm`'s forward (the kernel on the card, the plain
+    version on the CPU); the backward runs autograd through the plain
+    chain, recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, packed):
+        ctx.save_for_backward(x, packed)
+        return fused_molrcm_ref(x, packed) if x.device.type == 'cpu' else _launch(x, packed)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, packed = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in zip((x, packed), ctx.needs_input_grad[:2])]
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(fused_molrcm_ref(*leaves), wanted, dout))
+        return tuple(next(grads) if t.requires_grad else None for t in leaves)
 
 
 fused_molrcm.launches = 0

@@ -11,6 +11,10 @@ launches in ``row_gather.launches``, and per shape in the
 
 ``src`` may be a row slice or a column slice of a wider matrix: the kernel
 reads its rows in place through their pitch.
+
+:func:`row_gather` carries a gradient (:class:`_RowGather`, on both
+devices): ``zeros.index_add_(0, idx, dout)``, which sums the rows of an
+index that repeats.
 """
 
 from __future__ import annotations
@@ -79,11 +83,26 @@ def row_gather(src, idx) -> torch.Tensor:
         raise ValueError(f'row_gather takes src (R, C) and idx (R\',), got {tuple(src.shape)} and {tuple(idx.shape)}')
     if idx.dtype not in (torch.int32, torch.int64):
         raise TypeError(f'row_gather takes int32 or int64 indices, got {idx.dtype}')
-    if src.device.type == 'cpu':
-        return row_gather_ref(src, idx)
-    if src.device.type == 'cuda':
-        return _launch(src, idx)
-    raise ValueError(f'row_gather runs on CPU or CUDA tensors, got {src.device}')
+    if src.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'row_gather runs on CPU or CUDA tensors, got {src.device}')
+    return _RowGather.apply(src, idx)
+
+
+class _RowGather(torch.autograd.Function):
+    """:func:`row_gather`'s forward (the kernel on the card, the plain
+    version on the CPU) with the scatter-add of the output gradient."""
+
+    @staticmethod
+    def forward(ctx, src, idx):
+        ctx.rows_src = src.shape[0]
+        ctx.save_for_backward(idx)
+        return row_gather_ref(src, idx) if src.device.type == 'cpu' else _launch(src, idx)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (idx,) = ctx.saved_tensors
+        dsrc = dout.new_zeros((ctx.rows_src, dout.shape[1])).index_add_(0, idx, dout)
+        return dsrc, None
 
 
 row_gather.launches = 0

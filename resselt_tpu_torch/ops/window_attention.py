@@ -24,6 +24,13 @@ fp16 a head whose rows are only 2-byte aligned (an odd head_dim, as DRCT's
 the kernel stages such rows with 2-byte loads, which took 30.3 ms at
 DRCT's bench shape against 9.2 ms for head_dim 46 on an H100.  The padding
 changes no score and no output column.
+
+:func:`window_mha` carries a gradient (:class:`_WindowMHA`, on both
+devices), computed in plain torch in f32 from P recomputed as in the
+forward: ``dV = P^T dO``, ``dS = P * (dO V^T - rowsum(dO V^T * P))``,
+``dq = scale dS k``, ``dk = scale dS^T q`` and the bias's ``dS`` summed
+over the windows; the mask gets none.  It runs inside the profiler range
+:data:`BACKWARD_RANGE`.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch.nn.functional as TF
 
 from . import _build
 
+BACKWARD_RANGE = 'window_mha.backward'
 WATTN_MAX_N = 256  # csrc/window_attn.cu: tokens per window (padded to 16 inside)
 WATTN_MAX_HEAD_DIM = 64  # csrc/window_attn.cu: head_dim (padded to 16 inside)
 
@@ -185,11 +193,57 @@ def window_mha(q, k, v, bias, mask=None, *, num_heads: int, scale: float) -> tor
         raise ValueError(f'bias must be ({num_heads}, {n}, {n}), got {tuple(bias.shape)}')
     if mask is not None and (mask.ndim != 3 or tuple(mask.shape[1:]) != (n, n) or b % mask.shape[0]):
         raise ValueError(f'mask must be (nW, {n}, {n}) with nW dividing {b}, got {tuple(mask.shape)}')
-    if q.device.type == 'cpu':
-        return window_mha_ref(q, k, v, bias, mask, num_heads=num_heads, scale=scale)
-    if q.device.type == 'cuda':
+    if q.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'window_mha runs on CPU or CUDA tensors, got {q.device}')
+    return _WindowMHA.apply(q, k, v, bias, mask, num_heads, scale)
+
+
+def window_mha_backward(q, k, v, bias, mask, do, *, num_heads: int, scale: float):
+    """(dq, dk, dv, dbias) of :func:`window_mha_ref` for the output gradient
+    ``do``, in f32 from P recomputed, in the dtypes of q and bias."""
+    b, n, c = q.shape
+    hd = c // num_heads
+
+    def heads(t):
+        return t.float().reshape(b, n, num_heads, hd).transpose(1, 2)
+
+    qh, kh, vh, doh = heads(q), heads(k), heads(v), heads(do)
+    s = torch.matmul(qh * scale, kh.transpose(-1, -2)) + bias.float()[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        s = (s.reshape(b // nw, nw, num_heads, n, n) + mask.float()[None, :, None]).reshape(b, num_heads, n, n)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), doh)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.matmul(ds, kh) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+
+    def tokens(t):
+        return t.transpose(1, 2).reshape(b, n, c).to(q.dtype)
+
+    return tokens(dq), tokens(dk), tokens(dv), ds.sum(0).to(bias.dtype)
+
+
+class _WindowMHA(torch.autograd.Function):
+    """:func:`window_mha`'s forward (the kernel on the card, the plain
+    version on the CPU) with :func:`window_mha_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, num_heads: int, scale: float):
+        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.save_for_backward(q, k, v, bias, mask)
+        if q.device.type == 'cpu':
+            return window_mha_ref(q, k, v, bias, mask, num_heads=num_heads, scale=scale)
         return _launch(q, k, v, bias, mask, num_heads, scale)
-    raise ValueError(f'window_mha runs on CPU or CUDA tensors, got {q.device}')
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, mask = ctx.saved_tensors
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            dq, dk, dv, dbias = window_mha_backward(q, k, v, bias, mask, do, num_heads=ctx.num_heads,
+                                                    scale=ctx.scale)
+        return dq, dk, dv, dbias, None, None, None
 
 
 window_mha.launches = 0

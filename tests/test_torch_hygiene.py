@@ -1,5 +1,5 @@
 """The port stands alone: resselt_tpu_torch and chip_smoke.py import neither
-jax nor resselt_tpu, entry points do not drop to the CPU on their own, an
+jax, optax, orbax nor resselt_tpu, entry points do not drop to the CPU on their own, an
 installed copy carries every file its kernels include, and chip_smoke.py
 refuses to run without a card or without the package."""
 
@@ -19,8 +19,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, 'resselt_tpu_torch')
 
 
+_FORBIDDEN = ('jax', 'resselt_tpu', 'optax', 'orbax')  # the reference and its stack, absent on the card's machine
+
+
 def _forbidden(name: str) -> bool:
-    return name in ('jax', 'resselt_tpu') or name.startswith(('jax.', 'resselt_tpu.'))
+    return name in _FORBIDDEN or name.startswith(tuple(f'{m}.' for m in _FORBIDDEN))
 
 
 def _port_files():
@@ -108,7 +111,8 @@ def test_loading_and_serving_import_no_jax():
         'import tempfile, os.path\n'
         "save_model(m, os.path.join(tempfile.mkdtemp(), 'm.npz'))\n"
         'resselt_tpu_torch.metrics.psnr(np.zeros((16, 16, 3)), np.ones((16, 16, 3)))\n'
-        "bad = [k for k in sys.modules if k in ('jax', 'resselt_tpu') or k.startswith(('jax.', 'resselt_tpu.'))]\n"
+        'import resselt_tpu_torch.train, resselt_tpu_torch.data, resselt_tpu_torch.train_sr\n'
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'resselt_tpu', 'optax', 'orbax')]\n"
         'print(bad)\n'
         'sys.exit(1 if bad else 0)\n'
     )
@@ -118,17 +122,21 @@ def test_loading_and_serving_import_no_jax():
 
 
 def test_package_data_covers_every_kernel_include():
-    """Every ``#include "..."`` of ``csrc/`` names a file of the package data
-    (pyproject.toml), so an installed copy can build its kernels."""
+    """Every ``#include "..."`` of ``csrc/`` and every native source (the
+    training sampler's ``native/*.cpp``) names a file of the package data
+    (pyproject.toml), so an installed copy can build its kernels and its
+    sampler."""
     with open(os.path.join(ROOT, 'pyproject.toml'), 'rb') as fh:
         globs = tomllib.load(fh)['tool']['setuptools']['package-data']['resselt_tpu_torch']
-    csrc = os.path.join(PKG, 'csrc')
-    sources = sorted(os.listdir(csrc))
-    needed = set(sources)
-    for f in sources:
-        with open(os.path.join(csrc, f)) as fh:
-            needed |= set(re.findall(r'^\s*#include\s+"([^"]+)"', fh.read(), re.M))
-    missing = [n for n in sorted(needed) if not any(fnmatch.fnmatch(f'csrc/{n}', g) for g in globs)]
+    needed = set()
+    for sub in ('csrc', 'native'):
+        sources = sorted(os.listdir(os.path.join(PKG, sub)))
+        needed |= {f'{sub}/{f}' for f in sources}
+        for f in sources:
+            with open(os.path.join(PKG, sub, f)) as fh:
+                needed |= {f'{sub}/{n}' for n in re.findall(r'^\s*#include\s+"([^"]+)"', fh.read(), re.M)}
+    assert 'native/sampler.cpp' in needed
+    missing = [n for n in sorted(needed) if not any(fnmatch.fnmatch(n, g) for g in globs)]
     assert not missing, missing
 
 

@@ -16,6 +16,11 @@ the same 16-bit inputs (the output's rounding); the window attention in
 bf16 and fp16 also to 1e-2 absolute, since P is rounded before P V.  The MOLRCM
 kernel is held in f32 to 1.5e-3 x max|plain| (tests/test_pallas_ops.py's
 tolerance for the JAX kernel).  The row gather is held to exact equality.
+The gradients of the five kernel Functions are held, in f32, to the same
+tolerances x max|plain gradient| against autograd through the plain
+version on the card (the 16-bit conv gradient to 3e-2), and a train step
+of six small models on the card to the CPU's (loss within 1e-5 relative,
+every param within 2 lr after the step).
 """
 
 import numpy as np
@@ -973,3 +978,151 @@ def test_flexnet_attention_launches_window_attn(cuda, variant, kernel, plain):
     torch.cuda.synchronize()
     assert (wa.window_mha.launches - before, multi_head_attention.plain_calls - plain_before) == (kernel, plain)
     np.testing.assert_allclose(got.cpu().numpy(), cpu(x).numpy(), rtol=0, atol=1e-3)
+
+
+# -- gradients through the kernels -----------------------------------------------------------
+
+
+def _card_grads(fn, inputs, seed=0):
+    with torch.enable_grad():
+        out = fn(*inputs)
+        g = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(seed), device=out.device)
+        need = [t for t in inputs if isinstance(t, torch.Tensor) and t.requires_grad]
+        return torch.autograd.grad((out.float() * g).sum(), need)
+
+
+def _grads_close(got, want, tol):
+    """Each gradient within ``tol`` x max|plain gradient|."""
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.abs().max()) + 1e-6, err
+
+
+def _leaf_on(device, *shape, seed=0, scale=1.0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (scale * torch.randn(shape, generator=g, device=device)).requires_grad_(True)
+
+
+@pytest.mark.parametrize('act', ['linear', 'lrelu', 'silu', 'mish'])
+@pytest.mark.parametrize('n,h,w,cin,cout', [(2, 24, 20, 64, 192), (2, 24, 20, 32, 160), (1, 17, 23, 3, 64),
+                                            (2, 16, 16, 64, 3), (1, 9, 31, 48, 48)])
+def test_conv3x3_gradients_on_card(cuda, act, n, h, w, cin, cout):
+    """dx on the kernel (taps turned and transposed), dW by conv2d_weight,
+    db: against autograd through the plain version on the card, f32."""
+    x = _leaf_on(cuda, n, h, w, cin, seed=1)
+    wt = _leaf_on(cuda, cout, cin, 3, 3, seed=2, scale=1 / (3 * cin ** 0.5))
+    b = _leaf_on(cuda, cout, seed=3, scale=0.1)
+    e = fc.fused_conv3x3_act
+    before, dx_before = e.backward_launches, e.backward_by_shape[(n, h, w, cout, cin, 'linear')]
+    got = _card_grads(lambda x, wt, b: e(x, wt, b, act), (x, wt, b))
+    want = _card_grads(lambda x, wt, b: fc.fused_conv3x3_act_ref(x, wt, b, act), (x, wt, b))
+    _grads_close(got, want, 1e-4)
+    recompute = act in ('silu', 'mish')  # one linear launch at the forward's shape
+    assert e.backward_launches == before + 1 + recompute
+    assert e.backward_by_shape[(n, h, w, cout, cin, 'linear')] == dx_before + 1 + (recompute and cin == cout)
+
+
+def test_conv3x3_backward_counts_apart_and_falls_back_by_shape(cuda, monkeypatch):
+    """A backward counts its launches apart from the forward's (silu: the
+    recompute and dx); a shape outside the gate goes to conv2d_input,
+    counted per shape."""
+    x = _leaf_on(cuda, 2, 16, 16, 32, seed=4)
+    wt = _leaf_on(cuda, 64, 32, 3, 3, seed=5, scale=0.05)
+    e = fc.fused_conv3x3_act
+    fwd, bwd = e.launches, e.backward_launches
+    _card_grads(lambda x, wt: e(x, wt, None, 'silu'), (x, wt))
+    assert (e.launches - fwd, e.backward_launches - bwd) == (1, 2)
+    monkeypatch.setattr(fc, 'conv3x3_kernel_takes', lambda *shape: False)
+    fwd, bwd = e.launches, e.backward_launches
+    got = _card_grads(lambda x, wt: e(x, wt, None, 'silu'), (x, wt))
+    assert (e.launches - fwd, e.backward_launches - bwd) == (1, 1)
+    assert e.backward_conv2d_input[(2, 16, 16, 64, 32, 'linear')] >= 1
+    _grads_close(got, _card_grads(lambda x, wt: fc.fused_conv3x3_act_ref(x, wt, None, 'silu'), (x, wt)), 1e-4)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+def test_conv3x3_gradients_16_bit(cuda, dtype):
+    x = _leaf_on(cuda, 2, 20, 24, 64, seed=6)
+    wt = _leaf_on(cuda, 96, 64, 3, 3, seed=7, scale=0.04)
+
+    def run(fn):
+        return lambda x, wt: fn(x.to(dtype), fc.pack_conv3x3_weight(wt, dtype), None, 'lrelu')
+
+    _grads_close(_card_grads(run(fc.fused_conv3x3_act), (x, wt)),
+                 _card_grads(run(fc.fused_conv3x3_act_ref), (x, wt)), 3e-2)
+
+
+def test_conv_lk_gradients_on_card(cuda):
+    """PLKSR's 16-of-64 slice through a pixel pitch, k 17: dx on the lk
+    kernel (16 -> 16 transposed), only into the slice."""
+    feat = _leaf_on(cuda, 2, 40, 36, 64, seed=8)
+    wt = _leaf_on(cuda, 16, 16, 17, 17, seed=9, scale=0.01)
+    b = _leaf_on(cuda, 16, seed=10, scale=0.1)
+    before = fc.fused_conv_lk.backward_launches
+    got = _card_grads(lambda f, wt, b: fc.fused_conv_lk(f[..., :16], wt, b, k=17), (feat, wt, b))
+    want = _card_grads(lambda f, wt, b: fc.fused_conv_lk_ref(f[..., :16], wt, b, k=17), (feat, wt, b))
+    _grads_close(got, want, 1e-4)
+    assert fc.fused_conv_lk.backward_launches == before + 1 and float(got[0][..., 16:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('windows,n,c,heads,nw', [(128, 64, 180, 6, 64), (32, 256, 48, 4, 16), (16, 64, 64, 1, 0)])
+def test_window_mha_gradients_on_card(cuda, windows, n, c, heads, nw):
+    qkv = _leaf_on(cuda, windows, n, 3 * c, seed=11)
+    bias = _leaf_on(cuda, heads, n, n, seed=12)
+    mask = None
+    if nw:
+        mask = torch.where(torch.rand((nw, n, n), generator=torch.Generator(device=cuda).manual_seed(13),
+                                      device=cuda) > 0.7, -100.0, 0.0)
+
+    def run(fn):
+        return lambda qkv, bias: fn(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], bias, mask,
+                                    num_heads=heads, scale=(c // heads) ** -0.5)
+
+    _grads_close(_card_grads(run(wa.window_mha), (qkv, bias)), _card_grads(run(wa.window_mha_ref), (qkv, bias)),
+                 1e-4)
+
+
+def test_row_gather_gradients_on_card(cuda):
+    src = _leaf_on(cuda, 4096, 72, seed=14)
+    idx = torch.cat([torch.randperm(4096, generator=torch.Generator().manual_seed(0)), torch.tensor([5, 5, 4095])])
+    idx = idx.to(cuda)
+    got = _card_grads(row_gather, (src, idx))
+    _grads_close(got, _card_grads(row_gather_ref, (src, idx)), 1e-6)
+
+
+def test_molrcm_gradients_on_card(cuda):
+    x = _leaf_on(cuda, 2, 33, 40, 64, seed=15)
+    packed = _leaf_on(cuda, mo.packed_size(64), seed=16, scale=0.1)
+    _grads_close(_card_grads(mo.fused_molrcm, (x, packed)), _card_grads(mo.fused_molrcm_ref, (x, packed)), 1.5e-3)
+
+
+@pytest.mark.parametrize('variant', ['compact', 'esrgan', 'plksr', 'swinir', 'eimn', 'atd'])
+def test_train_step_on_card_matches_cpu(cuda, variant):
+    """One train step of a small model on the card against the CPU: the
+    loss, and every param after the step within 2 lr."""
+    from resselt_tpu_torch import train as tt
+
+    sd, hw = {
+        'compact': (lambda: make_compact(16, 2, 2), (16, 20)),
+        'esrgan': (lambda: make_esrgan(16, 1, 2, gc=8), (16, 20)),
+        'plksr': (lambda: make_plksr(32, 2, 2, kernel_size=9), (16, 20)),
+        'swinir': (lambda: make_swinir(24, (2,), (3,), 8, upscale=2, img_size=32), (24, 24)),
+        'eimn': (lambda: make_eimn(64, 1, 1, 2.66, 2), (16, 20)),
+        'atd': (lambda: make_atd(24, (2,), (3,), 8, upscale=2), (24, 24)),
+    }[variant]
+    sd = sd()
+    x = np.random.default_rng(0).random((2, *hw, 3), dtype=np.float32)
+    outs = []
+    for device in ('cpu', 'cuda'):
+        m = resselt_tpu_torch.load_from_state_dict(sd, device=device)
+        y = m(x)
+        hr = torch.from_numpy(np.random.default_rng(1).random(tuple(y.shape), dtype=np.float32)).to(device)
+        opt = tt.make_optimizer(lr=1e-3)
+        state = tt.init_train_state(m.params, opt)
+        step = tt.make_train_step(m.raw_apply_fn, m.config, opt)
+        state, metrics = step(state, torch.from_numpy(x).to(device), hr)
+        outs.append((float(metrics['loss']), {k: v.cpu() for k, v in state.params.items()}))
+    assert outs[1][0] == pytest.approx(outs[0][0], rel=1e-5)
+    for k, v in outs[0][1].items():
+        torch.testing.assert_close(outs[1][1][k], v, rtol=0, atol=2e-3)
