@@ -165,7 +165,19 @@ and the median of 5: ms a step, HR MP/s, peak GB (ESRGAN-23 also without
 remat), launches a step forward and backward against the CPU's, the
 sampler's batches/s, and torch.profiler's split of one step) and
 train_families (PLKSR, EIMN_L and ATD-light at their widths and a small
-depth: one step card against CPU, their kernels launched).  Then the card's
+depth: one step card against CPU, their kernels launched).  Then the mesh,
+on a one-rank NCCL group with a file:// store in a temporary directory,
+destroyed after: mesh_pipeline (ESRGAN-23 at the bench shape through
+esrgan.apply_pipelined on a 'pp' mesh with 1 and 4 microbatches: 6 + 345 m
+conv3x3 launches a forward, the output model(x)'s, equal at m = 1, within
+the bf16 gate at m = 4; ms against the bench forward), mesh_tiled (the
+tiled 720p image through upscale_tiled(mesh=) on the host loop and the
+graph path, each equal to the meshless run, the graph's kernel nodes the
+host loop's launches; seconds both ways), mesh_train (ESRGAN-23's training
+configuration, 3 steps with a one-rank dp mesh against 3 without, cuDNN
+deterministic: params equal; ms a step, the gradients' all_reduce ms), and
+dryrun (resselt_tpu_torch.parallel.dryrun on 4 gloo ranks on the CPU: its
+summary line).  Then the card's
 name and power limit, one JSON line of kernel figures (with each kernel's
 gradient: how it is computed, its largest error, and for the convs and the
 window attention the backward's ms), and last
@@ -2336,6 +2348,245 @@ def phase_train() -> dict:
     return {'grad_max_err': by_kind, 'main': figs}
 
 
+# -- the mesh: the port's torch.distributed paths on a one-rank NCCL group ------------------------------------
+MESH_MICROBATCHES = (1, 4)
+MESH_REPS = 3
+MESH_TRAIN_STEPS = 3
+DRYRUN_RANKS = 4
+
+
+def _reset_counts() -> None:
+    """Every wrapper's launch count set to 0 (the per-shape ones cleared)."""
+    for e in _entries().values():
+        e.launches = 0
+        e.by_shape.clear()
+
+
+def _median_s(fn, reps: int) -> tuple[float, object]:
+    """The median wall seconds of ``reps`` calls of ``fn``, each ending in
+    torch.cuda.synchronize(), and the last call's result."""
+    import numpy as np
+    import torch
+
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), out
+
+
+def phase_mesh_pipeline(model) -> dict:
+    """ESRGAN-23 at bench.py's shape (16 x 256², bf16) through
+    ``esrgan.apply_pipelined`` on a one-rank 'pp' mesh with m = 1 and 4
+    microbatches: conv3x3 launches a forward 6 (head and tail) + 345 m (the
+    trunk's producer convs once a microbatch), counted from 0 over the timed
+    forwards; the output ``model(x)``'s exactly at m = 1 and within the bf16
+    gate (GRAPH_BF16_TOL x max|model(x)|) at m = 4; ms a forward (the median
+    of MESH_REPS, each preparing the weights it runs: the head, the tail and
+    the stage's RRDBs) against the bench forward's."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from resselt_tpu_torch.archs.esrgan import apply_pipelined
+
+    mesh = init_device_mesh('cuda', (1,), mesh_dim_names=('pp',))
+    x = torch.rand((BENCH['batch'], BENCH['tile'], BENCH['tile'], 3), generator=torch.Generator().manual_seed(1))
+    x = x.to('cuda', torch.bfloat16)
+    with torch.no_grad():
+        ref = model(x)
+        bench_s, _ = _median_s(lambda: model(x), MESH_REPS)
+        res = {'shape': list(x.shape), 'dtype': 'bfloat16', 'bench_ms_per_forward': bench_s * 1e3}
+        scale = float(ref.float().abs().max())
+        for m in MESH_MICROBATCHES:
+            out = apply_pipelined(model.config, model.params, x, mesh, axis='pp', num_microbatches=m)
+            torch.cuda.synchronize()
+            _reset_counts()
+            s, out = _median_s(lambda: apply_pipelined(model.config, model.params, x, mesh, axis='pp',
+                                                       num_microbatches=m), MESH_REPS)
+            per_forward = _entries()['act'].launches / MESH_REPS
+            if per_forward != 6 + 345 * m:
+                raise AssertionError(f'pipelined m={m}: {per_forward} conv3x3 launches a forward, expected {6 + 345 * m}')
+            err = float((out.float() - ref.float()).abs().max())
+            if out.shape != ref.shape or (m == 1 and not torch.equal(out, ref)) or not err <= GRAPH_BF16_TOL * scale:
+                raise AssertionError(f'pipelined m={m} against model(x): shape {tuple(out.shape)}, max|diff| {err}')
+            res[f'm{m}'] = {'ms_per_forward': s * 1e3, 'conv3x3_launches_per_forward': per_forward,
+                            'launches': _entries()['act'].launches, 'max_abs_diff': err,
+                            'equal': bool(torch.equal(out, ref))}
+    res['gate'] = f'{GRAPH_BF16_TOL} x max|model(x)| = {GRAPH_BF16_TOL * scale}'
+    return res
+
+
+def phase_mesh_tiled(model) -> dict:
+    """ESRGAN-23 on a 1280x720 image in bf16 (tile 256, the loader's halo)
+    through ``upscale_tiled(mesh=)`` on a one-rank (dp, tp) mesh, on the host
+    loop and on the graph path (the rank's forward captured, the all_gather
+    and the stitch after the replay), each equal to the meshless run on the
+    same path; the mesh graph's kernel nodes by source equal to the mesh
+    host loop's launches; seconds both ways, with and without the mesh (the
+    host loop warm; the graph path's first call and its median of
+    MESH_REPS replays)."""
+    import numpy as np
+    import torch
+
+    from resselt_tpu_torch.parallel import make_mesh, upscale_tiled
+
+    mesh = make_mesh(device='cuda')
+    img = np.random.default_rng(2).random((720, 1280, 3), dtype=np.float32)
+
+    def run(on_device, with_mesh):
+        return upscale_tiled(model, img, tile=BENCH['tile'], dtype=torch.bfloat16, on_device=on_device,
+                             mesh=mesh if with_mesh else None)
+
+    res = {}
+    outs = {}
+    for with_mesh in (False, True):
+        tag = 'mesh' if with_mesh else 'solo'
+        run(False, with_mesh)
+        torch.cuda.synchronize()
+        c0 = _launch_counts()
+        res[f'host_s_{tag}'], outs['host', tag] = _median_s(lambda: run(False, with_mesh), 1)
+        host_counts = {k: v - c0[k] for k, v in _launch_counts().items() if v != c0[k]}
+        res[f'graph_first_s_{tag}'], _ = _median_s(lambda: run(None, with_mesh), 1)
+        res[f'graph_s_{tag}'], outs['graph', tag] = _median_s(lambda: run(None, with_mesh), MESH_REPS)
+        if with_mesh:
+            program = next(p for p in model.__dict__['_tiled_fn_cache'].values() if p.mesh is mesh)
+            replay = graph_kernel_counts(program.graph)
+            if replay != by_source(host_counts) or program.replays != MESH_REPS + 1:
+                raise AssertionError(f'mesh graph: kernels per replay {replay}, host loop {host_counts}, '
+                                     f'{program.replays} replays')
+            res['host_launches_per_image'] = json.dumps(host_counts)
+            res['kernels_per_replay'] = json.dumps(replay)
+            res['launches'] = host_counts.get('act', 0)
+    for path in ('host', 'graph'):
+        a, b = outs[path, 'mesh'], outs[path, 'solo']
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f'mesh {path}: shape {tuple(a.shape)}, max|diff| {float((a.float() - b.float()).abs().max())}')
+    cache = model.__dict__['_tiled_fn_cache']
+    for p in cache.values():
+        p.release()
+    cache.clear()
+    res['shape'] = list(outs['graph', 'mesh'].shape)
+    return res
+
+
+def phase_mesh_train(images) -> dict:
+    """ESRGAN-23 at tools/bench_train.py's configuration (8 x 48² LR, remat,
+    f32, TF32 off): MESH_TRAIN_STEPS steps without a mesh, then the same
+    steps on the same batches (the native sampler, seeded) with a one-rank
+    'dp' mesh (``make_train_step(mesh=)``: the batch slice, the gradients'
+    all_reduce); the params equal after the steps (else the max relative
+    difference is reported and the phase fails); ms a step both ways, and the
+    ms of the all_reduce of the gradients' one flat f32 buffer (CUDA events,
+    the mean of 10).  Both run with cuDNN's deterministic algorithms: its
+    default weight-gradient algorithms may add in another order from run to
+    run, which moves the params by about 1e-5 relative after these steps; a
+    first meshless run in the default mode (``*_default``) gives the usual
+    step time, and ``default_vs_solo_max_rel_diff`` that difference."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import resselt_tpu_torch
+    from resselt_tpu_torch.data import CropSampler
+    from resselt_tpu_torch.parallel import make_mesh
+    from resselt_tpu_torch.train import init_train_state, make_optimizer, make_train_step, split_trainable
+    from resselt_tpu_torch.zoo import make_esrgan
+
+    cfg = TRAIN_MODELS['ESRGAN-23']
+    model = resselt_tpu_torch.load_from_state_dict(make_esrgan(64, 23, 4, seed=0), device='cuda')
+    sampler = CropSampler(images, crop=cfg['crop'] * 4, scale=4, seed=0, backend='native')
+    batches = [tuple(torch.from_numpy(a).cuda() for a in sampler.next_batch(cfg['batch']))
+               for _ in range(MESH_TRAIN_STEPS)]
+    mesh = make_mesh(device='cuda')
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res, params = {}, {}
+        for tag, m, deterministic in (('default', None, False), ('solo', None, True), ('mesh', mesh, True)):
+            torch.backends.cudnn.deterministic = deterministic
+            opt = make_optimizer(TRAIN_LR)
+            state = init_train_state(model.params, opt, ema=True)
+            step = make_train_step(model.raw_apply_fn, model.config, opt, 'charbonnier', TRAIN_EMA, cfg['remat'],
+                                   mesh=m)
+            times, losses, norms = [], [], []
+            for lr_b, hr_b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, lr_b, hr_b)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(metrics['loss']))
+                norms.append(float(metrics['grad_norm']))
+            res[f'ms_per_step_{tag}'] = float(np.median(times))
+            res[f'step_ms_all_{tag}'] = [round(t, 3) for t in times]
+            res[f'losses_{tag}'] = losses
+            res[f'grad_norms_{tag}'] = norms
+            params[tag] = state.params
+        def max_rel(a: str, b: str) -> float:
+            return max(float(((params[a][k] - v).abs().max() / v.abs().max().clamp(min=1e-30)))
+                       for k, v in params[b].items())
+
+        diff = max_rel('mesh', 'solo')
+        res['params_equal'] = all(torch.equal(params['mesh'][k], v) for k, v in params['solo'].items())
+        res['max_rel_diff'] = diff
+        res['default_vs_solo_max_rel_diff'] = max_rel('default', 'solo')
+        if not res['params_equal']:
+            raise AssertionError(f'mesh_train: params after {MESH_TRAIN_STEPS} steps differ, max relative {diff}: {res}')
+        numel = sum(v.numel() for v in split_trainable(model.params)[0].values())
+        flat = torch.zeros(numel, device='cuda')
+        res['allreduce_ms'] = _ms(lambda: dist.all_reduce(flat, group=mesh.get_group('dp')), 10)
+        res['allreduce_mb'] = numel * 4 / 1e6
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+    res.update(batch=cfg['batch'], crop_lr=cfg['crop'], remat=cfg['remat'], cudnn_deterministic=True)
+    return res
+
+
+def phase_mesh(tmp: str) -> dict:
+    """The mesh phases under one one-rank NCCL group (a file:// store in
+    ``tmp``), destroyed at the end: mesh_pipeline, mesh_tiled, mesh_train,
+    each logged; then dryrun on the CPU.  Returns the conv3x3 launches of
+    the pipeline and tiled paths for the kernels line."""
+    import torch.distributed as dist
+
+    import resselt_tpu_torch
+    from resselt_tpu_torch.parallel import init_distributed
+    from resselt_tpu_torch.parallel.dryrun import dryrun_multichip
+    from resselt_tpu_torch.zoo import make_esrgan
+
+    init_distributed('cuda', init_method=f"file://{os.path.join(tmp, 'rendezvous')}", rank=0, world_size=1)
+    try:
+        if dist.get_backend() != 'nccl':
+            raise AssertionError(f'the mesh runs {dist.get_backend()}, not NCCL')
+        model = resselt_tpu_torch.load_from_state_dict(make_esrgan(64, BENCH['num_blocks'], BENCH['scale'], seed=0),
+                                                       device='cuda')
+        t0 = time.perf_counter()
+        pipe = phase_mesh_pipeline(model)
+        log('mesh_pipeline', backend='nccl', world=dist.get_world_size(), seconds=round(time.perf_counter() - t0, 2),
+            **{k: json.dumps(v) if isinstance(v, (dict, list)) else v for k, v in pipe.items()})
+        t0 = time.perf_counter()
+        tiled = phase_mesh_tiled(model)
+        log('mesh_tiled', backend='nccl', tile=BENCH['tile'], dtype='bfloat16',
+            seconds=round(time.perf_counter() - t0, 2), **tiled)
+        del model
+        t0 = time.perf_counter()
+        train = phase_mesh_train(train_images())
+        log('mesh_train', backend='nccl', seconds=round(time.perf_counter() - t0, 2),
+            **{k: json.dumps(v) if isinstance(v, list) else v for k, v in train.items()})
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    line = dryrun_multichip(DRYRUN_RANKS, device='cpu')
+    log('dryrun', device=repr("cpu (the card machine's CPU, gloo ranks)"), ranks=DRYRUN_RANKS,
+        seconds=round(time.perf_counter() - t0, 2), summary=repr(line))
+    return {'mesh_pipeline': sum(pipe[f'm{m}']['launches'] for m in MESH_MICROBATCHES), 'mesh_tiled': tiled['launches']}
+
+
 def ptxas_report(build_log: str) -> dict:
     """What ``nvcc -Xptxas -v`` said of each kernel of one source: registers,
     static shared memory and spills, under the kernel's name with its
@@ -3219,6 +3470,12 @@ def main() -> int:
     log('train', seconds=round(time.perf_counter() - t_train, 2))
     tmain, terr = train['main'], train['grad_max_err']
 
+    # -- the mesh: pipeline, tiled serving and data-parallel training on one NCCL rank; the dry run on the CPU --
+    t_mesh = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_launches = phase_mesh(tmp)
+    log('mesh', seconds=round(time.perf_counter() - t_mesh, 2))
+
     w_figs = {'ATD-light': atd_fig, 'HAT-S': hat_fig, 'DAT-S': dat_fig, 'RGT-S': rgt_fig, 'DRCT': drct_fig,
               'FDAT-M': fdat_fig, 'OmniSR': omni_fig, 'FlexNet': w_figs_flexnet}
     head = next(r for r in rows if r['name'] == 'rdb stage0 64->192')
@@ -3231,8 +3488,8 @@ def main() -> int:
         'route': 'cuda',
         'source': 'resselt_tpu_torch/csrc/conv3x3.cu',
         'replaces': 'resselt_tpu/ops/fused_conv.py:59',
-        'launches': launches + sum(f[0] for f in c_figs.values()),
-        'launches_by_path': {'ESRGAN': launches, **{k: f[0] for k, f in c_figs.items()}},
+        'launches': launches + sum(f[0] for f in c_figs.values()) + sum(mesh_launches.values()),
+        'launches_by_path': {'ESRGAN': launches, **{k: f[0] for k, f in c_figs.items()}, **mesh_launches},
         'max_abs_err': max(r['max_abs_err_bf16'] for r in rows + f_rows),
         'ms': head['ms'],
         'plain_ms': head['plain_ms'],

@@ -38,7 +38,7 @@ def load_from_state_dict(state_dict: Mapping[str, Any], device='cuda') -> SRMode
 
 def __getattr__(name):
     # lazy re-exports of the heavier submodules, as resselt_tpu's
-    if name in ('upscale_tiled', 'upscale_padded'):
+    if name in ('upscale_tiled', 'upscale_padded', 'make_mesh'):
         from . import parallel
 
         return getattr(parallel, name)

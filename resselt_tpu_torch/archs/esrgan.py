@@ -156,20 +156,27 @@ def _rdb_weights(p: PTree, dtype: torch.dtype, plus: bool) -> dict:
     return out
 
 
-def prepare(cfg: ESRGANConfig, params, dtype: torch.dtype) -> dict:
-    """Every conv's weights for inputs of ``dtype``: the head, trunk and
-    tail convs as ``ops.conv_route`` builds them (the kernel's taps, or
-    int8), each RDB's producers."""
-    p = PTree(params)
+def _rrdb_weights(cfg: ESRGANConfig, p: PTree, dtype: torch.dtype) -> list:
+    """One RRDB's three RDBs (``p``: the block's params, ``RDB1`` ...)."""
+    return [_rdb_weights(p.sub(f'RDB{r}'), dtype, cfg.plus) for r in (1, 2, 3)]
+
+
+def _head_tail_weights(cfg: ESRGANConfig, params, dtype: torch.dtype) -> dict:
+    """The head, trunk and tail convs as ``ops.conv_route`` builds them (the
+    kernel's taps, or int8)."""
     n_up = _n_up(cfg)
     names = ['model.0', f'model.1.sub.{cfg.num_blocks}']
     names += [f'model.{3 * i}' for i in range(1, n_up + 1)]
     names += [f'model.{3 * n_up + 2}', f'model.{3 * n_up + 4}']
-    out = {name: prepare_named_conv(params, name, dtype) for name in names}
-    out['rdb'] = [
-        [_rdb_weights(p.sub(f'model.1.sub.{i}.RDB{r}'), dtype, cfg.plus) for r in (1, 2, 3)]
-        for i in range(cfg.num_blocks)
-    ]
+    return {name: prepare_named_conv(params, name, dtype) for name in names}
+
+
+def prepare(cfg: ESRGANConfig, params, dtype: torch.dtype) -> dict:
+    """Every conv's weights for inputs of ``dtype``: the head, trunk and
+    tail convs, each RDB's producers."""
+    p = PTree(params)
+    out = _head_tail_weights(cfg, params, dtype)
+    out['rdb'] = [_rrdb_weights(cfg, p.sub(f'model.1.sub.{i}'), dtype) for i in range(cfg.num_blocks)]
     return out
 
 
@@ -233,6 +240,36 @@ def apply(cfg: ESRGANConfig, w: dict, x):
     body = feat
     for rws in w['rdb']:
         body = _rrdb(rws, body, cfg.plus)
+    return _tail(cfg, w, feat, body, hw)
+
+
+def apply_pipelined(cfg: ESRGANConfig, params, x, mesh, axis: str = 'pp', num_microbatches: int | None = None):
+    """The forward of the RAW ``params`` on NHWC ``x`` with the RRDB trunk run
+    by the pipeline executor (``parallel/pipeline.py``) over the ``mesh``
+    axis ``axis``, as the JAX package's ``apply_pipelined``; the head and
+    tail run on every rank.  The RRDBs go into ``mesh.shape[axis]`` stages
+    of ``k = ceil(num_blocks / stages)`` blocks, the layout of
+    ``chunk_blocks`` (the last stages short, where JAX pads them with
+    masked-out blocks), and each rank prepares the weights of the head, the
+    tail and its own stage's RRDBs only, for ``x.dtype``.  Every rank
+    passes the same ``x`` and returns the whole output, equal to ``apply``."""
+    from ..parallel.mesh import axis_size
+    from ..parallel.pipeline import pipeline_run
+
+    w = _head_tail_weights(cfg, params, x.dtype)
+    feat, hw = _head(cfg, w, x.contiguous())
+    p = PTree(params)
+    k = -(-cfg.num_blocks // axis_size(mesh, axis))
+    first = mesh.get_local_rank(axis) * k
+    rrdbs = [_rrdb_weights(cfg, p.sub(f'model.1.sub.{i}'), x.dtype)
+             for i in range(first, min(first + k, cfg.num_blocks))]
+
+    def stage(h):
+        for rws in rrdbs:
+            h = _rrdb(rws, h, cfg.plus)
+        return h
+
+    body = pipeline_run(stage, feat, mesh, axis=axis, num_microbatches=num_microbatches)
     return _tail(cfg, w, feat, body, hw)
 
 

@@ -269,10 +269,18 @@ class SRModel:
         }
 
     def weights(self, dtype: torch.dtype):
-        """What ``apply_fn`` reads for inputs of ``dtype`` (built once)."""
+        """What ``apply_fn`` reads for inputs of ``dtype`` (built once).
+        Params that ``parallel.shard_params`` made ``DTensor``s are gathered
+        whole first: a collective, which every rank of their mesh runs at
+        its first forward in ``dtype``."""
         w = self._by_dtype.get(dtype)
         if w is None:
-            w = self._by_dtype[dtype] = self._prepared(self.params, dtype)
+            from ..parallel.mesh import full_tensor, is_sharded
+
+            params = self.params
+            if any(is_sharded(v) for v in params.values()):
+                params = {k: full_tensor(v) for k, v in params.items()}
+            w = self._by_dtype[dtype] = self._prepared(params, dtype)
         return w
 
     def raw_apply_fn(self, config: Any, params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

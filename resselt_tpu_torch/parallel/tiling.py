@@ -17,6 +17,14 @@ dispatch per image: on the card a CUDA graph captured once per (grid,
 batch, dtype, TF32 settings, kernel switches) and replayed, on the CPU
 eagerly.
 ``on_device=False`` is the host loop: the same function, run eagerly.
+
+With ``mesh`` (a ``DeviceMesh``), the tile batches are split over the
+mesh's first axis, as JAX shards each batch over ``mesh.axis_names[0]``:
+every rank runs its contiguous share of every batch (ranks along the other
+axes repeat it, as JAX replicates over them), one ``all_gather`` over that
+axis collects the windows, and every rank stitches the whole image.  On the
+card the graph holds the rank's own forward only; the gather and the stitch
+run after the replay, outside it.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from collections import OrderedDict
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from ..core.factory import _precision, as_torch_dtype
 
@@ -92,7 +101,7 @@ def stitch_tiles(out_tiles: torch.Tensor, grid: TileGrid, scale: int) -> torch.T
     contributes its halo-cropped core, except at image borders where the
     window is flush with the border and contributes up to it."""
     canvas = out_tiles.new_zeros((grid.height * scale, grid.width * scale, out_tiles.shape[-1]))
-    for t, (y, x) in zip(out_tiles, _windows(grid)):
+    for t, (y, x) in zip(out_tiles, _windows(grid)):  # padding windows past the grid are dropped
         _paste(canvas, t, grid, y, x, scale)
     return canvas
 
@@ -178,9 +187,12 @@ def _resolve_halo_hint(model, tile: int, eff_dtype) -> int:
     return derive_halo(tile, halo or 16, getattr(model, 'size_multiple', None))
 
 
-def _plan_tiled(model, h: int, w: int, tile: int, halo: int, batch_size: int | None, eff_dtype):
+def _plan_tiled(model, h: int, w: int, tile: int, halo: int, batch_size: int | None, eff_dtype, mesh=None):
     """Resolve the tile grid + batch for an (h, w) image, or None when the
-    image fits in one window (callers run the model whole)."""
+    image fits in one window (callers run the model whole).  With a mesh
+    the batch is rounded to a multiple of the mesh's FIRST axis, which the
+    tiles are split over (JAX rounds to that axis, not to the device
+    count)."""
     window = tile + 2 * halo
     if h <= window and w <= window:
         return None
@@ -200,18 +212,26 @@ def _plan_tiled(model, h: int, w: int, tile: int, halo: int, batch_size: int | N
     if batch_size is None:
         tb = _resolve_dtype_hint(getattr(model, 'tile_batch', None), eff_dtype)
         batch_size = min(n, tb or 8)
+    if mesh is not None:
+        dev = mesh.size(0)
+        return grid, max(dev, batch_size - batch_size % dev)
     return grid, min(batch_size, n)
+
+
+def _padded_tiles(image: torch.Tensor, grid: TileGrid, batch_size: int) -> list[torch.Tensor]:
+    """Every window of the image, the list padded to whole batches by
+    repeating the last window (as JAX's ``_make_fused_tiled_fn``)."""
+    wy, wx = grid.window
+    tiles = [image[y : y + wy, x : x + wx] for y, x in _windows(grid)]
+    return tiles + tiles[-1:] * (-len(tiles) % batch_size)
 
 
 def _tiled_forward(model, image: torch.Tensor, grid: TileGrid, scale: int, batch_size: int, precision):
     """The tiled forward as one function of the (H, W, C) image: every
-    window extracted, the window list padded to whole batches by repeating
-    the last window (as JAX's ``_make_fused_tiled_fn``), each batch run
-    through the model, each window's core written into one canvas."""
+    window extracted, the windows run through the model a batch at a time,
+    each window's core written into one canvas."""
     windows = _windows(grid)
-    wy, wx = grid.window
-    tiles = [image[y : y + wy, x : x + wx] for y, x in windows]
-    tiles += tiles[-1:] * (-len(tiles) % batch_size)
+    tiles = _padded_tiles(image, grid, batch_size)
     canvas = None
     for i in range(0, len(tiles), batch_size):
         out = model(torch.stack(tiles[i : i + batch_size]), precision=precision)
@@ -220,6 +240,29 @@ def _tiled_forward(model, image: torch.Tensor, grid: TileGrid, scale: int, batch
         for t, (y, x) in zip(out, windows[i : i + batch_size]):
             _paste(canvas, t, grid, y, x, scale)
     return canvas
+
+
+def _local_forward(model, image: torch.Tensor, grid: TileGrid, batch_size: int, precision, mesh) -> torch.Tensor:
+    """This rank's share of the tiled forward over ``mesh``: the rank's
+    contiguous ``batch_size / dp`` windows of every batch (``dp``: the
+    mesh's first axis), run a share at a time; returns their outputs,
+    (n_batches, share, wy * s, wx * s, C)."""
+    per = batch_size // mesh.size(0)
+    r = mesh.get_local_rank(0)
+    tiles = _padded_tiles(image, grid, batch_size)
+    outs = [model(torch.stack(tiles[i + r * per : i + (r + 1) * per]), precision=precision)
+            for i in range(0, len(tiles), batch_size)]
+    return torch.stack(outs)
+
+
+def _gather_stitch(local: torch.Tensor, grid: TileGrid, scale: int, mesh) -> torch.Tensor:
+    """Every rank's :func:`_local_forward` output gathered over the mesh's
+    first axis (one ``all_gather``), back in window order, stitched."""
+    dp = mesh.size(0)
+    parts = [torch.empty_like(local) for _ in range(dp)]
+    dist.all_gather(parts, local.contiguous(), group=mesh.get_group(0))
+    out = torch.stack(parts, dim=1)  # (n_batches, dp, share, ...): window order
+    return stitch_tiles(out.reshape(-1, *out.shape[3:]), grid, scale)
 
 
 class TiledProgram:
@@ -247,6 +290,11 @@ class TiledProgram:
     it in between.  The warm-up run allocates from the caching allocator as
     the host loop does.
 
+    Over a ``mesh`` the graph holds the rank's own share
+    (:func:`_local_forward`); a call replays it, then gathers the windows
+    over the mesh's first axis and stitches them outside the graph, so no
+    collective is captured.
+
     Launch counts: the kernel wrappers count in Python, so the warm-up run
     and the capture count one launch for each kernel they launch or record
     into the graph, and a replay counts nothing.  The graph keeps its
@@ -257,11 +305,11 @@ class TiledProgram:
     program) and the weights a replay reads strongly, so a captured graph
     stays valid while the program lives."""
 
-    def __init__(self, model, grid: TileGrid, scale: int, batch_size: int, precision, pool=None):
+    def __init__(self, model, grid: TileGrid, scale: int, batch_size: int, precision, pool=None, mesh=None):
         self._model = weakref.ref(model)
         self._weights = None
         self.grid, self.scale, self.batch_size, self.precision = grid, scale, batch_size, precision
-        self.pool = pool
+        self.pool, self.mesh = pool, mesh
         self.graph = None
         self.replays = 0
         self._in = self._out = None
@@ -273,6 +321,10 @@ class TiledProgram:
         return model
 
     def _run(self, image: torch.Tensor) -> torch.Tensor:
+        """What the graph holds: the whole tiled forward, or over a mesh the
+        rank's share."""
+        if self.mesh is not None:
+            return _local_forward(self._live_model(), image, self.grid, self.batch_size, self.precision, self.mesh)
         return _tiled_forward(self._live_model(), image, self.grid, self.scale, self.batch_size, self.precision)
 
     def _capture(self, image: torch.Tensor) -> None:
@@ -295,14 +347,16 @@ class TiledProgram:
 
     def __call__(self, image: torch.Tensor) -> torch.Tensor:
         if image.device.type != 'cuda':
-            return self._run(image)
-        if self.graph is None:
-            self._capture(image)
+            out = self._run(image)
         else:
-            self._in.copy_(image)
-        self.graph.replay()
-        self.replays += 1
-        return self._out.clone()
+            if self.graph is None:
+                self._capture(image)
+            else:
+                self._in.copy_(image)
+            self.graph.replay()
+            self.replays += 1
+            out = self._out if self.mesh is not None else self._out.clone()
+        return out if self.mesh is None else _gather_stitch(out, self.grid, self.scale, self.mesh)
 
     def release(self) -> None:
         """Free the graph, its static tensors and its hold on the pool."""
@@ -320,23 +374,36 @@ def _kernel_switches() -> tuple[bool, bool]:
     return fused_attention_enabled(), fused_lk_enabled()
 
 
-def _program_for(model, grid: TileGrid, scale: int, batch_size: int, dtype: torch.dtype, precision):
+def _mesh_key(mesh):
+    """A mesh's identity in the program cache: the object itself, by
+    ``id``, besides its device type, axis names and rank layout (JAX keys on
+    the axis names and device ids).  A torch mesh also names the process
+    groups its collectives run on, and a later mesh of the same layout may
+    name other groups (a world started anew reuses the group names), so
+    only the same mesh shares a program.  The cached program holds its
+    mesh, so the ``id`` is not reused while the key is in the cache."""
+    if mesh is None:
+        return None
+    return id(mesh), mesh.device_type, mesh.mesh_dim_names, tuple(mesh.mesh.shape), tuple(mesh.mesh.flatten().tolist())
+
+
+def _program_for(model, grid: TileGrid, scale: int, batch_size: int, dtype: torch.dtype, precision, mesh=None):
     """The LRU-cached :class:`TiledProgram` for a planned grid, at most
     ``_TILED_FN_CACHE_MAX`` a model (serving many image sizes beyond that
     should pass ``bucket=True``); an evicted program's graph is freed.  The
     key holds the TF32 settings that ``precision`` leaves in effect (cuDNN's
     switch and the matmul precision, as they are at this call), since a
-    graph keeps the kernels chosen at its capture."""
+    graph keeps the kernels chosen at its capture, and the mesh."""
     with _precision(precision):
         tf32 = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
     cache = model.__dict__.setdefault('_tiled_fn_cache', OrderedDict())
-    key = (grid, batch_size, dtype, tf32, _kernel_switches())
+    key = (grid, batch_size, dtype, tf32, _kernel_switches(), _mesh_key(mesh))
     program = cache.get(key)
     if program is None:
         pool = model.__dict__.get('_tiled_graph_pool')
         if pool is None and model.device.type == 'cuda':
             pool = model.__dict__['_tiled_graph_pool'] = torch.cuda.graph_pool_handle()
-        program = cache[key] = TiledProgram(model, grid, scale, batch_size, precision, pool)
+        program = cache[key] = TiledProgram(model, grid, scale, batch_size, precision, pool, mesh)
         while len(cache) > _TILED_FN_CACHE_MAX:
             cache.popitem(last=False)[1].release()
     else:
@@ -346,11 +413,17 @@ def _program_for(model, grid: TileGrid, scale: int, batch_size: int, dtype: torc
 
 def _resolve_window(model, tile, halo, dtype, mesh, unroll) -> tuple[int, int, int]:
     """The preamble of :func:`tiled_program` and :func:`upscale_tiled`:
-    refuse ``mesh``, check ``unroll``, resolve the tile and halo hints
+    check ``mesh`` (a ``DeviceMesh`` on the model's device type, else
+    TypeError / ValueError) and ``unroll``, resolve the tile and halo hints
     against ``dtype`` (f32 when None) and check the scale.  Returns
     ``(tile, halo, scale)``."""
     if mesh is not None:
-        raise NotImplementedError('mesh= (tiles sharded over devices) is not ported yet')
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f'mesh must be a torch.distributed DeviceMesh, got {type(mesh).__name__}')
+        if mesh.device_type != model.device.type:
+            raise ValueError(f'a {mesh.device_type} mesh cannot serve a model on {model.device}')
     if not isinstance(unroll, int) or isinstance(unroll, bool) or unroll < 1:
         raise ValueError(f'unroll must be an int >= 1, got {unroll!r}')
     eff_dtype = dtype if dtype is not None else torch.float32
@@ -375,15 +448,15 @@ def tiled_program(model, h: int, w: int, *, tile: int | None = None, halo: int |
     model's device), or ``(None, scale)`` when the image fits one window.
     JAX's ``fn`` also takes the params; here the program reads the model's
     prepared weights.  ``unroll`` (any int >= 1) changes nothing: it
-    unrolls JAX's scan, and the port has none.  ``mesh`` raises
-    NotImplementedError."""
+    unrolls JAX's scan, and the port has none.  ``mesh``: as
+    :func:`upscale_tiled`'s; every rank of the mesh calls ``fn``."""
     tile, halo, scale = _resolve_window(model, tile, halo, dtype, mesh, unroll)
     eff_dtype = as_torch_dtype(dtype) or torch.float32
-    planned = _plan_tiled(model, h, w, tile, halo, batch_size, eff_dtype)
+    planned = _plan_tiled(model, h, w, tile, halo, batch_size, eff_dtype, mesh)
     if planned is None:
         return None, scale
     grid, batch_size = planned
-    return _program_for(model, grid, scale, batch_size, eff_dtype, precision), scale
+    return _program_for(model, grid, scale, batch_size, eff_dtype, precision, mesh), scale
 
 
 def upscale_tiled(
@@ -417,7 +490,14 @@ def upscale_tiled(
     first replay.  False: the host loop, one forward per tile batch, with
     nothing kept between images.  Both give the same pixels.  ``unroll``
     (any int >= 1) leaves the output unchanged: it unrolls JAX's scan, and
-    the port has none.  ``mesh`` raises NotImplementedError."""
+    the port has none.
+
+    ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` on the model's device
+    type; anything else raises TypeError): every rank of the mesh calls
+    with the same image, and each tile batch is split over the mesh's first
+    axis, the batch rounded to a multiple of that axis's size; every rank
+    returns the whole image.  Params that ``shard_params`` made ``DTensor``s
+    are gathered whole once a compute dtype (``SRModel.weights``)."""
     tile, halo, scale = _resolve_window(model, tile, halo, dtype, mesh, unroll)
     image = torch.as_tensor(image).to(model.device)
     if image.ndim != 3:
@@ -427,12 +507,12 @@ def upscale_tiled(
     if bucket:
         image, _, _ = _pad_to_multiple_hw(image, tile)
         if image.shape[0] != h0 or image.shape[1] != w0:
-            out = upscale_tiled(model, image, tile=tile, halo=halo, batch_size=batch_size, dtype=dtype,
+            out = upscale_tiled(model, image, tile=tile, halo=halo, batch_size=batch_size, mesh=mesh, dtype=dtype,
                                 precision=precision, on_device=on_device, unroll=unroll)
             return out[: h0 * scale, : w0 * scale, :]
 
     h, w, _ = image.shape
-    planned = _plan_tiled(model, h, w, tile, halo, batch_size, dtype if dtype is not None else image.dtype)
+    planned = _plan_tiled(model, h, w, tile, halo, batch_size, dtype if dtype is not None else image.dtype, mesh)
     if planned is None:
         return model(image, dtype=dtype, precision=precision)
     grid, batch_size = planned
@@ -445,5 +525,7 @@ def upscale_tiled(
         image = image.float()
 
     if on_device is None or on_device:
-        return _program_for(model, grid, scale, batch_size, image.dtype, precision)(image)
+        return _program_for(model, grid, scale, batch_size, image.dtype, precision, mesh)(image)
+    if mesh is not None:
+        return _gather_stitch(_local_forward(model, image, grid, batch_size, precision, mesh), grid, scale, mesh)
     return _tiled_forward(model, image, grid, scale, batch_size, precision)

@@ -10,6 +10,14 @@ counterpart here and needs none.  The optimizer is this module's own code
 with optax's arithmetic (:func:`make_optimizer`); the schedules are plain
 functions of the step, equal to optax's.  Checkpoints are ``torch.save``
 files, not orbax directories.
+
+Over a mesh (``make_train_step(mesh=...)``, the counterpart of the
+shardings a JAX caller lays out before ``jit``), every rank runs the step
+on the same global batch and takes its slice along ``dp``; the gradients
+are averaged over ``dp`` with one ``all_reduce``.  Params that
+``parallel.shard_params`` made ``DTensor``s keep their layout: the forward
+reads them gathered whole, and the optimizer and the EMA, which are
+elementwise, update each rank's local shards.
 """
 
 from __future__ import annotations
@@ -19,6 +27,9 @@ from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from .parallel.mesh import axis_size, full_tensor, is_sharded, local_tensor
 
 
 FORWARD_RANGE = 'train_step.forward'  # torch.profiler ranges of a step (the backward lies outside both)
@@ -141,14 +152,16 @@ class Optimizer:
         return AdamState(0, zeros, {k: torch.zeros_like(v) for k, v in params.items()})
 
     def apply(self, grads: Mapping[str, torch.Tensor], state: AdamState,
-              params: Mapping[str, torch.Tensor]) -> AdamState:
-        """One update of ``params`` (in place) from ``grads``; the new state."""
+              params: Mapping[str, torch.Tensor], norm: torch.Tensor) -> AdamState:
+        """One update of ``params`` (in place) from ``grads``, clipped by
+        ``norm``, the global norm of the whole gradients; the new state.
+        ``DTensor`` params, moments and grads are updated through their
+        local shards."""
         keys = list(params)
-        g = [grads[k].float() for k in keys]
-        p = [params[k] for k in keys]
-        mu = [state.mu[k] for k in keys]
-        nu = [state.nu[k] for k in keys]
-        norm = global_norm(g)
+        g = [local_tensor(grads[k]).float() for k in keys]
+        p = [local_tensor(params[k]) for k in keys]
+        mu = [local_tensor(state.mu[k]) for k in keys]
+        nu = [local_tensor(state.nu[k]) for k in keys]
         g = torch._foreach_div(g, torch.clamp(norm, min=self.clip) / self.clip)
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, torch._foreach_mul(g, 1 - self.b1))
@@ -180,6 +193,19 @@ def make_optimizer(
 def global_norm(tensors) -> torch.Tensor:
     """optax.global_norm: the l2 norm of all the tensors together, in f32."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm([t.float() for t in tensors])))
+
+
+def _shard_of(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The part of the whole tensor ``full`` that this rank holds of the
+    ``DTensor`` ``like`` (each ``Shard(d)`` placement a ``chunk`` along
+    ``d``, as ``distribute_tensor`` splits), or ``full``."""
+    if not is_sharded(like):
+        return full
+    mesh = like.device_mesh
+    for i, pl in enumerate(like.placements):
+        if pl.is_shard():
+            full = full.chunk(mesh.size(i), dim=pl.dim)[mesh.get_local_rank(i)]
+    return full
 
 
 _NON_TRAINABLE_SUFFIXES = ('running_mean', 'running_var', 'num_batches_tracked')
@@ -235,6 +261,7 @@ def make_train_step(
     loss: str | Callable = 'charbonnier',
     ema_decay: float = 0.0,
     remat: bool = False,
+    mesh=None,
 ):
     """Build a ``(state, lr, hr) -> (state, metrics)`` step function.
 
@@ -250,8 +277,22 @@ def make_train_step(
     global norm of the gradients before clipping, as 0-d tensors.  The
     forward runs inside the profiler range :data:`FORWARD_RANGE`, the norm,
     the update and the EMA inside :data:`OPTIMIZER_RANGE`; the backward
-    runs on autograd's threads, outside both."""
+    runs on autograd's threads, outside both.
+
+    ``mesh``: a ``DeviceMesh`` with a ``dp`` axis (``parallel.make_mesh``).
+    Every rank calls the step with the same GLOBAL batch, which ``dp``
+    divides, and runs its contiguous slice (ranks that differ only along
+    other axes, such as ``tp``, run the same slice); the loss is each rank's
+    local mean, and the gradients are averaged over ``dp`` with one
+    ``all_reduce``, which with equal slices is JAX's gradient of the mean
+    over the global batch.  The global norm and the clipping read the whole
+    gradients; ``DTensor`` params are gathered whole for the forward and
+    updated through their local shards.  ``metrics['loss']`` is the mean
+    over ``dp``."""
     loss_fn = LOSSES[loss] if isinstance(loss, str) else loss
+    if mesh is not None:
+        dp = axis_size(mesh, 'dp')
+        dp_rank, dp_group = mesh.get_local_rank('dp'), mesh.get_group('dp')
 
     def model(params, x):
         if remat:
@@ -260,26 +301,53 @@ def make_train_step(
 
     def train_step(state: TrainState, lr_batch, hr_batch):
         trainable, static = split_trainable(state.params)
-        leaves = {k: v.detach().requires_grad_(True) for k, v in trainable.items()}
+        if mesh is not None:
+            if lr_batch.shape[0] % dp or hr_batch.shape[0] != lr_batch.shape[0]:
+                raise ValueError(f'global batch {lr_batch.shape[0]} (HR {hr_batch.shape[0]}) not divisible by dp={dp}')
+            n = lr_batch.shape[0] // dp
+            lr_batch, hr_batch = lr_batch[dp_rank * n:(dp_rank + 1) * n], hr_batch[dp_rank * n:(dp_rank + 1) * n]
+            static = {k: full_tensor(v) for k, v in static.items()}
+        leaves = {k: full_tensor(v).detach().requires_grad_(True) for k, v in trainable.items()}
         with torch.enable_grad():
             with torch.profiler.record_function(FORWARD_RANGE):
                 loss_val = loss_fn(model({**leaves, **static}, lr_batch), hr_batch)
             grads = torch.autograd.grad(loss_val, list(leaves.values()), allow_unused=True)
-        grads = {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(trainable.items(), grads)}
-        with torch.no_grad(), torch.profiler.record_function(OPTIMIZER_RANGE):
-            gnorm = global_norm(grads.values())
-            opt_state = optimizer.apply(grads, state.opt_state, trainable)
-            ema = state.ema
-            if ema_decay and ema is not None:
-                e = [ema[k] for k in trainable]
-                torch._foreach_mul_(e, ema_decay)
-                torch._foreach_add_(e, torch._foreach_mul(list(trainable.values()), 1.0 - ema_decay))
+        grads = {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(leaves.items(), grads)}
+        loss_val = loss_val.detach()
+        with torch.no_grad():
+            if mesh is not None:
+                grads = _mean_over(grads, dp, dp_group)
+                loss_val = _mean_over({'loss': loss_val}, dp, dp_group)['loss']
+            with torch.profiler.record_function(OPTIMIZER_RANGE):
+                gnorm = global_norm(grads.values())
+                local = {k: _shard_of(grads[k], v) for k, v in trainable.items()}
+                opt_state = optimizer.apply(local, state.opt_state, trainable, norm=gnorm)
+                ema = state.ema
+                if ema_decay and ema is not None:
+                    e = [local_tensor(ema[k]) for k in trainable]
+                    torch._foreach_mul_(e, ema_decay)
+                    torch._foreach_add_(e, torch._foreach_mul([local_tensor(v) for v in trainable.values()],
+                                                              1.0 - ema_decay))
         return (
             TrainState(state.params, opt_state, state.step + 1, ema),
-            {'loss': loss_val.detach(), 'grad_norm': gnorm},
+            {'loss': loss_val, 'grad_norm': gnorm},
         )
 
     return train_step
+
+
+def _mean_over(tensors: Mapping[str, torch.Tensor], n: int, group) -> dict:
+    """The tensors averaged over the ``n`` ranks of ``group``: one
+    ``all_reduce`` of them flattened into one f32 buffer, copied out into
+    tensors of their layouts (``empty_like``: autograd leaves some
+    gradients strided, and the path of the global norm's reduction, so its
+    rounding, depends on the layout)."""
+    keys = list(tensors)
+    flat = torch.cat([tensors[k].reshape(-1).float() for k in keys])
+    dist.all_reduce(flat, group=group)
+    flat /= n
+    return {k: torch.empty_like(tensors[k]).copy_(part.view(tensors[k].shape))
+            for k, part in zip(keys, flat.split([tensors[k].numel() for k in keys]))}
 
 
 def ema_params(state: TrainState):
@@ -299,25 +367,43 @@ def save_train_state(state: TrainState, path: str) -> None:
     """Write the FULL training state (params, Adam moments and count, step,
     EMA) to one ``torch.save`` file, for exact resume.  The JAX package's
     orbax directories are another format: this reads and writes only its
-    own files."""
+    own files.  A sharded state is gathered whole first, so every rank of
+    its mesh calls this; under ``torch.distributed`` only rank 0 writes."""
+    def whole(tree):
+        return None if tree is None else {k: full_tensor(v) for k, v in tree.items()}
+
     opt = state.opt_state
-    torch.save({'params': state.params, 'opt_state': {'count': opt.count, 'mu': opt.mu, 'nu': opt.nu},
-                'step': state.step, 'ema': state.ema}, path)
+    raw = {'params': whole(state.params), 'opt_state': {'count': opt.count, 'mu': whole(opt.mu), 'nu': whole(opt.nu)},
+           'step': state.step, 'ema': whole(state.ema)}
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        torch.save(raw, path)
 
 
 def load_train_state(path: str, template: TrainState) -> TrainState:
     """Restore a state written by :func:`save_train_state` onto the device
     of ``template`` (a fresh state from the same model and optimizer),
-    whose keys, shapes and dtypes it must have."""
-    device = next(iter(template.params.values())).device
+    whose keys, shapes and dtypes it must have; where the template holds a
+    ``DTensor``, the restored tensor is one of the same layout (each rank
+    keeps its shard of the whole tensor it read)."""
+    device = local_tensor(next(iter(template.params.values()))).device
     raw = torch.load(path, map_location=device, weights_only=True)
     opt = raw['opt_state']
-    state = TrainState(raw['params'], AdamState(int(opt['count']), opt['mu'], opt['nu']), int(raw['step']),
-                       raw['ema'])
-    for name, got, want in (('params', state.params, template.params),
-                            ('mu', state.opt_state.mu, template.opt_state.mu),
-                            ('ema', state.ema or {}, template.ema or {})):
+    got_all = (raw['params'], opt['mu'], opt['nu'], raw['ema'] or {})
+    want_all = (template.params, template.opt_state.mu, template.opt_state.nu, template.ema or {})
+    for name, got, want in zip(('params', 'mu', 'nu', 'ema'), got_all, want_all):
         if set(got) != set(want) or any(got[k].shape != want[k].shape or got[k].dtype != want[k].dtype
                                         for k in want):
             raise ValueError(f'{path}: its {name} do not match the template state')
-    return state
+
+    def placed(got, want):
+        if not any(is_sharded(v) for v in want.values()):
+            return got
+        from torch.distributed.tensor import DTensor
+
+        return {k: DTensor.from_local(_shard_of(v, want[k]).contiguous(), want[k].device_mesh, want[k].placements,
+                                      run_check=False) if is_sharded(want[k]) else v
+                for k, v in got.items()}
+
+    params, mu, nu, ema = (placed(g, w) for g, w in zip(got_all, want_all))
+    return TrainState(params, AdamState(int(opt['count']), mu, nu), int(raw['step']),
+                      ema if raw['ema'] is not None else None)

@@ -1,4 +1,4 @@
-"""SR fine-tuning / training loop over a folder of images, on one device.
+"""SR fine-tuning / training loop over a folder of images.
 
 Counterpart of ``tools/train_sr.py``, with its flags and loop: random HR
 crops paired with box-downsampled LR inputs from the native sampler
@@ -10,8 +10,17 @@ fine-tuned model saved as ``.npz`` (``cache.py``) or ``.safetensors``.
     python -m resselt_tpu_torch.train_sr CKPT_OR_NPZ IMAGE_DIR --steps 1000
 
 Runs on ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
-versions).  Data parallelism over several cards (the JAX loop's mesh) is
-not here yet.
+versions).  Under ``torchrun`` it trains data-parallel, as the JAX loop
+does over its ``dp`` mesh: one rank a card (NCCL), or gloo ranks with
+``--device cpu``,
+
+    torchrun --nproc-per-node=N -m resselt_tpu_torch.train_sr CKPT IMAGE_DIR --steps 1000
+
+The batch is rounded to a multiple of the ranks (``max(batch - batch % n,
+n)``); every rank draws the same global batch from the same seeded sampler
+and trains on its slice (``train.make_train_step(mesh=...)``), the eval
+PSNR is taken over the global eval batch, and only rank 0 logs and writes
+files.  One process started without ``torchrun`` trains alone.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ def load_images(image_dir: str, min_size: int) -> list[np.ndarray]:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        description='Fine-tune an SR model on one device (data parallelism over several cards is not here yet).')
+        description='Fine-tune an SR model; under torchrun, data-parallel over the ranks.')
     parser.add_argument('model', help='checkpoint (.pth/.safetensors/...) or cached .npz')
     parser.add_argument('images', help='directory of training images')
     parser.add_argument('--steps', type=int, default=200)
@@ -73,6 +82,7 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format='%(asctime)s %(levelname)s %(message)s')
 
     import torch
+    import torch.distributed as dist
 
     from . import load_from_file
     from .cache import load_model, save_model
@@ -84,7 +94,17 @@ def main(argv=None) -> int:
         save_train_state,
     )
 
-    device = resolve_device(args.device)
+    mesh, started = None, False
+    if dist.is_initialized() or 'WORLD_SIZE' in os.environ:
+        from .parallel.mesh import init_distributed, make_mesh
+
+        started = not dist.is_initialized()
+        device = init_distributed(args.device)
+        mesh = make_mesh(tp=1, device=device.type)
+        if dist.get_rank() != 0:
+            logger.setLevel(logging.WARNING)
+    else:
+        device = resolve_device(args.device)
     model = load_model(args.model, device=device) if args.model.endswith('.npz') else load_from_file(args.model,
                                                                                                    device=device)
     scale = model.metadata.upscale
@@ -97,6 +117,10 @@ def main(argv=None) -> int:
     sampler = CropSampler(images_u8, crop=args.crop, scale=scale, seed=0, backend=args.loader)
     logger.info('%d training images (%s sampler)', len(images), sampler.backend)
     batch = args.batch
+    if mesh is not None:
+        n = mesh.size(0)
+        batch = max(batch - batch % n, n)
+        logger.info('data-parallel ranks=%d batch=%d', n, batch)
 
     def to_device(a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
@@ -113,15 +137,27 @@ def main(argv=None) -> int:
         start_step = int(state.step)
         logger.info('resumed train state from %s at step %d', args.checkpoint, start_step)
     step_fn = make_train_step(model.raw_apply_fn, model.config, optimizer, loss=args.loss,
-                              ema_decay=args.ema, remat=args.remat)
+                              ema_decay=args.ema, remat=args.remat, mesh=mesh)
 
     eval_lr, eval_hr = (to_device(a) for a in sampler.next_batch(batch))
+    mine = slice(None)
+    if mesh is not None:  # each rank evaluates its slice of the global eval batch
+        n = batch // mesh.size(0)
+        mine = slice(mesh.get_local_rank(0) * n, (mesh.get_local_rank(0) + 1) * n)
 
-    def apply(params, x):
+    def evaluate(params):
+        """The eval batch's output (each rank's slice) and the PSNR over
+        the global eval batch: the squared errors summed across the ranks."""
         with torch.no_grad():
-            return model.apply(params, x)
+            out = model.apply(params, eval_lr[mine])
+        if mesh is None:
+            return out, float(psnr(out, eval_hr))
+        sq = torch.square(out - eval_hr[mine]).sum().reshape(1)
+        dist.all_reduce(sq, group=mesh.get_group(0))
+        mse = sq / eval_hr.numel()
+        return out, float(10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-12)))
 
-    base_psnr = float(psnr(apply(state.params, eval_lr), eval_hr))
+    base_psnr = evaluate(state.params)[1]
     logger.info('initial eval PSNR %.2f dB', base_psnr)
 
     t0 = time.perf_counter()
@@ -134,8 +170,8 @@ def main(argv=None) -> int:
                 loss = float(metrics['loss'])
                 gn = float(metrics['grad_norm'])
                 ips = (step - start_step) * batch / (time.perf_counter() - t0)
-                logger.info('step %d loss %.5f grad_norm %.3f (%.1f img/s)', step, loss, gn, ips)
-            if args.checkpoint and args.checkpoint_every and step % args.checkpoint_every == 0:
+                logger.info('step %d loss %.7g grad_norm %.7g (%.1f img/s)', step, loss, gn, ips)
+            if args.checkpoint and args.checkpoint_every and step % args.checkpoint_every == 0:  # rank 0 writes
                 save_train_state(state, args.checkpoint)
                 logger.info('checkpointed train state at step %d -> %s', step, args.checkpoint)
     finally:
@@ -146,14 +182,17 @@ def main(argv=None) -> int:
         logger.info('checkpointed final train state -> %s', args.checkpoint)
 
     out_params = ema_params(state) if args.ema > 0 else state.params
-    final_out = apply(out_params, eval_lr)
-    final_psnr = float(psnr(final_out, eval_hr))
+    final_out, final_psnr = evaluate(out_params)
+    if mesh is not None:  # the global eval batch's output, for the SSIM
+        parts = [torch.empty_like(final_out) for _ in range(mesh.size(0))]
+        dist.all_gather(parts, final_out.contiguous(), group=mesh.get_group(0))
+        final_out = torch.cat(parts)
     final_ssim = ssim(final_out.clamp(0, 1).float().cpu().numpy(), eval_hr.float().cpu().numpy())
     logger.info('final eval PSNR %.2f dB / SSIM %.4f (was %.2f dB)%s',
                 final_psnr, final_ssim, base_psnr,
                 ' [EMA weights]' if args.ema > 0 else '')
 
-    if args.save:
+    if args.save and (mesh is None or dist.get_rank() == 0):
         model.params = dict(out_params)
         if args.save.endswith('.safetensors'):
             from .io import write_safetensors
@@ -163,6 +202,8 @@ def main(argv=None) -> int:
         else:
             save_model(model, args.save)
         logger.info('saved fine-tuned model to %s', args.save)
+    if started:
+        dist.destroy_process_group()
     return 0
 
 

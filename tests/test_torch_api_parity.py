@@ -5,7 +5,9 @@ has a counterpart here, through ``SRModel.__call__``, ``upscale_tiled``,
 ``upscale_padded`` and the CLI's ``--precision``, and an unknown name
 raising in both packages; ``upscale_tiled(..., on_device=False)``, the
 host loop, equal to the JAX package's, and the one-dispatch path and
-unroll equal to JAX's one-dispatch program; mesh still refused."""
+unroll equal to JAX's one-dispatch program; a mesh that is not a
+``DeviceMesh`` refused, and a one-rank gloo mesh equal to the meshless
+run."""
 
 import numpy as np
 import pytest
@@ -102,12 +104,22 @@ def test_host_loop_equals_jax(models, bucket):
 @pytest.mark.parametrize('kwargs', [{'on_device': True}, {'unroll': 2}, {'mesh': object()}])
 def test_one_dispatch_unroll_and_mesh_still_raise(models, kwargs):
     """``on_device=True`` and ``unroll`` run the one-dispatch path, equal to
-    JAX's one-dispatch program; ``mesh`` still raises."""
+    JAX's one-dispatch program; a ``mesh`` that is not a ``DeviceMesh``
+    raises TypeError, and a one-rank gloo mesh gives the meshless output,
+    JAX's one-dispatch program's."""
     jm, tm, _ = models
     img = np.random.default_rng(2).random((40, 46, 3), dtype=np.float32)
     if 'mesh' in kwargs:
-        with pytest.raises(NotImplementedError):
+        want = np.asarray(jt.upscale_tiled(jm, img, tile=16, on_device=True))
+        import torch_mesh_ranks as ranks
+        from resselt_tpu_torch.parallel import make_mesh
+
+        with pytest.raises(TypeError):
             tt.upscale_tiled(tm, img, tile=16, **kwargs)
+        with ranks.one_rank():
+            got = tt.upscale_tiled(tm, img, tile=16, mesh=make_mesh(device='cpu'))
+        assert torch.equal(got, tt.upscale_tiled(tm, img, tile=16))
+        assert got.shape == want.shape and float(np.abs(got.numpy() - want).max()) < 1e-6
         return
     want = np.asarray(jt.upscale_tiled(jm, img, tile=16, **{'on_device': True, **kwargs}))
     got = tt.upscale_tiled(tm, img, tile=16, **kwargs)

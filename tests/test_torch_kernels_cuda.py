@@ -20,7 +20,8 @@ The gradients of the five kernel Functions are held, in f32, to the same
 tolerances x max|plain gradient| against autograd through the plain
 version on the card (the 16-bit conv gradient to 3e-2), and a train step
 of six small models on the card to the CPU's (loss within 1e-5 relative,
-every param within 2 lr after the step).
+every param within 2 lr after the step).  ``esrgan.apply_pipelined`` on a
+one-rank NCCL mesh counts its conv3x3 launches and equals ``model(x)``.
 """
 
 import numpy as np
@@ -1126,3 +1127,36 @@ def test_train_step_on_card_matches_cpu(cuda, variant):
     assert outs[1][0] == pytest.approx(outs[0][0], rel=1e-5)
     for k, v in outs[0][1].items():
         torch.testing.assert_close(outs[1][1][k], v, rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize('m', [1, 2])
+def test_pipelined_esrgan_on_a_one_rank_nccl_mesh(cuda, tmp_path, m):
+    """``esrgan.apply_pipelined`` over a one-rank NCCL 'pp' mesh: the head
+    and tail convs launch conv3x3.cu once a forward (5 at 2x: the first conv,
+    the trunk conv, one upconv, HRconv, the last conv), the trunk's producer
+    convs (15 an RRDB) once a microbatch; the output is ``model(x)``'s,
+    exactly for one microbatch, within the f32 tolerance for two."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from resselt_tpu_torch.archs.esrgan import apply_pipelined
+    from resselt_tpu_torch.parallel import init_distributed
+
+    model = resselt_tpu_torch.load_from_state_dict(make_esrgan(16, 3, 2, gc=8, seed=3), device='cuda')
+    x = torch.rand((4, 24, 20, 3), generator=torch.Generator().manual_seed(0)).to(cuda)
+    want = model(x)
+    init_distributed('cuda', init_method=f'file://{tmp_path / "rendezvous"}', rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh('cuda', (1,), mesh_dim_names=('pp',))
+        before = fc.fused_conv3x3_act.launches
+        with torch.no_grad():
+            got = apply_pipelined(model.config, model.params, x, mesh, axis='pp', num_microbatches=m)
+        torch.cuda.synchronize()
+        launches = fc.fused_conv3x3_act.launches - before
+    finally:
+        dist.destroy_process_group()
+    assert launches == 5 + 15 * 3 * m
+    if m == 1:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -116,8 +116,13 @@ def test_upscale_tiled_whole_image_and_defaults(models):
     img = np.random.default_rng(4).random((30, 20, 3), dtype=np.float32)
     got = tt.upscale_tiled(tm, img)  # fits one 256 window: runs whole
     np.testing.assert_allclose(got.numpy(), np.asarray(jm(img)), rtol=0, atol=TOL)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):  # a mesh is a DeviceMesh
         tt.upscale_tiled(tm, img, mesh=object())
+    import torch_mesh_ranks as ranks
+    from resselt_tpu_torch.parallel import make_mesh
+
+    with ranks.one_rank():  # a one-rank gloo mesh: the meshless run, here one window
+        assert torch.equal(tt.upscale_tiled(tm, img, mesh=make_mesh(device='cpu')), got)
     with pytest.raises(ValueError):
         tt.upscale_tiled(tm, img[None])
 

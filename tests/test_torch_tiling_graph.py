@@ -191,11 +191,46 @@ def test_tf32_settings_key_the_program_cache(esrgan):
 
 
 def test_mesh_is_still_refused(esrgan):
+    """A mesh that is not a ``DeviceMesh`` raises TypeError on both entry
+    points; a one-rank gloo mesh gives the meshless output on the host loop,
+    the one-dispatch path and ``tiled_program``, from a program of its own
+    in the cache (the key holds the mesh)."""
+    import torch_mesh_ranks as ranks
+    from resselt_tpu_torch.parallel import make_mesh
+
     _, tm = esrgan
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tt.upscale_tiled(tm, _img(), tile=16, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tt.tiled_program(tm, 40, 46, tile=16, mesh=object())
+    want = tt.upscale_tiled(tm, _img(), tile=16, on_device=False)
+    with ranks.one_rank():
+        mesh = make_mesh(device='cpu')
+        for on_device in (False, True):
+            assert torch.equal(tt.upscale_tiled(tm, _img(), tile=16, mesh=mesh, on_device=on_device), want)
+        n = len(tm.__dict__['_tiled_fn_cache'])
+        fn, scale = tt.tiled_program(tm, 40, 46, tile=16, mesh=mesh)
+        assert scale == 2 and torch.equal(fn(torch.from_numpy(_img())), want)
+        assert len(tm.__dict__['_tiled_fn_cache']) == n and fn.mesh is mesh
+
+
+def test_a_mesh_of_a_new_world_gets_its_own_program(esrgan):
+    """A world ended and started anew reuses its group names, so a new mesh
+    of the old one's layout is not the old one: ``tiled_program`` gives it
+    a program of its own, which gathers over the new mesh's group."""
+    import torch_mesh_ranks as ranks
+    from resselt_tpu_torch.parallel import make_mesh
+
+    _, tm = esrgan
+    want = tt.upscale_tiled(tm, _img(), tile=16, on_device=False)
+    with ranks.one_rank():
+        old, _ = tt.tiled_program(tm, 40, 46, tile=16, mesh=make_mesh(device='cpu'))
+        assert torch.equal(old(torch.from_numpy(_img())), want)
+    with ranks.one_rank():
+        mesh = make_mesh(device='cpu')
+        fn, _ = tt.tiled_program(tm, 40, 46, tile=16, mesh=mesh)
+        assert fn is not old and fn.mesh is mesh
+        assert torch.equal(fn(torch.from_numpy(_img())), want)
 
 
 @pytest.mark.cuda
