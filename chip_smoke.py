@@ -18,7 +18,12 @@ the bench config, batch 16 of 256x256 tiles in bf16, then a tiled 1280x720
 image, then the upscale CLI on a PNG; the launch counts start from 0 just
 before it, the bench forwards must launch 351 convs each, all at shapes the
 kernels phase checked, and each shape's launches per forward are read from
-those forwards' counts).  Then PLKSR the same way: lk_kernels (every
+those forwards' counts), benchmark (resselt_tpu_torch.benchmark on the same
+model: measure_forward at the bench config, its conv3x3 launches 351 x the
+forwards it issued, beside the serve phase's time; measure_tiled and
+measure_tiled_direct on a 1280x720 image), blocks (a small net of
+resselt_tpu_torch.nn.blocks on prepared params, f32 card against CPU, 9
+conv3x3 launches a forward).  Then PLKSR the same way: lk_kernels (every
 large-kernel conv shape of the PLKSR path and the edges of the kernel's
 three 16-bit paths, stacked, tiles and mma, each bf16 launch counted on
 the path the wrapper plans for it; against the plain version in f32, bf16
@@ -170,7 +175,11 @@ on a one-rank NCCL group with a file:// store in a temporary directory,
 destroyed after: mesh_pipeline (ESRGAN-23 at the bench shape through
 esrgan.apply_pipelined on a 'pp' mesh with 1 and 4 microbatches: 6 + 345 m
 conv3x3 launches a forward, the output model(x)'s, equal at m = 1, within
-the bf16 gate at m = 4; ms against the bench forward), mesh_tiled (the
+the bf16 gate at m = 4; ms against the bench forward; then ESRGAN-23's
+gradient at the training shape through the pipeline at m = 1 and 4 against
+SRModel.apply's, every raw param and the input, launches forward and
+backward, ms of a backward), mesh_moe (moe_apply_ep on a one-rank 'ep'
+mesh against moe_apply_dense, output and gradients), mesh_tiled (the
 tiled 720p image through upscale_tiled(mesh=) on the host loop and the
 graph path, each equal to the meshless run, the graph's kernel nodes the
 host loop's launches; seconds both ways), mesh_train (ESRGAN-23's training
@@ -2419,6 +2428,156 @@ def phase_mesh_pipeline(model) -> dict:
     return res
 
 
+MESH_GRAD_TOL = 1e-4  # x max|gradient| of the whole step: the kernel Functions' gate (train_grads)
+MESH_GRAD_REPS = 3
+# moe_apply_ep on the card: a 128² map of 64-wide tokens through 8 experts of hidden width 256
+MOE = {'d': 64, 'd_hidden': 256, 'n_experts': 8, 'tokens': 128 * 128}
+
+
+def _conv_counts() -> tuple[int, int]:
+    """conv3x3's forward launches and backward ones (kernel launches plus
+    the shapes sent to conv2d_input)."""
+    e = _entries()['act']
+    return e.launches, e.backward_launches + sum(e.backward_conv2d_input.values())
+
+
+def _grad_errors(got: dict, ref: dict) -> dict:
+    """The largest |difference| of two gradient dicts, the whole reference
+    gradient's largest element, and the worst tensor by its own scale."""
+    err = max(float((got[k] - v).abs().max()) for k, v in ref.items())
+    scale = max(float(v.abs().max()) for v in ref.values())
+    worst = max(ref, key=lambda k: float((got[k] - ref[k]).abs().max()) / max(float(ref[k].abs().max()), 1e-30))
+    rel = float((got[worst] - ref[worst]).abs().max()) / max(float(ref[worst].abs().max()), 1e-30)
+    return {'max_abs_err': err, 'grad_max': scale, 'worst_tensor': worst, 'worst_tensor_rel_err': rel}
+
+
+def phase_mesh_pipeline_grad(model) -> dict:
+    """ESRGAN-23 at tools/bench_train.py's shape (8 x 48² LR, f32, TF32 off,
+    cuDNN deterministic): the gradient of the charbonnier loss against a
+    seeded HR batch, for every raw param and for ``x``, through
+    ``esrgan.apply_pipelined`` on a one-rank 'pp' mesh at m = 1 and 4
+    against ``SRModel.apply``'s (the kernels' autograd Functions without the
+    pipeline), within MESH_GRAD_TOL x max|gradient|; conv3x3 launches a step
+    forward and backward (``x`` requires grad, so the head conv's ``dx`` is
+    launched too: 6 + 345 m each way); the ms of ``torch.autograd.grad`` (the
+    backward), median of MESH_GRAD_REPS steps, each way.  (6 + 345 m: the
+    head, trunk and tail convs, and 15 producer convs a block a microbatch.)"""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from resselt_tpu_torch.archs.esrgan import apply_pipelined
+    from resselt_tpu_torch.train import charbonnier_loss, split_trainable
+
+    cfg = TRAIN_MODELS['ESRGAN-23']
+    mesh = init_device_mesh('cuda', (1,), mesh_dim_names=('pp',))
+    gen = torch.Generator().manual_seed(4)
+    lr = torch.rand((cfg['batch'], cfg['crop'], cfg['crop'], 3), generator=gen).cuda()
+    hr = torch.rand((cfg['batch'], cfg['crop'] * 4, cfg['crop'] * 4, 3), generator=gen).cuda()
+    trainable, static = split_trainable(model.params)
+    per_block = 15 * model.config.num_blocks
+
+    def steps(forward):
+        times = []
+        for _ in range(MESH_GRAD_REPS):
+            leaves = {k: v.detach().requires_grad_() for k, v in trainable.items()}
+            x = lr.clone().requires_grad_()
+            torch.cuda.synchronize()
+            c0 = _conv_counts()
+            loss = charbonnier_loss(forward({**leaves, **static}, x), hr)
+            torch.cuda.synchronize()
+            c1 = _conv_counts()
+            t0 = time.perf_counter()
+            grads = torch.autograd.grad(loss, [x, *leaves.values()])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            c2 = _conv_counts()
+        res = {'backward_ms': float(np.median(times)), 'backward_ms_all': [round(t, 3) for t in times],
+               'conv3x3_launches_forward': c1[0] - c0[0], 'conv3x3_launches_backward': c2[1] - c1[1],
+               'loss': float(loss.detach())}
+        return dict(zip(['x', *leaves], grads)), res
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    launches = 0
+    try:
+        ref, out = steps(model.apply)
+        if (out['conv3x3_launches_forward'], out['conv3x3_launches_backward']) != (6 + per_block,) * 2:
+            raise AssertionError(f'SRModel.apply step: {out}')
+        res = {'apply': out}
+        for m in MESH_MICROBATCHES:
+            got, out = steps(lambda p, x: apply_pipelined(model.config, p, x, mesh, axis='pp', num_microbatches=m))
+            out.update(_grad_errors(got, ref))
+            out['equal'] = all(torch.equal(got[k], v) for k, v in ref.items())
+            res[f'm{m}'] = out
+            launches += out['conv3x3_launches_forward'] * MESH_GRAD_REPS
+            want = 6 + per_block * m
+            if (out['conv3x3_launches_forward'], out['conv3x3_launches_backward']) != (want, want):
+                raise AssertionError(f'pipelined m={m}: conv3x3 launches forward / backward '
+                                     f"{out['conv3x3_launches_forward']} / {out['conv3x3_launches_backward']}, "
+                                     f'expected {want} each')
+            if not out['max_abs_err'] <= MESH_GRAD_TOL * out['grad_max']:
+                raise AssertionError(f'pipelined m={m} gradient against SRModel.apply: {out}')
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+    res.update(batch=cfg['batch'], crop_lr=cfg['crop'], dtype='float32', tf32=False, cudnn_deterministic=True,
+               gate=f'{MESH_GRAD_TOL} x max|gradient|', launches=launches)
+    return res
+
+
+def phase_mesh_moe() -> dict:
+    """``moe_apply_ep`` on a one-rank 'ep' mesh on the card against
+    ``moe_apply_dense`` (MOE's sizes, params from ``init_moe_params`` on its
+    default device, f32 with TF32 off), with the params whole and placed by
+    ``shard_moe_params``: the output and the gradients of ``sum(y ** 2)`` in
+    ``x`` and every param within MESH_GRAD_TOL x their max; ms a forward and
+    backward each way."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from resselt_tpu_torch.parallel import init_moe_params, moe_apply_dense, moe_apply_ep, shard_moe_params
+    from resselt_tpu_torch.parallel.mesh import local_tensor
+
+    mesh = init_device_mesh('cuda', (1,), mesh_dim_names=('ep',))
+    params = init_moe_params(torch.Generator().manual_seed(0), MOE['d'], MOE['d_hidden'], MOE['n_experts'])
+    if params['w1'].device.type != 'cuda':
+        raise AssertionError(f"init_moe_params put its params on {params['w1'].device}")
+    x = torch.randn((MOE['tokens'], MOE['d']), generator=torch.Generator().manual_seed(1)).cuda()
+
+    def run(fn, p):
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        xx = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fn(leaves, xx)
+        grads = torch.autograd.grad((y ** 2).sum(), [xx, *leaves.values()])
+        torch.cuda.synchronize()
+        return y.detach(), {'x': grads[0], **{k: local_tensor(g) for k, g in zip(leaves, grads[1:])}}, \
+            (time.perf_counter() - t0) * 1e3
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        run(moe_apply_dense, params)
+        y_ref, g_ref, ms = run(moe_apply_dense, params)
+        res = {'dense_ms': ms}
+        for placement in ('whole', 'sharded'):
+            p = params if placement == 'whole' else shard_moe_params(params, mesh, 'ep')
+            y, g, ms = run(lambda pp, xx: moe_apply_ep(pp, xx, mesh, 'ep'), p)
+            out = {'ms': ms, 'y_max_abs_err': float((y - y_ref).abs().max()), **_grad_errors(g, g_ref)}
+            if not (out['y_max_abs_err'] <= MESH_GRAD_TOL * float(y_ref.abs().max())
+                    and out['max_abs_err'] <= MESH_GRAD_TOL * out['grad_max']):
+                raise AssertionError(f'moe_apply_ep ({placement}) against moe_apply_dense: {out}')
+            res[placement] = out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    res.update(MOE, dtype='float32', tf32=False, gate=f'{MESH_GRAD_TOL} x max')
+    return res
+
+
 def phase_mesh_tiled(model) -> dict:
     """ESRGAN-23 on a 1280x720 image in bf16 (tile 256, the loader's halo)
     through ``upscale_tiled(mesh=)`` on a one-rank (dp, tp) mesh, on the host
@@ -2567,8 +2726,16 @@ def phase_mesh(tmp: str) -> dict:
                                                        device='cuda')
         t0 = time.perf_counter()
         pipe = phase_mesh_pipeline(model)
+        t1 = time.perf_counter()
+        grad = phase_mesh_pipeline_grad(model)
+        pipe['grad'] = grad
         log('mesh_pipeline', backend='nccl', world=dist.get_world_size(), seconds=round(time.perf_counter() - t0, 2),
+            grad_seconds=round(time.perf_counter() - t1, 2),
             **{k: json.dumps(v) if isinstance(v, (dict, list)) else v for k, v in pipe.items()})
+        t0 = time.perf_counter()
+        moe = phase_mesh_moe()
+        log('mesh_moe', backend='nccl', seconds=round(time.perf_counter() - t0, 2),
+            **{k: json.dumps(v) if isinstance(v, dict) else v for k, v in moe.items()})
         t0 = time.perf_counter()
         tiled = phase_mesh_tiled(model)
         log('mesh_tiled', backend='nccl', tile=BENCH['tile'], dtype='bfloat16',
@@ -2584,7 +2751,152 @@ def phase_mesh(tmp: str) -> dict:
     line = dryrun_multichip(DRYRUN_RANKS, device='cpu')
     log('dryrun', device=repr("cpu (the card machine's CPU, gloo ranks)"), ranks=DRYRUN_RANKS,
         seconds=round(time.perf_counter() - t0, 2), summary=repr(line))
-    return {'mesh_pipeline': sum(pipe[f'm{m}']['launches'] for m in MESH_MICROBATCHES), 'mesh_tiled': tiled['launches']}
+    return {'mesh_pipeline': sum(pipe[f'm{m}']['launches'] for m in MESH_MICROBATCHES), 'mesh_tiled': tiled['launches'],
+            'mesh_pipeline_grad': grad['launches']}
+
+
+# -- resselt_tpu_torch.benchmark and resselt_tpu_torch.nn.blocks ---------------------------------------------
+BENCH_TILED_HW = (720, 1280)
+
+
+class _ForwardCount:
+    """Counts the forwards of ``model`` (its ``apply_fn`` calls) while
+    entered."""
+
+    def __init__(self, model):
+        self.model, self.n = model, 0
+
+    def __enter__(self):
+        inner = self.inner = self.model._apply_fn
+
+        def apply_fn(*args):
+            self.n += 1
+            return inner(*args)
+
+        self.model._apply_fn = apply_fn
+        return self
+
+    def __exit__(self, *exc):
+        self.model._apply_fn = self.inner
+
+
+def phase_benchmark(model, serve: dict) -> dict:
+    """``resselt_tpu_torch.benchmark`` on ESRGAN-23: ``measure_forward`` at
+    bench.py:41's CONFIG (16 x 256², bf16) with the conv3x3 launches of all
+    its forwards (the shape probe, the warm run, the calibrated runs) equal
+    to 351 x the forwards it issued, beside the serve phase's mean of 5
+    from this call (the relative difference reported, not gated: timing
+    noise); ``measure_tiled`` and ``measure_tiled_direct`` on a 1280x720
+    bf16 image at the loader's hints.  Every number finite and positive."""
+    import math
+
+    import torch
+
+    from resselt_tpu_torch.benchmark import measure_forward, measure_tiled, measure_tiled_direct
+
+    b = BENCH
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _ForwardCount(model) as fwd:
+        mps, sec, scale = measure_forward(model, b['tile'], b['batch'], dtype=torch.bfloat16)
+    per_forward = 6 + 15 * model.config.num_blocks  # 351 for RRDBNet-23
+    res = {'forward_mp_per_s': mps, 'forward_ms': sec * 1e3, 'scale': scale, 'forwards_issued': fwd.n,
+           'conv3x3_launches': _entries()['act'].launches, 'forward_seconds': time.perf_counter() - t0,
+           'serve_mp_per_s': serve['bench_mp_per_s'], 'serve_ms_per_forward': serve['bench_ms_per_forward']}
+    res['forward_ms_vs_serve'] = res['forward_ms'] / res['serve_ms_per_forward'] - 1
+    if res['conv3x3_launches'] != per_forward * fwd.n or scale != b['scale']:
+        raise AssertionError(f'measure_forward: {res}')
+    for name, fn in (('tiled', measure_tiled), ('tiled_direct', measure_tiled_direct)):
+        t0 = time.perf_counter()
+        mps, sec = fn(model, BENCH_TILED_HW, dtype=torch.bfloat16)
+        res.update({f'{name}_mp_per_s': mps, f'{name}_s_per_frame': sec,
+                    f'{name}_seconds': time.perf_counter() - t0})
+    nums = [v for k, v in res.items() if isinstance(v, float) and k != 'forward_ms_vs_serve']
+    if not all(math.isfinite(v) and v > 0 for v in nums):
+        raise AssertionError(f'benchmark: a number is not finite and positive: {res}')
+    return res
+
+
+def blocks_net(p, x):
+    """A small ESRGAN-lineage net of ``resselt_tpu_torch.nn.blocks``: a 3x3
+    head, two EDSR residual blocks (CNA, lrelu, res_scale 0.2), a
+    reflect-padded PReLU conv, the trunk's shortcut, a pixelshuffle and a
+    nearest upconv (4x), a 1x1 side conv concatenated, a 3x3 last conv: 9
+    same-padded 3x3 convs (the routed ones) and a 1x1."""
+    from resselt_tpu_torch.nn import blocks as B
+
+    head = B.conv_block(p.sub('head'), x, 'conv', act_type=None)
+    body = head
+    for i in range(2):
+        body = B.resnet_block(p.sub(f'body.{i}'), body, act_type='leakyrelu', res_scale=0.2)
+    body = B.conv_block(p.sub('trunk'), body, 'conv', pad_type='reflect', act_type='prelu')
+    h = B.shortcut_block(lambda t: body, head)
+    h = B.pixelshuffle_block(p.sub('up0'), h, 2, conv_name='0', act_type='leakyrelu')
+    h = B.upconv_block(p.sub('up1'), h, 2, conv_name='1', act_type='leakyrelu')
+    h = B.concat_block(lambda t: B.conv_block(p.sub('side'), t, 'conv', act_type='relu'), h)
+    return B.conv_block(p.sub('last'), h, 'conv', act_type=None)
+
+
+BLOCKS_NF = 64
+BLOCKS_CONV3X3 = 9
+
+
+def blocks_params(seed: int = 0) -> dict:
+    """``blocks_net``'s params under the reference's names, seeded."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    nf = BLOCKS_NF
+
+    def conv(name, cout, cin, k=3):
+        return {f'{name}.weight': rng.standard_normal((cout, cin, k, k)) * (1 / (cin * k * k)) ** 0.5,
+                f'{name}.bias': rng.standard_normal(cout) * 0.01}
+
+    p = {**conv('head.conv', nf, 3), **conv('trunk.conv', nf, nf), **conv('up0.0', nf * 4, nf),
+         **conv('up1.1', nf, nf), **conv('side.conv', 16, nf, k=1), **conv('last.conv', 3, nf + 16),
+         'trunk.act.weight': np.array([0.25])}
+    for i in range(2):
+        p.update({**conv(f'body.{i}.res.0', nf, nf), **conv(f'body.{i}.res.2', nf, nf)})
+    return {k: torch.tensor(v, dtype=torch.float32) for k, v in p.items()}
+
+
+def phase_blocks() -> dict:
+    """``blocks_net`` on 2 x 64² in f32 (TF32 off) on the card against the
+    CPU, on params ``prepare_convs`` built on each device: within F32_TOL x
+    max|CPU|; the card's conv3x3 launches a forward (BLOCKS_CONV3X3); ms a
+    forward (median of 5)."""
+    import numpy as np
+    import torch
+
+    from resselt_tpu_torch.nn.params import PTree
+    from resselt_tpu_torch.ops.conv_route import prepare_convs
+
+    raw = blocks_params()
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        want = blocks_net(PTree(prepare_convs(raw, torch.float32)), x)
+        p = PTree(prepare_convs({k: v.cuda() for k, v in raw.items()}, torch.float32))
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            blocks_net(p, x.cuda())
+            torch.cuda.synchronize()
+            _reset_counts()
+            got = blocks_net(p, x.cuda())
+            torch.cuda.synchronize()
+            launches = _entries()['act'].launches
+            ms, _ = _median_s(lambda: blocks_net(p, x.cuda()), 5)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+    err = float((got.cpu() - want).abs().max())
+    scale = float(want.abs().max())
+    res = {'shape': list(got.shape), 'max_abs_err': err, 'gate': F32_TOL * scale, 'launches_per_forward': launches,
+           'ms_per_forward': ms * 1e3, 'finite': bool(np.isfinite(got.cpu().numpy()).all())}
+    if tuple(got.shape) != (2, 256, 256, 3) or not res['finite'] or not err <= F32_TOL * scale \
+            or launches != BLOCKS_CONV3X3:
+        raise AssertionError(f'blocks: {res}')
+    return res
 
 
 def ptxas_report(build_log: str) -> dict:
@@ -2697,8 +3009,14 @@ def main() -> int:
         conv_ms = sum(r['ms'] * r['per_forward'] for r in rows)
         log('serve', dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], launches=launches,
             launches_per_bench_forward=bench_launches / reps, conv_ms_per_bench_forward=conv_ms, **serve)
+        t0 = time.perf_counter()
+        bench = phase_benchmark(model, serve)
+        log('benchmark', dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], tiled_hw=list(BENCH_TILED_HW),
+            seconds=round(time.perf_counter() - t0, 2), **bench)
         del model, sd
         torch.cuda.empty_cache()
+    blocks = phase_blocks()
+    log('blocks', dtype='float32', **blocks)
 
     # -- PLKSR: the large-kernel conv ----------------------------------------
     nb = PLKSR['n_blocks']
@@ -3488,8 +3806,10 @@ def main() -> int:
         'route': 'cuda',
         'source': 'resselt_tpu_torch/csrc/conv3x3.cu',
         'replaces': 'resselt_tpu/ops/fused_conv.py:59',
-        'launches': launches + sum(f[0] for f in c_figs.values()) + sum(mesh_launches.values()),
-        'launches_by_path': {'ESRGAN': launches, **{k: f[0] for k, f in c_figs.items()}, **mesh_launches},
+        'launches': (launches + sum(f[0] for f in c_figs.values()) + sum(mesh_launches.values())
+                     + bench['conv3x3_launches'] + blocks['launches_per_forward']),
+        'launches_by_path': {'ESRGAN': launches, **{k: f[0] for k, f in c_figs.items()}, **mesh_launches,
+                             'benchmark': bench['conv3x3_launches'], 'blocks': blocks['launches_per_forward']},
         'max_abs_err': max(r['max_abs_err_bf16'] for r in rows + f_rows),
         'ms': head['ms'],
         'plain_ms': head['plain_ms'],

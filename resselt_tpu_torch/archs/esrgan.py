@@ -252,25 +252,45 @@ def apply_pipelined(cfg: ESRGANConfig, params, x, mesh, axis: str = 'pp', num_mi
     ``chunk_blocks`` (the last stages short, where JAX pads them with
     masked-out blocks), and each rank prepares the weights of the head, the
     tail and its own stage's RRDBs only, for ``x.dtype``.  Every rank
-    passes the same ``x`` and returns the whole output, equal to ``apply``."""
-    from ..parallel.mesh import axis_size
+    passes the same ``x`` and returns the whole output, equal to ``apply``.
+    Under grad, with the same loss on every rank, every rank gets the whole
+    gradient of ``params``: the trunk's blocks' summed over the axis from
+    the stage that runs each."""
+    from ..parallel.mesh import axis_size, replicated_grad
     from ..parallel.pipeline import pipeline_run
 
-    w = _head_tail_weights(cfg, params, x.dtype)
-    feat, hw = _head(cfg, w, x.contiguous())
-    p = PTree(params)
     k = -(-cfg.num_blocks // axis_size(mesh, axis))
     first = mesh.get_local_rank(axis) * k
-    rrdbs = [_rrdb_weights(cfg, p.sub(f'model.1.sub.{i}'), x.dtype)
-             for i in range(first, min(first + k, cfg.num_blocks))]
+    mine = range(first, min(first + k, cfg.num_blocks))
+    w = _head_tail_weights(cfg, params, x.dtype)
+    feat, hw = _head(cfg, w, x.contiguous())
+    # one all_reduce in the backward: the trunk input's gradient (from stage 0) and the blocks' (each
+    # from the rank that runs it).  Every rank hands the pipeline every block, so that every rank takes
+    # the same path and reaches the all_reduce, also one that runs no block
+    block_of = {key: i for key in params if (i := _trunk_block(key, cfg.num_blocks)) is not None}
+    trunk_in, *trunk = replicated_grad([feat] + [params[key] for key in block_of], mesh.get_group(axis))
 
-    def stage(h):
-        for rws in rrdbs:
-            h = _rrdb(rws, h, cfg.plus)
-        return h
+    def make_stage(blocks):
+        p = PTree(blocks)
+        rrdbs = [_rrdb_weights(cfg, p.sub(f'model.1.sub.{i}'), x.dtype) for i in mine]
 
-    body = pipeline_run(stage, feat, mesh, axis=axis, num_microbatches=num_microbatches)
+        def stage(h):
+            for rws in rrdbs:
+                h = _rrdb(rws, h, cfg.plus)
+            return h
+
+        return stage
+
+    body = pipeline_run(make_stage, dict(zip(block_of, trunk)), trunk_in, mesh, axis=axis,
+                        num_microbatches=num_microbatches)
     return _tail(cfg, w, feat, body, hw)
+
+
+def _trunk_block(key: str, num_blocks: int) -> int | None:
+    """The RRDB index of a trunk block's param key, else None (the trunk
+    conv ``model.1.sub.{num_blocks}`` is no block)."""
+    m = re.match(r'model\.1\.sub\.(\d+)\.', key)
+    return int(m[1]) if m and int(m[1]) < num_blocks else None
 
 
 def _load(sd, device='cuda') -> SRModel:

@@ -1,4 +1,4 @@
-from . import functional as F
+from . import blocks, functional as F
 from .params import PTree
 
-__all__ = ['F', 'PTree']
+__all__ = ['F', 'PTree', 'blocks']

@@ -151,3 +151,68 @@ def full_tensor(t: torch.Tensor) -> torch.Tensor:
     """A ``DTensor`` gathered whole (a collective: every rank of its mesh
     calls it), or the tensor itself."""
     return t.full_tensor() if is_sharded(t) else t
+
+
+# -- gradients across a mesh axis ----------------------------------------------------------
+#
+# SPMD code computes one loss on every rank from a replicated result.  JAX's
+# transposes give the convention: the cotangent of a ``psum`` onto a
+# replicated result is the result's own cotangent (no sum: every rank holds
+# it already), and a replicated input's cotangent is the sum over the axis of
+# every rank's contribution.  The two Functions below are that pair.
+# (``torch.distributed.nn.functional.all_reduce`` sums in both directions,
+# which multiplies each rank's gradient by the axis size under this
+# convention.)
+
+
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *ts):
+        ctx.group = group
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        out = list(gs)
+        by_dtype = {}
+        for i, g in enumerate(gs):
+            by_dtype.setdefault(g.dtype, []).append(i)
+        for idx in by_dtype.values():  # one all_reduce a dtype
+            flat = torch.cat([gs[i].reshape(-1) for i in idx])
+            dist.all_reduce(flat, group=ctx.group)
+            for i, part in zip(idx, flat.split([gs[i].numel() for i in idx])):
+                out[i] = part.view_as(gs[i])
+        return (None, *out)
+
+
+def sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``group`` (an ``all_reduce``, on a
+    copy), with an identity backward: the result is replicated and each
+    rank's loss is the same, so its gradient passes to ``t`` as it is."""
+    return _SumForward.apply(t, group)
+
+
+def replicated_grad(tensors, group) -> list:
+    """``tensors`` as they are, whose gradients are summed over ``group`` in
+    the backward (one ``all_reduce`` a dtype): for an input every rank holds
+    whole but uses only part of, or uses to compute only its share of a
+    result.  Those that do not require grad, and all of them without grad
+    mode, are returned untouched."""
+    tensors = list(tensors)
+    idx = [i for i, t in enumerate(tensors) if t.requires_grad] if torch.is_grad_enabled() else []
+    if idx:
+        for i, t in zip(idx, _SumBackward.apply(group, *(tensors[i] for i in idx))):
+            tensors[i] = t
+    return tensors

@@ -5,25 +5,32 @@ not an arch port (no family uses a sparse MoE).  Expert weights are stacked
 on a leading expert axis and sharded over the ``ep`` axis; every rank
 computes its local experts' share of the softmax-gated sum (soft, dense
 dispatch: static shapes, no gather), and one ``all_reduce`` over the axis
-adds the shares.  Plain torch: there is no kernel here, in either package.
+adds the shares.  Gradients follow JAX's transposes of that ``psum``
+(``mesh.sum_over``, ``mesh.replicated_grad``): every rank's loss on the
+replicated output gives each rank the whole gradient of the input and the
+gate, and of whole expert stacks, and of a sharded stack its own shard's.
+Plain torch: there is no kernel here, in either package.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
-from .mesh import axis_size, is_sharded, local_tensor
+from .mesh import axis_size, is_sharded, local_tensor, replicated_grad, sum_over
 
 
 def _gelu(x):
     return torch.nn.functional.gelu(x, approximate='tanh')  # jax.nn.gelu's default
 
 
-def init_moe_params(generator: torch.Generator, d: int, d_hidden: int, n_experts: int, device='cpu') -> dict:
+def init_moe_params(generator: torch.Generator, d: int, d_hidden: int, n_experts: int, device='cuda') -> dict:
     """Gate and stacked two-layer FFN experts, He-scaled normals drawn from
     ``generator`` (the values differ from ``jax.random``'s; carry a JAX
-    model's params across as numpy to compare)."""
+    model's params across as numpy to compare), on ``device``: the card
+    unless the caller asks for the CPU; without a card ``cuda`` raises."""
+    from ..core.factory import resolve_device
+
+    device = resolve_device(device)
     s1 = (2.0 / d) ** 0.5
 
     def normal(*shape):
@@ -53,7 +60,10 @@ def moe_apply_ep(params: dict, x: torch.Tensor, mesh, axis: str = 'ep') -> torch
     """:func:`moe_apply_dense` with the experts split over ``axis``: each
     rank takes the full softmax, keeps its experts' columns, runs its
     experts, and one ``all_reduce`` adds the ranks' shares.  ``params`` as
-    :func:`shard_moe_params` places them, or whole on every rank.  Raises
+    :func:`shard_moe_params` places them, or whole on every rank.  Every
+    rank passes the same ``x`` and computes the same loss of the result:
+    ``x``, the gate and whole expert stacks then get their whole gradient on
+    every rank (summed over the axis), a sharded stack its shard's.  Raises
     ValueError when the axis size does not divide the experts."""
     ep = axis_size(mesh, axis)
     n_exp = params['w1'].shape[0]
@@ -61,14 +71,17 @@ def moe_apply_ep(params: dict, x: torch.Tensor, mesh, axis: str = 'ep') -> torch
         raise ValueError(f'{n_exp} experts not divisible by ep={ep}')
     local = n_exp // ep
     start = mesh.get_local_rank(axis) * local
+    group = mesh.get_group(axis)
+    # replicated inputs: their gradients are summed over the axis
+    names = ['gate'] + [k for k in ('w1', 'w2') if not is_sharded(params[k])]
+    x, *vals = replicated_grad([x] + [local_tensor(params[k]) for k in names], group)
+    p = {**params, **dict(zip(names, vals))}
 
     def mine(w):
         return w.to_local() if is_sharded(w) else w[start:start + local]
 
-    probs = torch.softmax(x @ local_tensor(params['gate']), dim=-1)
-    part = _experts(probs[:, start:start + local], x, mine(params['w1']), mine(params['w2'])).contiguous()
-    dist.all_reduce(part, group=mesh.get_group(axis))
-    return part
+    probs = torch.softmax(x @ p['gate'], dim=-1)
+    return sum_over(_experts(probs[:, start:start + local], x, mine(p['w1']), mine(p['w2'])), group)
 
 
 def shard_moe_params(params: dict, mesh, axis: str = 'ep') -> dict:

@@ -55,6 +55,7 @@ def test_loading_and_serving_import_no_jax():
         'import resselt_tpu_torch, resselt_tpu_torch.upscale, resselt_tpu_torch.parallel\n'
         'import resselt_tpu_torch.cache, resselt_tpu_torch.convert, resselt_tpu_torch.inspect\n'
         'import resselt_tpu_torch.metrics, resselt_tpu_torch.quant\n'
+        'import resselt_tpu_torch.benchmark, resselt_tpu_torch.nn.blocks\n'
         'from resselt_tpu_torch import load_model, save_model\n'
         'from resselt_tpu_torch.parallel import tiled_program\n'
         'from resselt_tpu_torch.zoo import make_atd, make_dat, make_drct, make_eimn, make_esrgan, make_hat, make_plksr\n'
@@ -152,6 +153,10 @@ def test_default_device_without_cuda_raises():
         resselt_tpu_torch.load_from_state_dict(sd)
     with pytest.raises(RuntimeError, match='CUDA'):
         params_from_numpy(sd, 'cuda')
+    from resselt_tpu_torch.parallel import init_moe_params
+
+    with pytest.raises(RuntimeError, match='CUDA'):
+        init_moe_params(torch.Generator().manual_seed(0), 8, 8, 2)
 
 
 @pytest.mark.parametrize('alone', [False, True], ids=['in_repo', 'alone'])

@@ -7,7 +7,19 @@ tests/test_pipeline_moe.py's, rtol = atol = 2e-5: the conv-stage pipelines
 at (stages, microbatches) (4, 4), (4, 8) and (2, 2), ESRGAN with 6 blocks
 on 4 stages (masked padding) and with 4 blocks on 2 stages at m = 4, the
 MoE over 'ep' with JAX's params carried across; indivisible experts raise.
-One stage in a world of one runs in this process."""
+One stage in a world of one runs in this process.
+
+The same spawn takes the gradients of ``sum(y ** 2)`` on every rank and
+holds each rank's to ``jax.grad`` of the same loss (rtol = TOL, atol = TOL
+x max|JAX gradient|, the largest element of the case's whole gradient,
+params and ``x``: the deep blocks' gradients are 1e4 times smaller than
+the head's, and carry f32 rounding of that size, about 1e-4 of their own
+largest element): the pipelines' ``x`` and stacked params, whole
+(the whole gradient on every rank) and sharded (the rank's stage's), the
+pipelined ESRGANs' ``x`` and raw params, and the MoE's ``x`` and params at
+ep 4 and 2, whole and sharded (the rank's experts')."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -65,6 +77,39 @@ def _moe_params(n_experts, d=16, d_hidden=32):
     return {k: np.array(v) for k, v in p.items()}
 
 
+def _grad_atol(*trees) -> float:
+    """TOL x the largest element of a case's whole JAX gradient."""
+    return TOL * max(float(jnp.abs(leaf).max()) for leaf in jax.tree.leaves(trees))
+
+
+def _assert_grad(got, want, atol: float):
+    np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=atol)
+
+
+@functools.cache
+def _jax_pipe_grads(n_stages, m):
+    """``jax.grad`` of ``sum(y ** 2)`` in the stacked params and ``x``,
+    jitted (eager, the shard_map'd grads take seconds each to trace)."""
+    stages, x = _pipe_case(n_stages, m)
+    stacked = jp.stack_stages([{k: jnp.asarray(v) for k, v in s.items()} for s in stages])
+    mesh = _mesh(n_stages, 'pp')
+
+    def loss(st, xx):
+        return jnp.sum(jp.pipeline_apply(_jax_stage, st, xx, mesh, axis='pp', num_microbatches=m) ** 2)
+
+    return jax.jit(jax.grad(loss, argnums=(0, 1)))(stacked, jnp.asarray(x))
+
+
+@functools.cache
+def _jax_moe_grads(ep):
+    params = {k: jnp.asarray(v) for k, v in _moe_params(8).items()}
+    x = jnp.asarray(np.random.default_rng(2).standard_normal((64, 16), np.float32))
+    mesh = _mesh(ep, 'ep')
+    grads = jax.jit(jax.grad(lambda p, xx: jnp.sum(jp.moe_apply_ep(p, xx, mesh, 'ep') ** 2), argnums=(0, 1)))
+    dense = jax.jit(jax.grad(lambda xx: jnp.sum(jp.moe_apply_dense(params, xx) ** 2)))
+    return grads(params, x), dense(x)
+
+
 @pytest.fixture(scope='module')
 def ported(tmp_path_factory):
     inputs = {}
@@ -118,6 +163,62 @@ def test_moe_ep_matches_jax(ported):
         np.testing.assert_allclose(r['moe'], want, rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize('placement', ['whole', 'sharded'])
+@pytest.mark.parametrize('n_stages,m', ranks.PIPELINE_CASES)
+def test_pipeline_grads_match_jax(ported, n_stages, m, placement):
+    """Whole stacked params: every rank holds the whole stacked gradient;
+    sharded: each rank its own stage's row."""
+    gp, gx = _jax_pipe_grads(n_stages, m)
+    mesh, atol = 'pp4' if n_stages == 4 else 'pp2', _grad_atol(gp, gx)
+    for r in ported:
+        got = ranks.sub(r, f'grad/pipe{n_stages}_{m}_{placement}')
+        _assert_grad(got['x'], gx, atol)
+        for k, want in gp.items():
+            want = np.asarray(want)
+            _assert_grad(got[k], want if placement == 'whole' else want[int(r[f'coord/{mesh}'])][None], atol)
+
+
+@pytest.mark.parametrize('name', ['esrgan6', 'esrgan4'])
+def test_pipelined_esrgan_grads_match_jax(ported, name):
+    """Every rank holds the whole gradient of the raw params (the head's
+    through ``x``'s, the tail's, each stage's blocks' summed over the
+    axis) and of ``x``."""
+    sd, x, n, m = _esrgan_cases()[name]
+    jm = resselt_tpu.load_from_state_dict(sd)
+
+    def loss(params, xx):
+        return jnp.sum(jax_apply_pipelined(jm.config, params, xx, _mesh(n, 'pp'), axis='pp', num_microbatches=m) ** 2)
+
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(jm.params, jnp.asarray(x))
+    atol = _grad_atol(gp, gx)
+    for r in ported:
+        got = ranks.sub(r, f'grad/{name}')
+        _assert_grad(got['x'], gx, atol)
+        assert {k[2:] for k in got if k.startswith('p/')} == set(gp)
+        for k, want in gp.items():
+            _assert_grad(got[f'p/{k}'], want, atol)
+
+
+@pytest.mark.parametrize('placement', ['whole', 'sharded'])
+@pytest.mark.parametrize('ep', ranks.MOE_GRAD_CASES)
+def test_moe_ep_grads_match_jax(ported, ep, placement):
+    """ep 4 on a mesh of 4, ep 2 on the 'ep' axis of a (2, 2) mesh: ``x``
+    and the gate get their whole gradient on every rank, the expert stacks
+    too when whole, their shard's when sharded."""
+    (gp, gx), dense_gx = _jax_moe_grads(ep)
+    atol = _grad_atol(gp, gx)
+    _assert_grad(gx, dense_gx, atol)
+    local = 8 // ep
+    for r in ported:
+        got = ranks.sub(r, f'grad/moe{ep}_{placement}')
+        _assert_grad(got['x'], gx, atol)
+        _assert_grad(got['gate'], gp['gate'], atol)
+        c = int(r[f'coord/ep{ep}'])
+        for k in ('w1', 'w2'):
+            want = np.asarray(gp[k])
+            _assert_grad(got[k], want if placement == 'whole' else want[c * local:(c + 1) * local], atol)
+
+
 def test_moe_ep_rejects_indivisible(ported):
     assert all(bool(r['odd_raised']) for r in ported)
 
@@ -131,10 +232,10 @@ def test_moe_dense_matches_jax():
 
 
 def test_init_moe_params_shapes_and_scale():
-    p = tp.init_moe_params(torch.Generator().manual_seed(0), 16, 32, 8)
+    p = tp.init_moe_params(torch.Generator().manual_seed(0), 16, 32, 8, device='cpu')
     assert {k: tuple(v.shape) for k, v in p.items()} == {'gate': (16, 8), 'w1': (8, 16, 32), 'w2': (8, 32, 16)}
     assert abs(float(p['w1'].std()) - (2 / 16) ** 0.5) < 0.05
-    assert torch.equal(p['w2'], tp.init_moe_params(torch.Generator().manual_seed(0), 16, 32, 8)['w2'])
+    assert torch.equal(p['w2'], tp.init_moe_params(torch.Generator().manual_seed(0), 16, 32, 8, device='cpu')['w2'])
 
 
 def test_chunk_blocks_matches_jax():

@@ -16,6 +16,7 @@ import copy
 import logging
 import os
 import re
+import time
 
 import numpy as np
 import torch
@@ -36,14 +37,30 @@ def _rank_main(rank: int, n: int, fn, workdir: str) -> None:
         dist.destroy_process_group()
 
 
-def spawn(fn, n: int, workdir: str, inputs: dict) -> list[dict]:
+#: seconds the ranks of one :func:`spawn` may take; a deadlocked collective
+#: then fails its test instead of holding the whole run until its time limit
+DEADLINE_S = 240.0
+
+
+def spawn(fn, n: int, workdir: str, inputs: dict, deadline_s: float = DEADLINE_S) -> list[dict]:
     """Run ``fn(rank, n, inputs, workdir) -> {name: array}`` in ``n`` gloo
-    ranks; returns each rank's results."""
+    ranks; returns each rank's results.  Ranks still running after
+    ``deadline_s`` seconds are terminated and TimeoutError is raised."""
     import torch.multiprocessing as mp
 
     os.makedirs(workdir, exist_ok=True)
     np.savez(os.path.join(workdir, 'inputs.npz'), **inputs)
-    mp.spawn(_rank_main, args=(n, fn, workdir), nprocs=n, join=True)
+    ctx = mp.spawn(_rank_main, args=(n, fn, workdir), nprocs=n, join=False)
+    end = time.monotonic() + deadline_s
+    while not ctx.join(timeout=max(end - time.monotonic(), 0.0)):
+        if time.monotonic() >= end:
+            alive = [r for r, p in enumerate(ctx.processes) if p.is_alive()]
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            for p in ctx.processes:
+                p.join(10)
+            raise TimeoutError(f'{fn.__name__}: ranks {alive} of {n} still running after {deadline_s} s')
     return [dict(np.load(os.path.join(workdir, f'r{r}.npz'))) for r in range(n)]
 
 
@@ -80,13 +97,36 @@ def _tensors(d: dict) -> dict:
 
 
 PIPELINE_CASES = ((4, 4), (4, 8), (2, 2))
+ESRGAN_CASES = (('esrgan6', 'pp4', None), ('esrgan4', 'pp2', 4))
+MOE_GRAD_CASES = (4, 2)  # ep
+
+
+def grads_of(loss: torch.Tensor, named: dict) -> dict:
+    """``d loss / d t`` for each named leaf ``t``: a ``DTensor``'s as this
+    rank's local shard; zeros for a leaf the loss does not reach."""
+    from resselt_tpu_torch.parallel.mesh import local_tensor
+
+    gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    return {k: torch.zeros_like(local_tensor(t)) if g is None else local_tensor(g).detach()
+            for (k, t), g in zip(named.items(), gs)}
+
+
+def _leaves(d: dict) -> dict:
+    """Fresh leaves that require grad, of the floating tensors of ``d``."""
+    return {k: v.detach().clone().requires_grad_() if v.is_floating_point() else v for k, v in d.items()}
 
 
 def pipeline_moe_cases(rank: int, n: int, inputs: dict, workdir: str) -> dict:
     """In a 4-rank world: the conv-stage pipelines (4 stages on a 'pp' mesh
     of 4; 2 stages on the 'pp' axis of a (2, 2) mesh), ESRGAN with 6 blocks
     on 4 stages and with 4 blocks on 2 stages at m = 4, the MoE over 'ep' of
-    4, and whether indivisible experts raise."""
+    4, and whether indivisible experts raise.  Then the gradients of the
+    loss ``sum(y ** 2)``, the same on every rank, by ``torch.autograd.grad``:
+    of each pipeline's ``x`` and stacked params, whole and sharded
+    (``grad/pipe{n}_{m}_{placement}/...``), of each ESRGAN's ``x`` and raw
+    params (``grad/{name}/...``), and of the MoE's ``x`` and params at ep 4
+    and 2, whole and sharded (``grad/moe{ep}_{placement}/...``), with this
+    rank's coordinate on each mesh's axis (``coord/...``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     import resselt_tpu_torch
@@ -94,22 +134,38 @@ def pipeline_moe_cases(rank: int, n: int, inputs: dict, workdir: str) -> dict:
     from resselt_tpu_torch.parallel import (moe_apply_ep, pipeline_apply, shard_moe_params, shard_stacked_params,
                                             stack_stages)
 
-    pp4 = init_device_mesh('cpu', (4,), mesh_dim_names=('pp',))
-    pp2 = init_device_mesh('cpu', (2, 2), mesh_dim_names=('pp', 'rep'))
-    out = {}
+    meshes = {'pp4': init_device_mesh('cpu', (4,), mesh_dim_names=('pp',)),
+              'pp2': init_device_mesh('cpu', (2, 2), mesh_dim_names=('pp', 'rep'))}
+    out = {'coord/pp4': np.array(meshes['pp4'].get_local_rank('pp')),
+           'coord/pp2': np.array(meshes['pp2'].get_local_rank('pp'))}
     for n_stages, m in PIPELINE_CASES:
         case = sub(inputs, f'pipe{n_stages}_{m}')
         stages = [_tensors(sub(case, f's{i}')) for i in range(n_stages)]
-        mesh = pp4 if n_stages == 4 else pp2
+        mesh = meshes['pp4' if n_stages == 4 else 'pp2']
         stacked = shard_stacked_params(stack_stages(stages), mesh, 'pp')
         out[f'pipe{n_stages}_{m}'] = pipeline_apply(conv_stage, stacked, torch.from_numpy(case['x']), mesh, axis='pp',
-                                                    num_microbatches=m)
-    for name, mesh, m in (('esrgan6', pp4, None), ('esrgan4', pp2, 4)):
+                                                    num_microbatches=m).detach()
+        for placement in ('whole', 'sharded'):
+            stacked = stack_stages(stages)
+            if placement == 'sharded':
+                stacked = shard_stacked_params(stacked, mesh, 'pp')
+            stacked = {k: v.requires_grad_() for k, v in stacked.items()}
+            x = torch.from_numpy(case['x']).requires_grad_()
+            y = pipeline_apply(conv_stage, stacked, x, mesh, axis='pp', num_microbatches=m)
+            g = grads_of((y ** 2).sum(), {'x': x, **stacked})
+            out.update({f'grad/pipe{n_stages}_{m}_{placement}/{k}': v for k, v in g.items()})
+    for name, mesh_name, m in ESRGAN_CASES:
         case = sub(inputs, name)
         model = resselt_tpu_torch.load_from_state_dict(sub(case, 'sd'), device='cpu')
+        mesh = meshes[mesh_name]
         with torch.no_grad():
             out[name] = apply_pipelined(model.config, model.params, torch.from_numpy(case['x']), mesh, axis='pp',
                                         num_microbatches=m)
+        params = _leaves(model.params)
+        x = torch.from_numpy(case['x']).requires_grad_()
+        y = apply_pipelined(model.config, params, x, mesh, axis='pp', num_microbatches=m)
+        g = grads_of((y ** 2).sum(), {'x': x, **{f'p/{k}': v for k, v in params.items() if v.requires_grad}})
+        out.update({f'grad/{name}/{k}': v for k, v in g.items()})
     ep = init_device_mesh('cpu', (4,), mesh_dim_names=('ep',))
     moe = _tensors(sub(inputs, 'moe'))
     x = moe.pop('x')
@@ -120,6 +176,17 @@ def pipeline_moe_cases(rank: int, n: int, inputs: dict, workdir: str) -> dict:
         out['odd_raised'] = np.array(False)
     except ValueError:
         out['odd_raised'] = np.array(True)
+    ep_meshes = {4: ep, 2: init_device_mesh('cpu', (2, 2), mesh_dim_names=('ep', 'rep'))}
+    for size in MOE_GRAD_CASES:
+        mesh = ep_meshes[size]
+        out[f'coord/ep{size}'] = np.array(mesh.get_local_rank('ep'))
+        for placement in ('whole', 'sharded'):
+            params = moe if placement == 'whole' else shard_moe_params(moe, mesh, 'ep')
+            params = {k: v.detach().requires_grad_() for k, v in params.items()}
+            xg = x.clone().requires_grad_()
+            y = moe_apply_ep(params, xg, mesh, 'ep')
+            g = grads_of((y ** 2).sum(), {'x': xg, **params})
+            out.update({f'grad/moe{size}_{placement}/{k}': v for k, v in g.items()})
     return out
 
 
