@@ -26,14 +26,15 @@ resselt_tpu_torch.nn.blocks on prepared params, f32 card against CPU, 9
 conv3x3 launches a forward).  Then PLKSR the same way: lk_kernels (every
 large-kernel conv shape of the PLKSR path and the edges of the kernel's
 three 16-bit paths, stacked, tiles and mma, each bf16 launch counted on
-the path the wrapper plans for it; against the plain version in f32, bf16
-and fp16, with times), plksr_load (PLKSR dim 64, 28 blocks, k 17, 4x),
-plksr_model (28 lk launches per forward, card against CPU, bf16 against
+the path the wrapper plans for it, and k 33 and 51, past the old limit of
+31; against the plain version in f32, bf16 and fp16, with times),
+plksr_load (PLKSR dim 64, 28 blocks, k 17, 4x), plksr_model (28 lk launches per forward, card against CPU, bf16 against
 f32; RealPLKSR with DySample card against CPU), plksr_serve (28 lk launches
 per bench forward, every one on the stacked path).  Then
 SwinIR-M the same way: wattn_kernels (every window-attention shape of
-the SwinIR path and the kernel's other shape classes, against the plain
-version, with kernel / plain / library (PyTorch's
+the SwinIR path and the kernel's other shape classes, the "any" kernels'
+too (a one-head 128-wide FlexNet-style level, windows of 320 tokens),
+against the plain version, with kernel / plain / library (PyTorch's
 scaled_dot_product_attention, with the backend it picked) / bound times;
 the masked rows use a random mask without an all-zero window, and the three
 bench shapes are also timed with the model's own shift mask, which stands
@@ -70,14 +71,15 @@ OCABs take the plain path) / hat_serve (36 per bench forward; tiled at
 tile 192, halo 16, two windows a batch).  Then DAT-S, RGT-S and DRCT, the
 window transformers with rectangular windows and wide heads (wattn_kernels
 holds each class of their window attentions: DAT's (8, 16) and (16, 8)
-branches at C 90, RGT's (8, 32) and (32, 8), DRCT's swin1 / swin2 / swin4
-at C 180 / 212 / 276, head_dim 30 / 53 / 46, with the models' own
-rectangular shift masks): dat_load / dat_model / dat_serve (36 window_mha
-launches per forward, 18 masked; tiled at tile 96, halo 8, eight windows a
-batch), rgt_* (36; tile 160, halo 8, two a batch), drct_* (18; swin3 at
-head_dim 122 and swin5 at 77, 12 attentions a forward, take the plain path,
-whose time per bench forward is measured beside the library's; tile 128,
-halo 8, one a batch).  Then FDAT-M and OmniSR, whose attentions are
+branches at C 90, RGT's (8, 32) and (32, 8), DRCT's swin1 to swin5 at C
+180 / 212 / 244 / 276 / 308, head_dim 30 / 53 / 122 / 46 / 77, with the
+models' own rectangular shift masks): dat_load / dat_model / dat_serve (36
+window_mha launches per forward, 18 masked; tiled at tile 96, halo 8,
+eight windows a batch), rgt_* (36; tile 160, halo 8, two a batch), drct_*
+(30, none on the plain path; swin3 and swin5, 12 launches a forward on the
+"any" kernels, are timed beside the plain path they took before, at their
+bench shapes in this call, and the library's; tile 128, halo 8, one a
+batch).  Then FDAT-M and OmniSR, whose attentions are
 unmasked n 64 windows (wattn_kernels holds FDAT-M's spatial windows at C
 120, 4 heads, and OmniSR's block and grid windows at C 64, 4 heads):
 fdat_load (the MetaUpsample buffer dropped) / fdat_model (12 window_mha
@@ -88,7 +90,7 @@ batch), omni_load / omni_model (10; a model without the relative-position
 bias, its zero bias through the kernel) / omni_serve (10; tiled at the
 defaults, tile 256, halo 16, eight windows a batch).  Every model and
 serve phase of a window transformer also asserts the window attentions the
-plain path took (0; HAT-S 6, DRCT 12), and each serve phase reports its
+plain path took (0; HAT-S 6), and each serve phase reports its
 peak device memory.  Then the six 3x3-conv families, whose every
 same-padded 3x3 conv runs the conv3x3 kernel: conv_family_kernels (every
 distinct 3x3 conv of their bench forwards: Cin 3 stems, 48 -> 48 with
@@ -120,9 +122,9 @@ holds their new 3x3 shapes.  Then the last eight families the same way, at
 the zoo's widths: RTMoSR 2x with the unshuffle stem (8 conv3x3 launches a
 forward), SMoSR 4x (12), RHA 4x (53), FlexNet 4x (16, and 36 window_mha
 launches a forward on its one-head, zero-bias n 64 windows; wattn_kernels
-holds their shapes; a small meta U-Net whose 128-wide level takes the plain
-path), GFISR 4x (50), GFISRV2 4x (48), FIGSR 4x (57) and LAWFFT 4x (2),
-each with load / model / serve phases; their flop counts are taken at the
+holds their shapes; a small meta U-Net whose 128-wide level runs the
+"any" kernels, 7 launches and no plain path), GFISR 4x (50), GFISRV2 4x
+(48), FIGSR 4x (57) and LAWFFT 4x (2), each with load / model / serve phases; their flop counts are taken at the
 tile and batch of bench_families.md's row, and for the four spectral
 families also with the JAX package's matmul-DFT FLOPs, which its XLA
 count includes and torch.fft does not.  Every serve phase runs its tiled
@@ -158,8 +160,9 @@ f32 with TF32 off: train_grads (each kernel wrapper's autograd Function
 against autograd through its plain version, at every kernel shape of the
 training batches below, within the kernel's forward f32 tolerance x
 max|plain gradient|; backward launches per shape and the shapes sent to
-conv2d_input; the backward's ms at each kernel's main shape, Function
-against plain), train_models (tools/bench_train.py:83-92's four
+conv2d_input; the attention's also at DRCT's heads of 122 and 77; the
+backward's ms at each kernel's main shape, Function against plain),
+train_models (tools/bench_train.py:83-92's four
 configurations at full width: ESRGAN-23 4x at 8 x 48² with remat, SwinIR-M
 4x at 2 x 64² with remat, Compact 4x with 32 convs and SPAN 4x at 16 x 64²;
 Adam 1e-4, charbonnier, EMA 0.999; first one step at batch 1 on the card
@@ -544,10 +547,11 @@ def lk_shapes(n: int, tile: int, pdim: int, k: int) -> list[dict]:
     the tiled 720p windows, the CLI's and the model phase's whole images),
     plus the kernel's other shape classes: Cin 8 / 16 / 32 / 64, Cout 8 /
     16 / 32 / 64, k 3 / 13 / 17 / 31, ragged sizes, both activations, one
-    row without bias.  ``pitch`` and ``offset`` are the input's pixel pitch
-    and first channel: the path hands the kernel a channel slice of the
-    64-wide features.  ``path`` is the 16-bit path csrc/conv_lk.cu's plan
-    gives the shape (stacked, tiles, mma)."""
+    row without bias; and past the old limit of 31, k 33 and 51 at the
+    bench image and at edges.  ``pitch`` and ``offset`` are the input's
+    pixel pitch and first channel: the path hands the kernel a channel
+    slice of the 64-wide features.  ``path`` is the 16-bit path
+    csrc/conv_lk.cu's plan gives the shape (stacked, tiles, mma)."""
     window = tile + 2 * 4  # the loader's serving halo
     rows = [
         ('bench 16->16', n, tile, tile, pdim, pdim, k, 'linear', 4 * pdim, 0, True, 'stacked'),
@@ -569,6 +573,11 @@ def lk_shapes(n: int, tile: int, pdim: int, k: int) -> list[dict]:
         ('edge k13 32->24 lrelu', 2, 37, 45, 32, 24, 13, 'lrelu', 48, 16, True, 'mma'),
         ('edge k3 64->64', 1, 300, 15, 64, 64, 3, 'linear', 64, 0, True, 'tiles'),
         ('edge k31 64->40', 1, 21, 23, 64, 40, 31, 'linear', 64, 0, True, 'mma'),
+        # past k 31: k 33 still fits the tiles path at Cout 16; k 51 runs mma in square blocks of taps
+        ('k33 16->16', n, tile, tile, 16, 16, 33, 'linear', 16, 0, True, 'tiles'),
+        ('k51 16->16 lrelu', n, tile, tile, 16, 16, 51, 'lrelu', 16, 0, True, 'mma'),
+        ('edge k33 8->4 no bias', 2, 21, 23, 8, 4, 33, 'linear', 8, 0, False, 'mma'),
+        ('edge k51 64->64', 1, 19, 37, 64, 64, 51, 'linear', 64, 0, True, 'mma'),
     ]
     keys = ('name', 'n', 'h', 'w', 'cin', 'cout', 'k', 'act', 'pitch', 'offset', 'bias', 'path')
     return [dict(zip(keys, r)) for r in rows]
@@ -661,11 +670,15 @@ def window_classes(cfg: dict) -> tuple[int, list[tuple]]:
     """A model's window attentions: the multiple its images are padded to,
     and per class of attention (label, (sp_h, sp_w) window, C, heads,
     masks: 'both' where its shifted blocks are masked and the others not,
-    'masked' or 'unmasked' where all of its blocks are one or the other).
+    'masked' or 'unmasked' where all of its blocks are one or the other,
+    'unmasked_and_shift' for unmasked blocks also checked at the bench
+    image with the model's shift mask).
     DAT and RGT: two branches, (sp0, sp1) and (sp1, sp0) windows on half the
-    channels with half the heads, padded to max(split).  DRCT: the blocks the
-    kernel takes (head_dim <= 64): swin1 (embed, heads), swin2 and swin4
-    (embed + gc and + 3 gc, heads - width % heads; shifted).  FDAT: the
+    channels with half the heads, padded to max(split).  DRCT: its five
+    blocks, swin1 (embed, heads), swin2 and swin4 (embed + gc and + 3 gc,
+    heads - width % heads; shifted), swin3 and swin5 (+ 2 gc and + 4 gc:
+    at DRCT's width 2 heads of 122 and 4 of 77, unshifted, and their rows
+    also with the model's own shift mask: 'unmasked_and_shift').  FDAT: the
     spatial blocks, unshifted.  OmniSR: the block and the grid attention,
     one shape (the grid's windows are strided, not smaller), unmasked.
     FlexNet: one head over the full width, unmasked, with a zero bias."""
@@ -685,9 +698,10 @@ def window_classes(cfg: dict) -> tuple[int, list[tuple]]:
     c, h = cfg['embed_dim'], cfg['num_heads'][0]
     if 'gc' in cfg:
         out = [(' swin1', (ws, ws), c, h, 'unmasked')]
-        for k in (2, 4):
+        for k in (2, 3, 4, 5):
             width = c + (k - 1) * cfg['gc']
-            out.append((f' swin{k}', (ws, ws), width, h - width % h, 'masked'))
+            masks = 'masked' if k in (2, 4) else 'unmasked_and_shift'
+            out.append((f' swin{k}', (ws, ws), width, h - width % h, masks))
         return ws, out
     return ws, [('', (ws, ws), c, h, 'both')]
 
@@ -698,9 +712,10 @@ def wattn_shapes(n_img: int, tile: int, cfg: dict, others: tuple[dict, ...]) -> 
     48x64 and the model phase's 64x64 images; each with the shift mask and
     without), the kernel's other shape classes (head_dim 53 and 46 among
     them, q, k and v slices of one qkv tensor; the wrapper pads heads of
-    53, whose rows are only 2-byte aligned), and the same four images'
-    shapes for each class of window attention (:func:`window_classes`) of
-    each of ``others`` (their tiled windows come ``tile_batch`` a batch).  ``windows`` counts the window
+    53, whose rows are only 2-byte aligned; and for the "any" kernels a
+    FlexNet-style one head of 128 at the bench image and windows of 320
+    tokens), and the same four images' shapes for each class of window
+    attention (:func:`window_classes`) of each of ``others`` (their tiled windows come ``tile_batch`` a batch).  ``windows`` counts the window
     batch, ``nw`` the mask's windows (None: unmasked), ``split`` the window,
     ``image`` the padded image the windows tile; ``mask`` is the kind:
     'random' (30% of the entries -100, so no window's tile is all zero: the
@@ -731,6 +746,11 @@ def wattn_shapes(n_img: int, tile: int, cfg: dict, others: tuple[dict, ...]) -> 
         ('edge head_dim 53 in place', 7, 256, 212, 4, 7, 'random', (16, 16), None),
         ('edge head_dim 53 n 100', 6, 100, 106, 2, None, None, (10, 10), None),
         ('edge head_dim 46 in place', 5, 200, 276, 6, 5, 'random', (10, 20), None),
+        # the "any" kernels: FlexNet's meta level of 128 at the bench image (one head, zero bias, n 64), and
+        # windows of more than 256 tokens: (16, 20) windows, 320 tokens, at SwinIR-M's width
+        ('FlexNet-style one head of 128', n_img * (tile // 16) ** 2, 64, 128, 1, None, None, sq, None),
+        ('window (16, 20) n320 masked', n_img * 64, 320, c, h, 64, 'random', (16, 20), None),
+        ('edge n320 head_dim 160 unmasked', 6, 320, 160, 1, None, None, (16, 20), None),
     ]
     for o in others:
         pad, classes = window_classes(o)
@@ -741,7 +761,9 @@ def wattn_shapes(n_img: int, tile: int, cfg: dict, others: tuple[dict, ...]) -> 
                                        ('cli', 1, 48, 64), ('model', 1, 64, 64)):
                 hp, wp = -(-ih // pad) * pad, -(-iw // pad) * pad
                 onw, on = (hp // sh) * (wp // sw), sh * sw
-                if masks != 'unmasked':
+                if masks == 'unmasked_and_shift' and name == 'bench':
+                    rows.append((f'{nm} bench shift mask', imgs * onw, on, oc, oh, onw, 'shift', (sh, sw), (hp, wp)))
+                if masks in ('both', 'masked'):
                     rows.append((f'{nm} {name} masked', imgs * onw, on, oc, oh, onw, 'random', (sh, sw), None))
                     if name == 'bench':
                         for kind in ('shift', 'zero'):
@@ -2327,6 +2349,9 @@ def phase_train() -> dict:
             for kind, keys in forward_shapes(model, cfg).items():
                 shapes.setdefault(kind, {}).update({key: cfg['batch'] for key in keys})
             del model
+        # and the "any" kernel's: DRCT's swin3 (2 heads of 122, window 16) at a batch of 2 x 64² images,
+        # 16 windows an image, and its swin5 (4 of 77) with a mask of 16 windows
+        shapes['wattn'].update({(32, 256, 244, 2, False): 2, (32, 256, 308, 4, True): 2})
         shapes = {k: dict(sorted(v.items())) for k, v in shapes.items()}
         e, s = TRAIN_MODELS['ESRGAN-23'], TRAIN_MODELS['SwinIR-M']
         main = {'act': next(k for k in shapes['act'] if k[:5] == (e['batch'], e['crop'], e['crop'], 64, 192)),
@@ -3272,7 +3297,7 @@ def main() -> int:
         del model, sd
         torch.cuda.empty_cache()
 
-    # -- DAT-S, RGT-S and DRCT: the window attention at rectangular windows and head_dim 53 / 46 --------
+    # -- DAT-S, RGT-S and DRCT: the window attention at rectangular windows and head_dim 53 / 46 / 122 / 77 --
     def window_family(stem: str, cfg: dict, sd: dict, arch: str, meta_name: str, expect: dict, n_wattn: int,
                       n_plain: int, tol: float, dropped: frozenset | None = None, extra_models: tuple = ()):
         """Load, model and serve phases of one window transformer, with its
@@ -3333,18 +3358,24 @@ def main() -> int:
     log('rgt_serve', launches=rgt_fig['wattn'][0], launches_per_bench_forward=rgt_fig['wattn'][1],
         wattn_ms_per_bench_forward=rgt_fig['wattn'][2], **serve)
 
-    n_kernel = len(window_classes(dr)[1])  # the blocks of a group the kernel takes
+    pad, classes = window_classes(dr)  # all five blocks of a group run the kernel
     serve, drct_fig = window_family(
         'drct', dr, make_drct(dr['embed_dim'], dr['num_layers'], dr['num_heads'][0], dr['window_size'], dr['gc'],
                               dr['mlp_ratio'], dr['scale'], img_size=dr['img_size'], seed=0), 'DRCT', 'DRCT',
         {'embed_dim': 180, 'num_layers': 6, 'num_heads': dr['num_heads'], 'window_size': 16, 'gc': 32,
-         'img_size': 64}, n_kernel * dr['num_layers'], (5 - n_kernel) * dr['num_layers'], DRCT_TOL)
-    p_rows = time_plain_attentions('cuda', drct_fig['plain'], reps=10)
+         'img_size': 64}, len(classes) * dr['num_layers'], 0, DRCT_TOL)
+    # the plain path that swin3 and swin5 took before they ran the kernel, timed in this call at their bench
+    # shapes beside the kernel's launches there
+    wide = {(BENCH['batch'] * (BENCH['tile'] // pad) ** 2, pad * pad, pad * pad, oc, oh, False): dr['num_layers']
+            for label, _, oc, oh, _ in classes if oc // oh > 64}
+    p_rows = time_plain_attentions('cuda', wide, reps=10)
+    wide_rows = [r for r in w_rows if r['name'] in ('DRCT swin3 bench', 'DRCT swin5 bench')]
     log('drct_serve', launches=drct_fig['wattn'][0], launches_per_bench_forward=drct_fig['wattn'][1],
         wattn_ms_per_bench_forward=drct_fig['wattn'][2],
-        plain_attention_ms_per_bench_forward=sum(r['plain_ms'] * r['per_forward'] for r in p_rows),
-        plain_attention_library_ms_per_bench_forward=sum(r['library_ms'] * r['per_forward'] for r in p_rows),
-        plain_attention_rows=json.dumps(p_rows), **serve)
+        wide_head_kernel_ms_per_bench_forward=sum(r['ms'] * r['per_forward'] for r in wide_rows),
+        wide_head_plain_path_ms_per_bench_forward=sum(r['plain_ms'] * r['per_forward'] for r in p_rows),
+        wide_head_library_ms_per_bench_forward=sum(r['library_ms'] * r['per_forward'] for r in p_rows),
+        wide_head_plain_path_rows=json.dumps(p_rows), **serve)
 
     # -- FDAT-M and OmniSR: the window attention at n 64, head_dim 30 and 16, unmasked ----------------
     from resselt_tpu_torch.zoo import make_fdat, make_omni
@@ -3732,7 +3763,7 @@ def main() -> int:
          'upsampler': 'ps'},
         2 + 1 + 2 * n_groups + 1, LAST_EIGHT_TOL, n_wattn=sum(fx['num_blocks']),  # short cut; stem; ConvBlocks; head
         extra_models=(('meta_dys_2x_model', make_flexnet(16, (1, 1, 1, 1), 2, hidden_rate=2, pipeline_type='meta',
-                                                         upsampler='dys', seed=1), 2 + 1 + 14 + 6, 6, 1),
+                                                         upsampler='dys', seed=1), 2 + 1 + 14 + 6, 7, 0),
                       ('linear_n+c_4x_channel_norm_model', make_flexnet(32, (3, 1), 4, hidden_rate=2, channel_norm=True,
                                                                         upsampler='n+c', seed=2),
                        2 + 1 + 4 + 1 + 4, 4, 0)))
@@ -3850,6 +3881,7 @@ def main() -> int:
         'backward_shape': 'f32 ' + 'x'.join(map(str, tmain['lk']['shape'])),
         'ms_per_bench_forward': lk_ms,
         'over_bound_ms_per_bench_forward': over_bound_ms(lk_rows),
+        'shapes_past_k31': [r['name'] for r in lk_rows if r['k'] > 31],
         'shapes': lk_rows,
     }, {
         'name': 'window_mha',
@@ -3878,6 +3910,7 @@ def main() -> int:
         'over_bound_ms_per_bench_forward_by_path': {
             'SwinIR-M': over_bound_ms(w_rows) - sum(over_bound_ms(w_rows, f'{k} ') for k in w_figs),
             **{k: over_bound_ms(w_rows, f'{k} ') for k in w_figs}},
+        'shapes_on_any_kernels': [r['name'] for r in w_rows if r['n'] > 256 or r['c'] // r['heads'] > 64],
         'shapes': w_rows,
     }, {
         'name': 'fused_molrcm',

@@ -9,13 +9,13 @@ embedding.  The Swin blocks are the port's ``swinir.swin_block``; block
 k of a group runs on ``embed + (k - 1) * gc`` channels with ``heads -
 width % heads`` heads, the second and fourth shifted.
 
-On the card each block's window attention whose head_dim is at most 64
-runs through ``ops.window_mha`` (``csrc/window_attn.cu``, q, k and v read in
-place from the qkv projection); at DRCT's width (embed 180, gc 32, 6 heads)
-those are blocks 1, 2 and 4, while blocks 3 (2 heads of 122) and 5 (4 of
-77) take the plain path of ``nn.window.multi_head_attention``, where it
-counts them.  ``prepare`` casts the params once per dtype and gathers
-every block's relative-position bias once; the shift masks are built once
+On the card every block's window attention runs through
+``ops.window_mha`` (``csrc/window_attn.cu``, q, k and v read in place from
+the qkv projection); at DRCT's width (embed 180, gc 32, 6 heads) blocks 1,
+2 and 4 (head_dim 30, 53, 46) on the kernel's first pair, blocks 3 (2 heads
+of 122) and 5 (4 of 77) on its "any" kernels.  ``prepare`` casts the
+params once per dtype and gathers every block's relative-position bias
+once, (heads, N, N) in f32 at every width; the shift masks are built once
 per geometry and device.
 """
 

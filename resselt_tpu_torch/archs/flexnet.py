@@ -8,11 +8,10 @@ and an RWKV-style ChannelMix FFN (relu², optional RMSNorm, sigmoid gate),
 each after a bias-free OmniShift collapsed at load into one depthwise 5x5;
 ConvBlocks; the ``ps`` / ``n+c`` / ``dys`` tails.  The window attention
 runs through ``ops.window_mha`` (``csrc/window_attn.cu``) with a zero
-one-head bias, wherever the kernel takes the width (head_dim = C <= 64);
-wider levels of the meta pipeline take the plain path, counted in
-``nn.window.multi_head_attention.plain_calls``.  The kernel keeps the
-scores in f32, where the JAX package rounds them to the input's dtype
-before the softmax; in f32 the two agree.  Every same-padded 3x3 conv with
+one-head bias at every level (head_dim = C: 64 and below on the kernel's
+first pair, the meta pipeline's wider levels on its "any" kernels).  The
+kernel keeps the scores in f32, where the JAX package rounds them to the
+input's dtype before the softmax; in f32 the two agree.  Every same-padded 3x3 conv with
 groups 1 runs through ``ops.fused_conv3x3_act`` (``csrc/conv3x3.cu``), the
 ConvBlocks' with their Mish fused, the meta pipeline's bias-free ``down`` /
 ``up`` convs and the tails' too.  The weights are built once per compute

@@ -9,11 +9,16 @@
 // elements apart with the Cin channels next to each other, so a channel
 // slice x[..., :pdim] of a wider tensor is read in place (no copy); w is repacked
 // once by the caller into taps [dy * k + dx][Cin][Cout] in x's dtype; b is
-// f32 (or null).  Takes k odd <= 31, Cout <= 64 and any Cin, H, W >= 1.
+// f32 (or null).  Takes every odd k, as the TPU kernel does, Cout <= 64 and
+// any Cin, H, W >= 1.
 //
 // Four kernels:
 //  * f32: exact f32 FMA on the CUDA cores (no TF32), held at 1e-4 against
-//    an f32 reference.
+//    an f32 reference.  It stages a tile's halo and one kernel row's
+//    weights at a time; up to k 31 both fit in shared memory, and where
+//    they do not the taps go in square blocks of tb x tb (tap_block picks
+//    tb), each block's halo and weights staged in turn, all accumulating
+//    into the same output tile.
 //  * bf16 / fp16 (each a template over the 16-bit type), on the path that
 //    plan_path picks from the shape and x's alignment alone (exported as
 //    resselt_conv_lk_path, so that the wrapper counts the path it took):
@@ -26,8 +31,11 @@
 //      weights one kernel row at a time, the next while the tensor cores
 //      work on the current.
 //    - mma (every other shape: Cin 8 and 32, pixels not 16-byte aligned,
-//      k 31 at Cin 64): implicit GEMM through mma.sync m16n8k16, a 32 x 16-pixel
-//      block that restages each kernel row's weights between barriers.
+//      k 31 at Cin 64, every k past 33): implicit GEMM through mma.sync
+//      m16n8k16, a 32 x 16-pixel block that restages each kernel row's
+//      weights between barriers; in blocks of taps as the f32 kernel
+//      where a kernel row's halo and weights do not fit.  The stacked path's weights fit up to k 31, the tiles
+//      path's two halos and two kernel rows up to k 33 at Cout <= 16.
 //
 // What bounds it on an H100: operations.  At PLKSR's bench shape (16 x
 // 256 x 256, 16 -> 16, k 17) the conv does 155 GFLOP on 67 MB of bf16
@@ -64,7 +72,6 @@
 
 namespace {
 
-constexpr int MAX_K = 31;
 constexpr int MAX_COUT = 64;
 constexpr int THREADS = 256;
 
@@ -87,25 +94,32 @@ constexpr int TW32 = 16;
 constexpr int KC32 = 8;          // input channels per stage
 constexpr int XPS32 = KC32 + 1;  // halo pixel stride in floats (odd: fewer bank conflicts)
 
-__host__ __device__ inline int f32_halo_floats(int k) {
-    return ((TH32 + k - 1) * (TW32 + k - 1) * XPS32 + 3) / 4 * 4;  // 16-byte aligned end
+__host__ __device__ inline int f32_halo_floats(int tb) {
+    return ((TH32 + tb - 1) * (TW32 + tb - 1) * XPS32 + 3) / 4 * 4;  // 16-byte aligned end
 }
 
+// The taps go in square blocks of tb x tb where the halo and a kernel
+// row's weights do not fit in shared memory at tb = k (past k 31): per block
+// of taps the halo it reads, (16 + tb - 1)^2 pixels, then its kernel rows
+// one at a time.  BLOCKED is false where tb = k: the one block is then the
+// whole kernel, as the loop that took every k up to 31 was written.
+template <bool BLOCKED>
 __global__ void __launch_bounds__(THREADS)
 conv_lk_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
-                   float* __restrict__ y, int H, int W, int Cin, int Cout, int pitch, int k, int act, int ng) {
+                   float* __restrict__ y, int H, int W, int Cin, int Cout, int pitch, int k, int act, int ng, int tb) {
     extern __shared__ __align__(16) float smem32[];
-    const int HWD = TW32 + k - 1;
-    const int HH = TH32 + k - 1;
+    if (!BLOCKED) tb = k;
+    const int HWD = TW32 + tb - 1;
     const int CO = ng * 8;  // weight row stride in floats
     float* xs = smem32;
-    float* ws = smem32 + f32_halo_floats(k);
+    float* ws = smem32 + f32_halo_floats(tb);
 
     const int tid = threadIdx.x;
     const int nthreads = blockDim.x;
     const int n = blockIdx.z;
-    const int oy0 = blockIdx.y * TH32;
-    const int ox0 = blockIdx.x * TW32;
+    const int tiles_x = (W + TW32 - 1) / TW32;  // blockIdx.x: the tile, row-major
+    const int oy0 = (int)(blockIdx.x / tiles_x) * TH32;
+    const int ox0 = (int)(blockIdx.x % tiles_x) * TW32;
     const int pad = k / 2;
     const int cg = tid % ng;
     const int pg = tid / ng;
@@ -119,20 +133,21 @@ conv_lk_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, con
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-    for (int c0 = 0; c0 < Cin; c0 += KC32) {
-        for (int i = tid; i < HH * HWD * KC32; i += nthreads) {
+    // input channels c0 .. c0 + KC32 - 1 of taps (dy0 .. dy0 + nr - 1, dx0 .. dx0 + nc - 1)
+    auto taps = [&](int c0, int dy0, int nr, int dx0, int nc) {
+        for (int i = tid; i < (TH32 + nr - 1) * HWD * KC32; i += nthreads) {
             const int kk = i % KC32, p = i / KC32;
-            const int iy = oy0 - pad + p / HWD, ix = ox0 - pad + p % HWD;
+            const int iy = oy0 - pad + dy0 + p / HWD, ix = ox0 - pad + dx0 + p % HWD;
             float v = 0.f;
             if (c0 + kk < Cin && iy >= 0 && iy < H && ix >= 0 && ix < W)
                 v = xn[((size_t)iy * W + ix) * pitch + c0 + kk];
             xs[p * XPS32 + kk] = v;
         }
-        for (int dy = 0; dy < k; ++dy) {
-            // weights of kernel row dy: k taps x KC32 input channels x CO outputs
-            for (int i = tid; i < k * KC32 * CO; i += nthreads) {
-                const int co = i % CO, r = i / CO;  // r = dx * KC32 + kk
-                const int kk = r % KC32, dx = r / KC32;
+        for (int dy = dy0; dy < dy0 + nr; ++dy) {
+            // weights of taps (dy, dx0 ..): nc taps x KC32 input channels x CO outputs
+            for (int i = tid; i < nc * KC32 * CO; i += nthreads) {
+                const int co = i % CO, r = i / CO;  // r = (dx - dx0) * KC32 + kk
+                const int kk = r % KC32, dx = dx0 + r / KC32;
                 float v = 0.f;
                 if (c0 + kk < Cin && co < Cout) v = w[((size_t)(dy * k + dx) * Cin + c0 + kk) * Cout + co];
                 ws[r * CO + co] = v;
@@ -141,12 +156,12 @@ conv_lk_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, con
 
 #pragma unroll 1
             for (int kk = 0; kk < KC32; ++kk) {
-                const float* xr = xs + ((ty + dy) * HWD + tx) * XPS32 + kk;
+                const float* xr = xs + ((ty + dy - dy0) * HWD + tx) * XPS32 + kk;
                 float in[8];
 #pragma unroll
                 for (int i = 0; i < 8; ++i) in[i] = xr[i * XPS32];
 #pragma unroll 1
-                for (int dx = 0; dx < k; ++dx) {
+                for (int dx = 0; dx < nc; ++dx) {
                     const float* wr = ws + (dx * KC32 + kk) * CO + cg * 8;
                     const float4 w0 = *reinterpret_cast<const float4*>(wr);
                     const float4 w1 = *reinterpret_cast<const float4*>(wr + 4);
@@ -158,10 +173,18 @@ conv_lk_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, con
                     // slide the 8-pixel window one column right
 #pragma unroll
                     for (int i = 0; i < 7; ++i) in[i] = in[i + 1];
-                    if (dx + 1 < k) in[7] = xr[(8 + dx) * XPS32];
+                    if (dx + 1 < nc) in[7] = xr[(8 + dx) * XPS32];
                 }
             }
             __syncthreads();
+        }
+    };
+    for (int c0 = 0; c0 < Cin; c0 += KC32) {
+        if (BLOCKED) {
+            for (int dy0 = 0; dy0 < k; dy0 += tb)
+                for (int dx0 = 0; dx0 < k; dx0 += tb) taps(c0, dy0, min(tb, k - dy0), dx0, min(tb, k - dx0));
+        } else {
+            taps(c0, 0, k, 0, k);
         }
     }
 
@@ -199,28 +222,31 @@ constexpr int MT = TH / 8;   // m16 tiles per warp
 constexpr int KC = 16;       // input channels per stage: one k16 step per tap
 constexpr int XPS = KC + 8;  // halo pixel stride in bf16 (48 B: conflict-free ldmatrix)
 
-__host__ __device__ inline int bf16_halo_elems(int k) { return (TH + k - 1) * (TW + k - 1) * XPS; }
+__host__ __device__ inline int bf16_halo_elems(int tb) { return (TH + tb - 1) * (TW + tb - 1) * XPS; }
 
-template <typename T, int NP>  // T: the 16-bit type; NP pairs of n8 tiles: Cout <= 16 * NP
+// The taps go in square blocks of tb x tb, as in the f32 kernel (BLOCKED
+// false where tb = k).
+template <typename T, int NP, bool BLOCKED>  // T: the 16-bit type; NP pairs of n8 tiles: Cout <= 16 * NP
 __global__ void __launch_bounds__(THREADS)
 conv_lk_h16_kernel(const T* __restrict__ x, const T* __restrict__ w,
                    const float* __restrict__ bias, T* __restrict__ y, int H, int W, int Cin,
-                   int Cout, int pitch, int k, int act, int vec_x, int vec_w) {
+                   int Cout, int pitch, int k, int act, int vec_x, int vec_w, int tb) {
     using HT = Half16<T>;
     constexpr int BN = NP * 16;
     constexpr int WPS = BN + 8;  // weight row stride in bf16 (conflict-free ldmatrix.trans)
     extern __shared__ __align__(16) unsigned char smem[];
-    const int HWD = TW + k - 1;
-    const int HH = TH + k - 1;
+    if (!BLOCKED) tb = k;
+    const int HWD = TW + tb - 1;
     T* xs = reinterpret_cast<T*>(smem);
-    T* ws = xs + bf16_halo_elems(k);  // 48 B per halo pixel keeps it 16-byte aligned
+    T* ws = xs + bf16_halo_elems(tb);  // 48 B per halo pixel keeps it 16-byte aligned
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
     const int lane = tid & 31;
     const int n = blockIdx.z;
-    const int oy0 = blockIdx.y * TH;
-    const int ox0 = blockIdx.x * TW;
+    const int tiles_x = (W + TW - 1) / TW;  // blockIdx.x: the tile, row-major
+    const int oy0 = (int)(blockIdx.x / tiles_x) * TH;
+    const int ox0 = (int)(blockIdx.x % tiles_x) * TW;
     const int pad = k / 2;
     const T* xn = x + (size_t)n * H * W * pitch;
     const T zero = HT::from_float(0.f);
@@ -233,12 +259,14 @@ conv_lk_h16_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-    for (int c0 = 0; c0 < Cin; c0 += KC) {
-        // input halo: HH x HWD pixels x KC channels, zero outside the image
+    // input channels c0 .. c0 + KC - 1 of taps (dy0 .. dy0 + nr - 1, dx0 .. dx0 + nc - 1)
+    auto taps = [&](int c0, int dy0, int nr, int dx0, int nc) {
+        // input halo of the taps: TH + nr - 1 rows x HWD pixels x KC channels, zero outside the image
+        const int oy = oy0 - pad + dy0, ox = ox0 - pad + dx0;
         if (vec_x) {
-            for (int i = tid; i < HH * HWD * (KC / 8); i += THREADS) {
+            for (int i = tid; i < (TH + nr - 1) * HWD * (KC / 8); i += THREADS) {
                 const int v = i & 1, p = i >> 1;
-                const int iy = oy0 - pad + p / HWD, ix = ox0 - pad + p % HWD;
+                const int iy = oy + p / HWD, ix = ox + p % HWD;
                 const int ch = c0 + v * 8;
                 uint4 val = make_uint4(0, 0, 0, 0);
                 if (ch < Cin && iy >= 0 && iy < H && ix >= 0 && ix < W)
@@ -246,9 +274,9 @@ conv_lk_h16_kernel(const T* __restrict__ x, const T* __restrict__ w,
                 *reinterpret_cast<uint4*>(xs + p * XPS + v * 8) = val;
             }
         } else {
-            for (int i = tid; i < HH * HWD * KC; i += THREADS) {
+            for (int i = tid; i < (TH + nr - 1) * HWD * KC; i += THREADS) {
                 const int kk = i % KC, p = i / KC;
-                const int iy = oy0 - pad + p / HWD, ix = ox0 - pad + p % HWD;
+                const int iy = oy + p / HWD, ix = ox + p % HWD;
                 T val = zero;
                 if (c0 + kk < Cin && iy >= 0 && iy < H && ix >= 0 && ix < W)
                     val = xn[((size_t)iy * W + ix) * pitch + c0 + kk];
@@ -256,12 +284,12 @@ conv_lk_h16_kernel(const T* __restrict__ x, const T* __restrict__ w,
             }
         }
 
-        for (int dy = 0; dy < k; ++dy) {
-            // weights of kernel row dy: k taps x KC input channels x BN outputs, zero past the ends
+        for (int dy = dy0; dy < dy0 + nr; ++dy) {
+            // weights of taps (dy, dx0 ..): nc taps x KC input channels x BN outputs, zero past the ends
             if (vec_w) {
-                for (int i = tid; i < k * KC * (BN / 8); i += THREADS) {
-                    const int v = i % (BN / 8), r = i / (BN / 8);  // r = dx * KC + kk
-                    const int kk = r % KC, dx = r / KC;
+                for (int i = tid; i < nc * KC * (BN / 8); i += THREADS) {
+                    const int v = i % (BN / 8), r = i / (BN / 8);  // r = (dx - dx0) * KC + kk
+                    const int kk = r % KC, dx = dx0 + r / KC;
                     const int co = v * 8;
                     uint4 val = make_uint4(0, 0, 0, 0);
                     if (c0 + kk < Cin && co < Cout)
@@ -269,9 +297,9 @@ conv_lk_h16_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     *reinterpret_cast<uint4*>(ws + r * WPS + v * 8) = val;
                 }
             } else {
-                for (int i = tid; i < k * KC * BN; i += THREADS) {
+                for (int i = tid; i < nc * KC * BN; i += THREADS) {
                     const int co = i % BN, r = i / BN;
-                    const int kk = r % KC, dx = r / KC;
+                    const int kk = r % KC, dx = dx0 + r / KC;
                     T val = zero;
                     if (c0 + kk < Cin && co < Cout) val = w[((size_t)(dy * k + dx) * Cin + c0 + kk) * Cout + co];
                     ws[r * WPS + co] = val;
@@ -280,13 +308,13 @@ conv_lk_h16_kernel(const T* __restrict__ x, const T* __restrict__ w,
             __syncthreads();
 
 #pragma unroll 1
-            for (int dx = 0; dx < k; ++dx) {
+            for (int dx = 0; dx < nc; ++dx) {
                 // A (16 pixels x 16 channels, row-major): lane gives the address
                 // of pixel lane % 16, channels (lane / 16) * 8 ..
                 uint32_t a[MT][4];
 #pragma unroll
                 for (int mt = 0; mt < MT; ++mt) {
-                    const int row = warp * MT + mt + dy;
+                    const int row = warp * MT + mt + dy - dy0;
                     ldmatrix_x4(a[mt], xs + (row * HWD + (lane & 15) + dx) * XPS + (lane >> 4) * 8);
                 }
                 // B (16 channels in x 8 out, stored k-major): lane gives the
@@ -304,6 +332,14 @@ conv_lk_h16_kernel(const T* __restrict__ x, const T* __restrict__ w,
                 }
             }
             __syncthreads();
+        }
+    };
+    for (int c0 = 0; c0 < Cin; c0 += KC) {
+        if (BLOCKED) {
+            for (int dy0 = 0; dy0 < k; dy0 += tb)
+                for (int dx0 = 0; dx0 < k; dx0 += tb) taps(c0, dy0, min(tb, k - dy0), dx0, min(tb, k - dx0));
+        } else {
+            taps(c0, 0, k, 0, k);
         }
     }
 
@@ -551,7 +587,8 @@ conv_lk_tiles_kernel(const T* __restrict__ x, const T* __restrict__ w, const flo
     unsigned char* wsm = hsm + 4 * plane;         // 2 chunks
     float* bsm = reinterpret_cast<float*>(wsm + 2 * chunk);
     const int tid = threadIdx.x, wgi = tid >> 7, wq = (tid >> 5) & 3, lane = tid & 31;
-    const int n = blockIdx.z, oy0 = blockIdx.y * TT_H, ox0 = blockIdx.x * TT_W;
+    const int tiles_x = (W + TT_W - 1) / TT_W;  // blockIdx.x: the tile, row-major
+    const int n = blockIdx.z, oy0 = (int)(blockIdx.x / tiles_x) * TT_H, ox0 = (int)(blockIdx.x % tiles_x) * TT_W;
     const T* xn = x + (size_t)n * H * W * pitch;
     const uint32_t h_addr = static_cast<uint32_t>(__cvta_generic_to_shared(hsm));
     const uint32_t w_addr = static_cast<uint32_t>(__cvta_generic_to_shared(wsm));
@@ -647,19 +684,33 @@ int num_sms() {
     return sms;
 }
 
+// The side tb of the square blocks that the f32 and mma kernels take the
+// taps in: k where a block's halo and one kernel row's weights (`bytes(tb)`)
+// fit in shared memory, as they do for every k up to 31; past that the
+// widest even split of k that fits.
+template <class Bytes>
+int tap_block(int k, Bytes bytes) {
+    for (int parts = 1;; ++parts) {
+        const int tb = (k + parts - 1) / parts;
+        if (bytes(tb) <= (size_t)SMEM_MAX || tb == 1) return tb;
+    }
+}
+
 template <typename T, int NP>
 cudaError_t launch_mma(const void* x, const void* w, const void* b, void* y, int n, int h, int wd, int cin,
                        int cout, int pitch, int k, int act, cudaStream_t stream) {
-    const size_t smem = (size_t)bf16_halo_elems(k) * 2 + (size_t)k * KC * (NP * 16 + 8) * 2;
-    cudaError_t err = cudaFuncSetAttribute(conv_lk_h16_kernel<T, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    auto bytes = [](int tb) { return (size_t)bf16_halo_elems(tb) * 2 + (size_t)tb * KC * (NP * 16 + 8) * 2; };
+    const int tb = tap_block(k, bytes);
+    const size_t smem = bytes(tb);
+    auto kernel = tb < k ? conv_lk_h16_kernel<T, NP, true> : conv_lk_h16_kernel<T, NP, false>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const int vec_x = (cin % 8 == 0) && (pitch % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
     const int vec_w = (cout % 8 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-    const dim3 grid((wd + TW - 1) / TW, (h + TH - 1) / TH, n);
-    conv_lk_h16_kernel<T, NP><<<grid, THREADS, smem, stream>>>(
+    const dim3 grid(((wd + TW - 1) / TW) * ((h + TH - 1) / TH), 1, n);
+    kernel<<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(b),
-        static_cast<T*>(y), h, wd, cin, cout, pitch, k, act, vec_x, vec_w);
+        static_cast<T*>(y), h, wd, cin, cout, pitch, k, act, vec_x, vec_w, tb);
     return cudaGetLastError();
 }
 
@@ -688,7 +739,7 @@ cudaError_t launch_tiles(const void* x, const void* w, const void* b, void* y, i
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const int vec_w = (cout % 8 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-    const dim3 grid((wd + TT_W - 1) / TT_W, (h + TT_H - 1) / TT_H, n);
+    const dim3 grid(((wd + TT_W - 1) / TT_W) * ((h + TT_H - 1) / TT_H), 1, n);
     kernel<<<grid, 256, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(w),
                                         static_cast<const float*>(b), static_cast<T*>(y), h, wd, cin, cout, pitch, k,
                                         act, vec_w);
@@ -697,8 +748,8 @@ cudaError_t launch_tiles(const void* x, const void* w, const void* b, void* y, i
 
 bool bad_shape(int n, int h, int w, int cin, int cout, int pitch, int k, int act) {
     return n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 || cout > MAX_COUT || pitch < cin || k <= 0 ||
-           k % 2 == 0 || k > MAX_K || (act != ACT_LINEAR && act != ACT_LRELU) || n > 65535 ||
-           (h + TH32 - 1) / TH32 > 65535;
+           k % 2 == 0 || (act != ACT_LINEAR && act != ACT_LRELU) || n > 65535 ||
+           (long long)((h + TH32 - 1) / TH32) * ((w + TW32 - 1) / TW32) > 0x7fffffffLL;  // the f32 grid's tiles
 }
 
 // The 16-bit path of a shape, from the shape and x's alignment alone:
@@ -748,19 +799,22 @@ int launch_h16_any(const void* x, const void* w, const void* b, void* y, int n, 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  Each launches on `stream` and
-// returns cudaGetLastError() right after the launch (0 = launched).
+// returns cudaGetLastError() right after the launch (0 = launched).  A
+// launch takes at most 65535 images (the grid's z); the caller splits more.
 extern "C" int resselt_conv_lk_f32(const void* x, const void* w, const void* b, void* y, int n, int h, int wd,
                                    int cin, int cout, int pitch, int k, int act, void* stream) {
     if (bad_shape(n, h, wd, cin, cout, pitch, k, act)) return (int)cudaErrorInvalidValue;
     const int ng = (cout + 7) / 8;
-    const size_t smem = ((size_t)f32_halo_floats(k) + (size_t)k * KC32 * ng * 8) * 4;
-    cudaError_t err = cudaFuncSetAttribute(conv_lk_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    auto bytes = [ng](int tb) { return ((size_t)f32_halo_floats(tb) + (size_t)tb * KC32 * ng * 8) * 4; };
+    const int tb = tap_block(k, bytes);
+    const size_t smem = bytes(tb);
+    auto kernel = tb < k ? conv_lk_f32_kernel<true> : conv_lk_f32_kernel<false>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((wd + TW32 - 1) / TW32, (h + TH32 - 1) / TH32, n);
-    conv_lk_f32_kernel<<<grid, 32 * ng, smem, static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid(((wd + TW32 - 1) / TW32) * ((h + TH32 - 1) / TH32), 1, n);
+    kernel<<<grid, 32 * ng, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
-        static_cast<float*>(y), h, wd, cin, cout, pitch, k, act, ng);
+        static_cast<float*>(y), h, wd, cin, cout, pitch, k, act, ng, tb);
     return (int)cudaGetLastError();
 }
 

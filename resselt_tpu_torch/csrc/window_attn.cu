@@ -11,24 +11,42 @@
 // tokens lie `ld` elements apart and windows `wstride` apart, so the three
 // channel slices of one (B, N, 3C) qkv projection are read in place (no
 // copy); bias is f32 (heads, N, N); mask is f32 (nW, N, N) or null; the
-// output is contiguous (B, N, C).  Takes 1 <= N <= 256 and head_dim <= 64:
-// tokens are padded to a multiple of 16 and head_dim to 16, 32 or 64 inside
-// the kernel (zero in shared memory, -inf in the padded score columns).
+// output is contiguous (B, N, C).  Takes every N >= 1 and head_dim >= 1, as
+// the TPU kernel does, on two pairs of kernels:
 //
-// Two kernels:
-//  * f32: exact f32 FMA on the CUDA cores (no TF32), one block per (window,
-//    head).  K_h and V_h are staged in shared memory; each thread owns one
-//    query row, keeps q (scaled in f32) and its output row in registers, and
-//    walks the keys in steps of 16 with a running max and sum.
-//  * bf16 / fp16 (one template over the 16-bit type): mma.sync m16n8k16
-//    with f32 accumulation, persistent blocks; see below.
+//  * N <= 256 and head_dim <= 64, the window transformers' shapes: tokens
+//    padded to a multiple of 16 and head_dim to 16, 32 or 64 inside the
+//    kernel (zero in shared memory, -inf in the padded score columns).
+//    - f32: exact f32 FMA on the CUDA cores (no TF32), one block per
+//      (window, head).  K_h and V_h are staged in shared memory; each
+//      thread owns one query row, keeps q (scaled in f32) and its output
+//      row in registers, and walks the keys in steps of 16 with a running
+//      max and sum.
+//    - bf16 / fp16 (one template over the 16-bit type): mma.sync m16n8k16
+//      with f32 accumulation, persistent blocks; see below.
+//  * Any other N or head_dim (DRCT's heads of 77 and 122, FlexNet's one
+//    wide head, windows of more than 256 tokens): the "any" kernels, at the
+//    end of the file.  Their limits came from holding a whole head in
+//    registers (head_dim 64 already takes 186 registers at 256 threads) and
+//    a whole block of bias rows in shared memory (135 KB of f32 at N 256),
+//    so they hold neither: the keys go in chunks with an online softmax,
+//    the bias and mask are read per key chunk from L2 into the score
+//    registers, and the head runs in slices.  Q K^T accumulates over
+//    head-dim steps of 64 (Q and K staged a step at a time); the P V
+//    accumulator is kept per output slice, one block for each (window,
+//    head, 64 query rows, output slice) that recomputes the scores and its
+//    own softmax statistics.  A slice is 64 columns, or 128 where head_dim
+//    is above 64, so every head of the models (up to 128) is one slice:
+//    keeping the accumulator in shared memory instead would cost a round
+//    trip of O per key chunk, and a statistics pass would cost a second
+//    Q K^T per head where the slices cost none below 128.
 //
 // What bounds it on an H100: bytes from device memory by the book (at
 // SwinIR-M's bench shape, 16,384 windows of 64 tokens, C 180, 6 heads, one
 // launch moves 4 x 377 MB against 48 GFLOP), but what a (window, head) block
 // of the first design really waited for was L2: it read its own f32 bias
 // tile and mask tile per window, 256 KB + 256 KB at n = 256 against 36 KB of
-// q, k and v.  What the 16-bit kernel does about that:
+// q, k and v.  What the 16-bit kernel of the first pair does about that:
 //  * The bias is read once per block.  A block owns one head and one tile
 //    of query rows (128 rows where a window has more than 64 and head_dim
 //    pads to 32, else 64), keeps that slice of bias[h], divided by scale, in
@@ -559,6 +577,398 @@ wattn_h16_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     cp_async_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// Any N and head_dim: the "any" kernels (see the note at the top).  A block
+// owns one (window, head, tile of query rows, slice of output columns); the
+// grid is every such block, blockIdx.x = ((w * heads + h) * rtiles + rt) *
+// slices + slice.
+// ---------------------------------------------------------------------------
+
+constexpr int AR = 64;       // query rows a block (16-bit: 4 warps x 16)
+constexpr int AK = 64;       // keys a chunk (16-bit)
+constexpr int AD = 64;       // head dims a Q K^T step (16-bit)
+constexpr int AS = AD + 8;   // row stride of the staged Q and K steps, elements (conflict-free ldmatrix)
+constexpr int FR = 128;      // query rows (threads) a block at most (f32)
+constexpr int FK = 32;       // keys a chunk (f32)
+constexpr int FD = 32;       // head dims a Q K^T step (f32)
+constexpr int FV = 64;       // output columns a block (f32)
+
+// Output columns of a 16-bit block: one slice holds every head up to 128.
+__host__ __device__ inline int any_dv(int hd) { return hd > 64 ? 128 : 64; }
+// Shared memory of the 16-bit kernel: two steps of [AR][AS] Q and [AK][AS]
+// K (the next step lands while this one is multiplied), two chunks of V
+// [AK][dv + 8] (the next chunk's V lands with its first step).
+__host__ __device__ inline size_t any_h16_smem_bytes(int dv) {
+    return (size_t)2 * (AR + AK) * AS * 2 + (size_t)2 * AK * (dv + 8) * 2;
+}
+
+// f32: one thread per query row, exact FMA.  Per key chunk of FK keys the
+// scores accumulate over head-dim steps of FD (each step's K rows staged in
+// shared memory, q's step read from the thread's own row, scaled in f32 as
+// the TPU kernel scales it); then bias and mask, the online softmax, and
+// the chunk's V columns of the block's slice staged and multiplied in.
+__global__ void __launch_bounds__(FR)
+wattn_f32_any_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     const float* __restrict__ bias, const float* __restrict__ mask, float* __restrict__ out, int n,
+                     int heads, int hd, long long ld, long long wstride, int nw, float scale, int rtiles,
+                     int slices) {
+    __shared__ __align__(16) float ksm[FK][FD];
+    __shared__ __align__(16) float vsm[FK][FV];
+    long long blk = blockIdx.x;
+    const int sl = (int)(blk % slices);
+    blk /= slices;
+    const int rt = (int)(blk % rtiles);
+    blk /= rtiles;
+    const int h = (int)(blk % heads);
+    const long long w = blk / heads;
+    const int tid = threadIdx.x, rows = blockDim.x;
+    const int i = rt * rows + tid, ic = min(i, n - 1);  // this thread's query row (clamped: the others' loads)
+    const int d0 = sl * FV, dv = min(FV, hd - d0);
+    const size_t base = (size_t)w * wstride + (size_t)h * hd;
+    const float* qp = q + base + (size_t)ic * ld;
+    const float* br = bias + ((size_t)h * n + ic) * n;
+    const float* mr = mask != nullptr ? mask + ((size_t)(w % nw) * n + ic) * n : nullptr;
+
+    float o[FV];
+#pragma unroll
+    for (int d = 0; d < FV; ++d) o[d] = 0.f;
+    float m = -INFINITY, l = 0.f;
+#pragma unroll 1
+    for (int j0 = 0; j0 < n; j0 += FK) {
+        float s[FK];
+#pragma unroll
+        for (int jj = 0; jj < FK; ++jj) s[jj] = 0.f;
+#pragma unroll 1
+        for (int e0 = 0; e0 < hd; e0 += FD) {
+            __syncthreads();  // every thread is done with the last step's K (and the last chunk's V)
+            for (int x = tid; x < FK * FD; x += rows) {
+                const int r = x / FD, cc = x % FD;
+                ksm[r][cc] = (j0 + r < n && e0 + cc < hd) ? k[base + (size_t)(j0 + r) * ld + e0 + cc] : 0.f;
+            }
+            __syncthreads();
+            float qr[FD];
+#pragma unroll
+            for (int d = 0; d < FD; ++d) qr[d] = e0 + d < hd ? qp[e0 + d] * scale : 0.f;
+#pragma unroll
+            for (int jj = 0; jj < FK; ++jj) {
+                const float4* kr = reinterpret_cast<const float4*>(ksm[jj]);
+                float acc = s[jj];
+#pragma unroll
+                for (int d = 0; d < FD / 4; ++d) {
+                    const float4 kv = kr[d];
+                    acc = fmaf(qr[4 * d], kv.x, acc);
+                    acc = fmaf(qr[4 * d + 1], kv.y, acc);
+                    acc = fmaf(qr[4 * d + 2], kv.z, acc);
+                    acc = fmaf(qr[4 * d + 3], kv.w, acc);
+                }
+                s[jj] = acc;
+            }
+        }
+        float mx = -INFINITY;
+#pragma unroll
+        for (int jj = 0; jj < FK; ++jj) {
+            const int j = j0 + jj;
+            float val = -INFINITY;
+            if (j < n) {
+                val = s[jj] + br[j];
+                if (mr != nullptr) val += mr[j];
+            }
+            s[jj] = val;
+            mx = fmaxf(mx, val);
+        }
+        const float mn = fmaxf(m, mx);
+        const float corr = expf(m - mn);
+        m = mn;
+        l *= corr;
+#pragma unroll
+        for (int d = 0; d < FV; ++d) o[d] *= corr;
+        // the chunk's V columns of this slice (the barrier at the top of the
+        // last step freed vsm)
+        for (int x = tid; x < FK * FV; x += rows) {
+            const int r = x / FV, cc = x % FV;
+            vsm[r][cc] = (j0 + r < n && cc < dv) ? v[base + (size_t)(j0 + r) * ld + d0 + cc] : 0.f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int jj = 0; jj < FK; ++jj) {
+            if (j0 + jj < n) {
+                const float p = expf(s[jj] - mn);
+                l += p;
+                const float4* vr = reinterpret_cast<const float4*>(vsm[jj]);
+#pragma unroll
+                for (int d = 0; d < FV / 4; ++d) {
+                    const float4 vv = vr[d];
+                    o[4 * d] = fmaf(p, vv.x, o[4 * d]);
+                    o[4 * d + 1] = fmaf(p, vv.y, o[4 * d + 1]);
+                    o[4 * d + 2] = fmaf(p, vv.z, o[4 * d + 2]);
+                    o[4 * d + 3] = fmaf(p, vv.w, o[4 * d + 3]);
+                }
+            }
+        }
+    }
+    if (i >= n) return;
+    const float inv = 1.f / l;
+    float* op = out + ((size_t)w * n + i) * ((size_t)heads * hd) + (size_t)h * hd + d0;
+#pragma unroll
+    for (int d = 0; d < FV; ++d)
+        if (d < dv) op[d] = o[d] * inv;
+}
+
+// bf16 / fp16: 4 warps, 16 query rows each, mma.sync m16n8k16 with f32
+// accumulation.  The block's steps, (key chunk, head-dim step) in order, go
+// through two shared-memory slots by cp.async, the next in flight while the
+// tensor cores work on this one; a chunk's V columns arrive with its first
+// step.  A warp's score accumulators for its 16 rows x 64 keys start from
+// (bias + mask) / scale, read straight from L2 at the chunk's first step
+// (as the first kernel pair's 16-bit kernel starts them, so that they need
+// no registers of their own: 168 registers, three blocks an SM, where
+// holding bias + mask apart took 254 and two, and ran slower at DRCT's
+// shapes on an H100); after the chunk's last step they hold (bias + mask)
+// / scale + Q K^T, which times scale is the scores; then the online
+// softmax in base 2 (ex2 on the special-function unit), and P, rounded to
+// the 16-bit type, times V.  The scores never leave registers.  scale must be
+// positive.
+template <typename T, int DV>
+__global__ void __launch_bounds__(128)
+wattn_h16_any_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const float* __restrict__ bias, const float* __restrict__ mask,
+                     const unsigned char* __restrict__ flags, T* __restrict__ out, int n, int heads, int hd,
+                     long long ld, long long wstride, int nw, float scale, int vb, int rtiles, int slices) {
+    using HT = Half16<T>;
+    constexpr int VS = DV + 8;  // row stride of the staged V, elements
+    extern __shared__ __align__(16) unsigned char smem[];
+    T* ring = reinterpret_cast<T*>(smem);  // 2 slots of [AR][AS] Q then [AK][AS] K
+    T* vbuf = ring + 2 * (AR + AK) * AS;   // 2 slots of [AK][VS] V
+    long long blk = blockIdx.x;
+    const int sl = (int)(blk % slices);
+    blk /= slices;
+    const int rt = (int)(blk % rtiles);
+    blk /= rtiles;
+    const int h = (int)(blk % heads);
+    const long long w = blk / heads;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int row0 = rt * AR, d0 = sl * DV;
+    const int dv = min(DV, hd - d0), dvp = round16(dv);  // the slice's columns, and padded to 16
+    const int dq = round16(hd);                          // Q K^T depth, zero past head_dim
+    const int nds = (dq + AD - 1) / AD;                  // Q K^T steps a chunk
+    const int F = ((n + AK - 1) / AK) * nds;              // steps of the block
+    const size_t base = (size_t)w * wstride + (size_t)h * hd;
+    const int qlive = min(AR, n - row0);
+
+    auto load_step = [&](int f) {
+        if (f >= F) return;
+        const int c = f / nds, ds = f % nds;
+        const int key0 = c * AK, klive = min(AK, n - key0);
+        const int e0 = ds * AD, dsz = min(AD, dq - e0), elive = min(AD, hd - e0);
+        T* qd = ring + (f & 1) * (AR + AK) * AS;
+        stage<T>(qd, q + base + (size_t)row0 * ld + e0, qlive, AR, elive, dsz, AS, ld, vb, tid, 128);
+        stage<T>(qd + AR * AS, k + base + (size_t)key0 * ld + e0, klive, AK, elive, dsz, AS, ld, vb, tid, 128);
+        if (ds == 0)
+            stage<T>(vbuf + (c & 1) * AK * VS, v + base + (size_t)key0 * ld + d0, klive, AK, dv, dvp, VS, ld, vb,
+                     tid, 128);
+    };
+    load_step(0);
+    cp_async_commit();
+
+    const float* mw = nullptr;
+    if (mask != nullptr) {
+        const int mi = (int)(w % nw);
+        if (flags == nullptr || flags[mi]) mw = mask + (size_t)mi * n * n;
+    }
+    // accumulator (m16 x n8): lane holds rows g and g + 8, columns t4 * 2 and + 1
+    const int r0 = min(row0 + warp * 16 + g, n - 1), r1 = min(row0 + warp * 16 + g + 8, n - 1);
+    const float* b0p = bias + ((size_t)h * n + r0) * n;
+    const float* b1p = bias + ((size_t)h * n + r1) * n;
+    const float* m0p = mw != nullptr ? mw + (size_t)r0 * n : nullptr;
+    const float* m1p = mw != nullptr ? mw + (size_t)r1 * n : nullptr;
+    const bool active = row0 + warp * 16 < n;  // else: nothing but the barriers
+    const bool vec2 = (n % 2) == 0;
+    const float log2e = 1.4426950408889634f;
+
+    float o[DV / 8][4];
+#pragma unroll
+    for (int i = 0; i < DV / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+    float s[AK / 8][4];
+    const float inv_scale = 1.f / scale;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+#pragma unroll 1
+    for (int f = 0; f < F; ++f) {
+        const int c = f / nds, ds = f % nds;
+        cp_async_wait<0>();  // this thread's pieces of step f have landed
+        __syncthreads();     // every thread's; and every warp is done with step f - 1's slot
+        load_step(f + 1);
+        cp_async_commit();
+        if (!active) continue;
+        const int kc = c * AK, nkeys = n - kc;  // keys of this chunk: min(AK, nkeys)
+        if (ds == 0) {  // the accumulators start from (bias + mask) / scale (scale > 0)
+#pragma unroll
+            for (int t = 0; t < AK / 8; ++t) {
+                const int col = kc + t * 8 + t4 * 2;
+                if (vec2) {  // n even: 8-byte loads (col is even), clamped at the last pair
+                    const int cc = min(col, n - 2);
+                    const float2 b0 = *reinterpret_cast<const float2*>(b0p + cc);
+                    const float2 b1 = *reinterpret_cast<const float2*>(b1p + cc);
+                    s[t][0] = b0.x;
+                    s[t][1] = b0.y;
+                    s[t][2] = b1.x;
+                    s[t][3] = b1.y;
+                    if (m0p != nullptr) {
+                        const float2 k0 = *reinterpret_cast<const float2*>(m0p + cc);
+                        const float2 k1 = *reinterpret_cast<const float2*>(m1p + cc);
+                        s[t][0] += k0.x;
+                        s[t][1] += k0.y;
+                        s[t][2] += k1.x;
+                        s[t][3] += k1.y;
+                    }
+                } else {
+                    const int ca = min(col, n - 1), cb = min(col + 1, n - 1);
+                    s[t][0] = b0p[ca];
+                    s[t][1] = b0p[cb];
+                    s[t][2] = b1p[ca];
+                    s[t][3] = b1p[cb];
+                    if (m0p != nullptr) {
+                        s[t][0] += m0p[ca];
+                        s[t][1] += m0p[cb];
+                        s[t][2] += m1p[ca];
+                        s[t][3] += m1p[cb];
+                    }
+                }
+            }
+#pragma unroll
+            for (int t = 0; t < AK / 8; ++t)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[t][e] *= inv_scale;
+        }
+        // S += Q K^T over this step's dims.  A (16 query rows x 16 dims,
+        // row-major): lane gives the address of row lane % 16, dims (lane /
+        // 16) * 8 ..; B (16 dims x 8 keys, "col"): K rows are keys, so a
+        // non-transposed ldmatrix gives it; lane gives the address of key
+        // (lane & 7) + (lane / 16) * 8, dims ((lane / 8) & 1) * 8 ..
+        const T* qs = ring + (f & 1) * (AR + AK) * AS;
+        const T* ks = qs + AR * AS;
+        const int dsz = min(AD, dq - ds * AD);
+#pragma unroll
+        for (int kk = 0; kk < AD / 16; ++kk) {
+            if (kk * 16 < dsz) {
+                uint32_t a[4];
+                ldmatrix_x4(a, qs + (warp * 16 + (lane & 15)) * AS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+                for (int j = 0; j < AK / 16; ++j) {
+                    if (j * 16 < nkeys) {
+                        uint32_t b[4];
+                        ldmatrix_x4(b, ks + (j * 16 + (lane & 7) + ((lane >> 4) << 3)) * AS + kk * 16 +
+                                           ((lane >> 3) & 1) * 8);
+                        HT::mma(s[2 * j], a, b[0], b[1]);
+                        HT::mma(s[2 * j + 1], a, b[2], b[3]);
+                    }
+                }
+            }
+        }
+        if (ds != nds - 1) continue;
+
+        // scale * (S + (bias + mask) / scale), -inf past the last key
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int t = 0; t < AK / 8; ++t) {
+            const int col = t * 8 + t4 * 2;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const bool live = col + e < nkeys;
+                s[t][e] = live ? s[t][e] * scale : -INFINITY;
+                s[t][2 + e] = live ? s[t][2 + e] * scale : -INFINITY;
+            }
+            mx0 = fmaxf(mx0, fmaxf(s[t][0], s[t][1]));
+            mx1 = fmaxf(mx1, fmaxf(s[t][2], s[t][3]));
+        }
+        // the four lanes of a quad hold one row
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        // key 0 lies in the first chunk, so the running max is finite from there on
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float e0 = ex2((m0 - mn0) * log2e), e1 = ex2((m1 - mn1) * log2e);
+        const float neg0 = -mn0 * log2e, neg1 = -mn1 * log2e;
+        m0 = mn0;
+        m1 = mn1;
+        l0 *= e0;
+        l1 *= e1;
+#pragma unroll
+        for (int i = 0; i < DV / 8; ++i) {
+            o[i][0] *= e0;
+            o[i][1] *= e0;
+            o[i][2] *= e1;
+            o[i][3] *= e1;
+        }
+#pragma unroll
+        for (int t = 0; t < AK / 8; ++t) {
+            s[t][0] = ex2(fmaf(s[t][0], log2e, neg0));
+            s[t][1] = ex2(fmaf(s[t][1], log2e, neg0));
+            s[t][2] = ex2(fmaf(s[t][2], log2e, neg1));
+            s[t][3] = ex2(fmaf(s[t][3], log2e, neg1));
+            l0 += s[t][0] + s[t][1];
+            l1 += s[t][2] + s[t][3];
+        }
+        // O += P V.  The accumulator layout of two n8 score tiles is the A
+        // fragment of one k16 step; B (16 keys x 8 dims) is V stored
+        // key-major, read with ldmatrix.trans: lane gives the address of key
+        // lane % 16, dims (lane / 16) * 8 .. of a pair of n8 tiles
+        const T* vs = vbuf + (c & 1) * AK * VS;
+#pragma unroll
+        for (int j = 0; j < AK / 16; ++j) {
+            if (j * 16 < nkeys) {
+                const uint32_t pa[4] = {HT::pack(s[2 * j][0], s[2 * j][1]), HT::pack(s[2 * j][2], s[2 * j][3]),
+                                        HT::pack(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                        HT::pack(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+                for (int np = 0; np < DV / 16; ++np) {
+                    if (np * 16 < dvp) {
+                        uint32_t b[4];
+                        ldmatrix_x4_trans(b, vs + (j * 16 + (lane & 15)) * VS + np * 16 + (lane >> 4) * 8);
+                        HT::mma(o[2 * np], pa, b[0], b[1]);
+                        HT::mma(o[2 * np + 1], pa, b[2], b[3]);
+                    }
+                }
+            }
+        }
+    }
+    cp_async_wait<0>();
+    if (!active) return;
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+    const int C = heads * hd;
+    const bool pairs = (C % 2 == 0) && (hd % 2 == 0);
+    T* ow = out + (size_t)w * n * C + (size_t)h * hd + d0;
+#pragma unroll
+    for (int nt = 0; nt < DV / 8; ++nt) {
+        const int d = nt * 8 + t4 * 2;
+        if (d >= dv) continue;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int row = row0 + warp * 16 + g + 8 * half;
+            if (row >= n) continue;
+            const float inv = half ? i1 : i0;
+            const float a0 = o[nt][2 * half] * inv, a1 = o[nt][2 * half + 1] * inv;
+            T* p = ow + (size_t)row * C + d;
+            if (pairs) {
+                *reinterpret_cast<uint32_t*>(p) = HT::pack(a0, a1);
+            } else {
+                p[0] = HT::from_float(a0);
+                if (d + 1 < dv) p[1] = HT::from_float(a1);
+            }
+        }
+    }
+}
+
 // Widest load (bytes) that every staged row start allows: the pointers, the
 // window and token pitches and the head offsets must all be multiples of it.
 int pick_vb(const void* q, const void* k, const void* v, long long ld, long long wstride, int hd, int es) {
@@ -572,10 +982,31 @@ int pick_vb(const void* q, const void* k, const void* v, long long ld, long long
 
 int head_pad(int hd) { return hd <= 16 ? 16 : (hd <= 32 ? 32 : 64); }
 
-bool bad_shape(const void* bias, int windows, int n, int heads, int hd, long long ld, long long wstride, int nw) {
-    return bias == nullptr || windows <= 0 || n < 1 || n > MAX_N || heads < 1 || hd < 1 || hd > MAX_HD ||
-           ld < (long long)heads * hd || wstride < (long long)n * ld || nw < 1 || windows % nw != 0 ||
-           (long long)windows * heads > 0x7fffffffLL;
+// Whether a shape runs on the first pair of kernels, which hold a whole
+// head and (16-bit) a block of bias rows; the "any" kernels take the rest.
+bool first_pair(int n, int hd) { return n <= MAX_N && hd <= MAX_HD; }
+
+// The blocks one window takes on the "any" kernels (row tiles x slices),
+// and the grid's limit on the blocks of a launch.
+long long any_blocks_per_window(int n, int hd, int es) {
+    const int rows = es == 4 ? FR : AR;
+    const int cols = es == 4 ? FV : any_dv(hd);
+    return (long long)((n + rows - 1) / rows) * ((hd + cols - 1) / cols);
+}
+constexpr long long MAX_GRID = 0x7fffffffLL;
+
+// The most windows one launch takes at this shape (elements of es bytes):
+// the grid's x dimension bounds the blocks, and `windows` is an int.
+long long max_windows(int n, int heads, int hd, int es) {
+    if (n < 1 || heads < 1 || hd < 1) return 0;
+    if (first_pair(n, hd)) return es == 4 ? MAX_GRID / heads : MAX_GRID;  // f32: a block per (window, head)
+    return MAX_GRID / ((long long)heads * any_blocks_per_window(n, hd, es));
+}
+
+bool bad_shape(const void* bias, int windows, int n, int heads, int hd, long long ld, long long wstride, int nw,
+               int es) {
+    return bias == nullptr || windows <= 0 || n < 1 || heads < 1 || hd < 1 || ld < (long long)heads * hd ||
+           wstride < (long long)n * ld || nw < 1 || windows % nw != 0 || windows > max_windows(n, heads, hd, es);
 }
 
 int num_sms() {
@@ -602,6 +1033,19 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(bias), static_cast<const float*>(mask), static_cast<float*>(out), n, heads, hd,
         ld, wstride, nw, scale, vb);
+    return cudaGetLastError();
+}
+
+cudaError_t launch_f32_any(const void* q, const void* k, const void* v, const void* bias, const void* mask,
+                           void* out, int windows, int n, int heads, int hd, long long ld, long long wstride, int nw,
+                           float scale, cudaStream_t stream) {
+    const int threads = n < FR ? (n + 31) / 32 * 32 : FR;
+    const int rtiles = (n + threads - 1) / threads, slices = (hd + FV - 1) / FV;
+    const long long blocks = (long long)windows * heads * rtiles * slices;
+    wattn_f32_any_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(bias), static_cast<const float*>(mask), static_cast<float*>(out), n, heads, hd,
+        ld, wstride, nw, scale, rtiles, slices);
     return cudaGetLastError();
 }
 
@@ -646,16 +1090,41 @@ cudaError_t launch_h16(const void* q, const void* k, const void* v, const void* 
     return cudaGetLastError();
 }
 
+template <typename T, int DV>
+cudaError_t launch_h16_any(const void* q, const void* k, const void* v, const void* bias, const void* mask,
+                           const void* flags, void* out, int windows, int n, int heads, int hd, long long ld,
+                           long long wstride, int nw, float scale, cudaStream_t stream) {
+    const size_t smem = any_h16_smem_bytes(DV);
+    auto kernel = wattn_h16_any_kernel<T, DV>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const int rtiles = (n + AR - 1) / AR, slices = (hd + DV - 1) / DV;
+    const long long blocks = (long long)windows * heads * rtiles * slices;
+    const int vb = pick_vb(q, k, v, ld, wstride, hd, 2);
+    kernel<<<(unsigned)blocks, 128, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const float*>(bias), static_cast<const float*>(mask), static_cast<const unsigned char*>(flags),
+        static_cast<T*>(out), n, heads, hd, ld, wstride, nw, scale, vb, rtiles, slices);
+    return cudaGetLastError();
+}
+
 template <typename T>
-int launch_h16_any(const void* q, const void* k, const void* v, const void* bias, const void* mask,
-                   const void* flags, void* out, int windows, int n, int heads, int hd, long long ld,
-                   long long wstride, int nw, float scale, void* stream) {
-    // the kernel divides bias and mask by scale and takes maxima of scores over scale, and stages rows
-    // with cp.async copies of at least 4 bytes
-    if (bad_shape(bias, windows, n, heads, hd, ld, wstride, nw) || !(scale > 0.f) || !isfinite(scale) ||
+int launch_h16_entry(const void* q, const void* k, const void* v, const void* bias, const void* mask,
+                     const void* flags, void* out, int windows, int n, int heads, int hd, long long ld,
+                     long long wstride, int nw, float scale, void* stream) {
+    // the first kernel divides bias and mask by scale and takes maxima of scores over scale; both stage
+    // rows with cp.async copies of at least 4 bytes
+    if (bad_shape(bias, windows, n, heads, hd, ld, wstride, nw, 2) || !(scale > 0.f) || !isfinite(scale) ||
         pick_vb(q, k, v, ld, wstride, hd, 2) < 4)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (!first_pair(n, hd)) {
+        if (any_dv(hd) == 64)
+            return (int)launch_h16_any<T, 64>(q, k, v, bias, mask, flags, out, windows, n, heads, hd, ld, wstride,
+                                              nw, scale, s);
+        return (int)launch_h16_any<T, 128>(q, k, v, bias, mask, flags, out, windows, n, heads, hd, ld, wstride, nw,
+                                           scale, s);
+    }
     switch (head_pad(hd)) {
         case 16:
             return (int)launch_h16<T, 16>(q, k, v, bias, mask, flags, out, windows, n, heads, hd, ld, wstride, nw,
@@ -675,12 +1144,19 @@ int launch_h16_any(const void* q, const void* k, const void* v, const void* bias
 // token and window pitches of q, k and v in elements; `mask` may be null;
 // `flags` (16-bit kernels) is null or one byte per mask window, zero where
 // the window's mask tile is all zero.  Each launches on `stream` and returns
-// cudaGetLastError() right after the launch (0 = launched).
+// cudaGetLastError() right after the launch (0 = launched).  A launch takes
+// at most resselt_window_attn_max_windows windows; the caller splits more.
+extern "C" long long resselt_window_attn_max_windows(int n, int heads, int hd, int element_bytes) {
+    return max_windows(n, heads, hd, element_bytes);
+}
+
 extern "C" int resselt_window_attn_f32(const void* q, const void* k, const void* v, const void* bias,
                                        const void* mask, void* out, int windows, int n, int heads, int hd,
                                        long long ld, long long wstride, int nw, float scale, void* stream) {
-    if (bad_shape(bias, windows, n, heads, hd, ld, wstride, nw)) return (int)cudaErrorInvalidValue;
+    if (bad_shape(bias, windows, n, heads, hd, ld, wstride, nw, 4)) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (!first_pair(n, hd))
+        return (int)launch_f32_any(q, k, v, bias, mask, out, windows, n, heads, hd, ld, wstride, nw, scale, s);
     switch (head_pad(hd)) {
         case 16: return (int)launch_f32<16>(q, k, v, bias, mask, out, windows, n, heads, hd, ld, wstride, nw, scale, s);
         case 32: return (int)launch_f32<32>(q, k, v, bias, mask, out, windows, n, heads, hd, ld, wstride, nw, scale, s);
@@ -692,14 +1168,14 @@ extern "C" int resselt_window_attn_bf16(const void* q, const void* k, const void
                                         const void* mask, const void* flags, void* out, int windows, int n,
                                         int heads, int hd, long long ld, long long wstride, int nw, float scale,
                                         void* stream) {
-    return launch_h16_any<__nv_bfloat16>(q, k, v, bias, mask, flags, out, windows, n, heads, hd, ld, wstride, nw,
-                                         scale, stream);
+    return launch_h16_entry<__nv_bfloat16>(q, k, v, bias, mask, flags, out, windows, n, heads, hd, ld, wstride, nw,
+                                           scale, stream);
 }
 
 extern "C" int resselt_window_attn_f16(const void* q, const void* k, const void* v, const void* bias,
                                        const void* mask, const void* flags, void* out, int windows, int n,
                                        int heads, int hd, long long ld, long long wstride, int nw, float scale,
                                        void* stream) {
-    return launch_h16_any<__half>(q, k, v, bias, mask, flags, out, windows, n, heads, hd, ld, wstride, nw, scale,
-                                  stream);
+    return launch_h16_entry<__half>(q, k, v, bias, mask, flags, out, windows, n, heads, hd, ld, wstride, nw, scale,
+                                    stream);
 }

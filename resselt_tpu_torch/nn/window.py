@@ -4,11 +4,13 @@ Counterpart of ``resselt_tpu/nn/window.py``: the same window partition,
 relative-position index and shift mask (numpy geometry, copied), and the
 same attention, and DAT's rectangular-window shift mask.
 :func:`multi_head_attention` sends every window attention with a bias
-that :func:`window_mha_supported` takes to ``ops.window_mha`` (on the
-card: ``csrc/window_attn.cu``); the rest (no bias, HAT's M > N overlapping
-keys, or a head_dim above the kernel's) takes a plain path with the JAX
-package's ``_mha_xla`` semantics.  The plain path's calls on a CUDA tensor
-are counted in ``multi_head_attention.plain_calls``, and per shape in the
+and as many keys as queries to ``ops.window_mha`` (on the card:
+``csrc/window_attn.cu``, which takes every window length and head_dim);
+the rest (no bias, HAT's M > N overlapping keys, or the
+``use_fused_attention(False)`` switch) takes a plain path with the JAX
+package's ``_mha_xla`` semantics, as the JAX kernel does not compute them
+either.  The plain path's calls on a CUDA tensor are counted in
+``multi_head_attention.plain_calls``, and per shape in the
 ``multi_head_attention.plain_by_shape`` Counter under ``(windows, n, m, c,
 heads, masked)``: the attentions the kernel does not take are visible, not
 silent.

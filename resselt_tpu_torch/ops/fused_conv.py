@@ -197,7 +197,7 @@ def conv3x3_kernel_takes(n: int, h: int, w: int, cin: int, cout: int) -> bool:
 def _kernel_takes(entry, k: int, n: int, h: int, w: int, cin: int, cout: int) -> bool:
     """Whether ``entry``'s kernel takes an NHWC (n, h, w, cin) -> cout conv."""
     if entry is fused_conv_lk:
-        return lk_conv_supported(cin, cout, k) and 0 < n <= 65535 and min(h, w) > 0
+        return lk_conv_supported(cin, cout, k) and min(n, h, w) > 0
     return conv3x3_kernel_takes(n, h, w, cin, cout)
 
 
@@ -332,7 +332,6 @@ fused_conv3x3_pack2.backward_conv2d_input = Counter()
 
 # -- large-kernel conv (PLKSR's partial conv) ---------------------------------
 
-LK_MAX_K = 31  # csrc/conv_lk.cu: the mma.sync path's halo + one weight row fit in shared memory up to here
 # csrc/conv_lk.cu's 16-bit paths, in its enum Path's order: stacked (Cin 16,
 # Cout <= 16, all weights resident), tiles (Cin 16 and 64), mma (the rest)
 LK_PATHS = ('mma', 'stacked', 'tiles')
@@ -357,9 +356,9 @@ def use_fused_lk(on: bool) -> None:
 
 def lk_conv_supported(cin: int, cout: int, k: int) -> bool:
     """Shapes :func:`fused_conv_lk` (and its kernel) take: cin in {8, 16, 32,
-    64}, 0 < cout <= cin, k odd and at most 31.  The JAX package's
-    predicate, bounded in k."""
-    return cin in (8, 16, 32, 64) and 0 < cout <= cin and k % 2 == 1 and 0 < k <= LK_MAX_K
+    64}, 0 < cout <= cin, k odd.  The JAX package's predicate
+    (``resselt_tpu/ops/fused_conv.py:399``)."""
+    return cin in (8, 16, 32, 64) and 0 < cout <= cin and k % 2 == 1
 
 
 def fused_conv_lk_ref(x, w, b=None, k: int = 17, act: str = 'linear') -> torch.Tensor:
@@ -392,10 +391,14 @@ def _pixel_pitch(x: torch.Tensor) -> int:
     return pitch
 
 
+LK_MAX_BATCH = 65535  # csrc/conv_lk.cu: images a launch (the grid's z dimension)
+
+
 def _launch_lk(x: torch.Tensor, w: torch.Tensor, b, k: int, act: str, backward: bool = False) -> torch.Tensor:
     """Check the operands, launch the lk kernel on the current stream and
     count the launch (apart when a gradient asked for it; ``by_path``
-    counts the forward ones)."""
+    counts the forward ones).  A batch of more than :data:`LK_MAX_BATCH`
+    images goes in several launches, each counted under its own batch."""
     if x.dtype not in _ENTRY_SUFFIX:
         raise TypeError(f'lk kernel takes float32, bfloat16 or float16 input, got {x.dtype}')
     n, h, wd, cin = x.shape
@@ -407,18 +410,20 @@ def _launch_lk(x: torch.Tensor, w: torch.Tensor, b, k: int, act: str, backward: 
         return y
     lib = _lk_lib()
     fn = getattr(lib, 'resselt_conv_lk_' + _ENTRY_SUFFIX[x.dtype])
+    path = 'f32' if x.dtype == torch.float32 else LK_PATHS[lib.resselt_conv_lk_path(cin, cout, k, pitch, x.data_ptr())]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), taps.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
-                n, h, wd, cin, cout, pitch, k, ACTS[act], stream)
-    path = 'f32' if x.dtype == torch.float32 else LK_PATHS[lib.resselt_conv_lk_path(cin, cout, k, pitch, x.data_ptr())]
-    if rc != 0:
-        raise RuntimeError(f'lk kernel launch failed: CUDA error {rc} '
-                           f'(x {tuple(x.shape)} {x.dtype}, cout {cout}, k {k}, act {act}, path {path})')
-    key = (n, h, wd, cin, cout, k, act)
-    _count(fused_conv_lk, key, backward)
-    if not backward:
-        fused_conv_lk.by_path[(key, path)] += 1
+        for i0 in range(0, n, LK_MAX_BATCH):
+            xi, yi = x[i0:i0 + LK_MAX_BATCH], y[i0:i0 + LK_MAX_BATCH]
+            rc = fn(xi.data_ptr(), taps.data_ptr(), None if b is None else b.data_ptr(), yi.data_ptr(),
+                    xi.shape[0], h, wd, cin, cout, pitch, k, ACTS[act], stream)
+            if rc != 0:
+                raise RuntimeError(f'lk kernel launch failed: CUDA error {rc} '
+                                   f'(x {tuple(x.shape)} {x.dtype}, cout {cout}, k {k}, act {act}, path {path})')
+            key = (xi.shape[0], h, wd, cin, cout, k, act)
+            _count(fused_conv_lk, key, backward)
+            if not backward:
+                fused_conv_lk.by_path[(key, path)] += 1
     return y
 
 

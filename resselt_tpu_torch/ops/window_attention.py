@@ -23,14 +23,16 @@ fp16 a head whose rows are only 2-byte aligned (an odd head_dim, as DRCT's
 53) is first copied into heads zero-padded to a multiple of 8 elements:
 the kernel stages such rows with 2-byte loads, which took 30.3 ms at
 DRCT's bench shape against 9.2 ms for head_dim 46 on an H100.  The padding
-changes no score and no output column.
+changes no score and no output column, which is why the JAX keyword
+``head_pad=`` is checked as JAX checks it and otherwise changes nothing.
 
 :func:`window_mha` carries a gradient (:class:`_WindowMHA`, on both
 devices), computed in plain torch in f32 from P recomputed as in the
 forward: ``dV = P^T dO``, ``dS = P * (dO V^T - rowsum(dO V^T * P))``,
 ``dq = scale dS k``, ``dk = scale dS^T q`` and the bias's ``dS`` summed
 over the windows; the mask gets none.  It runs inside the profiler range
-:data:`BACKWARD_RANGE`.
+:data:`BACKWARD_RANGE`, on runs of windows whose score tensors hold at most
+:data:`BACKWARD_CHUNK_BYTES` each.
 """
 
 from __future__ import annotations
@@ -46,15 +48,13 @@ import torch.nn.functional as TF
 from . import _build
 
 BACKWARD_RANGE = 'window_mha.backward'
-WATTN_MAX_N = 256  # csrc/window_attn.cu: tokens per window (padded to 16 inside)
-WATTN_MAX_HEAD_DIM = 64  # csrc/window_attn.cu: head_dim (padded to 16 inside)
+BACKWARD_CHUNK_BYTES = 1 << 28  # f32 (windows, heads, n, n) bytes of one run of the backward
 
 
 def window_mha_supported(n: int, c: int, num_heads: int) -> bool:
-    """Shapes :func:`window_mha` (and its kernel) take: 1 <= n <= 256
-    tokens per window and C = heads x head_dim with head_dim <= 64."""
-    return (1 <= n <= WATTN_MAX_N and num_heads >= 1 and c % num_heads == 0
-            and 1 <= c // num_heads <= WATTN_MAX_HEAD_DIM)
+    """Shapes :func:`window_mha` (and its kernel) take: the JAX kernel's,
+    every n >= 1 tokens per window and C a multiple of heads >= 1."""
+    return n >= 1 and num_heads >= 1 and c % num_heads == 0
 
 
 def window_mha_ref(q, k, v, bias, mask=None, *, num_heads: int, scale: float) -> torch.Tensor:
@@ -105,6 +105,8 @@ def _lib() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 7 + tail  # + the mask-window flags
         for fn in (lib.resselt_window_attn_f32, lib.resselt_window_attn_bf16, lib.resselt_window_attn_f16):
             fn.restype = ctypes.c_int
+        lib.resselt_window_attn_max_windows.argtypes = [ctypes.c_int] * 4
+        lib.resselt_window_attn_max_windows.restype = ctypes.c_longlong
         lib._resselt_typed = True
     return lib
 
@@ -140,7 +142,7 @@ def _launch(q, k, v, bias, mask, num_heads: int, scale: float) -> torch.Tensor:
     b, n, c = q.shape
     hd = c // num_heads
     sw, st = _token_strides(q, k, v)
-    if b == 0:
+    if b == 0 or c == 0:
         return torch.empty((b, n, c), dtype=q.dtype, device=q.device)
     padded = q.dtype != torch.float32 and (q.data_ptr() | k.data_ptr() | v.data_ptr() | 2 * (sw | st | hd)) % 4
     if padded:  # rows only 2-byte aligned: zero-pad each head to a multiple of 8 elements (16 bytes)
@@ -155,40 +157,79 @@ def _launch(q, k, v, bias, mask, num_heads: int, scale: float) -> torch.Tensor:
         nw = mask.shape[0]
     out = torch.empty((b, n, num_heads * hd), dtype=q.dtype, device=q.device)
     lib = _lib()
-    operands = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None if mask is None else mask.data_ptr()]
     if q.dtype == torch.float32:
-        fn = lib.resselt_window_attn_f32
+        fn, flags = lib.resselt_window_attn_f32, None
     else:
         fn = lib.resselt_window_attn_bf16 if q.dtype == torch.bfloat16 else lib.resselt_window_attn_f16
-        flags = None if mask is None else mask_window_flags(mask)  # alive until the launch below
-        operands.append(None if flags is None else flags.data_ptr())
+        flags = None if mask is None else mask_window_flags(mask)  # alive until the launches below
+    es = q.element_size()
+    ranges = _launch_ranges(b, nw, lib.resselt_window_attn_max_windows(n, num_heads, hd, es))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(*operands, out.data_ptr(), b, n, num_heads, hd, st, sw, nw, float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(f'window attention kernel launch failed: CUDA error {rc} '
-                           f'(q {tuple(q.shape)} {q.dtype}, heads {num_heads}, mask windows {nw})')
-    window_mha.launches += 1
-    window_mha.by_shape[(b, n, c, num_heads, mask is not None)] += 1
+        for w0, count, m0, mnw in ranges:
+            operands = [q.data_ptr() + w0 * sw * es, k.data_ptr() + w0 * sw * es, v.data_ptr() + w0 * sw * es,
+                        bias.data_ptr(), None if mask is None else mask.data_ptr() + m0 * n * n * 4]
+            if q.dtype != torch.float32:
+                operands.append(None if flags is None else flags.data_ptr() + m0)
+            rc = fn(*operands, out.data_ptr() + w0 * n * num_heads * hd * es, count, n, num_heads, hd, st, sw, mnw,
+                    float(scale), stream)
+            if rc != 0:
+                raise RuntimeError(f'window attention kernel launch failed: CUDA error {rc} '
+                                   f'(q {tuple(q.shape)} {q.dtype}, heads {num_heads}, mask windows {nw}, '
+                                   f'windows {w0} .. {w0 + count - 1})')
+            window_mha.launches += 1
+            window_mha.by_shape[(count, n, c, num_heads, mask is not None)] += 1
     if padded:
         out = out.unflatten(-1, (num_heads, hd))[..., : c // num_heads].reshape(b, n, c)
     return out
 
 
-def window_mha(q, k, v, bias, mask=None, *, num_heads: int, scale: float) -> torch.Tensor:
+def _launch_ranges(b: int, nw: int, max_windows: int) -> list[tuple[int, int, int, int]]:
+    """The launches that cover ``b`` windows, at most ``max_windows`` each
+    (the kernel's grid limit), with a mask of ``nw`` windows (1: none), as
+    (first window, windows, first mask window, mask windows of the launch).
+    Each launch is whole periods of the mask where a period fits in one,
+    else a run inside one period, whose own mask is that run's windows."""
+    if max_windows < 1:
+        raise ValueError(f'window attention kernel takes no window of this shape (limit {max_windows})')
+    if b <= max_windows:
+        return [(0, b, 0, nw)]
+    if nw <= max_windows:
+        step = max_windows // nw * nw
+        return [(w0, min(step, b - w0), 0, nw) for w0 in range(0, b, step)]
+    return [(p0 + s0, min(max_windows, nw - s0), s0, min(max_windows, nw - s0))
+            for p0 in range(0, b, nw) for s0 in range(0, nw, max_windows)]
+
+
+def window_mha(q, k, v, bias, mask=None, *, num_heads: int, scale: float, head_pad: int | None = None,
+               assume_padded: bool = False) -> torch.Tensor:
     """Fused window multi-head attention.
 
     ``q``, ``k``, ``v``: (B, N, C), B = batch x nW windows, float32,
     bfloat16 or float16; ``bias``: (heads, N, N) additive (read in f32); ``mask``:
     (nW, N, N) additive shift mask with B a multiple of nW, or None.
     Shapes outside :func:`window_mha_supported` raise ValueError.  Returns
-    a contiguous (B, N, C) tensor in q's dtype."""
+    a contiguous (B, N, C) tensor in q's dtype.
+
+    ``head_pad`` and ``assume_padded`` are the JAX kernel's
+    (``resselt_tpu/ops/window_attention.py:96``), checked as it checks them:
+    ``assume_padded`` says that every head already occupies ``head_pad``
+    columns (C = heads x head_pad, ``head_pad`` dividing 128), and the
+    output keeps that layout; ``head_pad`` alone pads every head with zeros
+    to that many columns (at least head_dim, dividing 128).  Zero columns
+    change no score and no output column, so neither changes the result."""
     if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f'window_mha takes q, k, v of one (B, N, C) shape, got '
                          f'{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}')
     b, n, c = q.shape
     if not window_mha_supported(n, c, num_heads):
         raise ValueError(f'unsupported window attention: n={n} c={c} heads={num_heads}')
+    if assume_padded:
+        if head_pad is None or c != num_heads * head_pad or 128 % head_pad:
+            raise ValueError(f'assume_padded: c={c} != heads*head_pad or bad head_pad={head_pad}')
+    elif head_pad is not None and head_pad != c // num_heads:
+        if head_pad < c // num_heads or 128 % head_pad:
+            raise ValueError(f'head_pad {head_pad} invalid for head_dim {c // num_heads}')
     if tuple(bias.shape) != (num_heads, n, n):
         raise ValueError(f'bias must be ({num_heads}, {n}, {n}), got {tuple(bias.shape)}')
     if mask is not None and (mask.ndim != 3 or tuple(mask.shape[1:]) != (n, n) or b % mask.shape[0]):
@@ -200,29 +241,40 @@ def window_mha(q, k, v, bias, mask=None, *, num_heads: int, scale: float) -> tor
 
 def window_mha_backward(q, k, v, bias, mask, do, *, num_heads: int, scale: float):
     """(dq, dk, dv, dbias) of :func:`window_mha_ref` for the output gradient
-    ``do``, in f32 from P recomputed, in the dtypes of q and bias."""
+    ``do``, in f32 from P recomputed, in the dtypes of q and bias.  Runs on
+    whole periods of the mask's windows at a time, as many as keep each
+    (windows, heads, n, n) f32 tensor of a run within
+    :data:`BACKWARD_CHUNK_BYTES`, and holds two such tensors at most (P, and
+    dP turned into dS in place); dbias sums the runs' in f32."""
     b, n, c = q.shape
     hd = c // num_heads
+    nw = 1 if mask is None else mask.shape[0]
+    step = max(1, BACKWARD_CHUNK_BYTES // (4 * num_heads * n * n * nw)) * nw
+    dq, dk, dv = (torch.empty((b, n, c), dtype=q.dtype, device=q.device) for _ in range(3))
+    dbias = torch.zeros((num_heads, n, n), device=q.device)
 
     def heads(t):
-        return t.float().reshape(b, n, num_heads, hd).transpose(1, 2)
-
-    qh, kh, vh, doh = heads(q), heads(k), heads(v), heads(do)
-    s = torch.matmul(qh * scale, kh.transpose(-1, -2)) + bias.float()[None]
-    if mask is not None:
-        nw = mask.shape[0]
-        s = (s.reshape(b // nw, nw, num_heads, n, n) + mask.float()[None, :, None]).reshape(b, num_heads, n, n)
-    p = torch.softmax(s, dim=-1)
-    dv = torch.matmul(p.transpose(-1, -2), doh)
-    dp = torch.matmul(doh, vh.transpose(-1, -2))
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    dq = torch.matmul(ds, kh) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+        return t.float().reshape(t.shape[0], n, num_heads, hd).transpose(1, 2)
 
     def tokens(t):
-        return t.transpose(1, 2).reshape(b, n, c).to(q.dtype)
+        return t.transpose(1, 2).reshape(t.shape[0], n, c)
 
-    return tokens(dq), tokens(dk), tokens(dv), ds.sum(0).to(bias.dtype)
+    for w0 in range(0, b, step):
+        run = slice(w0, w0 + step)
+        qh, kh, vh, doh = heads(q[run]), heads(k[run]), heads(v[run]), heads(do[run])
+        s = torch.matmul(qh * scale, kh.transpose(-1, -2)) + bias.float()[None]
+        if mask is not None:
+            s = (s.unflatten(0, (-1, nw)) + mask.float()[None, :, None]).flatten(0, 1)
+        p = torch.softmax(s, dim=-1)
+        del s
+        dv[run] = tokens(torch.matmul(p.transpose(-1, -2), doh))
+        ds = torch.matmul(doh, vh.transpose(-1, -2))  # dP, made dS in place: P (dP - rowsum(dP P))
+        ds.sub_(torch.matmul(ds.unsqueeze(-2), p.unsqueeze(-1)).squeeze(-1)).mul_(p)
+        del p
+        dq[run] = tokens(torch.matmul(ds, kh) * scale)
+        dk[run] = tokens(torch.matmul(ds.transpose(-1, -2), qh) * scale)
+        dbias += ds.sum(0)
+    return dq, dk, dv, dbias.to(bias.dtype)
 
 
 class _WindowMHA(torch.autograd.Function):

@@ -4,7 +4,8 @@ dicts (``zoo.make_drct``), on the CPU in f32, with test_drct.py's TOL
 the window), with the ``attn_mask`` buffers of a 32-pixel ``img_size`` (the
 second and fourth blocks of a group shifted) and without them (``img_size``
 falls to the window and every shift is off), and a width whose later
-blocks' head_dim exceeds the kernel's (the plain path); weights strong
+blocks' head_dim exceeds 64 (the plain path while the kernel stopped
+there, the kernel's wrapper now); weights strong
 enough that the attention matters; config, metadata and serving hints
 equal; the zoo's DRCT layout at full width; params carried across from a
 JAX model; tiled and CLI output."""
@@ -51,9 +52,10 @@ def test_drct_variants(upscale, attn_masks):
 
 
 def test_drct_with_plain_path_blocks():
-    """Embed 128, two heads, gc 16: swin1 at head_dim 64 on the kernel's
-    path, swin2..5 at 72..96 on the plain path (on the CPU both run the
-    plain versions; the split is what the card counts)."""
+    """Embed 128, two heads, gc 16: swin1 at head_dim 64, swin2..5 at
+    72..96, all through the kernel's wrapper since it takes every head_dim
+    (swin2..5 took the plain path while it stopped at 64; on the CPU both
+    run the plain versions)."""
     tm, _ = both(_sd(2, embed=128, heads=2, gc=16, layers=1, seed=7), _x(21, 19), 'DRCT')
     assert tm.config.num_heads == (2,)
 

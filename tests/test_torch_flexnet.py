@@ -38,8 +38,8 @@ def _x(h, w, seed=3):
 
 class Attentions:
     """Records each window attention FlexNet hands to ``window_mha`` (the
-    kernel's wrapper) as (windows, n, c, heads), and those past the
-    kernel's width that take the plain path."""
+    kernel's wrapper) as (windows, n, c, heads), and any that takes the
+    plain path."""
 
     def __init__(self, monkeypatch):
         self.kernel, self.plain = [], []
@@ -82,13 +82,15 @@ def test_linear_attentions_take_the_kernel(monkeypatch):
 
 def test_meta_attentions_past_head_dim_64_take_the_plain_path(monkeypatch):
     """The meta U-Net at dim 16 runs its levels at 16, 32, 64 and 128
-    channels: the kernel takes head_dim up to 64, the plain path enc3's
-    128."""
+    channels: the kernel's wrapper takes every one of them, enc3's 128 too
+    (it took the plain path while the kernel stopped at head_dim 64); none
+    takes the plain path."""
     tm = resselt_tpu_torch.load_from_state_dict(_sd('meta', seed=5), device='cpu')
     att = Attentions(monkeypatch)
     tm(_x(40, 70))
-    assert [t[2] for t in att.kernel] == [16, 32, 64, 64, 32, 16]
-    assert att.plain == [(2, 64, 128)]  # the 64 x 128 padded input at 1/8: two windows
+    assert [t[2] for t in att.kernel] == [16, 32, 64, 128, 64, 32, 16]
+    assert att.kernel[3] == (2, 64, 128, 1)  # the 64 x 128 padded input at 1/8: two windows
+    assert att.plain == []
 
 
 def test_flexnet_4x_routes_its_16_convs(monkeypatch):

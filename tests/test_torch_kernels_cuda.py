@@ -212,6 +212,42 @@ def test_lk_kernel_paths_match_plain(cuda, dtype, n, h, w, cin, cout, k, act, pi
     _lk_check(cuda, dtype, n, h, w, cin, cout, k, act, pitch=pitch, c0=c0, path=path)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('n,h,w,cin,cout,k,act,pitch,c0,path', [
+    (1, 40, 70, 16, 16, 33, 'lrelu', 16, 0, 'tiles'),   # k 33: the tiles path's halos and rows still fit
+    (2, 21, 23, 8, 8, 33, 'linear', 8, 0, 'mma'),       # Cin 8: one block of taps
+    (1, 30, 40, 16, 8, 51, 'lrelu', 64, 16, 'mma'),     # k 51 at Cin 16, a slice: taps in blocks
+    (1, 19, 37, 64, 64, 35, 'linear', 64, 0, 'mma'),    # k 35 at 64 -> 64: taps in blocks (f32 too)
+    (2, 17, 33, 32, 24, 51, 'linear', 32, 0, 'mma'),    # k 51 at Cin 32
+    (1, 9, 11, 8, 4, 101, 'lrelu', 8, 0, 'mma'),        # a kernel far wider than the image
+])
+def test_lk_kernel_takes_every_odd_k(cuda, dtype, n, h, w, cin, cout, k, act, pitch, c0, path):
+    """k past 31, where the f32 and mma kernels take the taps in square
+    blocks that each stage their own halo and weights."""
+    _lk_check(cuda, dtype, n, h, w, cin, cout, k, act, pitch=pitch, c0=c0, path=path)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,h,w,launches', [(65537, 2, 3, 2), (1, 1048577, 1, 1)])
+def test_lk_kernel_takes_any_batch_and_height(cuda, dtype, n, h, w, launches):
+    """More images than the grid's z holds go in two launches; more than
+    65535 row tiles of 16 run in one (the tiles of an image are the grid's
+    x)."""
+    g = torch.Generator(device=cuda).manual_seed(n + h)
+    x = torch.randn((n, h, w, 8), generator=g, device=cuda).to(dtype)
+    taps = fc.pack_conv_lk_weight(torch.randn((8, 8, 3, 3), generator=g, device=cuda) / 8, dtype)
+    b = torch.randn((8,), generator=g, device=cuda)
+    before = fc.fused_conv_lk.launches
+    got = fc.fused_conv_lk(x, taps, b, k=3, act='lrelu')
+    torch.cuda.synchronize()
+    assert fc.fused_conv_lk.launches - before == launches
+    want = fc.fused_conv_lk_ref(x.float(), taps.float(), b, k=3, act='lrelu')
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=1e-3)
+
+
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
 def test_lk_kernel_no_bias(cuda, dtype):
     _lk_check(cuda, dtype, 1, 20, 24, 32, 32, 9, 'linear', bias=False)
@@ -335,7 +371,7 @@ def test_window_kernel_nonpositive_scale(cuda, dtype, scale):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize('kind', ['shift', 'zero', 'one_window'])
-@pytest.mark.parametrize('ws,c,heads', [(8, 180, 6), (16, 144, 6), (16, 48, 4), (7, 60, 6)])
+@pytest.mark.parametrize('ws,c,heads', [(8, 180, 6), (16, 144, 6), (16, 48, 4), (7, 60, 6), (8, 244, 2), (16, 308, 4)])
 def test_window_kernel_skips_zero_mask_windows(cuda, dtype, kind, ws, c, heads):
     """The model's own shift mask (only the last row and column of windows
     are non-zero), an all-zero mask, and a mask with one non-zero window:
@@ -397,6 +433,42 @@ def test_window_kernel_rectangular_shift_masks(cuda, dtype, split, c, heads, sid
 ])
 def test_window_kernel_head_dim_53_and_46_in_place(cuda, dtype, windows, n, c, heads, nw):
     _wattn_check(cuda, dtype, windows, n, c, heads, nw, seed=c)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('windows,n,c,heads,nw', [
+    (16, 64, 244, 2, 4), (16, 64, 308, 4, None),      # DRCT's swin3 / swin5 at window 8: head_dim 122 / 77
+    (8, 256, 244, 2, 8), (8, 256, 308, 4, None),      # ... at DRCT's window 16
+    (32, 64, 96, 1, None), (16, 64, 128, 1, 4),       # FlexNet-style single wide heads
+    (8, 64, 160, 1, None), (3, 300, 130, 2, None),    # two output slices; head_dim 65 at n 300
+    (6, 257, 32, 2, 3), (4, 320, 64, 2, 2),           # more than 256 tokens a window
+    (2, 513, 24, 1, None), (5, 1, 200, 1, None),      # n 513; one token and one wide head
+])
+def test_window_kernel_any_n_and_head_dim(cuda, dtype, windows, n, c, heads, nw):
+    """The shapes past the first pair of kernels (n 256, head_dim 64): the
+    "any" kernels, against the plain version."""
+    _wattn_check(cuda, dtype, windows, n, c, heads, nw, seed=n + c)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('windows,n,c,heads,nw', [(12, 64, 180, 6, 4), (12, 64, 244, 2, 6), (10, 64, 96, 1, None)])
+def test_window_kernel_launches_split_at_the_grid_limit(cuda, monkeypatch, dtype, windows, n, c, heads, nw):
+    """With the limit on windows a launch cut to 3, the wrapper launches the
+    kernel on runs of windows (whole mask periods of 4, or runs inside a
+    period of 6), counts each launch, and gives what one launch gives."""
+    g = torch.Generator(device=cuda).manual_seed(c)
+    qkv = torch.randn((windows, n, 3 * c), generator=g, device=cuda).to(dtype)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    bias = torch.randn((heads, n, n), generator=g, device=cuda) * 0.5
+    mask = None if nw is None else torch.where(torch.rand((nw, n, n), generator=g, device=cuda) < 0.3, -100.0, 0.0)
+    whole = wa.window_mha(q, k, v, bias, mask, num_heads=heads, scale=0.1)
+    ranges = wa._launch_ranges
+    monkeypatch.setattr(wa, '_launch_ranges', lambda b, m, limit: ranges(b, m, 3))
+    before = wa.window_mha.launches
+    got = wa.window_mha(q, k, v, bias, mask, num_heads=heads, scale=0.1)
+    torch.cuda.synchronize()
+    assert wa.window_mha.launches - before == len(ranges(windows, nw or 1, 3)) > 1
+    torch.testing.assert_close(got, whole, rtol=0, atol=0)
 
 
 def test_window_kernel_refuses_two_byte_rows_the_wrapper_pads(cuda):
@@ -669,11 +741,13 @@ def test_hat_tiled_on_card_matches_cpu(cuda):
 
 
 
-@pytest.mark.parametrize('variant', ['dat', 'dat_direct_3conv', 'rgt', 'drct', 'drct_plain'])
+@pytest.mark.parametrize('variant', ['dat', 'dat_direct_3conv', 'rgt', 'drct', 'drct_plain', 'drct_bench_heads'])
 def test_dat_rgt_drct_on_card_match_cpu(cuda, variant):
     """Window launches per forward: DAT and RGT two per spatial block, DRCT
-    one per block whose head_dim is at most 64; the others (embed 128, two
-    heads: head_dim 72 to 96 from swin2 on) take the plain path, counted in
+    one per block, its wide heads too (drct_plain: embed 128, two heads,
+    head_dim 72 to 96 from swin2 on, which took the plain path before;
+    drct_bench_heads: DRCT's own width, heads of 30, 53, 122, 46 and 77);
+    none takes the plain path, counted in
     ``multi_head_attention.plain_calls``."""
     from resselt_tpu_torch.nn.window import multi_head_attention
 
@@ -683,7 +757,8 @@ def test_dat_rgt_drct_on_card_match_cpu(cuda, variant):
                                       resi_connection='3conv', seed=2), 4, 0, (21, 26)),
         'rgt': (make_rgt(36, (4,), (6,), (8, 32), 2.0, 0.5, 2, seed=3), 4, 0, (40, 48)),
         'drct': (make_drct(36, 2, 6, 8, 12, 2.0, 2, img_size=32, seed=4), 10, 0, (21, 26)),
-        'drct_plain': (make_drct(128, 1, 2, 8, 16, 2.0, 2, img_size=32, seed=5), 1, 4, (21, 26)),
+        'drct_plain': (make_drct(128, 1, 2, 8, 16, 2.0, 2, img_size=32, seed=5), 5, 0, (21, 26)),
+        'drct_bench_heads': (make_drct(180, 1, 6, 8, 32, 2.0, 2, img_size=32, seed=6), 5, 0, (21, 26)),
     }[variant]
     gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
     cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
@@ -964,10 +1039,11 @@ def test_window_kernel_flexnet_shapes(cuda, dtype, windows, c):
         torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=1e-2)
 
 
-@pytest.mark.parametrize('variant,kernel,plain', [('flexnet', 5, 0), ('flexnet_meta', 6, 1)])
+@pytest.mark.parametrize('variant,kernel,plain', [('flexnet', 5, 0), ('flexnet_meta', 7, 0)])
 def test_flexnet_attention_launches_window_attn(cuda, variant, kernel, plain):
-    """FlexNet's attentions launch ``csrc/window_attn.cu`` wherever head_dim
-    = C <= 64; the meta U-Net's 128-wide level takes the plain path."""
+    """FlexNet's attentions launch ``csrc/window_attn.cu`` at every width,
+    the meta U-Net's 128-wide level too (head_dim = C = 128, which took the
+    plain path before): none takes the plain path."""
     from resselt_tpu_torch.nn.window import multi_head_attention
 
     sd = _CONV_FAMILIES[variant][0]()
@@ -1067,7 +1143,8 @@ def test_conv_lk_gradients_on_card(cuda):
     assert fc.fused_conv_lk.backward_launches == before + 1 and float(got[0][..., 16:].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize('windows,n,c,heads,nw', [(128, 64, 180, 6, 64), (32, 256, 48, 4, 16), (16, 64, 64, 1, 0)])
+@pytest.mark.parametrize('windows,n,c,heads,nw', [(128, 64, 180, 6, 64), (32, 256, 48, 4, 16), (16, 64, 64, 1, 0),
+                                                   (32, 256, 244, 2, 16), (8, 320, 96, 1, 0)])
 def test_window_mha_gradients_on_card(cuda, windows, n, c, heads, nw):
     qkv = _leaf_on(cuda, windows, n, 3 * c, seed=11)
     bias = _leaf_on(cuda, heads, n, n, seed=12)

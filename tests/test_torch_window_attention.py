@@ -91,21 +91,22 @@ def test_qkv_slices_equal_contiguous_copies():
 
 
 def test_supported_bounds():
+    """The JAX kernel's domain: every n >= 1 and every C a multiple of heads."""
     assert wa.window_mha_supported(1, 8, 1) and wa.window_mha_supported(256, 256, 4)
     assert wa.window_mha_supported(64, 180, 6) and wa.window_mha_supported(49, 60, 6)
     assert not wa.window_mha_supported(0, 8, 1)
-    assert not wa.window_mha_supported(257, 180, 6)
-    assert not wa.window_mha_supported(64, 260, 4)  # head_dim 65
+    assert wa.window_mha_supported(257, 180, 6)
+    assert wa.window_mha_supported(64, 260, 4)  # head_dim 65
     assert not wa.window_mha_supported(64, 180, 7)  # C not a multiple of heads
     assert not wa.window_mha_supported(64, 180, 0)
 
 
-@pytest.mark.parametrize('case', ['n_257', 'head_dim_65', 'bias_shape', 'mask_windows', 'kv_shape'])
+@pytest.mark.parametrize('case', ['c_not_multiple_of_heads', 'no_heads', 'bias_shape', 'mask_windows', 'kv_shape'])
 def test_rejects_what_it_does_not_take(case):
-    n, c, heads = {'n_257': (257, 16, 2), 'head_dim_65': (4, 130, 2)}.get(case, (16, 32, 4))
+    n, c, heads = {'c_not_multiple_of_heads': (4, 130, 4), 'no_heads': (16, 32, 0)}.get(case, (16, 32, 4))
     q = torch.zeros((6, n, c))
     k = torch.zeros((6, n + 1, c)) if case == 'kv_shape' else q
-    bias = torch.zeros((heads, n, n + (case == 'bias_shape')))
+    bias = torch.zeros((max(heads, 1), n, n + (case == 'bias_shape')))
     mask = torch.zeros((4, n, n)) if case == 'mask_windows' else None
     with pytest.raises(ValueError):
         wa.window_mha(q, k, q, bias, mask, num_heads=heads, scale=1.0)
