@@ -19,6 +19,8 @@ from typing import Any, Callable, Literal, Mapping, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
+
 
 class KeyCondition:
     """Recursive boolean key-presence predicate over a state dict."""
@@ -280,7 +282,8 @@ class SRModel:
             params = self.params
             if any(is_sharded(v) for v in params.values()):
                 params = {k: full_tensor(v) for k, v in params.items()}
-            w = self._by_dtype[dtype] = self._prepared(params, dtype)
+            with tracing.span('model.prepare', dtype=str(dtype).removeprefix('torch.')):
+                w = self._by_dtype[dtype] = self._prepared(params, dtype)
         return w
 
     def raw_apply_fn(self, config: Any, params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -310,23 +313,27 @@ class SRModel:
         'highest' / 'float32' turns TF32 off, 'tensorfloat32' / 'high' on,
         'bfloat16' also lets f32 matmuls run as bf16 passes; any other name
         raises ValueError (:func:`_precision`).  The hand-written f32
-        kernels are exact FMA whatever it says."""
-        x = torch.as_tensor(x).to(self.device)
-        squeeze = x.ndim == 3
-        if squeeze:
-            x = x[None]
-        if x.dtype == torch.uint8:
-            x = x.float() / 255.0
-        dtype = as_torch_dtype(dtype)
-        if dtype is not None:
-            x = x.to(dtype)
-        elif x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
-            x = x.float()
-        with torch.no_grad():
-            weights = self.weights(x.dtype)  # built outside ``precision``: a kept weight does not depend on it
-            with _precision(precision):
-                y = self._apply_fn(self.config, weights, x.contiguous())
-        return y[0] if squeeze else y
+        kernels are exact FMA whatever it says.  The span ``model.forward``
+        (``tracing``) counts ``lr_px``, the batch's input pixels."""
+        with tracing.span('model.forward') as span:
+            x = torch.as_tensor(x).to(self.device)
+            squeeze = x.ndim == 3
+            if squeeze:
+                x = x[None]
+            n, h, w = x.shape[:3]
+            span.set(arch=self.arch_id, batch=n, h=h, w=w, lr_px=n * h * w)
+            if x.dtype == torch.uint8:
+                x = x.float() / 255.0
+            dtype = as_torch_dtype(dtype)
+            if dtype is not None:
+                x = x.to(dtype)
+            elif x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+                x = x.float()
+            with torch.no_grad():
+                weights = self.weights(x.dtype)  # built outside ``precision``: a kept weight does not depend on it
+                with _precision(precision):
+                    y = self._apply_fn(self.config, weights, x.contiguous())
+            return y[0] if squeeze else y
 
 
 @dataclass

@@ -7,6 +7,7 @@ from __future__ import annotations
 import logging
 from typing import Any, Iterator, Mapping
 
+from .. import tracing
 from ..io import load_state_dict_from_file
 from .factory import Architecture, SRModel
 from .state_dict import canonicalize_state_dict
@@ -46,20 +47,25 @@ class Registry:
         return self.load_from_state_dict(state_dict, device=device)
 
     def load_from_state_dict(self, state_dict: Mapping[str, Any], device='cuda') -> SRModel:
-        state_dict = canonicalize_state_dict(state_dict)
-
-        for architecture in self.store.values():
-            if architecture.detect(state_dict):
-                model = architecture.load(state_dict, device)
-                logger.info(
-                    'detected %s (%s): upscale=%s in=%d out=%d, %d params on %s',
-                    architecture.id, model.metadata.name, model.metadata.upscale,
-                    model.metadata.in_channels, model.metadata.out_channels, len(model.params),
-                    model.device,
+        """Canonicalize the keys and detect the architecture (the span
+        ``load.detect``), then build the model with its params on
+        ``device`` (``load.build``), inside the span ``load``."""
+        with tracing.span('load') as span:
+            with tracing.span('load.detect'):
+                state_dict = canonicalize_state_dict(state_dict)
+                architecture = next((a for a in self.store.values() if a.detect(state_dict)), None)
+            if architecture is None:
+                raise ArchitectureNotFound(
+                    'No registered architecture matches the checkpoint key fingerprint '
+                    f'({len(state_dict)} keys).'
                 )
-                return model
-
-        raise ArchitectureNotFound(
-            'No registered architecture matches the checkpoint key fingerprint '
-            f'({len(state_dict)} keys).'
+            span.set(arch=architecture.id, tensors=len(state_dict))
+            with tracing.span('load.build'):
+                model = architecture.load(state_dict, device)
+        logger.info(
+            'detected %s (%s): upscale=%s in=%d out=%d, %d params on %s',
+            architecture.id, model.metadata.name, model.metadata.upscale,
+            model.metadata.in_channels, model.metadata.out_channels, len(model.params),
+            model.device,
         )
+        return model

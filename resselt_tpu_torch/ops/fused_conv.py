@@ -23,8 +23,8 @@ pre-activation recomputed by one ``act='linear'`` run of the same kernel
 (silu, mish); ``dx`` by the same kernel on ``dz`` with the taps turned 180
 degrees and Cin / Cout swapped (``taps'[t] = taps[k*k - 1 - t].T``), or by
 ``torch.nn.grad.conv2d_input`` where the kernel's gate refuses that shape;
-the taps' gradient by ``torch.nn.grad.conv2d_weight`` (inside the profiler
-range :data:`WEIGHT_GRAD_RANGE`); the bias's as the sum of ``dz``.
+the taps' gradient by ``torch.nn.grad.conv2d_weight`` (inside the span
+:data:`WEIGHT_GRAD_RANGE`); the bias's as the sum of ``dz``.
 Backward launches are counted apart, in ``backward_launches`` and the
 ``backward_by_shape`` Counter, under the key of the conv they run (``dx``:
 the transposed shape, act 'linear'; the recompute: the forward's shape, act
@@ -40,6 +40,7 @@ from collections import Counter
 import torch
 import torch.nn.functional as TF
 
+from .. import tracing
 from . import _build
 
 ACTS = {'linear': 0, 'lrelu': 1, 'silu': 2, 'mish': 3}
@@ -212,7 +213,7 @@ def _run(entry, x: torch.Tensor, taps: torch.Tensor, b, k: int, act: str, backwa
     return _launch(entry, x, taps, b, act, backward)
 
 
-WEIGHT_GRAD_RANGE = 'conv.backward.weight'  # the profiler range around a wrapper's weight gradient
+WEIGHT_GRAD_RANGE = 'conv.backward.weight'  # the span (``tracing``) around a wrapper's weight gradient
 
 
 def _act_grad(z: torch.Tensor, act: str) -> torch.Tensor:
@@ -262,7 +263,7 @@ class _ConvAct(torch.autograd.Function):
                 dx = dx.permute(0, 2, 3, 1).contiguous()
         if ctx.needs_input_grad[1]:
             cdt = torch.float32 if on_cpu else x.dtype
-            with torch.profiler.record_function(WEIGHT_GRAD_RANGE):
+            with tracing.span(WEIGHT_GRAD_RANGE):
                 dw = torch.nn.grad.conv2d_weight(x.to(cdt).permute(0, 3, 1, 2), (cout, cin, k, k),
                                                  dz.to(cdt).permute(0, 3, 1, 2), padding=k // 2)
             dtaps = dw.permute(2, 3, 1, 0).reshape(k * k, cin, cout).to(taps.dtype)

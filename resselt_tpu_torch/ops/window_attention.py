@@ -30,8 +30,8 @@ changes no score and no output column, which is why the JAX keyword
 devices), computed in plain torch in f32 from P recomputed as in the
 forward: ``dV = P^T dO``, ``dS = P * (dO V^T - rowsum(dO V^T * P))``,
 ``dq = scale dS k``, ``dk = scale dS^T q`` and the bias's ``dS`` summed
-over the windows; the mask gets none.  It runs inside the profiler range
-:data:`BACKWARD_RANGE`, on runs of windows whose score tensors hold at most
+over the windows; the mask gets none.  It runs inside the span
+:data:`BACKWARD_RANGE` (``tracing``), on runs of windows whose score tensors hold at most
 :data:`BACKWARD_CHUNK_BYTES` each.
 """
 
@@ -45,6 +45,7 @@ from collections import Counter
 import torch
 import torch.nn.functional as TF
 
+from .. import tracing
 from . import _build
 
 BACKWARD_RANGE = 'window_mha.backward'
@@ -292,7 +293,7 @@ class _WindowMHA(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, mask = ctx.saved_tensors
-        with torch.profiler.record_function(BACKWARD_RANGE):
+        with tracing.span(BACKWARD_RANGE):
             dq, dk, dv, dbias = window_mha_backward(q, k, v, bias, mask, do, num_heads=ctx.num_heads,
                                                     scale=ctx.scale)
         return dq, dk, dv, dbias, None, None, None

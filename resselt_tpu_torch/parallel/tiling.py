@@ -18,6 +18,13 @@ batch, dtype, TF32 settings, kernel switches) and replayed, on the CPU
 eagerly.
 ``on_device=False`` is the host loop: the same function, run eagerly.
 
+Spans (``tracing``): ``tile.request`` around an :func:`upscale_tiled`
+call, ``tile.plan`` around its window, grid and program resolution,
+``tile.capture`` around a program's warm-up and capture, ``tile.replay``
+around a replay with its copies, and ``tile.batch`` around each batch of
+:func:`_tiled_forward` (on the graph path at the capture only: a replay
+runs no Python).
+
 With ``mesh`` (a ``DeviceMesh``), the tile batches are split over the
 mesh's first axis, as JAX shards each batch over ``mesh.axis_names[0]``:
 every rank runs its contiguous share of every batch (ranks along the other
@@ -36,6 +43,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..core.factory import _precision, as_torch_dtype
 
 # graphs kept per model (see _program_for), as JAX's _TILED_FN_CACHE_MAX
@@ -234,11 +242,13 @@ def _tiled_forward(model, image: torch.Tensor, grid: TileGrid, scale: int, batch
     tiles = _padded_tiles(image, grid, batch_size)
     canvas = None
     for i in range(0, len(tiles), batch_size):
-        out = model(torch.stack(tiles[i : i + batch_size]), precision=precision)
-        if canvas is None:
-            canvas = out.new_empty((grid.height * scale, grid.width * scale, out.shape[-1]))
-        for t, (y, x) in zip(out, windows[i : i + batch_size]):
-            _paste(canvas, t, grid, y, x, scale)
+        real = len(windows[i : i + batch_size])
+        with tracing.span('tile.batch', windows=real, padded=batch_size - real):
+            out = model(torch.stack(tiles[i : i + batch_size]), precision=precision)
+            if canvas is None:
+                canvas = out.new_empty((grid.height * scale, grid.width * scale, out.shape[-1]))
+            for t, (y, x) in zip(out, windows[i : i + batch_size]):
+                _paste(canvas, t, grid, y, x, scale)
     return canvas
 
 
@@ -295,6 +305,10 @@ class TiledProgram:
     over the mesh's first axis and stitches them outside the graph, so no
     collective is captured.
 
+    ``lr_px``: the low-resolution pixels a replay computes, padding
+    windows included (the rank's share over a mesh); ``evicted``: the
+    programs the LRU released when this one entered it.
+
     Launch counts: the kernel wrappers count in Python, so the warm-up run
     and the capture count one launch for each kernel they launch or record
     into the graph, and a replay counts nothing.  The graph keeps its
@@ -311,7 +325,11 @@ class TiledProgram:
         self.grid, self.scale, self.batch_size, self.precision = grid, scale, batch_size, precision
         self.pool, self.mesh = pool, mesh
         self.graph = None
-        self.replays = 0
+        self.replays = self.evicted = 0
+        self.windows = len(grid.ys) * len(grid.xs)
+        slots = self.windows + -self.windows % batch_size
+        share = 1 if mesh is None else mesh.size(0)
+        self.lr_px = slots // share * grid.window[0] * grid.window[1]
         self._in = self._out = None
 
     def _live_model(self):
@@ -328,34 +346,37 @@ class TiledProgram:
         return _tiled_forward(self._live_model(), image, self.grid, self.scale, self.batch_size, self.precision)
 
     def _capture(self, image: torch.Tensor) -> None:
-        self._weights = self._live_model().weights(image.dtype)
-        self._in = image.clone()
-        side = torch.cuda.Stream(image.device)
-        side.wait_stream(torch.cuda.current_stream(image.device))
-        with torch.cuda.stream(side):
-            self._run(self._in)
-        torch.cuda.current_stream(image.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        try:
-            with torch.cuda.graph(graph, pool=self.pool):
-                self._out = self._run(self._in)
-            graph.instantiate()
-        except RuntimeError as err:
-            raise RuntimeError(f'CUDA graph capture of the tiled forward failed ({self._live_model().arch_id}, '
-                               f'{image.dtype}, window {self.grid.window}, batch {self.batch_size})') from err
-        self.graph = graph
+        with tracing.span('tile.capture', windows=self.windows, evicted=self.evicted):
+            self._weights = self._live_model().weights(image.dtype)
+            self._in = image.clone()
+            side = torch.cuda.Stream(image.device)
+            side.wait_stream(torch.cuda.current_stream(image.device))
+            with torch.cuda.stream(side):
+                self._run(self._in)
+            torch.cuda.current_stream(image.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            try:
+                with torch.cuda.graph(graph, pool=self.pool):
+                    self._out = self._run(self._in)
+                graph.instantiate()
+            except RuntimeError as err:
+                raise RuntimeError(f'CUDA graph capture of the tiled forward failed ({self._live_model().arch_id}, '
+                                   f'{image.dtype}, window {self.grid.window}, batch {self.batch_size})') from err
+            self.graph = graph
 
     def __call__(self, image: torch.Tensor) -> torch.Tensor:
         if image.device.type != 'cuda':
             out = self._run(image)
         else:
-            if self.graph is None:
+            captured = self.graph is None
+            if captured:
                 self._capture(image)
-            else:
-                self._in.copy_(image)
-            self.graph.replay()
-            self.replays += 1
-            out = self._out if self.mesh is not None else self._out.clone()
+            with tracing.span('tile.replay', lr_px=self.lr_px):
+                if not captured:
+                    self._in.copy_(image)
+                self.graph.replay()
+                self.replays += 1
+                out = self._out if self.mesh is not None else self._out.clone()
         return out if self.mesh is None else _gather_stitch(out, self.grid, self.scale, self.mesh)
 
     def release(self) -> None:
@@ -387,13 +408,15 @@ def _mesh_key(mesh):
     return id(mesh), mesh.device_type, mesh.mesh_dim_names, tuple(mesh.mesh.shape), tuple(mesh.mesh.flatten().tolist())
 
 
-def _program_for(model, grid: TileGrid, scale: int, batch_size: int, dtype: torch.dtype, precision, mesh=None):
+def _program_for(model, grid: TileGrid, scale: int, batch_size: int, dtype: torch.dtype, precision,
+                 mesh=None) -> tuple[TiledProgram, bool]:
     """The LRU-cached :class:`TiledProgram` for a planned grid, at most
     ``_TILED_FN_CACHE_MAX`` a model (serving many image sizes beyond that
-    should pass ``bucket=True``); an evicted program's graph is freed.  The
-    key holds the TF32 settings that ``precision`` leaves in effect (cuDNN's
-    switch and the matmul precision, as they are at this call), since a
-    graph keeps the kernels chosen at its capture, and the mesh."""
+    should pass ``bucket=True``), and whether the cache held it; an evicted
+    program's graph is freed.  The key holds the TF32 settings that
+    ``precision`` leaves in effect (cuDNN's switch and the matmul precision,
+    as they are at this call), since a graph keeps the kernels chosen at its
+    capture, and the mesh."""
     with _precision(precision):
         tf32 = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
     cache = model.__dict__.setdefault('_tiled_fn_cache', OrderedDict())
@@ -406,9 +429,10 @@ def _program_for(model, grid: TileGrid, scale: int, batch_size: int, dtype: torc
         program = cache[key] = TiledProgram(model, grid, scale, batch_size, precision, pool, mesh)
         while len(cache) > _TILED_FN_CACHE_MAX:
             cache.popitem(last=False)[1].release()
-    else:
-        cache.move_to_end(key)
-    return program
+            program.evicted += 1
+        return program, False
+    cache.move_to_end(key)
+    return program, True
 
 
 def _resolve_window(model, tile, halo, dtype, mesh, unroll) -> tuple[int, int, int]:
@@ -456,7 +480,7 @@ def tiled_program(model, h: int, w: int, *, tile: int | None = None, halo: int |
     if planned is None:
         return None, scale
     grid, batch_size = planned
-    return _program_for(model, grid, scale, batch_size, eff_dtype, precision, mesh), scale
+    return _program_for(model, grid, scale, batch_size, eff_dtype, precision, mesh)[0], scale
 
 
 def upscale_tiled(
@@ -498,34 +522,47 @@ def upscale_tiled(
     axis, the batch rounded to a multiple of that axis's size; every rank
     returns the whole image.  Params that ``shard_params`` made ``DTensor``s
     are gathered whole once a compute dtype (``SRModel.weights``)."""
-    tile, halo, scale = _resolve_window(model, tile, halo, dtype, mesh, unroll)
     image = torch.as_tensor(image).to(model.device)
     if image.ndim != 3:
         raise ValueError('upscale_tiled expects an HWC image')
-
     h0, w0, _ = image.shape
-    if bucket:
-        image, _, _ = _pad_to_multiple_hw(image, tile)
-        if image.shape[0] != h0 or image.shape[1] != w0:
-            out = upscale_tiled(model, image, tile=tile, halo=halo, batch_size=batch_size, mesh=mesh, dtype=dtype,
-                                precision=precision, on_device=on_device, unroll=unroll)
-            return out[: h0 * scale, : w0 * scale, :]
+    with tracing.span('tile.request', h=h0, w=w0) as request:
+        with tracing.span('tile.plan') as plan:
+            tile, halo, scale = _resolve_window(model, tile, halo, dtype, mesh, unroll)
+            if bucket:
+                image, _, _ = _pad_to_multiple_hw(image, tile)
+            h, w, _ = image.shape
+            planned = _plan_tiled(model, h, w, tile, halo, batch_size, dtype if dtype is not None else image.dtype,
+                                  mesh)
+            program = None
+            if planned is not None:
+                grid, batch_size = planned
+                if on_device is None or on_device:
+                    program, hit = _program_for(model, grid, scale, batch_size, _compute_dtype(image.dtype, dtype),
+                                                precision, mesh)
+                    plan.set(cache_hit=hit)
+        if planned is None:
+            request.set(path='whole', windows=1, padded_windows=0, batch=1)
+            out = model(image, dtype=dtype, precision=precision)
+        else:
+            windows = len(grid.ys) * len(grid.xs)
+            request.set(path='host_loop' if program is None else 'graph', windows=windows,
+                        padded_windows=-windows % batch_size, batch=batch_size)
+            image = image.float() / 255.0 if image.dtype == torch.uint8 else image
+            image = image.to(_compute_dtype(image.dtype, dtype))
+            if program is not None:
+                out = program(image)
+            elif mesh is not None:
+                out = _gather_stitch(_local_forward(model, image, grid, batch_size, precision, mesh), grid, scale,
+                                     mesh)
+            else:
+                out = _tiled_forward(model, image, grid, scale, batch_size, precision)
+        return out[: h0 * scale, : w0 * scale, :] if (h, w) != (h0, w0) else out
 
-    h, w, _ = image.shape
-    planned = _plan_tiled(model, h, w, tile, halo, batch_size, dtype if dtype is not None else image.dtype, mesh)
-    if planned is None:
-        return model(image, dtype=dtype, precision=precision)
-    grid, batch_size = planned
 
-    if image.dtype == torch.uint8:
-        image = image.float() / 255.0
+def _compute_dtype(image_dtype: torch.dtype, dtype) -> torch.dtype:
+    """The dtype :func:`upscale_tiled` runs an image of ``image_dtype`` in:
+    ``dtype`` when given, else the image's float dtype, else f32."""
     if dtype is not None:
-        image = image.to(as_torch_dtype(dtype))
-    elif image.dtype not in (torch.float32, torch.bfloat16, torch.float16):
-        image = image.float()
-
-    if on_device is None or on_device:
-        return _program_for(model, grid, scale, batch_size, image.dtype, precision, mesh)(image)
-    if mesh is not None:
-        return _gather_stitch(_local_forward(model, image, grid, batch_size, precision, mesh), grid, scale, mesh)
-    return _tiled_forward(model, image, grid, scale, batch_size, precision)
+        return as_torch_dtype(dtype)
+    return image_dtype if image_dtype in (torch.float32, torch.bfloat16, torch.float16) else torch.float32

@@ -29,10 +29,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import tracing
 from .parallel.mesh import axis_size, full_tensor, is_sharded, local_tensor
 
 
-FORWARD_RANGE = 'train_step.forward'  # torch.profiler ranges of a step (the backward lies outside both)
+FORWARD_RANGE = 'train_step.forward'  # the spans (``tracing``) of a step (the backward lies outside both)
 OPTIMIZER_RANGE = 'train_step.optimizer'
 
 
@@ -275,7 +276,7 @@ def make_train_step(
     keeping them.  ``ema_decay`` > 0 keeps an exponential moving average of
     the float params in ``state.ema``.  ``metrics``: the loss and the
     global norm of the gradients before clipping, as 0-d tensors.  The
-    forward runs inside the profiler range :data:`FORWARD_RANGE`, the norm,
+    forward runs inside the span :data:`FORWARD_RANGE`, the norm,
     the update and the EMA inside :data:`OPTIMIZER_RANGE`; the backward
     runs on autograd's threads, outside both.
 
@@ -309,7 +310,7 @@ def make_train_step(
             static = {k: full_tensor(v) for k, v in static.items()}
         leaves = {k: full_tensor(v).detach().requires_grad_(True) for k, v in trainable.items()}
         with torch.enable_grad():
-            with torch.profiler.record_function(FORWARD_RANGE):
+            with tracing.span(FORWARD_RANGE):
                 loss_val = loss_fn(model({**leaves, **static}, lr_batch), hr_batch)
             grads = torch.autograd.grad(loss_val, list(leaves.values()), allow_unused=True)
         grads = {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(leaves.items(), grads)}
@@ -318,7 +319,7 @@ def make_train_step(
             if mesh is not None:
                 grads = _mean_over(grads, dp, dp_group)
                 loss_val = _mean_over({'loss': loss_val}, dp, dp_group)['loss']
-            with torch.profiler.record_function(OPTIMIZER_RANGE):
+            with tracing.span(OPTIMIZER_RANGE):
                 gnorm = global_norm(grads.values())
                 local = {k: _shard_of(grads[k], v) for k, v in trainable.items()}
                 opt_state = optimizer.apply(local, state.opt_state, trainable, norm=gnorm)

@@ -136,7 +136,8 @@ def main(argv=None) -> int:
                              'highest = TF32 off)')
     parser.add_argument('--device', default='cuda', help="torch device to run on (default cuda; 'cpu' runs the plain versions)")
     parser.add_argument('--trace', metavar='DIR', default=None,
-                        help='write a torch.profiler trace of the run to DIR')
+                        help='write a torch.profiler trace of the run, loading included, to DIR, with the '
+                             "library's spans (tile.*, model.*, load.*) as ranges")
     parser.add_argument('-v', '--verbose', action='store_true')
     args = parser.parse_args(argv)
 
@@ -145,6 +146,27 @@ def main(argv=None) -> int:
         format='%(asctime)s %(name)s %(levelname)s %(message)s',
     )
 
+    if not args.trace:
+        return serve(args)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(args.device).type == 'cuda':
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        rc = serve(args)
+    os.makedirs(args.trace, exist_ok=True)
+    path = os.path.join(args.trace, 'resselt_tpu_torch.trace.json')
+    prof.export_chrome_trace(path)
+    logger.info('wrote the profiler trace %s', path)
+    return rc
+
+
+def serve(args) -> int:
+    """The CLI's work on parsed ``args``: load the model, then upscale
+    every input.  ``main`` runs it under the profiler with ``--trace``, so
+    that the trace holds the spans of loading and capture too."""
     import torch
 
     from .nn.window import fused_attention_enabled, use_fused_attention
@@ -277,20 +299,7 @@ def main(argv=None) -> int:
     if args.no_chunked_attention:
         logger.info('--no-chunked-attention has no effect: the port does not chunk attention')
     try:
-        if args.trace:
-            from torch.profiler import ProfilerActivity, profile
-
-            activities = [ProfilerActivity.CPU]
-            if model.device.type == 'cuda':
-                activities.append(ProfilerActivity.CUDA)
-            with profile(activities=activities) as prof:
-                run_all()
-            os.makedirs(args.trace, exist_ok=True)
-            path = os.path.join(args.trace, 'resselt_tpu_torch.trace.json')
-            prof.export_chrome_trace(path)
-            logger.info('wrote the profiler trace %s', path)
-        else:
-            run_all()
+        run_all()
     finally:
         use_fused_attention(switches[0])
         use_fused_lk(switches[1])
