@@ -10,15 +10,21 @@ f32, bf16 and fp16; every model phase holds bf16, fp16 and
 precision='bfloat16' against f32.  Then ESRGAN: kernels (every ESRGAN 3x3
 conv shape and the kernel's other shape classes: every N tile of the wgmma
 path, Cout 3 / 7 / 8, Cin 3 / 12 / 48, ragged H and W, the four
-activations; then kernel / plain / library / bound times), load (a seeded ESRGAN
+activations; then kernel / plain / library / bound times), step_kernels
+(ESRGAN's six producer steps, fused_conv3x3_step with the dense block's
+glue in the epilogue, at the bench shape and at the benchmark's 8 x 264^2,
+in bf16 and fp16 equal bit for bit to the chain of a conv launch and
+PyTorch ops, each launch counted once by its epilogue; step / chain /
+plain conv / bound times in bf16), load (a seeded ESRGAN
 RRDBNet-23 4x checkpoint written as .safetensors and .pth and loaded
 through the public entry points), model (f32 on the card against the CPU,
 351 kernel launches per forward, bf16 against f32), serve (the main path:
 the bench config, batch 16 of 256x256 tiles in bf16, then a tiled 1280x720
 image, then the upscale CLI on a PNG; the launch counts start from 0 just
 before it, the bench forwards must launch 351 convs each, all at shapes the
-kernels phase checked, and each shape's launches per forward are read from
-those forwards' counts), benchmark (resselt_tpu_torch.benchmark on the same
+kernels phase checked, 345 of them producer steps by epilogue kind, and
+each shape's launches per forward are read from those forwards' counts),
+benchmark (resselt_tpu_torch.benchmark on the same
 model: measure_forward at the bench config, its conv3x3 launches 351 x the
 forwards it issued, beside the serve phase's time; measure_tiled and
 measure_tiled_direct on a 1280x720 image), blocks (a small net of
@@ -537,6 +543,90 @@ def phase_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
             row['ms_f32'] = _ms(lambda: entry(x, taps32, b, act=s['act']), reps)
             row['bound_ms_f32'] = bound_ms(s, 'float32')[0]
         del x, xb, x_cl, wb
+        torch.cuda.empty_cache()
+        out.append(row)
+    return out
+
+
+# ESRGAN's RDB producer steps at nf 64, gc 32: (name, cin, cout, addend, split, residuals); stage 4's second
+# row is the last RDB of an RRDB, which also adds the RRDB's input
+STEP_STAGES = (('stage0', 64, 192, False, 32, 0), ('stage1', 32, 160, True, 32, 0), ('stage2', 32, 128, True, 32, 0),
+               ('stage3', 32, 96, True, 32, 0), ('stage4', 32, 64, True, None, 1), ('stage4 rrdb', 32, 64, True, None, 2))
+SERVED_FRAME = (8, 264)  # the batch h100_bench's ESRGAN cells serve: 8 tiles of 264^2 a forward
+
+
+def step_shapes(n: int, tile: int) -> list[dict]:
+    """The six producer steps at a batch of ``n`` ``tile``-square inputs
+    (the serve phase's), and at the benchmark's served shape."""
+    out = []
+    for bn, t in ((n, tile), SERVED_FRAME):
+        for name, cin, cout, addend, split, n_res in STEP_STAGES:
+            kind = ('carry_' if addend else '') + ('split' if split else f'residual{n_res}')
+            out.append({'name': f'{name} {cin}->{cout}', 'n': bn, 'h': t, 'w': t, 'cin': cin, 'cout': cout,
+                        'act': 'linear', 'addend': addend, 'split': split, 'residuals': n_res, 'kind': kind})
+    return out
+
+
+def step_bound_ms(s: dict) -> tuple[float, str]:
+    """Least time for one 16-bit producer step on an H100: :func:`bound_ms`
+    with the addend and residuals read besides."""
+    px = s['n'] * s['h'] * s['w']
+    nbytes = (px * (s['cin'] + s['cout'] * (1 + s['addend'] + s['residuals'])) * 2 + 9 * s['cin'] * s['cout'] * 2
+              + 4 * s['cout'])
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = 2 * px * 9 * s['cin'] * s['cout'] / PEAK_FLOPS['bfloat16'] * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def phase_step_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
+    """Each producer step in bf16 and fp16: ``fused_conv3x3_step`` equal bit
+    for bit to the chain the parent ran (a ``fused_conv3x3_act`` launch,
+    then the glue as PyTorch ops), one launch counted at the conv's key and
+    one by its epilogue kind; then step / chain / plain conv / bound times
+    in bf16."""
+    import torch
+
+    from resselt_tpu_torch.ops import fused_conv as fc
+
+    e = fc.fused_conv3x3_act
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = []
+    for s in shapes:
+        n, h, w, cin, cout = s['n'], s['h'], s['w'], s['cin'], s['cout']
+        x = torch.randn((n, h, w, cin), generator=gen, device=device)
+        wt = torch.randn((cout, cin, 3, 3), generator=gen, device=device) / (3 * cin ** 0.5)
+        b = torch.randn((cout,), generator=gen, device=device) * 0.1
+        extra = [torch.randn((n, h, w, cout), generator=gen, device=device)
+                 for _ in range(s['addend'] + s['residuals'])]
+        row = {'name': s['name'], 'shape': [n, h, w, cin, cout], 'kind': s['kind']}
+        for dt in (torch.bfloat16, torch.float16):
+            xd, taps = x.to(dt), fc.pack_conv3x3_weight(wt, dt)
+            addend = extra[0].to(dt) if s['addend'] else None
+            residuals = tuple(r.to(dt) for r in extra[s['addend']:])
+            key = (n, h, w, cin, cout, 'linear')
+            before = e.launches, e.by_shape[key], e.by_epilogue[s['kind']]
+            got = fc.fused_conv3x3_step(xd, taps, b, addend=addend, split=s['split'], residuals=residuals)
+            torch.cuda.synchronize()
+            if (e.launches, e.by_shape[key], e.by_epilogue[s['kind']]) != tuple(c + 1 for c in before):
+                raise AssertionError(f"step {s['name']} {dt}: counted {before} -> "
+                                     f"{(e.launches, e.by_shape[key], e.by_epilogue[s['kind']])}")
+            want = fc._step_glue(fc.fused_conv3x3_act(xd, taps, b), addend, s['split'], residuals)
+            got, want = (got, want) if s['split'] else ((got,), (want,))
+            diff = max((g.float() - v.float()).abs().max().item() for g, v in zip(got, want))
+            if not all(torch.equal(g, v) for g, v in zip(got, want)):
+                raise AssertionError(f"step {s['name']} {tuple(xd.shape)} {dt}: not the chain's bits, "
+                                     f'max |diff| {diff}')
+            row['max_abs_diff_' + ('bf16' if dt == torch.bfloat16 else 'f16')] = diff
+            if dt == torch.bfloat16:
+                args = (xd, taps, b, addend, s['split'], residuals)
+        xd, taps, b_, addend, split, residuals = args
+        row['ms'] = _ms(lambda: fc.fused_conv3x3_step(xd, taps, b_, addend=addend, split=split,
+                                                      residuals=residuals), reps)
+        row['chain_ms'] = _ms(lambda: fc._step_glue(fc.fused_conv3x3_act(xd, taps, b_), addend, split, residuals),
+                              reps)
+        row['conv_ms'] = _ms(lambda: fc.fused_conv3x3_act(xd, taps, b_), reps)
+        row['bound_ms'], row['bound_by'] = step_bound_ms(s)
+        del x, extra, args, xd, taps, addend, residuals, got, want
         torch.cuda.empty_cache()
         out.append(row)
     return out
@@ -1444,7 +1534,8 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
     hints when None), and a PNG through the CLI.  Every kernel's launch count
     starts from 0 just before the timed bench forwards; their counts are
     read just after them (``bench_counts``, and per kernel path
-    ``bench_paths`` for the wrappers that have several; ``bench_plain``: the
+    ``bench_paths`` for the wrappers that have several, ``bench_epilogues``
+    for the producer steps by epilogue kind; ``bench_plain``: the
     window attentions sent to the plain path, in total and per shape), and
     the whole phase's at its end (``launches``, and per shape ``shapes``).
     ``peak_memory_gb``: the phase's peak device memory."""
@@ -1466,6 +1557,8 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
         e.by_shape.clear()
         if hasattr(e, 'by_path'):
             e.by_path.clear()
+        if hasattr(e, 'by_epilogue'):
+            e.by_epilogue.clear()
     multi_head_attention.plain_calls = 0
     multi_head_attention.plain_by_shape.clear()
     t0 = time.perf_counter()
@@ -1475,6 +1568,7 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
     dt = (time.perf_counter() - t0) / timed_reps
     res['bench_counts'] = {k: (e.launches, dict(e.by_shape)) for k, e in entries.items()}
     res['bench_paths'] = {k: dict(e.by_path) for k, e in entries.items() if hasattr(e, 'by_path')}
+    res['bench_epilogues'] = {k: dict(e.by_epilogue) for k, e in entries.items() if hasattr(e, 'by_epilogue')}
     res['bench_plain'] = (multi_head_attention.plain_calls, dict(multi_head_attention.plain_by_shape))
     s = model.metadata.upscale
     if y.shape != (batch, tile * s, tile * s, 3) or not bool(torch.isfinite(y).all()):
@@ -3006,6 +3100,9 @@ def main() -> int:
     shapes = conv_shapes(BENCH['batch'], BENCH['tile'])
     rows = phase_kernels('cuda', shapes, reps=10)
     log('kernels', f32_tol=F32_TOL, bf16_rtol=BF16_RTOL, bf16_atol=BF16_ATOL, rows=json.dumps(rows))
+    steps = step_shapes(BENCH['batch'], BENCH['tile'])
+    step_rows = phase_step_kernels('cuda', steps, reps=10)
+    log('step_kernels', equal='bit for bit', rows=json.dumps(step_rows))
 
     reps = 5
     with tempfile.TemporaryDirectory() as tmp:
@@ -3024,14 +3121,27 @@ def main() -> int:
         serve.pop('bench_paths')
         serve.pop('bench_plain')
         serve.pop('shapes')
+        epilogues = serve.pop('bench_epilogues')['act']
         launches = serve.pop('launches')['act']
         if launches == 0:
             raise AssertionError('the main path launched no conv3x3 kernel')
         checked = {(r['entry'], shape_key(s)) for r, s in zip(rows, shapes)}
         bench_launches = check_bench_counts(counts, {'act', 'pack2'}, 351, reps, checked)
+        n_rdb = 3 * BENCH['num_blocks']
+        want = {'split': n_rdb, 'carry_split': 3 * n_rdb, 'carry_residual1': n_rdb - BENCH['num_blocks'],
+                'carry_residual2': BENCH['num_blocks']}
+        if epilogues != {k: v * reps for k, v in want.items()} or sum(want.values()) != 345:
+            raise AssertionError(f'producer steps in {reps} bench forwards by epilogue {epilogues}, '
+                                 f'expected {want} each (345)')
+        # a step counts at its conv's key: stages 0-3 are all steps, stage 4's split by kind
+        served = [(r, s) for r, s in zip(step_rows, steps) if (s['n'], s['h']) == (BENCH['batch'], BENCH['tile'])]
+        for r, s in served:
+            r['per_forward'] = (counts['act'][1].get(shape_key(s), 0) if s['split'] else epilogues[s['kind']]) / reps
         for r, s in zip(rows, shapes):
-            r['per_forward'] = counts[r['entry']][1].get(shape_key(s), 0) / reps
-        conv_ms = sum(r['ms'] * r['per_forward'] for r in rows)
+            n_steps = sum(sr['per_forward'] for sr, ss in served if shape_key(ss) == shape_key(s))
+            r['per_forward'] = counts[r['entry']][1].get(shape_key(s), 0) / reps - (n_steps if r['entry'] == 'act'
+                                                                                     else 0)
+        conv_ms = sum(r['ms'] * r['per_forward'] for r in rows) + sum(r['ms'] * r['per_forward'] for r, _ in served)
         log('serve', dtype='bfloat16', batch=BENCH['batch'], tile=BENCH['tile'], launches=launches,
             launches_per_bench_forward=bench_launches / reps, conv_ms_per_bench_forward=conv_ms, **serve)
         t0 = time.perf_counter()

@@ -4,13 +4,15 @@ ESRGAN+ checkpoints.
 Counterpart of ``resselt_tpu/archs/esrgan.py``: the same key remap, config
 inference and serving hints, and the same producer-decomposed RDB.  Every
 3x3 conv runs through ``ops.fused_conv3x3_act`` (351 launches per 4x
-forward of RRDBNet-23).  Its weights are repacked for the kernel once per
-compute dtype (``prepare``), the RDB producer weights and biases
-concatenated there rather than on every forward.  A quantized model's int8
-convs (``SRModel.quantize_int8``) run ``F.conv2d_int8`` instead, the RDB's
-as JAX's ``_rdb`` int8 path: one concatenated int8 conv a stage when all
-five producer weights are int8, the int8 members dequantized (exact) when
-they are mixed with float ones.
+forward of RRDBNet-23); in the served 16-bit forward each RDB producer runs
+``ops.fused_conv3x3_step`` instead, with the block's glue (carry, lrelu'd
+feature, residuals) in the kernel's epilogue and the chain's bits.  Its
+weights are repacked for the kernel once per compute dtype (``prepare``),
+the RDB producer weights and biases concatenated there rather than on
+every forward.  A quantized model's int8 convs (``SRModel.quantize_int8``)
+run ``F.conv2d_int8`` instead, the RDB's as JAX's ``_rdb`` int8 path: one
+concatenated int8 conv a stage when all five producer weights are int8, the
+int8 members dequantized (exact) when they are mixed with float ones.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ..core.state_dict import get_seq_len
 from ..nn import functional as F
 from ..nn.params import PTree
 from ..ops.conv_route import conv, prepare_conv, prepare_named_conv
+from ..ops.fused_conv import conv3x3_step_takes, fused_conv3x3_step
 
 
 @dataclass(frozen=True)
@@ -200,7 +203,44 @@ def _rdb(rw: dict, x, plus: bool):
     return (a * 0.2 + x).contiguous()
 
 
+def _rdb_steps(rw: dict, x, outer=None):
+    """``_rdb`` (not plus) as five ``fused_conv3x3_step`` launches, each
+    producer's glue in its epilogue: the lrelu'd feature and the carry
+    split off the first four, the residual added by the last, and with
+    ``outer`` (the RRDB's input) also ``_rrdb``'s ``out * 0.2 + outer``."""
+    gc = rw['gc']
+    first, *middle, last = rw['producers']
+    f, a = fused_conv3x3_step(x, first.w, first.b, split=gc)
+    for p in middle:
+        f, a = fused_conv3x3_step(f, p.w, p.b, addend=a, split=gc)
+    return fused_conv3x3_step(f, last.w, last.b, addend=a, residuals=(x,) if outer is None else (x, outer))
+
+
+def _fuses(rws, x, plus: bool) -> bool:
+    """Whether an RRDB runs as producer steps (``_rdb_steps``): 16-bit
+    ``x``, every producer a routed kernel conv (not int8), no ESRGAN+
+    conv1x1, nothing for autograd to record (the served forward runs
+    under ``no_grad``), and on the card every producer a shape the step
+    kernel takes (``conv3x3_step_takes``: its wgmma path, Cout and gc
+    multiples of 8).  Training, int8, ESRGAN+, f32 and the other widths
+    run the chain of ``_rdb``."""
+    convs = [c for rw in rws for c in rw['producers']]
+    if plus or x.dtype not in (torch.bfloat16, torch.float16) or not all(c.kernel for c in convs):
+        return False
+    operands = [x] + [t for c in convs for t in (c.w, c.b) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return False
+    return x.device.type == 'cpu' or all(
+        conv3x3_step_takes(c.shape[1], c.shape[0], rw['gc'] if j < 4 else None)
+        for rw in rws for j, c in enumerate(rw['producers']))
+
+
 def _rrdb(rws, x, plus: bool):
+    if _fuses(rws, x, plus):
+        out = x
+        for i, rw in enumerate(rws):
+            out = _rdb_steps(rw, out, x if i == len(rws) - 1 else None)
+        return out
     out = x
     for rw in rws:
         out = _rdb(rw, out, plus)

@@ -60,9 +60,21 @@
 //    (with_act): left as a switch per element, the compiler evaluated the
 //    transcendental branches for every output and the epilogue took four
 //    times as long as the products.
+//  * A producer step of ESRGAN's dense block (resselt_conv3x3_step_*, a
+//    template flag EPI of the same kernel) takes the block's glue into the
+//    copy to global memory: the conv's rounded output plus a carry, then
+//    either split into lrelu(channels [0, split)) and channels [split,
+//    Cout), two contiguous tensors, or scaled by 0.2 and added to one or two
+//    residuals.  Unfused, that glue is about 2,000 bf16 elements of strided
+//    elementwise traffic per pixel and dense block, more than the convs
+//    move; fused, the conv's output is never written and read back.  Each
+//    value is rounded where the chain of PyTorch ops rounds it, so the
+//    outputs are the chain's bit for bit.
 // ptxas (CUDA 12.8, sm_90a) for the wgmma kernel: 152 registers at NT = 96
-// (96 of them accumulators), 142 at 80, 118 at 64, 76 at 8; 0 bytes of
-// spills in every instantiation; 1 block of 256 threads per SM at Cin 64
+// (96 of them accumulators), 142 at 80, 118 at 64, 76 at 8; with the
+// producer step's epilogues (bf16) 222 / 194 / 123 (EPI_SPLIT) and 255 / 230
+// / 125 (EPI_RESIDUAL) at NT = 96 / 80 / 64; 0 bytes of spills in every
+// instantiation; 1 block of 256 threads per SM at Cin 64
 // (175-221 KB of shared memory), 2 at Cin 32 and NT <= 64.  On an H100 the
 // products of a tile run close to the tensor cores' rate; what this leaves
 // on the table is that the three phases of a tile (starting the next halo's
@@ -378,11 +390,111 @@ __host__ __device__ inline size_t wg_smem_bytes(int cin, int nt) {
            (size_t)nt * 4;
 }
 
-template <typename T, int NT>
+// What the wgmma kernel writes: act(conv + bias) (EPI_NONE), or a dense
+// block's producer step, z = round(round(conv + bias) + addend) (no addend:
+// the first rounding alone) followed by the split (EPI_SPLIT: y =
+// round(lrelu_0.2(z)) of channels [0, split), carry = z of [split, Cout)) or
+// the residuals (EPI_RESIDUAL: r = round(round(0.2 z) + res), then the same
+// with res2 where given; y = r).
+enum Epi { EPI_NONE = 0, EPI_SPLIT = 1, EPI_RESIDUAL = 2 };
+
+template <typename T>
+struct StepArgs {
+    const T* addend;  // (N, H, W, Cout) or null
+    const T* res;     // EPI_RESIDUAL: (N, H, W, Cout)
+    const T* res2;    // EPI_RESIDUAL: (N, H, W, Cout) or null
+    T* carry;         // EPI_SPLIT: (N, H, W, Cout - split); y is (N, H, W, split)
+    int split;
+};
+
+__device__ __forceinline__ void prefetch_l2(const void* p) { asm volatile("prefetch.global.L2 [%0];" ::"l"(p)); }
+
+// 8 values of a 16-byte piece, f applied to the pairs of a and b, each
+// result rounded to T
+template <typename T, class F>
+__device__ __forceinline__ uint32_t map2(uint32_t a, uint32_t b, F f) {
+    const float2 fa = Half16<T>::unpack(a), fb = Half16<T>::unpack(b);
+    return Half16<T>::pack(f(fa.x, fb.x), f(fa.y, fb.y));
+}
+
+template <typename T, class F>
+__device__ __forceinline__ uint4 map8(uint4 a, uint4 b, F f) {
+    return make_uint4(map2<T>(a.x, b.x, f), map2<T>(a.y, b.y, f), map2<T>(a.z, b.z, f), map2<T>(a.w, b.w, f));
+}
+
+// One warp's staged rows (16 pixels x ncols channels of round(conv + bias),
+// row pl at ow + pl * OS) to a producer step's outputs, in 16-byte pieces of
+// 8 channels: the launcher takes only Cout and split that are multiples of
+// 8 and 16-byte aligned tensors, so no piece straddles the split.  A lane
+// loads the global operands of BATCH pieces before it computes and stores
+// them: at NT > 64 all its pieces (one wait a staged row, not one a piece; a
+// block has the SM's registers to itself), at NT <= 64 two at a time, since
+// two blocks share the SM's registers (held to 128, the loads of all four
+// spilled) and either block's products cover the other's wait.  The tile's
+// operands were sent towards L2 before its products (prefetch_l2), so the
+// wait is L2's.
+template <typename T, int NT, int EPI>
+__device__ __forceinline__ void store_step(const T* ow, int OS, const StepArgs<T>& st, T* __restrict__ y,
+                                           size_t img0, int H, int W, int Cout, int co0, int ncols, int oyb, int ox0,
+                                           int lane) {
+    constexpr int PIECES = (16 * (NT / 8) + 31) / 32;  // at most, a lane
+    constexpr int BATCH = NT <= 64 ? 2 : PIECES;
+    const int nv = ncols / 8;
+    const auto add = [](float p, float q) { return __fadd_rn(p, q); };
+    const auto fifth = [](float p, float) { return __fmul_rn(p, 0.2f); };
+    // piece k of this lane: its pixel (img0 + oy * W + ox) and channel, or false past the image or the slice
+    const auto piece = [&](int k, size_t& px, int& c) {
+        const int i = lane + 32 * k;
+        const int v = i % nv, pl = i / nv;
+        const int oy = oyb + (pl >> 3), ox = ox0 + (pl & 7);
+        px = img0 + (size_t)oy * W + ox;
+        c = co0 + v * 8;
+        return k < PIECES && i < 16 * nv && oy < H && ox < W;
+    };
+#pragma unroll 1
+    for (int k0 = 0; k0 < PIECES; k0 += BATCH) {
+        uint4 a[BATCH], r[BATCH], r2[BATCH];
+#pragma unroll
+        for (int k = 0; k < BATCH; ++k) {
+            size_t px;
+            int c;
+            if (!piece(k0 + k, px, c)) continue;
+            const size_t at = px * Cout + c;
+            if (st.addend != nullptr) a[k] = __ldg(reinterpret_cast<const uint4*>(st.addend + at));
+            if constexpr (EPI == EPI_RESIDUAL) {
+                r[k] = __ldg(reinterpret_cast<const uint4*>(st.res + at));
+                if (st.res2 != nullptr) r2[k] = __ldg(reinterpret_cast<const uint4*>(st.res2 + at));
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < BATCH; ++k) {
+            size_t px;
+            int c;
+            if (!piece(k0 + k, px, c)) continue;
+            const int pl = (lane + 32 * (k0 + k)) / nv;
+            uint4 z = *reinterpret_cast<const uint4*>(ow + pl * OS + (c - co0));
+            if (st.addend != nullptr) z = map8<T>(z, a[k], add);
+            if constexpr (EPI == EPI_SPLIT) {
+                if (c < st.split) {
+                    const auto lrelu = [](float p, float) { return p >= 0.f ? p : __fmul_rn(p, 0.2f); };
+                    *reinterpret_cast<uint4*>(y + px * st.split + c) = map8<T>(z, z, lrelu);
+                } else {
+                    *reinterpret_cast<uint4*>(st.carry + px * (Cout - st.split) + (c - st.split)) = z;
+                }
+            } else {
+                z = map8<T>(map8<T>(z, z, fifth), r[k], add);
+                if (st.res2 != nullptr) z = map8<T>(map8<T>(z, z, fifth), r2[k], add);
+                *reinterpret_cast<uint4*>(y + px * Cout + c) = z;
+            }
+        }
+    }
+}
+
+template <typename T, int NT, int EPI>
 __global__ void __launch_bounds__(THREADS, NT <= 64 ? 2 : 1)
 conv3x3_wgmma_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
                      T* __restrict__ y, int H, int W, int Cin, int Cout, int tiles_x, int tiles_y, int num_tiles,
-                     int act, int vec_w, int vec_y) {
+                     int act, int vec_w, int vec_y, StepArgs<T> st) {
     using HT = Half16<T>;
     extern __shared__ __align__(128) unsigned char smem[];
     const int ncg = Cin / 8;
@@ -492,6 +604,19 @@ conv3x3_wgmma_kernel(const T* __restrict__ x, const T* __restrict__ w, const flo
             }
         }
         wgmma_commit();
+        if constexpr (EPI != EPI_NONE) {
+            // this tile's epilogue operands on their way into L2 while the products run: a thread a pixel
+            const int tx = t % tiles_x, ty = (t / tiles_x) % tiles_y, n = t / (tiles_x * tiles_y);
+            const int oy = ty * TH + tid / TW, ox = tx * TW + tid % TW;
+            const T* const operands[3] = {st.addend, st.res, st.res2};
+#pragma unroll
+            for (int q = 0; q < 3; ++q) {
+                if (operands[q] == nullptr || oy >= H || ox >= W) continue;
+                const T* p = operands[q] + (((size_t)n * H + oy) * W + ox) * Cout + co0;
+                for (int c = 0; c < ncols; c += 64) prefetch_l2(p + c);  // 128-byte lines
+                prefetch_l2(p + ncols - 1);
+            }
+        }
         wgmma_wait<0>();
         fence_registers(acc[0]);
         fence_registers(acc[1]);
@@ -502,7 +627,7 @@ conv3x3_wgmma_kernel(const T* __restrict__ x, const T* __restrict__ w, const flo
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
             // m64 row r = 16 wq + g (+ 8) is pixel (r / 8, r % 8) of the 8x8 patch
-            with_act(act, [&](auto act_c) {
+            const auto stage_rows = [&](auto act_c) {
                 constexpr int ACT = decltype(act_c)::value;
 #pragma unroll
                 for (int j = 0; j < NT / 8; ++j) {
@@ -513,11 +638,15 @@ conv3x3_wgmma_kernel(const T* __restrict__ x, const T* __restrict__ w, const flo
                     *reinterpret_cast<uint32_t*>(ow + (8 + g) * OS + c) =
                         HT::pack(activate(acc[mt][4 * j + 2] + b0, ACT), activate(acc[mt][4 * j + 3] + b1, ACT));
                 }
-            });
+            };
+            if constexpr (EPI == EPI_NONE) with_act(act, stage_rows);
+            else stage_rows(ActConst<ACT_LINEAR>{});
             __syncwarp();
             const int oyb = ty * TH + mt * 8 + 2 * wq;
             T* yn = y + (size_t)n * H * W * Cout + co0;
-            if (vec_y) {
+            if constexpr (EPI != EPI_NONE) {
+                store_step<T, NT, EPI>(ow, OS, st, y, (size_t)n * H * W, H, W, Cout, co0, ncols, oyb, ox0, lane);
+            } else if (vec_y) {
                 const int nv = ncols / 8;
                 for (int i = lane; i < 16 * nv; i += 32) {
                     const int v = i % nv, pl = i / nv;
@@ -550,11 +679,11 @@ int num_sms() {
     return sms;
 }
 
-template <typename T, int NT>
+template <typename T, int NT, int EPI>
 cudaError_t launch_wgmma(const T* x, const T* w, const float* b, T* y, int n, int h, int wd, int cin, int cout,
-                         int n_split, int act, cudaStream_t stream) {
+                         int n_split, int act, const StepArgs<T>& st, cudaStream_t stream) {
     const size_t smem = wg_smem_bytes(cin, NT);
-    auto kernel = conv3x3_wgmma_kernel<T, NT>;
+    auto kernel = conv3x3_wgmma_kernel<T, NT, EPI>;
     // the attribute and the occupancy of this kernel at this size, asked once
     static size_t known_smem = 0;
     static int known_per_sm = 0;
@@ -575,8 +704,43 @@ cudaError_t launch_wgmma(const T* x, const T* w, const float* b, T* y, int n, in
     const int vec_w = (cout % 8 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
     const int vec_y = (cout % 8 == 0) && (reinterpret_cast<uintptr_t>(y) % 16 == 0);
     kernel<<<dim3(gx, n_split), THREADS, smem, stream>>>(x, w, b, y, h, wd, cin, cout, tiles_x, tiles_y, (int)tiles,
-                                                          act, vec_w, vec_y);
+                                                          act, vec_w, vec_y, st);
     return cudaGetLastError();
+}
+
+template <typename T, int EPI>
+int launch_wgmma_nt(int nt, const T* x, const T* w, const float* b, T* y, int n, int h, int wd, int cin, int cout,
+                    int n_split, int act, const StepArgs<T>& st, cudaStream_t s) {
+    switch (nt) {
+        case 8: return (int)launch_wgmma<T, 8, EPI>(x, w, b, y, n, h, wd, cin, cout, n_split, act, st, s);
+        case 16: return (int)launch_wgmma<T, 16, EPI>(x, w, b, y, n, h, wd, cin, cout, n_split, act, st, s);
+        case 32: return (int)launch_wgmma<T, 32, EPI>(x, w, b, y, n, h, wd, cin, cout, n_split, act, st, s);
+        case 48: return (int)launch_wgmma<T, 48, EPI>(x, w, b, y, n, h, wd, cin, cout, n_split, act, st, s);
+        case 64: return (int)launch_wgmma<T, 64, EPI>(x, w, b, y, n, h, wd, cin, cout, n_split, act, st, s);
+        case 80: return (int)launch_wgmma<T, 80, EPI>(x, w, b, y, n, h, wd, cin, cout, n_split, act, st, s);
+        default: return (int)launch_wgmma<T, 96, EPI>(x, w, b, y, n, h, wd, cin, cout, n_split, act, st, s);
+    }
+}
+
+// The wgmma kernel's plan for a 16-bit conv of Cin -> Cout: Cout split into
+// the fewest equal slices of at most 96 channels whose weights fit shared
+// memory beside the halo ring, NT the N tile of a slice.  Returns the number
+// of slices, or 0 where Cin is no multiple of 16 or no slicing fits (the
+// mma.sync kernel's shapes).
+int wgmma_plan(int cin, int cout, int* nt_out) {
+    if (cin % 16 != 0) return 0;
+    static const int kNT[] = {8, 16, 32, 48, 64, 80, 96};
+    for (int n_split = (cout + 95) / 96; n_split <= (cout + 7) / 8 && n_split <= 65535; ++n_split) {
+        const int slice = (cout + n_split - 1) / n_split;
+        int nt = 96;
+        for (int i = 6; i >= 0; --i)
+            if (kNT[i] >= slice) nt = kNT[i];
+        if ((long long)nt * (n_split - 1) >= cout) continue;  // a slice would be empty
+        if (wg_smem_bytes(cin, nt) > (size_t)SMEM_MAX) continue;
+        *nt_out = nt;
+        return n_split;
+    }
+    return 0;
 }
 
 dim3 grid_for(int n, int h, int w, int cout, int* n_cb) {
@@ -605,26 +769,9 @@ int launch_h16(const void* xv, const void* wv, const void* bv, void* yv, int n, 
     const float* b = static_cast<const float*>(bv);
     T* y = static_cast<T*>(yv);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (cin % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
-        static const int kNT[] = {8, 16, 32, 48, 64, 80, 96};
-        for (int n_split = (cout + 95) / 96; n_split <= (cout + 7) / 8 && n_split <= 65535; ++n_split) {
-            const int slice = (cout + n_split - 1) / n_split;
-            int nt = 96;
-            for (int i = 6; i >= 0; --i)
-                if (kNT[i] >= slice) nt = kNT[i];
-            if ((long long)nt * (n_split - 1) >= cout) continue;  // a slice would be empty
-            if (wg_smem_bytes(cin, nt) > (size_t)SMEM_MAX) continue;
-            switch (nt) {
-                case 8: return (int)launch_wgmma<T, 8>(x, w, b, y, n, h, wd, cin, cout, n_split, act, s);
-                case 16: return (int)launch_wgmma<T, 16>(x, w, b, y, n, h, wd, cin, cout, n_split, act, s);
-                case 32: return (int)launch_wgmma<T, 32>(x, w, b, y, n, h, wd, cin, cout, n_split, act, s);
-                case 48: return (int)launch_wgmma<T, 48>(x, w, b, y, n, h, wd, cin, cout, n_split, act, s);
-                case 64: return (int)launch_wgmma<T, 64>(x, w, b, y, n, h, wd, cin, cout, n_split, act, s);
-                case 80: return (int)launch_wgmma<T, 80>(x, w, b, y, n, h, wd, cin, cout, n_split, act, s);
-                default: return (int)launch_wgmma<T, 96>(x, w, b, y, n, h, wd, cin, cout, n_split, act, s);
-            }
-        }
-    }
+    int nt = 0;
+    const int n_split = reinterpret_cast<uintptr_t>(x) % 16 == 0 ? wgmma_plan(cin, cout, &nt) : 0;
+    if (n_split > 0) return launch_wgmma_nt<T, EPI_NONE>(nt, x, w, b, y, n, h, wd, cin, cout, n_split, act, {}, s);
     if (grid_too_large(n, h, cout)) return (int)cudaErrorInvalidValue;
     int n_cb;
     const dim3 grid = grid_for(n, h, wd, cout, &n_cb);
@@ -632,6 +779,37 @@ int launch_h16(const void* xv, const void* wv, const void* bv, void* yv, int n, 
     const int vec_w = (cout % 8 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
     conv3x3_mma_kernel<T><<<grid, THREADS, 0, s>>>(x, w, b, y, h, wd, cin, cout, n_cb, act, vec_x, vec_w);
     return (int)cudaGetLastError();
+}
+
+// A producer step takes the wgmma kernel, 16-byte pieces and no piece across
+// the split: Cout and split multiples of 8, 0 <= split < Cout (0: the
+// residual epilogue).  Returns the plan's slices (0: not taken).
+int step_plan(int cin, int cout, int split, int* nt) {
+    if (cout % 8 != 0 || split % 8 != 0 || split < 0 || split >= cout) return 0;
+    return wgmma_plan(cin, cout, nt);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename T>
+int launch_step(const void* xv, const void* wv, const void* bv, const void* addend, const void* res,
+                const void* res2, void* yv, void* carry, int n, int h, int wd, int cin, int cout, int split,
+                void* stream) {
+    int nt = 0;
+    const int n_split = bad_shape(n, h, wd, cin, cout, ACT_LINEAR) ? 0 : step_plan(cin, cout, split, &nt);
+    const bool operands = split > 0 ? carry != nullptr && aligned16(carry) : res != nullptr && aligned16(res);
+    if (n_split == 0 || !operands || !aligned16(xv) || !aligned16(wv) || !aligned16(yv) || !aligned16(addend) ||
+        !aligned16(res2))
+        return (int)cudaErrorInvalidValue;
+    const StepArgs<T> st{static_cast<const T*>(addend), static_cast<const T*>(res), static_cast<const T*>(res2),
+                         static_cast<T*>(carry), split};
+    const T* x = static_cast<const T*>(xv);
+    const T* w = static_cast<const T*>(wv);
+    const float* b = static_cast<const float*>(bv);
+    T* y = static_cast<T*>(yv);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (split > 0) return launch_wgmma_nt<T, EPI_SPLIT>(nt, x, w, b, y, n, h, wd, cin, cout, n_split, ACT_LINEAR, st, s);
+    return launch_wgmma_nt<T, EPI_RESIDUAL>(nt, x, w, b, y, n, h, wd, cin, cout, n_split, ACT_LINEAR, st, s);
 }
 
 }  // namespace
@@ -657,4 +835,29 @@ extern "C" int resselt_conv3x3_bf16(const void* x, const void* w, const void* b,
 extern "C" int resselt_conv3x3_f16(const void* x, const void* w, const void* b, void* y, int n, int h,
                                    int wd, int cin, int cout, int act, void* stream) {
     return launch_h16<__half>(x, w, b, y, n, h, wd, cin, cout, act, stream);
+}
+
+// A producer step of ESRGAN's dense block (see Epi): x (N, H, W, Cin) -> with
+// split > 0, y (N, H, W, split) and carry (N, H, W, Cout - split); with
+// split 0, y (N, H, W, Cout) from res and, where not null, res2.  addend
+// may be null.  Every tensor contiguous and 16-byte aligned.  Shapes that
+// resselt_conv3x3_step_takes refuses return cudaErrorInvalidValue and
+// launch nothing.
+extern "C" int resselt_conv3x3_step_bf16(const void* x, const void* w, const void* b, const void* addend,
+                                         const void* res, const void* res2, void* y, void* carry, int n, int h,
+                                         int wd, int cin, int cout, int split, void* stream) {
+    return launch_step<__nv_bfloat16>(x, w, b, addend, res, res2, y, carry, n, h, wd, cin, cout, split, stream);
+}
+
+extern "C" int resselt_conv3x3_step_f16(const void* x, const void* w, const void* b, const void* addend,
+                                        const void* res, const void* res2, void* y, void* carry, int n, int h,
+                                        int wd, int cin, int cout, int split, void* stream) {
+    return launch_step<__half>(x, w, b, addend, res, res2, y, carry, n, h, wd, cin, cout, split, stream);
+}
+
+// 1 where a producer step of Cin -> Cout with this split runs on the
+// wgmma kernel (the bf16 and fp16 entries above launch it), else 0.
+extern "C" int resselt_conv3x3_step_takes(int cin, int cout, int split) {
+    int nt = 0;
+    return step_plan(cin, cout, split, &nt) > 0;
 }

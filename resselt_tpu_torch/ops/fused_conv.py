@@ -10,7 +10,11 @@ kernel launches in its ``launches`` attribute, and per shape in its
 ``by_shape`` Counter: ``(n, h, w, cin, cout, act)`` for the 3x3 wrappers,
 ``(n, h, w, cin, cout, k, act)`` for ``fused_conv_lk``, which also counts
 ``(that key, path)`` in ``by_path``: the path csrc/conv_lk.cu took for
-the shape (:data:`LK_PATHS` in 16 bits), or 'f32'.
+the shape (:data:`LK_PATHS` in 16 bits), or 'f32'.  ESRGAN's dense-block
+producer step (:func:`fused_conv3x3_step`: the conv with the block's glue
+in the kernel's epilogue) counts as a launch of ``fused_conv3x3_act`` at
+the conv's key, act ``'linear'``, and by epilogue kind in its
+``by_epilogue`` Counter.
 
 Weights are either torch OIHW ``(Cout, Cin, k, k)`` or already packed into
 ``(k*k, Cin, Cout)`` taps in the input's dtype (:func:`pack_conv3x3_weight`,
@@ -35,6 +39,7 @@ the transposed shape, act 'linear'; the recompute: the forward's shape, act
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 
 import torch
@@ -137,6 +142,11 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.resselt_conv3x3_f32, lib.resselt_conv3x3_bf16, lib.resselt_conv3x3_f16):
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        for fn in (lib.resselt_conv3x3_step_bf16, lib.resselt_conv3x3_step_f16):
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.resselt_conv3x3_step_takes.argtypes = [ctypes.c_int] * 3
+        lib.resselt_conv3x3_step_takes.restype = ctypes.c_int
         lib._resselt_typed = True
     return lib
 
@@ -303,6 +313,7 @@ def fused_conv3x3_act(x, w, b=None, act: str = 'linear') -> torch.Tensor:
 
 fused_conv3x3_act.launches = 0
 fused_conv3x3_act.by_shape = Counter()
+fused_conv3x3_act.by_epilogue = Counter()  # fused_conv3x3_step's launches by epilogue kind
 fused_conv3x3_act.backward_launches = 0
 fused_conv3x3_act.backward_by_shape = Counter()
 fused_conv3x3_act.backward_conv2d_input = Counter()
@@ -329,6 +340,112 @@ fused_conv3x3_pack2.by_shape = Counter()
 fused_conv3x3_pack2.backward_launches = 0
 fused_conv3x3_pack2.backward_by_shape = Counter()
 fused_conv3x3_pack2.backward_conv2d_input = Counter()
+
+
+# -- a dense block's producer step (ESRGAN's RDB) ------------------------------
+
+
+def _step_glue(z: torch.Tensor, addend, split: int | None, residuals) -> torch.Tensor | tuple:
+    """What a producer step does after its conv ``z``, as the unfused chain
+    of ops does it (the plain version's glue), each op rounding to ``z``'s
+    dtype: ``z + addend``, then ``(lrelu_0.2(z[..., :split]), z[...,
+    split:])`` or ``z * 0.2 + r`` for each residual ``r`` in turn."""
+    if addend is not None:
+        z = z + addend
+    if split is not None:
+        return TF.leaky_relu(z[..., :split], 0.2), z[..., split:]
+    for r in residuals:
+        z = z * 0.2 + r
+    return z
+
+
+def fused_conv3x3_step_ref(x, w, b=None, *, addend=None, split=None, residuals=()):
+    """Plain version of :func:`fused_conv3x3_step`: the conv's plain version
+    (rounded once, after the bias), then :func:`_step_glue`."""
+    return _step_glue(_conv_ref(x, w, 3, b, 'linear'), addend, split, residuals)
+
+
+@functools.lru_cache(maxsize=None)
+def conv3x3_step_takes(cin: int, cout: int, split: int | None) -> bool:
+    """Whether a 16-bit producer step of Cin -> Cout (with ``split``, or
+    None for the residuals) runs on csrc/conv3x3.cu's wgmma kernel with the
+    glue in its epilogue: the kernel's own plan (``resselt_conv3x3_step_takes``:
+    the shapes of its wgmma path, Cout and split multiples of 8).  Needs the
+    built kernel."""
+    return bool(_lib().resselt_conv3x3_step_takes(cin, cout, split or 0))
+
+
+def _launch_step(x: torch.Tensor, taps: torch.Tensor, b, addend, split, residuals, kind: str):
+    """One launch of the step's kernel on the current stream, counted as
+    the conv's launch (``launches``, ``by_shape``) and by its epilogue's
+    ``kind`` (``by_epilogue``)."""
+    n, h, wd, cin = x.shape
+    cout = taps.shape[2]
+    y = torch.empty((n, h, wd, cout if split is None else split), dtype=x.dtype, device=x.device)
+    carry = None if split is None else torch.empty((n, h, wd, cout - split), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y if carry is None else (y, carry)
+    res, res2 = (*residuals, None, None)[:2]
+    fn = getattr(_lib(), 'resselt_conv3x3_step_' + _ENTRY_SUFFIX[x.dtype])
+    ptrs = [None if t is None else t.data_ptr() for t in (x, taps, b, addend, res, res2, y, carry)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(*ptrs, n, h, wd, cin, cout, split or 0, stream)
+    if rc != 0:
+        raise RuntimeError(f'conv3x3 step launch failed: CUDA error {rc} '
+                           f'(x {tuple(x.shape)} {x.dtype}, cout {cout}, {kind})')
+    _count(fused_conv3x3_act, (n, h, wd, cin, cout, 'linear'), False)
+    fused_conv3x3_act.by_epilogue[kind] += 1
+    return y if carry is None else (y, carry)
+
+
+def fused_conv3x3_step(x, w, b=None, *, addend=None, split=None, residuals=()):
+    """One producer step of ESRGAN's dense block (``archs/esrgan.py``): the
+    conv ``z = conv3x3(x, w) + b`` of NHWC ``x``, rounded to its dtype, plus
+    ``addend`` where given, then with ``split`` the pair ``(lrelu_0.2(z[...,
+    :split]), z[..., split:])``, else ``z * 0.2 + r`` for each of the one or
+    two ``residuals`` in turn; each op rounds where the unfused chain rounds
+    (:func:`_step_glue`), so the result is the chain's bit for bit.
+    ``addend`` and the residuals: ``(n, h, w, Cout)`` in ``x``'s dtype.
+
+    On the card it is one launch of ``csrc/conv3x3.cu`` with the glue in its
+    epilogue and contiguous outputs, counted in ``fused_conv3x3_act.launches``
+    and ``.by_shape`` under the conv's key ``(n, h, w, cin, cout, 'linear')``
+    and in ``.by_epilogue`` under its kind (``split``, ``carry_split``,
+    ``carry_residual1``, ``carry_residual2``: ``carry`` where it takes an
+    addend).  It takes a 16-bit step of a shape :func:`conv3x3_step_takes`
+    with 16-byte aligned operands, and raises on any other: the caller
+    decides, and runs :func:`fused_conv3x3_act` and the ops there.  On the
+    CPU: the plain version, any float dtype and shape.  It carries no
+    gradient, and raises where autograd would record one."""
+    if (split is None) == (len(residuals) == 0) or len(residuals) > 2:
+        raise ValueError('a producer step takes a split or one or two residuals')
+    operands = (x, w, b, addend, *residuals)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in operands):
+        raise ValueError('fused_conv3x3_step carries no gradient: run fused_conv3x3_act and the ops under grad')
+    if x.ndim != 4:
+        raise ValueError(f'a producer step takes NHWC (N, H, W, C), got shape {tuple(x.shape)}')
+    x = x.contiguous()
+    n, h, wd, cin = x.shape
+    cout = w.shape[0] if w.ndim == 4 else w.shape[-1]
+    for t in (addend, *residuals):
+        if t is not None and (tuple(t.shape) != (n, h, wd, cout) or t.dtype != x.dtype or t.device != x.device):
+            raise ValueError(f'addend and residuals must be ({n}, {h}, {wd}, {cout}) {x.dtype} on {x.device}, '
+                             f'got {tuple(t.shape)} {t.dtype} on {t.device}')
+    if split is not None and not 0 < split < cout:
+        raise ValueError(f'split must lie in (0, {cout}), got {split}')
+    if x.device.type == 'cpu':
+        return fused_conv3x3_step_ref(x, w, b, addend=addend, split=split, residuals=residuals)
+    if x.dtype not in (torch.bfloat16, torch.float16) or not conv3x3_step_takes(cin, cout, split):
+        raise ValueError(f'no step kernel for a {x.dtype} conv of Cin {cin} -> Cout {cout}, split {split}: '
+                         'run fused_conv3x3_act and the ops')
+    addend = None if addend is None else addend.contiguous()
+    residuals = tuple(r.contiguous() for r in residuals)
+    taps, b32 = _kernel_weights(x, w, 3, b)
+    if any(t.data_ptr() % 16 for t in (x, taps, *residuals) + (() if addend is None else (addend,))):
+        raise ValueError('a producer step takes 16-byte aligned operands')
+    kind = ('carry_' if addend is not None else '') + ('split' if split is not None else f'residual{len(residuals)}')
+    return _launch_step(x, taps, b32, addend, split, residuals, kind)
 
 
 # -- large-kernel conv (PLKSR's partial conv) ---------------------------------

@@ -2,9 +2,12 @@
 state dicts, on the CPU in f32, with test_conv_archs.py's TOL (5e-4):
 scales 1/2/4, the plus variant, pixel-unshuffle checkpoints, both new-arch
 key spellings and a params_ema wrapper; plus params_from_numpy carrying a
-JAX model's params across."""
+JAX model's params across.  The served 16-bit forward's producer steps
+(``fused_conv3x3_step``) against the chain of ops they replace: bit for
+bit, and which forwards take them."""
 
 import re
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -13,7 +16,9 @@ import torch
 import resselt_tpu
 import resselt_tpu_torch
 from resselt_tpu.zoo import make_esrgan as jax_make_esrgan
+from resselt_tpu_torch.archs import esrgan as E
 from resselt_tpu_torch.core import ModelMetadata, params_from_numpy
+from resselt_tpu_torch.ops import conv_route as cr
 from resselt_tpu_torch.zoo import make_esrgan
 
 
@@ -171,3 +176,84 @@ def test_with_config_and_registry():
         resselt_tpu_torch.get('nope')
     with pytest.raises(resselt_tpu_torch.ArchitectureNotFound):
         resselt_tpu_torch.load_from_state_dict({'foo.weight': np.zeros(3, np.float32)}, device='cpu')
+
+
+# -- the served forward's producer steps ----------------------------------------
+
+
+class _Launches:
+    """The conv3x3 kernel's launches a forward would make on the card, read
+    on the CPU (where nothing counts them): every routed conv and producer
+    step, under ``fused_conv3x3_act.by_shape``'s key, and the steps by
+    epilogue kind, as ``by_epilogue`` counts them."""
+
+    def __init__(self, m):
+        self.by_shape, self.by_epilogue = Counter(), Counter()
+        conv, step = cr.fused_conv3x3_act, E.fused_conv3x3_step
+
+        def record_conv(x, w, b=None, act='linear'):
+            self.by_shape[(*x.shape, w.shape[-1], act)] += 1
+            return conv(x, w, b, act)
+
+        def record_step(x, w, b=None, *, addend=None, split=None, residuals=()):
+            self.by_shape[(*x.shape, w.shape[-1], 'linear')] += 1
+            kind = 'split' if split is not None else f'residual{len(residuals)}'
+            self.by_epilogue[('carry_' if addend is not None else '') + kind] += 1
+            return step(x, w, b, addend=addend, split=split, residuals=residuals)
+
+        m.setattr(cr, 'fused_conv3x3_act', record_conv)
+        m.setattr(E, 'fused_conv3x3_step', record_step)
+
+
+def _forward(monkeypatch, model, x, dtype, chain=False):
+    """``model(x)`` (with ``chain``: every RRDB on the chain of ops, as the
+    parent ran it) and the :class:`_Launches` it made."""
+    with monkeypatch.context() as m:
+        if chain:
+            m.setattr(E, '_fuses', lambda *a: False)
+        launches = _Launches(m)
+        return model(x, dtype=dtype), launches
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('nf,gc,num_blocks', [(16, 8, 2), (64, 32, 1)])
+def test_served_steps_equal_the_chain(monkeypatch, dtype, nf, gc, num_blocks):
+    tm = resselt_tpu_torch.load_from_state_dict(make_esrgan(nf, num_blocks, 4, gc=gc, seed=15), device='cpu')
+    x = _x(12, 14, seed=16)
+    want, chain = _forward(monkeypatch, tm, x, dtype, chain=True)
+    got, steps = _forward(monkeypatch, tm, x, dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+    nb = num_blocks
+    assert steps.by_epilogue == {'split': 3 * nb, 'carry_split': 9 * nb, 'carry_residual1': 2 * nb,
+                                 'carry_residual2': nb}
+    assert sum(steps.by_epilogue.values()) == 5 * 3 * nb and not chain.by_epilogue
+    assert steps.by_shape == chain.by_shape  # the same 3x3 launches at the same keys
+
+
+def _plus(sd):
+    rng = np.random.default_rng(17)
+    for key in [k for k in sd if k.endswith('RDB1.conv1.0.weight')]:
+        for r in (1, 2, 3):
+            nf = sd[key].shape[1]
+            sd[key.replace('RDB1.conv1.0', f'RDB{r}.conv1x1')] = (rng.standard_normal((sd[key].shape[0], nf, 1, 1))
+                                                                  * 0.03).astype(np.float32)
+    return sd
+
+
+@pytest.mark.parametrize('case', ['f32', 'grad', 'int8', 'plus'])
+def test_the_chain_runs_where_steps_do_not_apply(monkeypatch, case):
+    """f32, a forward under grad (training), the int8 model (the benchmark's
+    control) and ESRGAN+ take no producer step."""
+    sd = make_esrgan(32, 1, 2, gc=32, seed=18)
+    tm = resselt_tpu_torch.load_from_state_dict(_plus(sd) if case == 'plus' else sd, device='cpu')
+    x = _x(10, 11, seed=19)
+    with monkeypatch.context() as m:
+        launches = _Launches(m)
+        if case == 'grad':
+            params = {k: v.clone().requires_grad_() for k, v in tm.params.items()}
+            with torch.enable_grad():
+                assert tm.apply(params, torch.from_numpy(x).to(torch.bfloat16)).requires_grad
+        else:
+            model = tm.quantize_int8() if case == 'int8' else tm
+            model(x, dtype=torch.float32 if case == 'f32' else torch.bfloat16)
+    assert sum(launches.by_shape.values()) > 0 and not launches.by_epilogue

@@ -107,3 +107,89 @@ def test_cpu_calls_do_not_count_launches():
     fc.fused_conv3x3_act(x, torch.zeros((8, 8, 3, 3)))
     fc.fused_conv3x3_pack2(x, torch.zeros((8, 8, 3, 3)))
     assert [(e.launches, sum(e.by_shape.values())) for e in entries] == before
+
+
+# -- ESRGAN's producer step ---------------------------------------------------
+
+# (cin, cout, addend, split, residuals) of the RDB's five producers at nf 64, gc 32: stage 0 takes x and
+# splits, stages 1-3 add the carry and split, stage 4 adds the carry and the RDB's (and the RRDB's) input
+STEP_STAGES = {'stage0': (64, 192, False, 32, 0), 'stage1': (32, 160, True, 32, 0), 'stage2': (32, 128, True, 32, 0),
+               'stage3': (32, 96, True, 32, 0), 'stage4': (32, 64, True, None, 1), 'stage4_rrdb': (32, 64, True, None, 2)}
+
+
+def _step_operands(stage, dtype, seed=0, n=2, h=11, w=13):
+    cin, cout, has_addend, split, n_res = STEP_STAGES[stage]
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, h, w, cin), generator=g).to(dtype)
+    taps = fc.pack_conv3x3_weight(torch.randn((cout, cin, 3, 3), generator=g) / (3 * cin ** 0.5), dtype)
+    b = torch.randn((cout,), generator=g) * 0.1
+    # the carry as the chain leaves it: a strided slice of the wider producer output before it
+    carry = torch.randn((n, h, w, cout + 32), generator=g).to(dtype)[..., 32:] if has_addend else None
+    residuals = tuple(torch.randn((n, h, w, cout), generator=g).to(dtype) for _ in range(n_res))
+    return x, taps, b, carry, split, residuals
+
+
+def _chain(x, taps, b, carry, split, residuals):
+    """The unfused chain of ESRGAN's ``_rdb`` / ``_rrdb`` around one producer."""
+    a = fc.fused_conv3x3_act(x, taps, b)
+    if carry is not None:
+        a = carry + a
+    if split is not None:
+        return torch.nn.functional.leaky_relu(a[..., :split], 0.2), a[..., split:]
+    for r in residuals:
+        a = a * 0.2 + r
+    return a
+
+
+def _kernel_arithmetic(x, taps, b, carry, split, residuals):
+    """csrc/conv3x3.cu's step epilogue written out: f32 arithmetic, rounded
+    to the dtype after the bias, the addend, the lrelu, each 0.2 scale and
+    each residual."""
+    dt = x.dtype
+    z = fc.fused_conv3x3_act_ref(x.float(), taps.float(), b).to(dt)
+    if carry is not None:
+        z = (z.float() + carry.float()).to(dt)
+    if split is not None:
+        f = z[..., :split].float()
+        return torch.where(f >= 0, f, f * 0.2).to(dt), z[..., split:]
+    for r in residuals:
+        z = ((z.float() * 0.2).to(dt).float() + r.float()).to(dt)
+    return z
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('stage', list(STEP_STAGES))
+def test_step_equals_the_chain(stage, dtype):
+    """The plain step is the chain bit for bit, and so is the kernel's
+    arithmetic (so the card's step can be held to equality too)."""
+    x, taps, b, carry, split, residuals = _step_operands(stage, dtype)
+    got = fc.fused_conv3x3_step(x, taps, b, addend=carry, split=split, residuals=residuals)
+    want = _chain(x, taps, b, carry, split, residuals)
+    arith = _kernel_arithmetic(x, taps, b, carry, split, residuals)
+    got, want, arith = [t if isinstance(t, tuple) else (t,) for t in (got, want, arith)]
+    assert len(got) == len(want) == (1 if split is None else 2)
+    for g_, w_, a_ in zip(got, want, arith):
+        assert g_.dtype == dtype and torch.equal(g_, w_) and torch.equal(g_, a_)
+
+
+_R = torch.zeros((2, 11, 13, 192))
+_BAD_STEPS = {'split_and_residual': {'split': 32, 'residuals': (_R,)}, 'neither': {},
+              'three_residuals': {'residuals': (_R,) * 3}, 'split_0': {'split': 0}, 'split_cout': {'split': 192},
+              'narrow_addend': {'split': 32, 'addend': _R[..., :64]}, 'fp16_residual': {'residuals': (_R.half(),)}}
+
+
+@pytest.mark.parametrize('bad', list(_BAD_STEPS))
+def test_step_rejects(bad):
+    x, taps, b, *_ = _step_operands('stage0', torch.float32)
+    with pytest.raises(ValueError):
+        fc.fused_conv3x3_step(x, taps, b, **_BAD_STEPS[bad])
+
+
+def test_step_carries_no_gradient():
+    x, taps, b, *_ = _step_operands('stage0', torch.float32)
+    taps.requires_grad_()
+    with torch.enable_grad(), pytest.raises(ValueError, match='no gradient'):
+        fc.fused_conv3x3_step(x, taps, b, split=32)
+    with torch.no_grad():
+        feat, carry = fc.fused_conv3x3_step(x, taps, b, split=32)
+    assert feat.shape == (2, 11, 13, 32) and carry.shape == (2, 11, 13, 160)

@@ -24,6 +24,8 @@ every param within 2 lr after the step).  ``esrgan.apply_pipelined`` on a
 one-rank NCCL mesh counts its conv3x3 launches and equals ``model(x)``.
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -127,6 +129,120 @@ def test_esrgan_on_card_matches_cpu(cuda, scale, in_nc):
     n_up = 2 if gpu.config.scale == 4 else 1
     assert fc.fused_conv3x3_act.launches - before == 2 * 3 * 5 + 2 + n_up + 2
     np.testing.assert_allclose(got.cpu().numpy(), cpu(x).numpy(), rtol=0, atol=5e-4)
+
+
+# ESRGAN's producer steps (fc.fused_conv3x3_step), nf 64 / gc 32: (cin, cout, addend, split, residuals)
+STEP_STAGES = {'stage0': (64, 192, False, 32, 0), 'stage1': (32, 160, True, 32, 0), 'stage2': (32, 128, True, 32, 0),
+               'stage3': (32, 96, True, 32, 0), 'stage4': (32, 64, True, None, 1), 'stage4_rrdb': (32, 64, True, None, 2)}
+
+
+def _step_case(cuda, dtype, n, h, w, cin, cout, has_addend, split, n_res):
+    g = torch.Generator(device=cuda).manual_seed(cin * 1000 + cout)
+    x = torch.randn((n, h, w, cin), generator=g, device=cuda).to(dtype)
+    taps = fc.pack_conv3x3_weight(torch.randn((cout, cin, 3, 3), generator=g, device=cuda) / (3 * cin ** 0.5), dtype)
+    b = torch.randn((cout,), generator=g, device=cuda) * 0.1
+    addend = torch.randn((n, h, w, cout), generator=g, device=cuda).to(dtype) if has_addend else None
+    residuals = tuple(torch.randn((n, h, w, cout), generator=g, device=cuda).to(dtype) for _ in range(n_res))
+    return x, taps, b, addend, split, residuals
+
+
+def _step_chain(x, taps, b, addend, split, residuals):
+    """The unfused chain of ESRGAN's ``_rdb`` / ``_rrdb`` around a producer."""
+    a = fc.fused_conv3x3_act(x, taps, b)
+    if addend is not None:
+        a = addend + a
+    if split is not None:
+        return torch.nn.functional.leaky_relu(a[..., :split], 0.2), a[..., split:]
+    for r in residuals:
+        a = a * 0.2 + r
+    return a
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('stage', list(STEP_STAGES))
+@pytest.mark.parametrize('n,h,w', [(8, 264, 264), (2, 37, 29)])
+def test_step_kernel_equals_the_chain(cuda, dtype, stage, n, h, w):
+    """One launch with the glue in the epilogue, bit for bit the chain of a
+    conv launch and PyTorch ops; counted as the conv's launch at its key and
+    once by its epilogue kind."""
+    cin, cout, has_addend, split, n_res = STEP_STAGES[stage]
+    x, taps, b, addend, split, residuals = _step_case(cuda, dtype, n, h, w, cin, cout, has_addend, split, n_res)
+    assert fc.conv3x3_step_takes(cin, cout, split)
+    want = _step_chain(x, taps, b, addend, split, residuals)
+    e, key = fc.fused_conv3x3_act, (n, h, w, cin, cout, 'linear')
+    kind = ('carry_' if has_addend else '') + ('split' if split else f'residual{n_res}')
+    before = e.launches, e.by_shape[key], e.by_epilogue[kind]
+    got = fc.fused_conv3x3_step(x, taps, b, addend=addend, split=split, residuals=residuals)
+    torch.cuda.synchronize()
+    assert (e.launches, e.by_shape[key], e.by_epilogue[kind]) == tuple(c + 1 for c in before)
+    got, want = (got, want) if split else ((got,), (want,))
+    for g_, w_ in zip(got, want):
+        assert g_.is_contiguous() and g_.dtype == dtype and torch.equal(g_, w_.contiguous())
+
+
+@pytest.mark.parametrize('case', ['f32', 'cin8', 'split12', 'cout60', 'misaligned'])
+def test_step_outside_the_step_kernel_raises(cuda, case):
+    """f32, a Cin the wgmma kernel does not take (mma.sync), a split or a
+    Cout that is no multiple of 8, an operand off 16 bytes: the step
+    launches nothing and raises (``_fuses`` keeps such RRDBs on the chain)."""
+    dtype, cin, cout, split = {'f32': (torch.float32, 64, 192, 32), 'cin8': (torch.bfloat16, 8, 48, 8),
+                               'split12': (torch.float16, 32, 160, 12), 'cout60': (torch.bfloat16, 32, 60, None),
+                               'misaligned': (torch.bfloat16, 32, 64, None)}[case]
+    x, taps, b, addend, split, residuals = _step_case(cuda, dtype, 2, 21, 19, cin, cout, True, split,
+                                                      0 if split else 1)
+    if case == 'misaligned':  # a residual one element into its storage
+        residuals = (torch.empty(residuals[0].numel() + 1, dtype=dtype, device=cuda)[1:].view_as(residuals[0]),)
+    e = fc.fused_conv3x3_act
+    before = e.launches, sum(e.by_epilogue.values())
+    with pytest.raises(ValueError, match='aligned' if case == 'misaligned' else 'no step kernel'):
+        fc.fused_conv3x3_step(x, taps, b, addend=addend, split=split, residuals=residuals)
+    assert (e.launches, sum(e.by_epilogue.values())) == before
+
+
+@pytest.mark.parametrize('nf,gc', [(16, 8), (64, 12), (60, 32)])
+def test_esrgan_outside_the_step_kernel_runs_the_chain(cuda, monkeypatch, nf, gc):
+    """An RRDBNet whose producers the step kernel does not take (Cin 8 on
+    the mma.sync kernel, a gc or an nf that is no multiple of 8 or 16): the
+    served bf16 forward runs every RRDB on the chain, one conv launch a
+    producer and no epilogue, where the CPU runs the (plain) steps."""
+    from resselt_tpu_torch.archs import esrgan as E
+
+    model = resselt_tpu_torch.load_from_state_dict(make_esrgan(nf, 2, 4, gc=gc, seed=8), device='cuda')
+    fuses, decided = E._fuses, []
+    monkeypatch.setattr(E, '_fuses', lambda *a: decided.append(fuses(*a)) or decided[-1])
+    x = np.random.default_rng(3).random((2, 24, 20, 3), dtype=np.float32)
+    e = fc.fused_conv3x3_act
+    before = e.launches, sum(e.by_epilogue.values())
+    y = model(x, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert decided == [False, False] and bool(torch.isfinite(y).all())
+    assert (e.launches, sum(e.by_epilogue.values())) == (before[0] + 5 * 3 * 2 + 6, before[1])
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+def test_esrgan_width_forward_steps_equal_the_chain(cuda, monkeypatch, dtype):
+    """An RRDBNet at esrgan_x4's widths (nf 64, gc 32): the served forward's
+    producer steps against the chain the parent ran, bit for bit, with the
+    same conv3x3 launches at the same keys and 5 x 3 x num_blocks epilogues."""
+    from resselt_tpu_torch.archs import esrgan as E
+
+    model = resselt_tpu_torch.load_from_state_dict(make_esrgan(64, 3, 4, gc=32, seed=7), device='cuda')
+    x = np.random.default_rng(2).random((2, 40, 52, 3), dtype=np.float32)
+    e = fc.fused_conv3x3_act
+
+    def forward():
+        shapes, kinds = Counter(e.by_shape), Counter(e.by_epilogue)
+        y = model(x, dtype=dtype)
+        torch.cuda.synchronize()
+        return y, e.by_shape - shapes, e.by_epilogue - kinds
+
+    got, steps_shapes, kinds = forward()
+    with monkeypatch.context() as m:
+        m.setattr(E, '_fuses', lambda *a: False)
+        want, chain_shapes, chain_kinds = forward()
+    assert torch.equal(got, want)
+    assert steps_shapes == chain_shapes and sum(steps_shapes.values()) == 5 * 3 * 3 + 6 and not chain_kinds
+    assert kinds == {'split': 9, 'carry_split': 27, 'carry_residual1': 6, 'carry_residual2': 3}
 
 
 def test_tiled_on_card_matches_cpu(cuda):

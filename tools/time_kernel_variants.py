@@ -4,20 +4,24 @@ process on one card.
 
     python3 tools/time_kernel_variants.py conv_lk '' '@_scratch/conv_lk_old.cu'
     python3 tools/time_kernel_variants.py molrcm '' '@_scratch/molrcm_no_r.cu'
+    python3 tools/time_kernel_variants.py conv3x3 ''
 
 Each argument after the source's name is one variant: extra nvcc flags
 ('' is the source as it stands), optionally led by ``@path``, another copy
 of the source to build instead (an earlier version, or a copy with a stage
 edited out to time it).  Every variant's library exports the C entry
 points of the source as it stands; for conv_lk only the launch entry
-(``resselt_conv_lk_bf16``, called here directly), for molrcm the entries
-the wrapper types.  Every other variant is built from
+(``resselt_conv_lk_bf16``, called here directly), for molrcm and conv3x3
+the entries the wrapper types.  Every other variant is built from
 ``resselt_tpu_torch/csrc/<name>.cu``; each goes into a temporary directory,
 then each is timed in turn at the bench shapes of the kernel (for conv_lk:
 PLKSR's 16 -> 16 k 17 partial conv and the 16-channel-multiple shapes
 whose path is chosen between tiles and mma.sync; for molrcm: EIMN_L's 16 x
-256 x 256 x 64), bf16, with CUDA events, in the order A B .. B A so that a
-drift of the card's clock shows.  Every variant's largest difference from
+256 x 256 x 64; for conv3x3: ESRGAN's five RDB producers at nf 64, gc 32
+on a batch of 8 windows of 264², each as the plain linear conv and as the
+producer step, whose library time is the unfused chain it replaces), bf16,
+with CUDA events, in the order A B .. B A so that a drift of the card's
+clock shows.  Every variant's largest difference from
 the plain version is reported beside its times (a copy with a stage edited
 out is a timing probe and is expected to differ).  Prints one JSON line per
 shape and the card's name and power limit.
@@ -107,8 +111,48 @@ def _cases(name: str):
         packed = mo.pack_molrcm_weights(PTree(params), torch.bfloat16)
         yield ('bench 16x256x256x64', lambda lib: launch(lib, x, packed),
                lambda: mo.fused_molrcm_ref(x.float(), packed), None)
+    elif name == 'conv3x3':
+        from resselt_tpu_torch.ops import fused_conv as fc
+
+        def conv(lib, x, taps, b):
+            _build._libs['conv3x3'] = lib  # the wrappers' next load() returns it (and types it anew)
+            return fc.fused_conv3x3_act(x, taps, b)
+
+        def step(lib, x, taps, b, addend, split, residuals):
+            _build._libs['conv3x3'] = lib
+            return fc.fused_conv3x3_step(x, taps, b, addend=addend, split=split, residuals=residuals)
+
+        def chain(x, taps, b, addend, split, residuals):
+            return fc._step_glue(fc.fused_conv3x3_act(x, taps, b), addend, split, residuals)
+
+        def bf16(*shape):
+            return torch.randn(shape, generator=gen, device='cuda').to(torch.bfloat16)
+
+        n, h, w_ = 8, 264, 264
+        for stage, (cin, cout, has_addend, split, n_res) in {
+                'stage0': (64, 192, False, 32, 0), 'stage1': (32, 160, True, 32, 0), 'stage2': (32, 128, True, 32, 0),
+                'stage3': (32, 96, True, 32, 0), 'stage4': (32, 64, True, None, 1),
+                'stage4 rrdb': (32, 64, True, None, 2)}.items():
+            x = bf16(n, h, w_, cin)
+            taps = fc.pack_conv3x3_weight(torch.randn((cout, cin, 3, 3), generator=gen, device='cuda')
+                                          / (3 * cin ** 0.5), torch.bfloat16)
+            b = torch.randn((cout,), generator=gen, device='cuda') * 0.1
+            ops = (x, taps, b, bf16(n, h, w_, cout) if has_addend else None, split,
+                   tuple(bf16(n, h, w_, cout) for _ in range(n_res)))
+            label = f'{stage} {cin}->{cout} {n}x{h}x{w_}'
+            yield (f'{label} conv', lambda lib, ops=ops: conv(lib, *ops[:3]),
+                   lambda ops=ops: fc.fused_conv3x3_act(*ops[:3]), None)
+            yield (f'{label} step', lambda lib, ops=ops: step(lib, *ops), lambda ops=ops: chain(*ops),
+                   lambda ops=ops: chain(*ops))
     else:
         raise SystemExit(f'no cases for {name!r}')
+
+
+def _flat(t):
+    """A kernel's output, or its outputs side by side, as one f32 tensor."""
+    import torch
+
+    return torch.cat([o.float().flatten() for o in t]) if isinstance(t, tuple) else t.float()
 
 
 def main(argv: list[str]) -> int:
@@ -141,19 +185,20 @@ def main(argv: list[str]) -> int:
             print(json.dumps({'variant': flags, 'registers': regs, 'spills': spills,
                               'serialization_warnings': warn}), flush=True)
             libs.append(ctypes.CDLL(out))
+    _build._libs.setdefault(name, libs[0])  # what a case's plain version launches, if it launches a kernel
 
     order = list(range(len(libs))) + list(reversed(range(len(libs))))
     for label, call, plain, library in _cases(name):
-        want = plain()
+        want = _flat(plain())
         times: dict[int, list[float]] = {i: [] for i in range(len(libs))}
         errs = {}
         for i in range(len(libs)):
-            got = call(libs[i]).float()
-            errs[variants[i] or 'as is'] = float((got - want.float()).abs().max())
+            got = _flat(call(libs[i]))
+            errs[variants[i] or 'as is'] = float((got - want).abs().max())
         for i in order:
             times[i].append(_ms(lambda: call(libs[i])))
         row = {'shape': label, 'ms': {variants[i] or 'as is': times[i] for i in times}, 'max_abs_err': errs,
-               'max_abs_plain': float(want.float().abs().max())}
+               'max_abs_plain': float(want.abs().max())}
         if library is not None:
             row['library_ms'] = _ms(library)
         print(json.dumps(row), flush=True)
