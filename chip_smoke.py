@@ -247,8 +247,9 @@ DAT = {'name': 'DAT-S', 'embed_dim': 180, 'depth': (6,) * 6, 'num_heads': (6,) *
 # official code); tiled at the loader's bf16 hints, two windows a batch
 RGT = {'name': 'RGT-S', 'embed_dim': 180, 'depth': (6,) * 6, 'num_heads': (6,) * 6, 'split_size': (8, 32),
        'mlp_ratio': 2.0, 'c_ratio': 0.5, 'scale': 4, 'tile': 160, 'halo': 8, 'tile_batch': 2}
-# DRCT x4 (DRCT paper, Hsu et al., CVPRW 2024; tools/bench_families.py's
-# 'drct-l 4x': six groups); tiled at the loader's bf16 hints, one window a batch
+# DRCT x4 (DRCT paper, Hsu et al., CVPRW 2024: six groups, where DRCT-L has
+# twelve; tools/bench_families.py's row labelled 'drct-l 4x' is this model);
+# tiled at the loader's bf16 hints, one window a batch
 DRCT = {'name': 'DRCT', 'embed_dim': 180, 'num_layers': 6, 'num_heads': (6,) * 6, 'window_size': 16, 'gc': 32,
         'mlp_ratio': 2.0, 'scale': 4, 'img_size': 64, 'tile': 128, 'halo': 8, 'tile_batch': 1}
 

@@ -982,9 +982,15 @@ int pick_vb(const void* q, const void* k, const void* v, long long ld, long long
 
 int head_pad(int hd) { return hd <= 16 ? 16 : (hd <= 32 ? 32 : 64); }
 
-// Whether a shape runs on the first pair of kernels, which hold a whole
-// head and (16-bit) a block of bias rows; the "any" kernels take the rest.
-bool first_pair(int n, int hd) { return n <= MAX_N && hd <= MAX_HD; }
+}  // namespace
+
+// Whether a shape (n tokens, head_dim hd as launched) runs on the first pair
+// of kernels, which hold a whole head and (16-bit) a block of bias rows; the
+// "any" kernels take the rest.  Exported, so that the wrapper names the
+// kernel a launch takes by the rule the dispatch below follows.
+extern "C" int resselt_window_attn_first_pair(int n, int hd) { return n <= MAX_N && hd <= MAX_HD; }
+
+namespace {
 
 // The blocks one window takes on the "any" kernels (row tiles x slices),
 // and the grid's limit on the blocks of a launch.
@@ -999,7 +1005,8 @@ constexpr long long MAX_GRID = 0x7fffffffLL;
 // the grid's x dimension bounds the blocks, and `windows` is an int.
 long long max_windows(int n, int heads, int hd, int es) {
     if (n < 1 || heads < 1 || hd < 1) return 0;
-    if (first_pair(n, hd)) return es == 4 ? MAX_GRID / heads : MAX_GRID;  // f32: a block per (window, head)
+    // f32: a block per (window, head)
+    if (resselt_window_attn_first_pair(n, hd)) return es == 4 ? MAX_GRID / heads : MAX_GRID;
     return MAX_GRID / ((long long)heads * any_blocks_per_window(n, hd, es));
 }
 
@@ -1118,7 +1125,7 @@ int launch_h16_entry(const void* q, const void* k, const void* v, const void* bi
         pick_vb(q, k, v, ld, wstride, hd, 2) < 4)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (!first_pair(n, hd)) {
+    if (!resselt_window_attn_first_pair(n, hd)) {
         if (any_dv(hd) == 64)
             return (int)launch_h16_any<T, 64>(q, k, v, bias, mask, flags, out, windows, n, heads, hd, ld, wstride,
                                               nw, scale, s);
@@ -1155,7 +1162,7 @@ extern "C" int resselt_window_attn_f32(const void* q, const void* k, const void*
                                        long long ld, long long wstride, int nw, float scale, void* stream) {
     if (bad_shape(bias, windows, n, heads, hd, ld, wstride, nw, 4)) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (!first_pair(n, hd))
+    if (!resselt_window_attn_first_pair(n, hd))
         return (int)launch_f32_any(q, k, v, bias, mask, out, windows, n, heads, hd, ld, wstride, nw, scale, s);
     switch (head_pad(hd)) {
         case 16: return (int)launch_f32<16>(q, k, v, bias, mask, out, windows, n, heads, hd, ld, wstride, nw, scale, s);

@@ -12,9 +12,16 @@ fp16: tensor cores with f32 accumulation and an online softmax, persistent
 blocks that keep their bias rows in shared memory and skip all-zero mask
 windows) or raises; on a CPU tensor it computes the plain version
 :func:`window_mha_ref`.  The
-wrapper counts its kernel launches in ``window_mha.launches``, and per
-shape in the ``window_mha.by_shape`` Counter under ``(windows, n, c,
-heads, masked)``.
+wrapper counts its kernel launches in ``window_mha.launches``, per shape in
+the ``window_mha.by_shape`` Counter under ``(windows, n, c, heads,
+masked)``, and per route in the ``window_mha.by_kernel`` Counter under
+``(kernel, windows, n, c, heads, masked, head_pad)``: ``kernel`` the
+``__global__`` function that ran (``wattn_f32_kernel`` or
+``wattn_h16_kernel``, the first pair; ``wattn_f32_any_kernel`` or
+``wattn_h16_any_kernel``), as the CUDA source's own
+``resselt_window_attn_first_pair`` decides for the dispatch, and
+``head_pad`` the head width launched (above head_dim where the wrapper
+padded the heads).
 
 q, k and v may be the three channel slices ``qkv[..., :C]``,
 ``qkv[..., C:2C]``, ``qkv[..., 2C:]`` of one ``(B, N, 3C)`` projection:
@@ -108,6 +115,8 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.resselt_window_attn_max_windows.argtypes = [ctypes.c_int] * 4
         lib.resselt_window_attn_max_windows.restype = ctypes.c_longlong
+        lib.resselt_window_attn_first_pair.argtypes = [ctypes.c_int] * 2
+        lib.resselt_window_attn_first_pair.restype = ctypes.c_int
         lib._resselt_typed = True
     return lib
 
@@ -164,6 +173,8 @@ def _launch(q, k, v, bias, mask, num_heads: int, scale: float) -> torch.Tensor:
         fn = lib.resselt_window_attn_bf16 if q.dtype == torch.bfloat16 else lib.resselt_window_attn_f16
         flags = None if mask is None else mask_window_flags(mask)  # alive until the launches below
     es = q.element_size()
+    kernel = ('wattn_f32' if q.dtype == torch.float32 else 'wattn_h16') + (
+        '_kernel' if lib.resselt_window_attn_first_pair(n, hd) else '_any_kernel')
     ranges = _launch_ranges(b, nw, lib.resselt_window_attn_max_windows(n, num_heads, hd, es))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -180,6 +191,7 @@ def _launch(q, k, v, bias, mask, num_heads: int, scale: float) -> torch.Tensor:
                                    f'windows {w0} .. {w0 + count - 1})')
             window_mha.launches += 1
             window_mha.by_shape[(count, n, c, num_heads, mask is not None)] += 1
+            window_mha.by_kernel[(kernel, count, n, c, num_heads, mask is not None, hd)] += 1
     if padded:
         out = out.unflatten(-1, (num_heads, hd))[..., : c // num_heads].reshape(b, n, c)
     return out
@@ -301,3 +313,4 @@ class _WindowMHA(torch.autograd.Function):
 
 window_mha.launches = 0
 window_mha.by_shape = Counter()
+window_mha.by_kernel = Counter()

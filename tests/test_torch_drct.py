@@ -107,6 +107,24 @@ def test_zoo_drct_full_width_layout():
     assert len(masks) == 12 and sd[masks[0]].shape == (16, 256, 256) and not set(masks) & set(tm.params)
 
 
+def test_drct_l_published_layout():
+    """DRCT-L 4x (the DRCT-L option of the published code): the DRCT layout at
+    twelve groups.  The loader infers twelve groups of 6 heads, window 16,
+    gc 32 and ``img_size`` 64, as the JAX package does, with DRCT's serving
+    hints (bf16 tile 128, halo 8, one window a batch)."""
+    sd = make_drct(num_layers=12)
+    tm = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    cfg = tm.config
+    assert cfg.__dict__ == resselt_tpu.load_from_state_dict(sd).config.__dict__
+    assert (cfg.embed_dim, cfg.num_layers, cfg.num_heads, cfg.window_size, cfg.gc) == (180, 12, (6,) * 12, 16, 32)
+    assert (cfg.img_size, cfg.upscale, cfg.upsampler, cfg.resi_connection) == (64, 4, 'pixelshuffle', '1conv')
+    assert tm.metadata == ModelMetadata(3, 3, 4, 'DRCT')
+    assert (tm.tile_batch, tm.serving_tile, tm.serving_halo, tm.size_multiple) == (
+        1, {'f32': 96, 'bf16': 128}, 8, 16)
+    assert tt._resolve_tile_hint(tm, torch.bfloat16) == 128 and tt._resolve_halo_hint(tm, 128, torch.bfloat16) == 8
+    assert sum(1 for k in sd if k.endswith('.attn_mask')) == 24
+
+
 def test_params_from_numpy_carries_jax_params():
     sd = _sd(seed=10)
     jm = resselt_tpu.load_from_state_dict(sd)

@@ -201,8 +201,9 @@ def _attentions(sd: dict, window_size: int, heads_of) -> list[tuple[str, int, in
 
 
 def test_drct_bench_attentions_all_take_the_kernel():
-    """DRCT at its published bench width (tools/bench_families.py's 'drct-l
-    4x': embed 180, six groups of 6 heads, window 16, gc 32): the 30 window
+    """DRCT at its published bench width (the row of tools/bench_families.py
+    labelled 'drct-l 4x', which is DRCT's six groups, not DRCT-L's twelve:
+    embed 180, six groups of 6 heads, window 16, gc 32): the 30 window
     attentions a forward, heads of 30, 53, 122, 46 and 77, all on the
     kernel (the heads of 122 and 77 took the plain path before)."""
     sd = make_drct(180, 6, 6, 16, 32, 2.0, 4, img_size=64, seed=0)

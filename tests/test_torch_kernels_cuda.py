@@ -440,15 +440,19 @@ def _wattn_check(cuda, dtype, windows, n, c, heads, nw=None, qkv=True, seed=0):
     scale = (c // heads) ** -0.5
     key = (windows, n, c, heads, mask is not None)
     before, shape_before = wa.window_mha.launches, wa.window_mha.by_shape[key]
+    routes_before = Counter(wa.window_mha.by_kernel)
     got = wa.window_mha(q, k, v, bias, mask, num_heads=heads, scale=scale)
     torch.cuda.synchronize()
     assert wa.window_mha.launches == before + 1 and wa.window_mha.by_shape[key] == shape_before + 1
+    routed = wa.window_mha.by_kernel - routes_before  # the launch counted once by route, under its shape
+    assert sum(routed.values()) == 1 and next(iter(routed))[1:6] == key
     assert got.dtype == dtype and got.shape == (windows, n, c) and got.is_contiguous()
     want = wa.window_mha_ref(q.float(), k.float(), v.float(), bias, mask, num_heads=heads, scale=scale)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     else:
         torch.testing.assert_close(got.float(), want, rtol=WATTN_BF16_TOL[0], atol=WATTN_BF16_TOL[1])
+    return next(iter(routed))
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
@@ -463,6 +467,21 @@ def _wattn_check(cuda, dtype, windows, n, c, heads, nw=None, qkv=True, seed=0):
 ])
 def test_window_kernel_matches_plain(cuda, dtype, windows, n, c, heads, nw):
     _wattn_check(cuda, dtype, windows, n, c, heads, nw)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('masked', [False, True])
+@pytest.mark.parametrize('c,heads,head_pad', [(180, 6, 30), (212, 4, 56), (244, 2, 122), (276, 6, 46), (308, 4, 80)])
+def test_window_kernel_routes_drct_blocks(cuda, dtype, masked, c, heads, head_pad):
+    """DRCT's five blocks at 256-token windows, q, k, v read in place from
+    the projection: ``by_kernel`` names the kernel that ran and the head
+    width launched.  Heads of 122 and 77 take the "any" kernels, 30, 46 and
+    53 the first pair; in 16 bits the odd heads (53, 77) run zero-padded to
+    56 and 80, in f32 unpadded."""
+    route = _wattn_check(cuda, dtype, 8, 256, c, heads, 4 if masked else None)
+    hd = c // heads
+    kernel = ('wattn_f32' if dtype == torch.float32 else 'wattn_h16') + ('_any_kernel' if hd > 64 else '_kernel')
+    assert route == (kernel, 8, 256, c, heads, masked, hd if dtype == torch.float32 else head_pad)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
