@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (resselt_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-conv3x3 PATH]
 
 Phases, one line each: device, build (one nvcc per resselt_tpu_torch/csrc/*.cu,
 all started together; ptxas's registers, shared memory and spills per
@@ -15,15 +15,19 @@ activations; then kernel / plain / library / bound times), step_kernels
 glue in the epilogue, at the bench shape and at the benchmark's 8 x 264^2,
 in bf16 and fp16 equal bit for bit to the chain of a conv launch and
 PyTorch ops, each launch counted once by its epilogue; step / chain /
-plain conv / bound times in bf16), load (a seeded ESRGAN
+plain conv / bound times in bf16; with --parent-conv3x3, an earlier copy of
+csrc/conv3x3.cu, the kernels, step_kernels and conv_family_kernels phases
+also hold its outputs equal to the kernel's bit for bit and time both in
+turns), load (a seeded ESRGAN
 RRDBNet-23 4x checkpoint written as .safetensors and .pth and loaded
 through the public entry points), model (f32 on the card against the CPU,
 351 kernel launches per forward, bf16 against f32), serve (the main path:
 the bench config, batch 16 of 256x256 tiles in bf16, then a tiled 1280x720
 image, then the upscale CLI on a PNG; the launch counts start from 0 just
 before it, the bench forwards must launch 351 convs each, all at shapes the
-kernels phase checked, 345 of them producer steps by epilogue kind, and
-each shape's launches per forward are read from those forwards' counts),
+kernels phase checked, 345 of them producer steps by epilogue kind, 350
+on the wgmma kernel's ping-pong by schedule, and each shape's launches
+per forward are read from those forwards' counts),
 benchmark (resselt_tpu_torch.benchmark on the same
 model: measure_forward at the bench config, its conv3x3 launches 351 x the
 forwards it issued, beside the serve phase's time; measure_tiled and
@@ -492,10 +496,39 @@ def bound_ms(s: dict, dtype_name: str) -> tuple[float, str]:
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
-def phase_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
+def vs_parent(parent, call, reps: int) -> dict:
+    """The bf16 conv3x3 launch ``call(lib)`` (a C entry of the library,
+    ``tools/time_kernel_variants.py``'s launchers) timed on this build and
+    on the ``parent`` copy's, in the order parent, change, change, parent:
+    the means, and the change's time over the parent's."""
+    from resselt_tpu_torch.ops import _build
+
+    mine = _build.load('conv3x3')
+    times = {'parent_ms': [], 'ms': []}
+    for key, lib in (('parent_ms', parent), ('ms', mine), ('ms', mine), ('parent_ms', parent)):
+        times[key].append(_ms(lambda: call(lib), reps))
+    out = {k: sum(v) / len(v) for k, v in times.items()}
+    out['ratio'] = out['ms'] / out['parent_ms']
+    return out
+
+
+def same_as_parent(parent, call, got) -> bool:
+    """Whether the ``parent`` library's output of ``call`` is ``got`` (one
+    tensor or a tuple) bit for bit."""
+    import torch
+
+    want = call(parent)
+    got, want = (t if isinstance(t, tuple) else (t,) for t in (got, want))
+    return len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def phase_kernels(device, shapes: list[dict], reps: int, parent=None) -> list[dict]:
     """Each shape: kernel against its plain version in f32 (TF32 off), in
     bf16 and in fp16 (plain version in f32 from the same 16-bit inputs),
-    then kernel / plain / library / bound times in bf16."""
+    then kernel / plain / library / bound times in bf16.  With ``parent``
+    (the library of an earlier conv3x3.cu): its bf16 and fp16 outputs
+    against the kernel's, which must be equal bit for bit, and
+    :func:`vs_parent`'s times in bf16 (``vs_parent``)."""
     import torch
     import torch.nn.functional as TF
 
@@ -529,10 +562,17 @@ def phase_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
         wanth = ref(xh.float(), tapsh.float(), b, act=s['act'])
         errh = (goth.float() - wanth).abs().max().item()
         torch.testing.assert_close(goth.float(), wanth, rtol=BF16_RTOL, atol=BF16_ATOL)
-        del got, want, gotb, wantb, goth, wanth, xh
-
         row = {'name': s['name'], 'entry': s['entry'], 'shape': [s['n'], s['h'], s['w'], s['cin'], s['cout']],
                'act': s['act'], 'max_abs_err_f32': err32, 'max_abs_err_bf16': errb, 'max_abs_err_f16': errh}
+        if parent is not None:
+            from tools.time_kernel_variants import conv3x3_launch
+
+            for xd, tapsd, gotd in ((xb, tapsb, gotb), (xh, tapsh, goth)):
+                if not same_as_parent(parent, lambda lib: conv3x3_launch(lib, xd, tapsd, b, s['act']), gotd):
+                    raise AssertionError(f"{s['name']} {xd.dtype}: not the parent's bits")
+            row['vs_parent'] = vs_parent(parent, lambda lib: conv3x3_launch(lib, xb, tapsb, b, s['act']), reps)
+        del got, want, gotb, wantb, goth, wanth, xh
+
         wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         x_cl = xb.permute(0, 3, 1, 2)  # NHWC storage = channels_last NCHW view
         bb = b.to(torch.bfloat16)
@@ -579,12 +619,15 @@ def step_bound_ms(s: dict) -> tuple[float, str]:
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
-def phase_step_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
+def phase_step_kernels(device, shapes: list[dict], reps: int, parent=None) -> list[dict]:
     """Each producer step in bf16 and fp16: ``fused_conv3x3_step`` equal bit
     for bit to the chain the parent ran (a ``fused_conv3x3_act`` launch,
     then the glue as PyTorch ops), one launch counted at the conv's key and
     one by its epilogue kind; then step / chain / plain conv / bound times
-    in bf16."""
+    in bf16.  With ``parent`` (the library of an earlier conv3x3.cu): its
+    step's outputs equal to these bit for bit, in bf16 and fp16, and the
+    step's time against the parent's (:func:`vs_parent`, ``vs_parent``)
+    beside the bound."""
     import torch
 
     from resselt_tpu_torch.ops import fused_conv as fc
@@ -618,6 +661,12 @@ def phase_step_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
                 raise AssertionError(f"step {s['name']} {tuple(xd.shape)} {dt}: not the chain's bits, "
                                      f'max |diff| {diff}')
             row['max_abs_diff_' + ('bf16' if dt == torch.bfloat16 else 'f16')] = diff
+            if parent is not None:
+                from tools.time_kernel_variants import conv3x3_step_launch
+
+                step = (xd, taps, b, addend, s['split'], residuals)
+                if not same_as_parent(parent, lambda lib: conv3x3_step_launch(lib, *step), got):
+                    raise AssertionError(f"step {s['name']} {tuple(xd.shape)} {dt}: not the parent's bits")
             if dt == torch.bfloat16:
                 args = (xd, taps, b, addend, s['split'], residuals)
         xd, taps, b_, addend, split, residuals = args
@@ -627,6 +676,12 @@ def phase_step_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
                               reps)
         row['conv_ms'] = _ms(lambda: fc.fused_conv3x3_act(xd, taps, b_), reps)
         row['bound_ms'], row['bound_by'] = step_bound_ms(s)
+        if parent is not None:
+            from tools.time_kernel_variants import conv3x3_step_launch
+
+            row['vs_parent'] = vs_parent(parent, lambda lib: conv3x3_step_launch(lib, *args), reps)
+            row['vs_parent']['share_of_bound'] = row['bound_ms'] / row['vs_parent']['ms']
+            row['vs_parent']['parent_share_of_bound'] = row['bound_ms'] / row['vs_parent']['parent_ms']
         del x, extra, args, xd, taps, addend, residuals, got, want
         torch.cuda.empty_cache()
         out.append(row)
@@ -1560,6 +1615,8 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
             e.by_path.clear()
         if hasattr(e, 'by_epilogue'):
             e.by_epilogue.clear()
+        if hasattr(e, 'by_schedule'):
+            e.by_schedule.clear()
     multi_head_attention.plain_calls = 0
     multi_head_attention.plain_by_shape.clear()
     t0 = time.perf_counter()
@@ -1570,6 +1627,7 @@ def phase_serve(model, ckpt: str, tmp: str, batch: int, tile: int, timed_reps: i
     res['bench_counts'] = {k: (e.launches, dict(e.by_shape)) for k, e in entries.items()}
     res['bench_paths'] = {k: dict(e.by_path) for k, e in entries.items() if hasattr(e, 'by_path')}
     res['bench_epilogues'] = {k: dict(e.by_epilogue) for k, e in entries.items() if hasattr(e, 'by_epilogue')}
+    res['bench_schedules'] = {k: dict(e.by_schedule) for k, e in entries.items() if hasattr(e, 'by_schedule')}
     res['bench_plain'] = (multi_head_attention.plain_calls, dict(multi_head_attention.plain_by_shape))
     s = model.metadata.upscale
     if y.shape != (batch, tile * s, tile * s, 3) or not bool(torch.isfinite(y).all()):
@@ -3067,9 +3125,43 @@ def check_bench_counts(counts: dict, mine: set, per_forward: int, reps: int, che
     return bench
 
 
+PARENT_SLACK = 1.02  # a conv3x3 shape slower than the parent's build by more than this is listed
+
+
+def slower_than_parent(rows: list[dict]) -> dict:
+    """The rows that :func:`vs_parent` timed more than :data:`PARENT_SLACK`
+    times the parent's, by name and shape (nothing where no parent was
+    given)."""
+    timed = [r for r in rows if 'vs_parent' in r]
+    if not timed:
+        return {}
+    slow = [f"{r['name']} {r['shape']}" for r in timed if r['vs_parent']['ratio'] > PARENT_SLACK]
+    return {'slower_than_parent': json.dumps(slow)}
+
+
+def esrgan_schedules(num_blocks: int) -> dict:
+    """conv3x3 launches of a 16-bit ESRGAN nf 64 gc 32 4x forward by
+    ``(schedule, nt)`` (``fused_conv3x3_act.by_schedule``): each of the
+    3 x ``num_blocks`` RDBs' producers at N tiles 96 (stages 0 and 3), 80
+    (stage 1) and 64 (stages 2 and 4), the four Cin-64 64 -> 64 convs at
+    64, 64 -> 3 at 8, all on csrc/conv3x3.cu's ping-pong; 3 -> 64 on
+    mma.sync."""
+    rdbs = 3 * num_blocks
+    return {('pingpong', 96): 2 * rdbs, ('pingpong', 80): rdbs, ('pingpong', 64): 2 * rdbs + 4,
+            ('pingpong', 8): 1, ('mma', 64): 1}
+
+
 def main() -> int:
+    import argparse
+
     import numpy as np
     import torch
+
+    ap = argparse.ArgumentParser(description='Drive the PyTorch/CUDA port on one NVIDIA GPU.')
+    ap.add_argument('--parent-conv3x3', metavar='PATH',
+                    help="an earlier copy of csrc/conv3x3.cu: the ESRGAN kernels, step_kernels and "
+                         "conv_family_kernels phases also hold its outputs equal to the kernel's and time it")
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3098,12 +3190,18 @@ def main() -> int:
         ptxas=json.dumps({name: ptxas_report(_build.build_log(name)) for name in took}))
 
     # -- ESRGAN: the conv3x3 kernel ------------------------------------------
+    parent = None
+    if args.parent_conv3x3:
+        from tools.time_kernel_variants import build as build_variants
+
+        parent = build_variants('conv3x3', ['@' + args.parent_conv3x3])[0]
     shapes = conv_shapes(BENCH['batch'], BENCH['tile'])
-    rows = phase_kernels('cuda', shapes, reps=10)
-    log('kernels', f32_tol=F32_TOL, bf16_rtol=BF16_RTOL, bf16_atol=BF16_ATOL, rows=json.dumps(rows))
+    rows = phase_kernels('cuda', shapes, reps=10, parent=parent)
+    log('kernels', f32_tol=F32_TOL, bf16_rtol=BF16_RTOL, bf16_atol=BF16_ATOL, rows=json.dumps(rows),
+        **slower_than_parent(rows))
     steps = step_shapes(BENCH['batch'], BENCH['tile'])
-    step_rows = phase_step_kernels('cuda', steps, reps=10)
-    log('step_kernels', equal='bit for bit', rows=json.dumps(step_rows))
+    step_rows = phase_step_kernels('cuda', steps, reps=10, parent=parent)
+    log('step_kernels', equal='bit for bit', rows=json.dumps(step_rows), **slower_than_parent(step_rows))
 
     reps = 5
     with tempfile.TemporaryDirectory() as tmp:
@@ -3134,6 +3232,11 @@ def main() -> int:
         if epilogues != {k: v * reps for k, v in want.items()} or sum(want.values()) != 345:
             raise AssertionError(f'producer steps in {reps} bench forwards by epilogue {epilogues}, '
                                  f'expected {want} each (345)')
+        schedules = serve.pop('bench_schedules')['act']
+        want = esrgan_schedules(BENCH['num_blocks'])
+        if schedules != {k: v * reps for k, v in want.items()}:
+            raise AssertionError(f'conv3x3 launches in {reps} bench forwards by schedule {schedules}, '
+                                 f'expected {want} each')
         # a step counts at its conv's key: stages 0-3 are all steps, stage 4's split by kind
         served = [(r, s) for r, s in zip(step_rows, steps) if (s['n'], s['h']) == (BENCH['batch'], BENCH['tile'])]
         for r, s in served:
@@ -3525,8 +3628,9 @@ def main() -> int:
     from resselt_tpu_torch.zoo import make_compact, make_mosr, make_rcan, make_span, make_spanplus, make_spanpp
 
     fshapes = conv_family_shapes(BENCH['batch'], BENCH['tile'])
-    f_rows = phase_kernels('cuda', fshapes, reps=10)
-    log('conv_family_kernels', f32_tol=F32_TOL, bf16_rtol=BF16_RTOL, bf16_atol=BF16_ATOL, rows=json.dumps(f_rows))
+    f_rows = phase_kernels('cuda', fshapes, reps=10, parent=parent)
+    log('conv_family_kernels', f32_tol=F32_TOL, bf16_rtol=BF16_RTOL, bf16_atol=BF16_ATOL, rows=json.dumps(f_rows),
+        **slower_than_parent(f_rows))
     f_checked = {('act', shape_key(s)) for s in fshapes}
 
     def cpu_routed_convs(sd: dict, size: int = 64) -> int:

@@ -47,11 +47,27 @@
 //    and little else.  The weights are stored [tap][channel group][Cout][8
 //    input channels] (K-major, the 8 x 8 transposition done in registers
 //    while staging).
-//  * An asynchronous two-stage ring for the halo: all 256 threads (two
-//    warpgroups, each owning an 8-column half of the tile) start 16-byte
-//    cp.async copies with zero-fill outside the image for the next tile
-//    before they start the current tile's 18 x Cin / 16 wgmmas, so the
-//    loads of tile i + 1 overlap the math and the stores of tile i.
+//  * A two-stage ring for the halo, filled by the Tensor Memory Accelerator:
+//    one thread asks for a tile's halo as Cin / 8 tensor copies (x seen as
+//    a (C, W, H, N) tensor, a box of 8 channels x 18 x 18 pixels each, its
+//    coordinates outside the image read as zeros: the padding), whose bytes
+//    complete the stage's "full" mbarrier; every thread arrives on its
+//    "empty" mbarrier once its products on the stage are done, and the
+//    stage is refilled two tiles ahead.  Each channel group's 5,184 bytes
+//    land in a 5,248-byte plane: a tensor copy writes to 128-byte
+//    boundaries.
+//  * A ping-pong between the block's two warpgroups, each owning an
+//    8-column half of a tile (two m64 tiles, NT accumulators a thread):
+//    warpgroup 0 issues a tile's 18 x Cin / 16 wgmmas, then warpgroup 1 its
+//    own, then warpgroup 0 the next tile's, their turns kept by two named
+//    barriers; so one warpgroup's epilogue (bias, activation, rounding, the
+//    stores) runs under the other's products.  Run in step, both
+//    warpgroups would leave the tensor cores idle through a common epilogue,
+//    a third to half of a tile's time at one block an SM; at two blocks an
+//    SM the other block fills part of that gap, and the ping-pong is faster
+//    there too.  The branches around the products are uniform in the
+//    compiler's eyes (the warp index from a shuffle, no per-lane condition),
+//    or ptxas serializes the wgmmas.
 //  * Output through shared memory: each warp stages its 16 pixels x NT
 //    channels (bias and activation applied, rounded) and writes them in
 //    16-byte pieces (2-byte pieces where Cout is not a multiple of 8, the
@@ -70,20 +86,30 @@
 //    move; fused, the conv's output is never written and read back.  Each
 //    value is rounded where the chain of PyTorch ops rounds it, so the
 //    outputs are the chain's bit for bit.
-// ptxas (CUDA 12.8, sm_90a) for the wgmma kernel: 152 registers at NT = 96
-// (96 of them accumulators), 142 at 80, 118 at 64, 76 at 8; with the
-// producer step's epilogues (bf16) 222 / 194 / 123 (EPI_SPLIT) and 255 / 230
-// / 125 (EPI_RESIDUAL) at NT = 96 / 80 / 64; 0 bytes of spills in every
-// instantiation; 1 block of 256 threads per SM at Cin 64
-// (175-221 KB of shared memory), 2 at Cin 32 and NT <= 64.  On an H100 the
-// products of a tile run close to the tensor cores' rate; what this leaves
-// on the table is that the three phases of a tile (starting the next halo's
-// copies, the products, the epilogue) take turns inside a block instead of
-// overlapping: no producer warp, no second accumulator set, no TMA; stage 0
-// reads each halo twice (once per Cout slice).
+// ptxas (CUDA 12.8, sm_90a) for the wgmma kernel, bf16 (fp16 within 7):
+// EPI_NONE 150 / 134 / 116 / 102 / 90 / 70 / 74 registers at NT = 96 / 80
+// / 64 / 48 / 32 / 16 / 8 (NT of them accumulators); EPI_SPLIT 218 / 186 /
+// 114 / 100 / 87 / 68 / 72; EPI_RESIDUAL 255 / 226 / 123 / 114 / 106 / 79 /
+// 72; 0 bytes of spills in every instantiation.
+// Shared memory: weights 9 x Cin x NT x 2 bytes, two halo stages of Cin / 8
+// planes, 8 warps' staging rows of 16 x (NT + 8) x 2 bytes, the bias and
+// four mbarriers: 221,600 bytes at Cin 64 / NT 96 (stage 0 and, at Cin 32,
+// 124,320 for stage 3), 110,944 at Cin 32 / NT 80, 176,416 at Cin 64 / NT
+// 64 (ESRGAN's 64 -> 64 convs), 97,568 at Cin 32 / NT 64 and 97,344 at
+// Cin 64 / NT 8; of the 232,448 a block may ask for.  An SM holds one block
+// where NT > 64 (registers) or the block takes over half its shared memory,
+// else two (Cin 32 at NT <= 64, the 64 -> 3 conv); the grid is as many
+// blocks as the SMs hold.  Left on the table (an H100, 8 x 264 x 264, bf16):
+// a stage-0 step takes 0.27 ms against a bound of 0.125, and its epilogue,
+// copies and barriers alone, the products left out, take 0.16: the
+// epilogue now sets the pace; and stage 0 reads each halo twice (once per
+// Cout slice).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "async_copy.cuh"
 #include "half16.cuh"
@@ -378,16 +404,19 @@ conv3x3_mma_kernel(const T* __restrict__ x, const T* __restrict__ w, const float
 // m64 tiles of 8 rows x 8 columns (tile rows 0-7 and 8-15).
 // ---------------------------------------------------------------------------
 
-constexpr int PLANE = HH * HW * 16 + 16;  // bytes of one channel group of a halo stage (+ 16: planes 4 banks apart)
+constexpr int BOX = HH * HW * 16;   // bytes of one channel group of a halo: one tensor copy's box
+constexpr int PLANE = 41 * 128;      // its room in a stage (5,248 B): a tensor copy lands on 128-byte boundaries
 constexpr int STAGES = 2;
 constexpr int SMEM_MAX = 232448;     // what a block may ask for on sm_90
 
 __host__ __device__ inline int wg_out_stride(int nt) { return nt + 8; }  // elements: rows 4 banks apart
 __host__ __device__ inline size_t wg_weight_bytes(int cin, int nt) { return (size_t)9 * cin * nt * 2; }
 __host__ __device__ inline size_t wg_halo_bytes(int cin) { return (size_t)(cin / 8) * PLANE; }
+// weights, the halo ring, each warp's staging rows, the bias, then the
+// ring's mbarriers (full and empty, one each a stage)
 __host__ __device__ inline size_t wg_smem_bytes(int cin, int nt) {
     return wg_weight_bytes(cin, nt) + STAGES * wg_halo_bytes(cin) + (size_t)(THREADS / 32) * 16 * wg_out_stride(nt) * 2 +
-           (size_t)nt * 4;
+           (size_t)nt * 4 + 2 * STAGES * 8;
 }
 
 // What the wgmma kernel writes: act(conv + bias) (EPI_NONE), or a dense
@@ -490,9 +519,17 @@ __device__ __forceinline__ void store_step(const T* ow, int OS, const StepArgs<T
     }
 }
 
+// The kernel a 16-bit conv runs, as resselt_conv3x3_schedule reports it:
+// mma.sync, or the wgmma kernel's ping-pong (the value 1 is not used).
+enum Schedule { SCHED_MMA = 0, SCHED_PINGPONG = 2 };
+
+// the named barriers of the ping-pong: warpgroup g may issue its products
+// when BAR_TURN + g completes (bar 0 is __syncthreads')
+constexpr int BAR_TURN = 1;
+
 template <typename T, int NT, int EPI>
 __global__ void __launch_bounds__(THREADS, NT <= 64 ? 2 : 1)
-conv3x3_wgmma_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
+conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const T* __restrict__ w, const float* __restrict__ bias,
                      T* __restrict__ y, int H, int W, int Cin, int Cout, int tiles_x, int tiles_y, int num_tiles,
                      int act, int vec_w, int vec_y, StepArgs<T> st) {
     using HT = Half16<T>;
@@ -500,12 +537,14 @@ conv3x3_wgmma_kernel(const T* __restrict__ x, const T* __restrict__ w, const flo
     const int ncg = Cin / 8;
     const int OS = wg_out_stride(NT);
     unsigned char* wsm = smem;                                   // [tap][cg][NT][8]
-    unsigned char* hsm = wsm + wg_weight_bytes(Cin, NT);         // STAGES x [cg][HH][HW][8]
+    unsigned char* hsm = wsm + wg_weight_bytes(Cin, NT);         // STAGES x [cg][HH][HW][8], planes PLANE apart
     T* osm = reinterpret_cast<T*>(hsm + STAGES * wg_halo_bytes(Cin));  // per warp [16][OS]
     float* bsm = reinterpret_cast<float*>(osm + (THREADS / 32) * 16 * OS);
 
     const int tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31;
+    // the warp from lane 0: uniform in the compiler's eyes too, so that no branch on it around the
+    // products reads as divergent (ptxas then serializes the wgmmas)
+    const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
     const int wgi = warp >> 2, wq = warp & 3;
     const int g = lane >> 2, t4 = lane & 3;
     const int co0 = blockIdx.y * NT;
@@ -513,29 +552,33 @@ conv3x3_wgmma_kernel(const T* __restrict__ x, const T* __restrict__ w, const flo
 
     const uint32_t hsm_addr = static_cast<uint32_t>(__cvta_generic_to_shared(hsm));
     const uint32_t wsm_addr = static_cast<uint32_t>(__cvta_generic_to_shared(wsm));
+    const uint32_t bar_addr = static_cast<uint32_t>(__cvta_generic_to_shared(bsm + NT));  // full[s], empty[s]
     const uint32_t halo_bytes = (uint32_t)wg_halo_bytes(Cin);
+    const auto full = [&](int s) { return bar_addr + 8 * s; };
+    const auto empty = [&](int s) { return bar_addr + 8 * (STAGES + s); };
 
-    // the halo of tile t into stage s: 16-byte pieces, zero outside the image.
-    // A thread owns (pixel, odd or even channel groups): two lanes cover a
-    // pixel's 32-byte sector per copy, and the pixel's index math is done once
+    // the halo of tile t into stage s, asked for by the calling thread: one
+    // tensor copy a channel group, the box (8 channels, 18 columns, 18 rows,
+    // 1 image) at the tile's corner less one, zero outside the image; the
+    // bytes count on full[s]
     auto load_halo = [&](int s, int t) {
         const int tx = t % tiles_x, ty = (t / tiles_x) % tiles_y, n = t / (tiles_x * tiles_y);
-        const int oy0 = ty * TH - 1, ox0 = tx * TW - 1;
-        const T* xn = x + (size_t)n * H * W * Cin;
         const uint32_t base = hsm_addr + s * halo_bytes;
-        for (int i = tid; i < HH * HW * 2; i += THREADS) {
-            const int half = i & 1, p = i >> 1;
-            const int iy = oy0 + p / HW, ix = ox0 + p % HW;
-            const bool valid = iy >= 0 && iy < H && ix >= 0 && ix < W;
-            const T* src = valid ? xn + ((size_t)iy * W + ix) * Cin + half * 8 : x;
-            const uint32_t dst = base + half * PLANE + p * 16;
-            for (int cg = 0; cg < ncg; cg += 2) cp_async16(dst + cg * PLANE, valid ? src + cg * 8 : x, valid);
-        }
+        mbar_expect_tx(full(s), (uint32_t)(ncg * BOX));
+        for (int cg = 0; cg < ncg; ++cg)
+            tma_load_4d(base + cg * PLANE, &xmap, full(s), cg * 8, tx * TW - 1, ty * TH - 1, n);
     };
 
+    // full: the producing thread's arrival and the copies' bytes; empty: every thread's arrival
     int t = blockIdx.x;
-    if (t < num_tiles) load_halo(0, t);
-    cp_async_commit();
+    if (tid == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full(s), 1);
+            mbar_init(empty(s), THREADS);
+        }
+        mbar_fence_init();
+        for (int s = 0; s < STAGES && t + s * (int)gridDim.x < num_tiles; ++s) load_halo(s, t + s * gridDim.x);
+    }
 
     // this block's weights, once: w[tap][k][co0 + n] -> wsm[tap][k / 8][n][k % 8], zero past Cout
     if (vec_w) {
@@ -577,17 +620,10 @@ conv3x3_wgmma_kernel(const T* __restrict__ x, const T* __restrict__ w, const flo
 
     float acc[2][NT / 2];
     T* ow = osm + warp * 16 * OS;
-    int stage = 0;
-    for (; t < num_tiles; t += gridDim.x, stage ^= 1) {
-        const int tn = t + gridDim.x;
-        if (tn < num_tiles) load_halo(stage ^ 1, tn);
-        cp_async_commit();
-        cp_async_wait<1>();    // this thread's pieces of tile t have landed
-        fence_async_shared();  // ... and are visible to wgmma (so are the weights, the first time)
-        __syncthreads();       // every thread's pieces
 
-        // 9 taps x Cin / 16 k-steps x 2 m64 tiles
-        const uint32_t a0 = hsm_addr + stage * halo_bytes + (wgi * 8) * 16;
+    // this warpgroup's 9 taps x Cin / 16 k-steps x 2 m64 tiles on stage s, issued
+    const auto issue_products = [&](int s) {
+        const uint32_t a0 = hsm_addr + s * halo_bytes + (wgi * 8) * 16;
         fence_registers(acc[0]);
         fence_registers(acc[1]);
         wgmma_fence();
@@ -604,10 +640,15 @@ conv3x3_wgmma_kernel(const T* __restrict__ x, const T* __restrict__ w, const flo
             }
         }
         wgmma_commit();
+    };
+
+    // tile t's epilogue operands of this warpgroup's half on their way into
+    // L2 while the products run: a thread a pixel
+    const auto prefetch_operands = [&](int t) {
         if constexpr (EPI != EPI_NONE) {
-            // this tile's epilogue operands on their way into L2 while the products run: a thread a pixel
             const int tx = t % tiles_x, ty = (t / tiles_x) % tiles_y, n = t / (tiles_x * tiles_y);
-            const int oy = ty * TH + tid / TW, ox = tx * TW + tid % TW;
+            const int i = tid & 127;
+            const int oy = ty * TH + i / 8, ox = tx * TW + wgi * 8 + i % 8;
             const T* const operands[3] = {st.addend, st.res, st.res2};
 #pragma unroll
             for (int q = 0; q < 3; ++q) {
@@ -617,11 +658,10 @@ conv3x3_wgmma_kernel(const T* __restrict__ x, const T* __restrict__ w, const flo
                 prefetch_l2(p + ncols - 1);
             }
         }
-        wgmma_wait<0>();
-        fence_registers(acc[0]);
-        fence_registers(acc[1]);
+    };
 
-        // bias, activation, rounding; through the warp's staging rows to global
+    // bias, activation, rounding; through the warp's staging rows to global
+    const auto epilogue = [&](int t) {
         const int tx = t % tiles_x, ty = (t / tiles_x) % tiles_y, n = t / (tiles_x * tiles_y);
         const int ox0 = tx * TW + wgi * 8;
 #pragma unroll
@@ -664,9 +704,34 @@ conv3x3_wgmma_kernel(const T* __restrict__ x, const T* __restrict__ w, const flo
             }
             __syncwarp();
         }
-        __syncthreads();  // both warpgroups are done with this stage before it is refilled
+    };
+
+    fence_async_shared();  // the weights, visible to wgmma
+    __syncthreads();       // ... and the barriers initialised
+    // Warpgroup 0 issues tile i's products, then warpgroup 1, then 0 tile
+    // i + 1's: each warpgroup's epilogue runs under the other's products.  A
+    // stage is refilled (tile i + 2) by warpgroup 1's first thread once every
+    // thread is past its products on it.
+    if (wgi == 1) named_arrive(BAR_TURN, THREADS);  // warpgroup 0's first turn
+    for (int i = 0; t < num_tiles; t += gridDim.x, ++i) {
+        const int s = i & 1;
+        const uint32_t parity = (i >> 1) & 1;
+        mbar_wait(full(s), parity);
+        named_sync(BAR_TURN + wgi, THREADS);
+        issue_products(s);
+        named_arrive(BAR_TURN + 1 - wgi, THREADS);
+        prefetch_operands(t);
+        wgmma_wait<0>();
+        fence_registers(acc[0]);
+        fence_registers(acc[1]);
+        mbar_arrive(empty(s));
+        if (warp == 4 && t + 2 * (int)gridDim.x < num_tiles) {
+            mbar_wait(empty(s), parity);
+            if (lane == 0) load_halo(s, t + 2 * gridDim.x);
+        }
+        epilogue(t);
     }
-    cp_async_wait<0>();
+    if (wgi == 0) named_sync(BAR_TURN, THREADS);  // warpgroup 1's turn given after its last products
 }
 
 int num_sms() {
@@ -677,6 +742,43 @@ int num_sms() {
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     }
     return sms;
+}
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime's entry
+// points: the library does not link libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) == cudaSuccess &&
+            found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+// x (N, H, W, C) as the wgmma kernel's tensor copies read it: dims (C, W, H,
+// N), a box of one channel group's halo (8, HW, HH, 1); coordinates
+// outside the tensor read zeros, the conv's padding.
+template <typename T>
+cudaError_t halo_map(CUtensorMap* map, const T* x, int n, int h, int w, int c) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
+    const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)w * c * 2, (cuuint64_t)h * w * c * 2};
+    const cuuint32_t box[4] = {8, HW, HH, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    const CUtensorMapDataType type =
+        std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const CUresult r = encode(map, type, 4, const_cast<T*>(x), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <typename T, int NT, int EPI>
@@ -699,11 +801,14 @@ cudaError_t launch_wgmma(const T* x, const T* w, const float* b, T* y, int n, in
     const int tiles_x = (wd + TW - 1) / TW, tiles_y = (h + TH - 1) / TH;
     const long long tiles = (long long)n * tiles_x * tiles_y;
     if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+    CUtensorMap xmap;
+    const cudaError_t err = halo_map(&xmap, x, n, h, wd, cin);
+    if (err != cudaSuccess) return err;
     const long long resident = (long long)num_sms() * per_sm / n_split;
     const int gx = (int)(tiles < resident ? tiles : (resident < 1 ? 1 : resident));
     const int vec_w = (cout % 8 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
     const int vec_y = (cout % 8 == 0) && (reinterpret_cast<uintptr_t>(y) % 16 == 0);
-    kernel<<<dim3(gx, n_split), THREADS, smem, stream>>>(x, w, b, y, h, wd, cin, cout, tiles_x, tiles_y, (int)tiles,
+    kernel<<<dim3(gx, n_split), THREADS, smem, stream>>>(xmap, w, b, y, h, wd, cin, cout, tiles_x, tiles_y, (int)tiles,
                                                           act, vec_w, vec_y, st);
     return cudaGetLastError();
 }
@@ -743,6 +848,17 @@ int wgmma_plan(int cin, int cout, int* nt_out) {
     return 0;
 }
 
+// The kernel a 16-bit conv of Cin -> Cout takes (enum Schedule): mma.sync
+// where the wgmma kernel has no plan or x is not 16-byte aligned, else the
+// wgmma kernel.  *nt: the N tile (BN on mma.sync), *n_split: the plan's
+// slices (0 on mma.sync).
+int conv_schedule(int cin, int cout, bool x_aligned, int* nt, int* n_split) {
+    *n_split = x_aligned ? wgmma_plan(cin, cout, nt) : 0;
+    if (*n_split > 0) return SCHED_PINGPONG;
+    *nt = BN;
+    return SCHED_MMA;
+}
+
 dim3 grid_for(int n, int h, int w, int cout, int* n_cb) {
     *n_cb = (cout + BN - 1) / BN;
     return dim3((w + TW - 1) / TW, (h + TH - 1) / TH, n * *n_cb);
@@ -769,9 +885,9 @@ int launch_h16(const void* xv, const void* wv, const void* bv, void* yv, int n, 
     const float* b = static_cast<const float*>(bv);
     T* y = static_cast<T*>(yv);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    int nt = 0;
-    const int n_split = reinterpret_cast<uintptr_t>(x) % 16 == 0 ? wgmma_plan(cin, cout, &nt) : 0;
-    if (n_split > 0) return launch_wgmma_nt<T, EPI_NONE>(nt, x, w, b, y, n, h, wd, cin, cout, n_split, act, {}, s);
+    int nt = 0, n_split = 0;
+    if (conv_schedule(cin, cout, reinterpret_cast<uintptr_t>(x) % 16 == 0, &nt, &n_split) != SCHED_MMA)
+        return launch_wgmma_nt<T, EPI_NONE>(nt, x, w, b, y, n, h, wd, cin, cout, n_split, act, {}, s);
     if (grid_too_large(n, h, cout)) return (int)cudaErrorInvalidValue;
     int n_cb;
     const dim3 grid = grid_for(n, h, wd, cout, &n_cb);
@@ -860,4 +976,16 @@ extern "C" int resselt_conv3x3_step_f16(const void* x, const void* w, const void
 extern "C" int resselt_conv3x3_step_takes(int cin, int cout, int split) {
     int nt = 0;
     return step_plan(cin, cout, split, &nt) > 0;
+}
+
+// The schedule of a 16-bit conv of Cin -> Cout whose input is (x_aligned 1)
+// or is not (0) 16-byte aligned, as the bf16 and fp16 entries and the
+// producer steps dispatch it: 0 mma.sync, 2 the wgmma kernel's ping-pong
+// (enum Schedule); *nt, where not null, the N tile of a block (64 on
+// mma.sync).
+extern "C" int resselt_conv3x3_schedule(int cin, int cout, int x_aligned, int* nt) {
+    int tile = 0, n_split = 0;
+    const int sched = conv_schedule(cin, cout, x_aligned != 0, &tile, &n_split);
+    if (nt != nullptr) *nt = tile;
+    return sched;
 }

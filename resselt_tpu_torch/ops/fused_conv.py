@@ -14,7 +14,11 @@ the shape (:data:`LK_PATHS` in 16 bits), or 'f32'.  ESRGAN's dense-block
 producer step (:func:`fused_conv3x3_step`: the conv with the block's glue
 in the kernel's epilogue) counts as a launch of ``fused_conv3x3_act`` at
 the conv's key, act ``'linear'``, and by epilogue kind in its
-``by_epilogue`` Counter.
+``by_epilogue`` Counter.  The 3x3 wrappers count their forward launches
+(a step's too) by schedule in ``by_schedule``: ``(schedule, nt)``, the
+kernel csrc/conv3x3.cu ran (:data:`CONV3X3_SCHEDULES` in 16 bits, as its
+``resselt_conv3x3_schedule`` reports, or 'f32') and the output channels a
+block holds.
 
 Weights are either torch OIHW ``(Cout, Cin, k, k)`` or already packed into
 ``(k*k, Cin, Cout)`` taps in the input's dtype (:func:`pack_conv3x3_weight`,
@@ -147,19 +151,46 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.resselt_conv3x3_step_takes.argtypes = [ctypes.c_int] * 3
         lib.resselt_conv3x3_step_takes.restype = ctypes.c_int
+        lib.resselt_conv3x3_schedule.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        lib.resselt_conv3x3_schedule.restype = ctypes.c_int
         lib._resselt_typed = True
     return lib
 
 
-def _count(entry, key: tuple, backward: bool) -> None:
-    """One launch of ``entry``'s kernel at ``key``: a forward one, or one
-    that a gradient made."""
+# csrc/conv3x3.cu's 16-bit schedules by its enum Schedule's values: mma.sync (Cin no multiple of 16, x off 16
+# bytes, or weights and halos that do not fit), and the wgmma kernel, whose two warpgroups run half a tile
+# apart, one's epilogue under the other's products (pingpong)
+CONV3X3_SCHEDULES = {0: 'mma', 2: 'pingpong'}
+
+
+def _schedule(x: torch.Tensor, cin: int, cout: int) -> tuple:
+    """``(schedule, nt)`` of a conv3x3.cu launch on ``x``: the kernel's own
+    dispatch in 16 bits (:func:`_schedule_of`), ``('f32', 64)`` in f32."""
+    if x.dtype == torch.float32:
+        return 'f32', CONV3X3_BN
+    return _schedule_of(cin, cout, x.data_ptr() % 16 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule_of(cin: int, cout: int, x_aligned: bool) -> tuple:
+    """``resselt_conv3x3_schedule`` of a 16-bit Cin -> Cout conv, asked once
+    a shape: ``(schedule, nt)``."""
+    nt = ctypes.c_int(0)
+    sched = _lib().resselt_conv3x3_schedule(cin, cout, int(x_aligned), ctypes.byref(nt))
+    return CONV3X3_SCHEDULES[sched], nt.value
+
+
+def _count(entry, key: tuple, backward: bool, schedule: tuple | None = None) -> None:
+    """One launch of ``entry``'s kernel at ``key``: a forward one (by
+    ``schedule`` too, where given), or one that a gradient made."""
     if backward:
         entry.backward_launches += 1
         entry.backward_by_shape[key] += 1
     else:
         entry.launches += 1
         entry.by_shape[key] += 1
+        if schedule is not None:
+            entry.by_schedule[schedule] += 1
 
 
 def _launch(entry, x: torch.Tensor, w: torch.Tensor, b, act: str, backward: bool = False) -> torch.Tensor:
@@ -181,13 +212,14 @@ def _launch(entry, x: torch.Tensor, w: torch.Tensor, b, act: str, backward: bool
     lib = _lib()
     fn = getattr(lib, 'resselt_conv3x3_' + _ENTRY_SUFFIX[x.dtype])
     with torch.cuda.device(x.device):
+        schedule = _schedule(x, cin, cout)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), taps.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
                 n, h, wd, cin, cout, ACTS[act], stream)
     if rc != 0:
         raise RuntimeError(f'conv3x3 kernel launch failed: CUDA error {rc} '
-                           f'(x {tuple(x.shape)} {x.dtype}, cout {cout}, act {act})')
-    _count(entry, (n, h, wd, cin, cout, act), backward)
+                           f'(x {tuple(x.shape)} {x.dtype}, cout {cout}, act {act}, schedule {schedule})')
+    _count(entry, (n, h, wd, cin, cout, act), backward, schedule)
     return y
 
 
@@ -314,6 +346,7 @@ def fused_conv3x3_act(x, w, b=None, act: str = 'linear') -> torch.Tensor:
 fused_conv3x3_act.launches = 0
 fused_conv3x3_act.by_shape = Counter()
 fused_conv3x3_act.by_epilogue = Counter()  # fused_conv3x3_step's launches by epilogue kind
+fused_conv3x3_act.by_schedule = Counter()  # forward launches (steps too) by (schedule, nt)
 fused_conv3x3_act.backward_launches = 0
 fused_conv3x3_act.backward_by_shape = Counter()
 fused_conv3x3_act.backward_conv2d_input = Counter()
@@ -337,6 +370,7 @@ def fused_conv3x3_pack2(x, w, b=None, act: str = 'linear') -> torch.Tensor:
 
 fused_conv3x3_pack2.launches = 0
 fused_conv3x3_pack2.by_shape = Counter()
+fused_conv3x3_pack2.by_schedule = Counter()
 fused_conv3x3_pack2.backward_launches = 0
 fused_conv3x3_pack2.backward_by_shape = Counter()
 fused_conv3x3_pack2.backward_conv2d_input = Counter()
@@ -389,12 +423,13 @@ def _launch_step(x: torch.Tensor, taps: torch.Tensor, b, addend, split, residual
     fn = getattr(_lib(), 'resselt_conv3x3_step_' + _ENTRY_SUFFIX[x.dtype])
     ptrs = [None if t is None else t.data_ptr() for t in (x, taps, b, addend, res, res2, y, carry)]
     with torch.cuda.device(x.device):
+        schedule = _schedule(x, cin, cout)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(*ptrs, n, h, wd, cin, cout, split or 0, stream)
     if rc != 0:
         raise RuntimeError(f'conv3x3 step launch failed: CUDA error {rc} '
-                           f'(x {tuple(x.shape)} {x.dtype}, cout {cout}, {kind})')
-    _count(fused_conv3x3_act, (n, h, wd, cin, cout, 'linear'), False)
+                           f'(x {tuple(x.shape)} {x.dtype}, cout {cout}, {kind}, schedule {schedule})')
+    _count(fused_conv3x3_act, (n, h, wd, cin, cout, 'linear'), False, schedule)
     fused_conv3x3_act.by_epilogue[kind] += 1
     return y if carry is None else (y, carry)
 

@@ -134,6 +134,9 @@ def test_esrgan_on_card_matches_cpu(cuda, scale, in_nc):
 # ESRGAN's producer steps (fc.fused_conv3x3_step), nf 64 / gc 32: (cin, cout, addend, split, residuals)
 STEP_STAGES = {'stage0': (64, 192, False, 32, 0), 'stage1': (32, 160, True, 32, 0), 'stage2': (32, 128, True, 32, 0),
                'stage3': (32, 96, True, 32, 0), 'stage4': (32, 64, True, None, 1), 'stage4_rrdb': (32, 64, True, None, 2)}
+# their (schedule, nt) in by_schedule: the wgmma kernel's ping-pong at N tiles 96, 80 and 64
+STEP_SCHEDULES = {'stage0': ('pingpong', 96), 'stage1': ('pingpong', 80), 'stage2': ('pingpong', 64),
+                  'stage3': ('pingpong', 96), 'stage4': ('pingpong', 64), 'stage4_rrdb': ('pingpong', 64)}
 
 
 def _step_case(cuda, dtype, n, h, w, cin, cout, has_addend, split, n_res):
@@ -158,26 +161,58 @@ def _step_chain(x, taps, b, addend, split, residuals):
     return a
 
 
+# Batches against the ping-pong's tile loop on an H100's 132 SMs: 8 x 264^2 (2,312 tiles of 16^2, 35 or 36 a
+# block at two Cout slices of one block an SM), 2 x 140 x 170 (198 tiles: 3 a block there, an odd count, so
+# warpgroup 1's last products have no partner), 2 x 37 x 29 (12 tiles, fewer than the SMs), one image of a
+# single tile; H and W no multiples of 16 but in the first and last
+STEP_BATCHES = [(8, 264, 264), (2, 140, 170), (2, 37, 29), (1, 16, 16)]
+
+
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize('stage', list(STEP_STAGES))
-@pytest.mark.parametrize('n,h,w', [(8, 264, 264), (2, 37, 29)])
+@pytest.mark.parametrize('n,h,w', STEP_BATCHES)
 def test_step_kernel_equals_the_chain(cuda, dtype, stage, n, h, w):
     """One launch with the glue in the epilogue, bit for bit the chain of a
-    conv launch and PyTorch ops; counted as the conv's launch at its key and
-    once by its epilogue kind."""
+    conv launch and PyTorch ops; counted as the conv's launch at its key,
+    once by its epilogue kind and once by its schedule."""
     cin, cout, has_addend, split, n_res = STEP_STAGES[stage]
     x, taps, b, addend, split, residuals = _step_case(cuda, dtype, n, h, w, cin, cout, has_addend, split, n_res)
     assert fc.conv3x3_step_takes(cin, cout, split)
     want = _step_chain(x, taps, b, addend, split, residuals)
     e, key = fc.fused_conv3x3_act, (n, h, w, cin, cout, 'linear')
     kind = ('carry_' if has_addend else '') + ('split' if split else f'residual{n_res}')
-    before = e.launches, e.by_shape[key], e.by_epilogue[kind]
+    before = e.launches, e.by_shape[key], e.by_epilogue[kind], e.by_schedule[STEP_SCHEDULES[stage]]
+    schedules = sum(e.by_schedule.values())
     got = fc.fused_conv3x3_step(x, taps, b, addend=addend, split=split, residuals=residuals)
     torch.cuda.synchronize()
-    assert (e.launches, e.by_shape[key], e.by_epilogue[kind]) == tuple(c + 1 for c in before)
+    assert (e.launches, e.by_shape[key], e.by_epilogue[kind],
+            e.by_schedule[STEP_SCHEDULES[stage]]) == tuple(c + 1 for c in before)
+    assert sum(e.by_schedule.values()) == schedules + 1
     got, want = (got, want) if split else ((got,), (want,))
     for g_, w_ in zip(got, want):
         assert g_.is_contiguous() and g_.dtype == dtype and torch.equal(g_, w_.contiguous())
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('cin,cout,act,nt', [(64, 96, 'lrelu', 96), (64, 96, 'silu', 96), (64, 96, 'mish', 96),
+                                             (64, 192, 'lrelu', 96), (64, 192, 'silu', 96), (64, 192, 'mish', 96),
+                                             (64, 64, 'linear', 64)])
+@pytest.mark.parametrize('n,h,w', STEP_BATCHES[1:3])
+def test_pingpong_conv_matches_plain(cuda, dtype, cin, cout, act, nt, n, h, w):
+    """The plain conv (no producer epilogue) on the ping-pong at plans of
+    one block an SM against the plain version in f32; counted once under
+    ('pingpong', nt)."""
+    g = torch.Generator(device=cuda).manual_seed(cout)
+    x = torch.randn((n, h, w, cin), generator=g, device=cuda).to(dtype)
+    taps = fc.pack_conv3x3_weight(torch.randn((cout, cin, 3, 3), generator=g, device=cuda) / (3 * cin ** 0.5), dtype)
+    b = torch.randn((cout,), generator=g, device=cuda)
+    e = fc.fused_conv3x3_act
+    before, total = e.by_schedule[('pingpong', nt)], sum(e.by_schedule.values())
+    got = fc.fused_conv3x3_act(x, taps, b, act=act)
+    torch.cuda.synchronize()
+    assert e.by_schedule[('pingpong', nt)] == before + 1 and sum(e.by_schedule.values()) == total + 1
+    want = fc.fused_conv3x3_act_ref(x.float(), taps.float(), b, act=act)
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=1e-3)
 
 
 @pytest.mark.parametrize('case', ['f32', 'cin8', 'split12', 'cout60', 'misaligned'])
@@ -231,18 +266,22 @@ def test_esrgan_width_forward_steps_equal_the_chain(cuda, monkeypatch, dtype):
     e = fc.fused_conv3x3_act
 
     def forward():
-        shapes, kinds = Counter(e.by_shape), Counter(e.by_epilogue)
+        shapes, kinds, schedules = Counter(e.by_shape), Counter(e.by_epilogue), Counter(e.by_schedule)
         y = model(x, dtype=dtype)
         torch.cuda.synchronize()
-        return y, e.by_shape - shapes, e.by_epilogue - kinds
+        return y, e.by_shape - shapes, e.by_epilogue - kinds, e.by_schedule - schedules
 
-    got, steps_shapes, kinds = forward()
+    got, steps_shapes, kinds, steps_schedules = forward()
     with monkeypatch.context() as m:
         m.setattr(E, '_fuses', lambda *a: False)
-        want, chain_shapes, chain_kinds = forward()
+        want, chain_shapes, chain_kinds, chain_schedules = forward()
     assert torch.equal(got, want)
     assert steps_shapes == chain_shapes and sum(steps_shapes.values()) == 5 * 3 * 3 + 6 and not chain_kinds
     assert kinds == {'split': 9, 'carry_split': 27, 'carry_residual1': 6, 'carry_residual2': 3}
+    # 9 RDBs' producers at N tiles 96 (stages 0, 3), 80 (1) and 64 (2, 4), the four 64 -> 64 convs at 64 and
+    # 64 -> 3 at 8 on the ping-pong, 3 -> 64 on mma.sync (a bench forward of 23 blocks: 350 and 1)
+    assert steps_schedules == chain_schedules == {('pingpong', 96): 18, ('pingpong', 80): 9, ('pingpong', 64): 22,
+                                                  ('pingpong', 8): 1, ('mma', 64): 1}
 
 
 def test_tiled_on_card_matches_cpu(cuda):

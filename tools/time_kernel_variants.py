@@ -11,8 +11,12 @@ Each argument after the source's name is one variant: extra nvcc flags
 of the source to build instead (an earlier version, or a copy with a stage
 edited out to time it).  Every variant's library exports the C entry
 points of the source as it stands; for conv_lk only the launch entry
-(``resselt_conv_lk_bf16``, called here directly), for molrcm and conv3x3
-the entries the wrapper types.  Every other variant is built from
+(``resselt_conv_lk_bf16``, called here directly), for conv3x3 the conv and
+step entries (``resselt_conv3x3_bf16``, ``resselt_conv3x3_step_bf16``,
+called here directly, so that an earlier copy without the schedule export
+runs too; the first variant is the source as it stands, whose library the
+wrappers use), for molrcm the entries the wrapper types.  Every other
+variant is built from
 ``resselt_tpu_torch/csrc/<name>.cu``; each goes into a temporary directory,
 then each is timed in turn at the bench shapes of the kernel (for conv_lk:
 PLKSR's 16 -> 16 k 17 partial conv and the 16-channel-multiple shapes
@@ -23,7 +27,8 @@ producer step, whose library time is the unfused chain it replaces), bf16,
 with CUDA events, in the order A B .. B A so that a drift of the card's
 clock shows.  Every variant's largest difference from
 the plain version is reported beside its times (a copy with a stage edited
-out is a timing probe and is expected to differ).  Prints one JSON line per
+out is a timing probe and is expected to differ), and for conv3x3 whether
+its output is the first variant's bit for bit.  Prints one JSON line per
 shape and the card's name and power limit.
 """
 
@@ -115,12 +120,10 @@ def _cases(name: str):
         from resselt_tpu_torch.ops import fused_conv as fc
 
         def conv(lib, x, taps, b):
-            _build._libs['conv3x3'] = lib  # the wrappers' next load() returns it (and types it anew)
-            return fc.fused_conv3x3_act(x, taps, b)
+            return conv3x3_launch(lib, x, taps, b)
 
         def step(lib, x, taps, b, addend, split, residuals):
-            _build._libs['conv3x3'] = lib
-            return fc.fused_conv3x3_step(x, taps, b, addend=addend, split=split, residuals=residuals)
+            return conv3x3_step_launch(lib, x, taps, b, addend, split, residuals)
 
         def chain(x, taps, b, addend, split, residuals):
             return fc._step_glue(fc.fused_conv3x3_act(x, taps, b), addend, split, residuals)
@@ -148,6 +151,81 @@ def _cases(name: str):
         raise SystemExit(f'no cases for {name!r}')
 
 
+def _entry(lib, name: str, n_ptrs: int):
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def conv3x3_launch(lib, x, taps, b, act: str = 'linear'):
+    """One launch of a conv3x3 library's 16-bit conv entry on NHWC ``x``
+    with packed ``taps`` and f32 bias ``b``: ``y``."""
+    import torch
+
+    from resselt_tpu_torch.ops import fused_conv as fc
+
+    n, h, w, cin = x.shape
+    cout = taps.shape[2]
+    y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+    fn = _entry(lib, 'resselt_conv3x3_' + fc._ENTRY_SUFFIX[x.dtype], 4)
+    rc = fn(x.data_ptr(), taps.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, w, cin, cout, fc.ACTS[act],
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'launch failed: CUDA error {rc}')
+    return y
+
+
+def conv3x3_step_launch(lib, x, taps, b, addend, split, residuals):
+    """One launch of a conv3x3 library's producer-step entry: ``y`` (the
+    residual epilogue) or ``(y, carry)`` (the split)."""
+    import torch
+
+    from resselt_tpu_torch.ops import fused_conv as fc
+
+    n, h, w, cin = x.shape
+    cout = taps.shape[2]
+    y = torch.empty((n, h, w, cout if split is None else split), dtype=x.dtype, device=x.device)
+    carry = None if split is None else torch.empty((n, h, w, cout - split), dtype=x.dtype, device=x.device)
+    res, res2 = (*residuals, None, None)[:2]
+    fn = _entry(lib, 'resselt_conv3x3_step_' + fc._ENTRY_SUFFIX[x.dtype], 8)
+    ptrs = [None if t is None else t.data_ptr() for t in (x, taps, b, addend, res, res2, y, carry)]
+    rc = fn(*ptrs, n, h, w, cin, cout, split or 0, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'launch failed: CUDA error {rc}')
+    return y if carry is None else (y, carry)
+
+
+def build(name: str, variants: list[str]) -> list[ctypes.CDLL]:
+    """Each variant of ``csrc/<name>.cu`` (extra nvcc flags, optionally led by
+    ``@path`` of another copy of the source) built into a temporary
+    directory and loaded; one JSON line each with ptxas's registers and
+    spills."""
+    from resselt_tpu_torch.ops import _build
+
+    src = os.path.join(_build.CSRC, f'{name}.cu')
+    libs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for i, flags in enumerate(variants):
+            out = os.path.join(tmp, f'{name}-{i}.so')
+            extra = flags.split()
+            source = extra.pop(0)[1:] if extra and extra[0].startswith('@') else src
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, '-I', _build.CSRC, *extra, '-o', out, source]
+            procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out))
+        for flags, (proc, out) in zip(variants, procs):
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f'{flags or "as is"}: nvcc exited {proc.returncode}\n{log[-6000:]}')
+            warn = [ln.strip()[:160] for ln in log.splitlines() if 'Potential Performance Loss' in ln]
+            regs = [ln.split('Used ')[1].split(',')[0] for ln in log.splitlines() if 'Used ' in ln]
+            spills = [ln.strip() for ln in log.splitlines() if 'spill stores' in ln and not ln.strip().startswith('0 bytes stack')]
+            print(json.dumps({'variant': flags, 'registers': regs, 'spills': spills,
+                              'serialization_warnings': warn}), flush=True)
+            libs.append(ctypes.CDLL(out))
+    return libs
+
+
 def _flat(t):
     """A kernel's output, or its outputs side by side, as one f32 tensor."""
     import torch
@@ -164,41 +242,30 @@ def main(argv: list[str]) -> int:
         print(__doc__, file=sys.stderr)
         return 1
     name, variants = argv[0], argv[1:]
-    src = os.path.join(_build.CSRC, f'{name}.cu')
-    libs = []
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = []
-        for i, flags in enumerate(variants):
-            out = os.path.join(tmp, f'{name}-{i}.so')
-            extra = flags.split()
-            source = extra.pop(0)[1:] if extra and extra[0].startswith('@') else src
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, '-I', _build.CSRC, *extra, '-o', out, source]
-            procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out))
-        for flags, (proc, out) in zip(variants, procs):
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                print(log[-6000:], file=sys.stderr)
-                return 1
-            warn = [ln.strip()[:160] for ln in log.splitlines() if 'Potential Performance Loss' in ln]
-            regs = [ln.split('Used ')[1].split(',')[0] for ln in log.splitlines() if 'Used ' in ln]
-            spills = [ln.strip() for ln in log.splitlines() if 'spill stores' in ln and not ln.strip().startswith('0 bytes stack')]
-            print(json.dumps({'variant': flags, 'registers': regs, 'spills': spills,
-                              'serialization_warnings': warn}), flush=True)
-            libs.append(ctypes.CDLL(out))
+    try:
+        libs = build(name, variants)
+    except RuntimeError as e:
+        print(e, file=sys.stderr)
+        return 1
     _build._libs.setdefault(name, libs[0])  # what a case's plain version launches, if it launches a kernel
 
     order = list(range(len(libs))) + list(reversed(range(len(libs))))
     for label, call, plain, library in _cases(name):
         want = _flat(plain())
         times: dict[int, list[float]] = {i: [] for i in range(len(libs))}
-        errs = {}
+        errs, equal = {}, {}
+        first = None
         for i in range(len(libs)):
             got = _flat(call(libs[i]))
             errs[variants[i] or 'as is'] = float((got - want).abs().max())
+            first = got if first is None else first
+            equal[variants[i] or 'as is'] = bool(torch.equal(got, first))
         for i in order:
             times[i].append(_ms(lambda: call(libs[i])))
         row = {'shape': label, 'ms': {variants[i] or 'as is': times[i] for i in times}, 'max_abs_err': errs,
                'max_abs_plain': float(want.abs().max())}
+        if name == 'conv3x3':
+            row['equal_to_first'] = equal
         if library is not None:
             row['library_ms'] = _ms(library)
         print(json.dumps(row), flush=True)
