@@ -20,8 +20,14 @@ The gradients of the five kernel Functions are held, in f32, to the same
 tolerances x max|plain gradient| against autograd through the plain
 version on the card (the 16-bit conv gradient to 3e-2), and a train step
 of six small models on the card to the CPU's (loss within 1e-5 relative,
-every param within 2 lr after the step).  ``esrgan.apply_pipelined`` on a
-one-rank NCCL mesh counts its conv3x3 launches and equals ``model(x)``.
+every param within 2 lr after the step).  One bf16 forward of each family
+at the widths the kernel table names launches the counts that table gives,
+by route.  An int8 model's convs on the card equal the CPU's on the same
+codes.  On a one-rank NCCL mesh: ``esrgan.apply_pipelined`` counts its
+conv3x3 launches and equals ``model(x)`` and ``SRModel.apply``'s
+gradients, ``upscale_tiled(mesh=)`` and ``make_train_step(mesh=)`` equal
+their meshless runs bit for bit, and ``moe_apply_ep`` equals
+``moe_apply_dense``.
 """
 
 from collections import Counter
@@ -1085,6 +1091,20 @@ _CONV_FAMILIES = {
     'gfisrv2': (lambda: make_gfisrv2(16, 3, 2, seed=36), 10, None),
     'figsr': (lambda: make_figsr(16, 2, 2, gc=2, seed=37), 9, None),
     'lawfft': (lambda: make_lawfft(16, 1, 2, 2, seed=38), 2, None),
+    'mosrv2_pixelshuffle_3x': (lambda: make_mosrv2(32, 2, 3, upsampler='pixelshuffle', seed=39), 1 + 4 + 2 + 3, None),
+    'moesr_dysample': (lambda: make_moesr(32, 1, 2, 2, upsampler='dysample', upsample_dim=16, seed=40), 14, None),
+    'smosr_pa_up_4x': (lambda: make_smosr(16, 1, 4, upsampler='pa_up', seed=41), 2 * 4 + 1 + 5, None),
+    'flexnet_n+c_channel_norm': (lambda: make_flexnet(32, (3, 1), 4, hidden_rate=2, channel_norm=True, upsampler='n+c',
+                                                      seed=42), 2 + 1 + 4 + 1 + 4, None),
+    'gfisr_unshuffle_pa_up': (lambda: make_gfisr(16, 5, 2, upsampler='pa_up', mid_dim=16, pixel_unshuffle=True,
+                                                 seed=43), 1 + 10 + 5, None),
+    'gfisr_lda': (lambda: make_gfisr(16, 5, 2, upsampler='lda', mid_dim=16, seed=44), 1 + 10 + 2, None),
+    'gfisrv2_transpose_conv_3x': (lambda: make_gfisrv2(16, 4, 3, upsampler='transpose+conv', mid_dim=16, seed=45),
+                                  1 + 8 + 2 + 1, None),
+    'figsr_square5_dysample': (lambda: make_figsr(16, 2, 2, upsampler='dysample', mid_dim=16, gc=4,
+                                                  square_kernel_size=5, seed=46), 1 + 4 + 1 + 1, None),
+    'lawfft_unshuffle_pixelshuffle': (lambda: make_lawfft(16, 1, 2, 2, unshuffle_mod=True, upsampler='pixelshuffle',
+                                                          mid_dim=16, seed=47), 1 + 4, None),
 }
 
 
@@ -1191,6 +1211,218 @@ def test_model_serves_float16_and_every_precision_on_the_card(cuda, family):
         assert float(psnr) >= 35.0, f'{family} {kwargs}: {float(psnr):.2f} dB'
     with pytest.raises(ValueError):
         gpu(x, precision='fastest')
+
+
+# -- launches of a served forward, by route, at the widths the kernel table names ---------------
+
+
+_ESRGAN_BLOCKS = 23
+# RRDBNet-23's producer steps by epilogue kind: a dense block's first step splits, the next three add the carry and
+# split, its last adds the carry and the block's input (the RRDB's last block: the RRDB's input too)
+_ESRGAN_EPILOGUES = {'split': 3 * _ESRGAN_BLOCKS, 'carry_split': 9 * _ESRGAN_BLOCKS,
+                     'carry_residual1': 2 * _ESRGAN_BLOCKS, 'carry_residual2': _ESRGAN_BLOCKS}
+# conv3x3.cu's schedule by (schedule, N tile): the producers at 96 (stages 0 and 3), 80 (stage 1) and 64 (stages 2
+# and 4), the four Cin-64 64 -> 64 convs at 64, 64 -> 3 at 8, all on the ping-pong; 3 -> 64 (Cin 3) on mma.sync
+_ESRGAN_SCHEDULES = {('pingpong', 96): 6 * _ESRGAN_BLOCKS, ('pingpong', 80): 3 * _ESRGAN_BLOCKS,
+                     ('pingpong', 64): 6 * _ESRGAN_BLOCKS + 4, ('pingpong', 8): 1, ('mma', 64): 1}
+
+_SERVED = {
+    # family: (state dict, with_config overrides, launches a bf16 forward by counter and route)
+    'esrgan': (lambda: make_esrgan(64, _ESRGAN_BLOCKS, 4, seed=0), None,
+               {'conv3x3': 6 + 15 * _ESRGAN_BLOCKS, 'epilogue': _ESRGAN_EPILOGUES, 'schedule': _ESRGAN_SCHEDULES}),
+    'plksr': (lambda: make_plksr(64, 28, 4, 17, seed=0), None, {'conv_lk': 28, 'lk_path': {'stacked': 28}}),
+    'swinir': (lambda: make_swinir(180, (6,) * 6, (6,) * 6, 8, upscale=4, img_size=64, seed=0), None,
+               {'window_mha': 36, 'wattn_kernel': {'wattn_h16_kernel': 36}}),
+    'eimn': (lambda: make_eimn(64, 16, 1, 2.66, 4, seed=0), None, {'molrcm': 16, 'molrcm_dtype': {'bfloat16': 16}}),
+    'atd': (lambda: make_atd(48, (6,) * 5, (4,) * 5, 16, 64, 8, 7, 1.0, 4, seed=0), None,
+            {'window_mha': 30, 'row_gather': 60, 'wattn_kernel': {'wattn_h16_kernel': 30}}),
+    'hat': (lambda: make_hat(144, (6,) * 6, (6,) * 6, 16, 0.5, 24, 24, 2.0, 4, 64, seed=0), None,
+            {'window_mha': 36, 'plain_attention': 6, 'wattn_kernel': {'wattn_h16_kernel': 36}}),
+    'dat': (lambda: make_dat(180, (6,) * 6, (6,) * 6, (8, 16), 2.0, 4, seed=0), None,
+            {'window_mha': 36, 'wattn_kernel': {'wattn_h16_kernel': 36}}),
+    'rgt': (lambda: make_rgt(180, (6,) * 6, (6,) * 6, (8, 32), 2.0, 0.5, 4, seed=0), None,
+            {'window_mha': 36, 'wattn_kernel': {'wattn_h16_kernel': 36}}),
+    'drct': (lambda: make_drct(180, 6, 6, 16, 32, 2.0, 4, img_size=64, seed=0), None,
+             {'window_mha': 30, 'wattn_kernel': {'wattn_h16_kernel': 18, 'wattn_h16_any_kernel': 12}}),
+    'fdat': (lambda: make_fdat(120, 4, 3, 4, 8, 2.0, 8, 64, 'transpose+conv', 4, seed=0), None,
+             {'window_mha': 12, 'wattn_kernel': {'wattn_h16_kernel': 12}}),
+    'omni': (lambda: make_omni(64, 1, True, 8, 5, 4, seed=0), None,
+             {'window_mha': 10, 'wattn_kernel': {'wattn_h16_kernel': 10}}),
+    'spanpp': (lambda: make_spanpp(48, ig_kernel=3, implicit_dim=256, latent_layers=4, seed=0), {'eval_scale': 2},
+               {'conv3x3': 21}),
+    'span': (lambda: make_span(48, 4, seed=0), None, {'conv3x3': 21}),
+    'rcan': (lambda: make_rcan(64, 10, 20, 16, 4, seed=0), None, {'conv3x3': 1 + 10 * (2 * 20 + 1) + 1 + 2 + 1}),
+    'mosr': (lambda: make_mosr(64, 24, 4, seed=0), None, {'conv3x3': 1 + 2 * 24 + 2 + 2 + 1}),
+    'compact': (lambda: make_compact(64, 16, 4, seed=0), None, {'conv3x3': 18}),
+    'spanplus': (lambda: make_spanplus(48, (4,), 2, seed=0), None, {'conv3x3': 1 + 3 * (4 + 2) + 1 + 1}),
+    'cugan': (lambda: make_cugan('2x', seed=0), None, {}),
+    'gater': (lambda: make_gater(64, (2, 2, 2, 4, 2, 2, 2), seed=0, latent_att=True), None, {'conv3x3': 9}),
+    'mosrv2': (lambda: make_mosrv2(64, 24, 4, upsampler='pixelshuffledirect', seed=0), None,
+               {'conv3x3': 1 + 2 * 24 + 2 + 1}),
+    'moesr': (lambda: make_moesr(64, 6, 6, 4, expansion_factor=2.5, expansion_msg=2.5, seed=0), None,
+              {'conv3x3': 1 + 6 * (2 * 6 + 1 + 6 + 1) + 1}),
+    'gaterv2': (lambda: make_gaterv2(32, (2, 2, 4), (4, 2, 2), 6, seed=0), None, {'conv3x3': 1 + 3 + 3 + 1}),
+    'gaterv3': (lambda: make_gaterv3(32, (2, 2, 4), (4, 2, 2), 4, attention=True, span_blocks=4, seed=0), None,
+                {'conv3x3': 1 + 3 * (4 + 2) + 1 + 3 + 3 + 1}),
+    'rtmosr': (lambda: make_rtmosr(64, 2, 2, seed=0), None, {'conv3x3': 1 + 3 * 2 + 1}),
+    'smosr': (lambda: make_smosr(64, 2, 4, seed=0), None, {'conv3x3': 2 * (2 + 2 + 1) + 1 + 1}),
+    'rha': (lambda: make_rha(64, 4, down_list=(8, 4, 2, 1), res_blocks=6, seed=0), None,
+            {'conv3x3': 1 + 2 * 4 * 6 + 4}),
+    'flexnet': (lambda: make_flexnet(64, (6,) * 6, 4, window_size=8, hidden_rate=4, seed=0), None,
+                {'conv3x3': 2 + 1 + 2 * 6 + 1, 'window_mha': 36, 'wattn_kernel': {'wattn_h16_kernel': 36}}),
+    'gfisr': (lambda: make_gfisr(64, 24, 4, seed=0), None, {'conv3x3': 1 + 2 * 24 + 1}),
+    'gfisrv2': (lambda: make_gfisrv2(64, 22, 4, seed=0), None, {'conv3x3': 1 + 2 * 22 + 2 + 1}),
+    'figsr': (lambda: make_figsr(64, 18, 4, seed=0), None, {'conv3x3': 1 + 3 * 18 + 1 + 1}),
+    'lawfft': (lambda: make_lawfft(64, 4, 6, 4, seed=0), None, {'conv3x3': 2}),
+}
+
+
+def _launch_counts() -> dict:
+    """Every kernel wrapper's launches, the plain path's window attentions,
+    and the launches by route: conv3x3's by epilogue and by schedule,
+    conv_lk's by path, window_mha's by kernel, fused_molrcm's by dtype."""
+    from resselt_tpu_torch.nn.window import multi_head_attention
+
+    def by(counter, part):
+        out = Counter()
+        for key, n in counter.items():
+            out[part(key)] += n
+        return out
+
+    act, lk = fc.fused_conv3x3_act, fc.fused_conv_lk
+    return {'conv3x3': act.launches + fc.fused_conv3x3_pack2.launches, 'conv_lk': lk.launches,
+            'window_mha': wa.window_mha.launches, 'molrcm': mo.fused_molrcm.launches,
+            'row_gather': row_gather.launches, 'plain_attention': multi_head_attention.plain_calls,
+            'epilogue': Counter(act.by_epilogue), 'schedule': Counter(act.by_schedule),
+            'lk_path': by(lk.by_path, lambda key: key[1]), 'wattn_kernel': by(wa.window_mha.by_kernel, lambda key: key[0]),
+            'molrcm_dtype': by(mo.fused_molrcm.by_shape, lambda key: key[-1])}
+
+
+@pytest.mark.parametrize('family', sorted(_SERVED))
+def test_served_forward_launches(cuda, monkeypatch, family):
+    """One bf16 forward of a 64 x 64 image through each family at the widths
+    the kernel table's launch counts are given for: the launches of every
+    hand-written kernel, the window attentions left to the plain path, and
+    the routes (ESRGAN's producer steps by epilogue kind and its convs by
+    conv3x3.cu's schedule, PLKSR's large-kernel convs by conv_lk.cu's path,
+    the window attentions by window_attn.cu's kernel, EIMN's MOLRCMs by
+    dtype: the 16-bit strip kernel).  No other kernel launches.  The f32
+    forward on the CPU routes as many convs to the conv wrappers' plain
+    versions as the card launches."""
+    make, overrides, want = _SERVED[family]
+    sd = make()
+    gpu = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    if overrides:
+        gpu, cpu = gpu.with_config(**overrides), cpu.with_config(**overrides)
+    x = np.random.default_rng(0).random((1, 64, 64, 3), dtype=np.float32)
+    before = _launch_counts()
+    with torch.no_grad():
+        y = gpu(x, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in _launch_counts().items()}
+    assert bool(torch.isfinite(y).all())
+    # every launch count; the routes where the table gives them (conv3x3's schedule: ESRGAN's)
+    assert {k: dict(v) if isinstance(v, Counter) else v for k, v in got.items()
+            if v and (isinstance(v, int) or k in want)} == want
+
+    routed, run = Counter(), fc._run
+
+    def counting(entry, *args, **kwargs):
+        routed['conv_lk' if entry is fc.fused_conv_lk else 'conv3x3'] += 1
+        return run(entry, *args, **kwargs)
+
+    monkeypatch.setattr(fc, '_run', counting)
+    with torch.no_grad():
+        cpu(x)
+    assert dict(routed) == {k: want[k] for k in ('conv3x3', 'conv_lk') if k in want}
+
+
+# BENCHMARK.json's configurations at their published widths, with their launches a forward by counter and route:
+# DRCT-L's twelve groups each take two window attentions to the "any" kernels (heads of 122 and 77 channels)
+_CELLS = {
+    'esrgan_x4': _SERVED['esrgan'][::2],
+    'swinir_m_x4': _SERVED['swinir'][::2],
+    'drct_l_x4': (lambda: make_drct(180, 12, 6, 16, 32, 2.0, 4, img_size=64, seed=0),
+                  {'window_mha': 60, 'wattn_kernel': {'wattn_h16_kernel': 36, 'wattn_h16_any_kernel': 24}}),
+}
+
+
+@pytest.mark.parametrize('config', sorted(_CELLS))
+def test_cell_forward_launches(cuda, config):
+    """A 1280 x 720 frame through ``upscale_tiled`` in bf16 at the loader's
+    tile, halo and batch, as the frames720 cells serve it: every tile-batch
+    forward of the host loop launches what one forward of
+    test_served_forward_launches does, by counter and route, so no route
+    changes with the cells' shapes; the graph path's first call (warm-up
+    and capture) counts the host loop's launches twice."""
+    from resselt_tpu_torch.parallel import tiling as tt
+
+    make, want = _CELLS[config]
+    model = resselt_tpu_torch.load_from_state_dict(make(), device='cuda')
+    frame = torch.randint(0, 256, (720, 1280, 3), dtype=torch.uint8, generator=torch.Generator().manual_seed(0))
+    tile, halo, _ = tt._resolve_window(model, None, None, torch.bfloat16, None, 1)
+    grid, batch = tt._plan_tiled(model, 720, 1280, tile, halo, None, torch.bfloat16)
+    forwards = -(-len(grid.ys) * len(grid.xs) // batch)
+
+    def counted(on_device):
+        before = _launch_counts()
+        with torch.no_grad():
+            y = upscale_tiled(model, frame.cuda(), dtype=torch.bfloat16, on_device=on_device)
+        torch.cuda.synchronize()
+        assert y.shape == (2880, 5120, 3) and bool(torch.isfinite(y).all())
+        return {k: dict(v - before[k]) if isinstance(v, Counter) else v - before[k]
+                for k, v in _launch_counts().items() if v != before[k] and (isinstance(v, int) or k in want)}
+
+    def times(counts, n):
+        return {k: {r: n * c for r, c in v.items()} if isinstance(v, dict) else n * v for k, v in counts.items()}
+
+    assert counted(False) == times(want, forwards), (tile, halo, batch, forwards)
+    assert counted(None) == times(want, 2 * forwards)
+
+
+_INT8 = {
+    'esrgan': lambda: make_esrgan(64, _ESRGAN_BLOCKS, 4, seed=0),
+    'compact': lambda: make_compact(seed=0),
+    'span': lambda: make_span(seed=0),
+    'cugan': lambda: make_cugan('2x', seed=0),  # its transposed convs stay float
+}
+
+
+@pytest.mark.parametrize('family', sorted(_INT8))
+def test_int8_convs_on_card_match_cpu(cuda, monkeypatch, family):
+    """An int8 model (``quantize_int8``) on a 64 x 64 image: every int8 conv
+    of the card's forward, run again on the CPU on the same input, weights
+    and scales, within 1e-4 x max|y| (the same codes, an exact int32 sum).
+    The whole forwards agree only to the int8 model's own sensitivity (the
+    dynamic activation quant turns a last-bit difference upstream of an
+    int8 conv into a flipped code): card against CPU, and int8 against
+    float on each device, above 35 dB."""
+    from resselt_tpu_torch import metrics
+    from resselt_tpu_torch.nn import functional as F
+
+    sd = _INT8[family]()
+    model = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
+    cpu = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    x = np.random.default_rng(5).random((1, 64, 64, 3), dtype=np.float32)
+    calls, real = [], F.conv2d_int8
+
+    def recording(x_, w8, scale, b=None, **kw):
+        y = real(x_, w8, scale, b, **kw)
+        calls.append((x_.cpu(), w8.cpu(), scale.cpu(), None if b is None else b.cpu(), kw, y.cpu()))
+        return y
+
+    monkeypatch.setattr(F, 'conv2d_int8', recording)
+    y_card = model.quantize_int8()(x).cpu()
+    monkeypatch.setattr(F, 'conv2d_int8', real)
+    assert calls
+    for x_, w8, scale, b, kw, y in calls:
+        want = real(x_, w8, scale, b, **kw)
+        assert float((y - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    y_cpu = cpu.quantize_int8()(x)
+    assert metrics.psnr(y_card, y_cpu) > 35.0
+    assert metrics.psnr(y_card, model(x).cpu()) > 35.0
+    assert metrics.psnr(y_cpu, cpu(x)) > 35.0
 
 
 # -- FlexNet's window attention ------------------------------------------------------------------
@@ -1380,34 +1612,171 @@ def test_train_step_on_card_matches_cpu(cuda, variant):
         torch.testing.assert_close(outs[1][1][k], v, rtol=0, atol=2e-3)
 
 
+@pytest.fixture
+def nccl_rank(cuda, tmp_path):
+    """A one-rank NCCL process group (a file:// store in ``tmp_path``),
+    destroyed after the test."""
+    import torch.distributed as dist
+
+    from resselt_tpu_torch.parallel import init_distributed
+
+    init_distributed('cuda', init_method=f'file://{tmp_path / "rendezvous"}', rank=0, world_size=1)
+    assert dist.get_backend() == 'nccl'
+    yield
+    dist.destroy_process_group()
+
+
 @pytest.mark.parametrize('m', [1, 2])
-def test_pipelined_esrgan_on_a_one_rank_nccl_mesh(cuda, tmp_path, m):
+def test_pipelined_esrgan_on_a_one_rank_nccl_mesh(cuda, nccl_rank, m):
     """``esrgan.apply_pipelined`` over a one-rank NCCL 'pp' mesh: the head
     and tail convs launch conv3x3.cu once a forward (5 at 2x: the first conv,
     the trunk conv, one upconv, HRconv, the last conv), the trunk's producer
     convs (15 an RRDB) once a microbatch; the output is ``model(x)``'s,
     exactly for one microbatch, within the f32 tolerance for two."""
-    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     from resselt_tpu_torch.archs.esrgan import apply_pipelined
-    from resselt_tpu_torch.parallel import init_distributed
 
     model = resselt_tpu_torch.load_from_state_dict(make_esrgan(16, 3, 2, gc=8, seed=3), device='cuda')
     x = torch.rand((4, 24, 20, 3), generator=torch.Generator().manual_seed(0)).to(cuda)
     want = model(x)
-    init_distributed('cuda', init_method=f'file://{tmp_path / "rendezvous"}', rank=0, world_size=1)
-    try:
-        mesh = init_device_mesh('cuda', (1,), mesh_dim_names=('pp',))
-        before = fc.fused_conv3x3_act.launches
-        with torch.no_grad():
-            got = apply_pipelined(model.config, model.params, x, mesh, axis='pp', num_microbatches=m)
-        torch.cuda.synchronize()
-        launches = fc.fused_conv3x3_act.launches - before
-    finally:
-        dist.destroy_process_group()
+    mesh = init_device_mesh('cuda', (1,), mesh_dim_names=('pp',))
+    before = fc.fused_conv3x3_act.launches
+    with torch.no_grad():
+        got = apply_pipelined(model.config, model.params, x, mesh, axis='pp', num_microbatches=m)
+    torch.cuda.synchronize()
+    launches = fc.fused_conv3x3_act.launches - before
     assert launches == 5 + 15 * 3 * m
     if m == 1:
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('m', [1, 2])
+def test_pipelined_esrgan_gradients_on_a_one_rank_nccl_mesh(cuda, nccl_rank, monkeypatch, m):
+    """The charbonnier loss's gradient in every raw param and in ``x``
+    through ``esrgan.apply_pipelined`` on a one-rank 'pp' mesh against
+    ``SRModel.apply``'s, f32, cuDNN deterministic: within 1e-4 x
+    max|gradient|.  conv3x3.cu launches 5 + 15 x 3 m convs each way (``x``
+    requires a gradient, so the head conv's ``dx`` runs too)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from resselt_tpu_torch.archs.esrgan import apply_pipelined
+    from resselt_tpu_torch.train import charbonnier_loss, split_trainable
+
+    monkeypatch.setattr(torch.backends.cudnn, 'deterministic', True)
+    model = resselt_tpu_torch.load_from_state_dict(make_esrgan(16, 3, 2, gc=8, seed=3), device='cuda')
+    mesh = init_device_mesh('cuda', (1,), mesh_dim_names=('pp',))
+    gen = torch.Generator().manual_seed(4)
+    lr, hr = torch.rand((4, 24, 20, 3), generator=gen).to(cuda), torch.rand((4, 48, 40, 3), generator=gen).to(cuda)
+    trainable, static = split_trainable(model.params)
+    act = fc.fused_conv3x3_act
+
+    def launches():
+        torch.cuda.synchronize()
+        return act.launches, act.backward_launches + sum(act.backward_conv2d_input.values())
+
+    def grads(forward):
+        leaves = {k: v.detach().requires_grad_() for k, v in trainable.items()}
+        x = lr.clone().requires_grad_()
+        before = launches()
+        loss = charbonnier_loss(forward({**leaves, **static}, x), hr)
+        out = dict(zip(['x', *leaves], torch.autograd.grad(loss, [x, *leaves.values()])))
+        return out, tuple(n - b for n, b in zip(launches(), before))
+
+    want, counts = grads(model.apply)
+    assert counts == (5 + 15 * 3, 5 + 15 * 3)
+    got, counts = grads(lambda p, x: apply_pipelined(model.config, p, x, mesh, axis='pp', num_microbatches=m))
+    assert counts == (5 + 15 * 3 * m, 5 + 15 * 3 * m)
+    scale = max(float(v.abs().max()) for v in want.values())
+    for k, v in want.items():
+        torch.testing.assert_close(got[k], v, rtol=0, atol=1e-4 * scale)
+
+
+def test_upscale_tiled_on_a_one_rank_nccl_mesh(cuda, nccl_rank):
+    """``upscale_tiled(mesh=)`` on a one-rank (dp, tp) NCCL mesh, bf16: the
+    host loop and the graph path (the rank's forward captured, the
+    all_gather and the stitch after the replay) each give the meshless
+    run's output bit for bit, and the mesh graph's kernel nodes are the mesh
+    host loop's launches."""
+    from test_torch_tiling_graph import graph_kernel_counts
+
+    from resselt_tpu_torch.parallel import make_mesh
+
+    model = resselt_tpu_torch.load_from_state_dict(make_esrgan(16, 3, 2, gc=8, seed=21), device='cuda')
+    img = np.random.default_rng(2).random((72, 90, 3), dtype=np.float32)
+    mesh = make_mesh(device='cuda')
+
+    def run(on_device, with_mesh):
+        return upscale_tiled(model, img, tile=16, dtype=torch.bfloat16, on_device=on_device,
+                             mesh=mesh if with_mesh else None)
+
+    before = fc.fused_conv3x3_act.launches
+    host = run(False, True)
+    torch.cuda.synchronize()
+    per_image = fc.fused_conv3x3_act.launches - before
+    assert per_image > 0 and torch.equal(host, run(False, False))
+    solo = run(None, False)
+    for _ in range(2):
+        assert torch.equal(run(None, True), solo)
+    program = next(p for p in model.__dict__['_tiled_fn_cache'].values() if p.mesh is mesh)
+    assert program.graph is not None and program.replays == 2
+    assert graph_kernel_counts(program.graph) == {'conv3x3': per_image}
+
+
+def test_train_step_on_a_one_rank_nccl_mesh(cuda, nccl_rank, monkeypatch):
+    """``make_train_step(mesh=)`` with a one-rank 'dp' mesh (the batch
+    slice, the gradients' all_reduce): three steps of ESRGAN with remat and
+    an EMA give the meshless steps' params bit for bit.  cuDNN runs its
+    deterministic algorithms: its default weight-gradient ones may add in
+    another order from run to run."""
+    from resselt_tpu_torch import train as tt
+    from resselt_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.backends.cudnn, 'deterministic', True)
+    model = resselt_tpu_torch.load_from_state_dict(make_esrgan(16, 2, 2, gc=8, seed=3), device='cuda')
+    gen = torch.Generator().manual_seed(0)
+    batches = [(torch.rand((4, 24, 24, 3), generator=gen).to(cuda), torch.rand((4, 48, 48, 3), generator=gen).to(cuda))
+               for _ in range(3)]
+    params = []
+    for mesh in (None, make_mesh(device='cuda')):
+        opt = tt.make_optimizer(1e-4)
+        state = tt.init_train_state(model.params, opt, ema=True)
+        step = tt.make_train_step(model.raw_apply_fn, model.config, opt, 'charbonnier', 0.999, True, mesh=mesh)
+        for lr, hr in batches:
+            state, _ = step(state, lr, hr)
+        params.append(state.params)
+    assert all(torch.equal(params[1][k], v) for k, v in params[0].items())
+
+
+@pytest.mark.parametrize('placement', ['whole', 'sharded'])
+def test_moe_apply_ep_on_a_one_rank_nccl_mesh(cuda, nccl_rank, placement):
+    """``moe_apply_ep`` on a one-rank 'ep' mesh against ``moe_apply_dense``,
+    f32, the params from ``init_moe_params`` on its default device, whole or
+    placed by ``shard_moe_params``: the output and the gradients of
+    ``sum(y ** 2)`` in ``x`` and every param within 1e-4 x their max."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from resselt_tpu_torch.parallel import init_moe_params, moe_apply_dense, moe_apply_ep, shard_moe_params
+    from resselt_tpu_torch.parallel.mesh import local_tensor
+
+    mesh = init_device_mesh('cuda', (1,), mesh_dim_names=('ep',))
+    params = init_moe_params(torch.Generator().manual_seed(0), 64, 256, 8)
+    assert params['w1'].device.type == 'cuda'
+    x = torch.randn((4096, 64), generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def run(fn, p):
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        xx = x.clone().requires_grad_()
+        y = fn(leaves, xx)
+        grads = torch.autograd.grad((y ** 2).sum(), [xx, *leaves.values()])
+        return y.detach(), [grads[0], *(local_tensor(g) for g in grads[1:])]
+
+    y_ref, g_ref = run(moe_apply_dense, params)
+    placed = params if placement == 'whole' else shard_moe_params(params, mesh, 'ep')
+    y, g = run(lambda p, xx: moe_apply_ep(p, xx, mesh, 'ep'), placed)
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-4 * float(y_ref.abs().max()))
+    scale = max(float(t.abs().max()) for t in g_ref)
+    for got, want in zip(g, g_ref):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)

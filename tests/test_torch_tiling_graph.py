@@ -8,7 +8,8 @@ bound.  Also ``unroll``, ``bucket=True`` forwarding ``on_device``, the
 program cache's LRU bound of 8 and its key on the TF32 settings, ``mesh``
 still refused, and, on the card (marked ``cuda``), the CUDA graph: captured
 once and replayed, its kernel nodes (what a replay launches) the kernels
-that the host loop launches.
+that the host loop launches, for every CUDA source and cuFFT under
+capture; and the graphs of one model sharing one memory pool.
 
 JAX and the families' JAX-side test helpers are imported inside the tests
 that compare with them, so that the ``cuda`` tests also run where JAX is
@@ -17,13 +18,19 @@ absent:
     python -m pytest tests/test_torch_tiling_graph.py -q -m cuda --noconftest
 """
 
+import ctypes
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
 
 import resselt_tpu_torch
 import resselt_tpu_torch.parallel.tiling as tt
-from resselt_tpu_torch.zoo import make_compact, make_esrgan, make_plksr
+from resselt_tpu_torch.ops import fused_conv3x3_act, fused_conv_lk, fused_molrcm, row_gather, window_mha
+from resselt_tpu_torch.zoo import (make_atd, make_compact, make_eimn, make_esrgan, make_lawfft, make_plksr, make_rha,
+                                   make_swinir)
 
 
 torch.set_num_threads(2)
@@ -233,43 +240,157 @@ def test_a_mesh_of_a_new_world_gets_its_own_program(esrgan):
         assert torch.equal(fn(torch.from_numpy(_img())), want)
 
 
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'resselt_tpu_torch', 'csrc')
+_GLOBAL = re.compile(r'__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?(\w+)\s*\(')
+
+
+def kernel_patterns() -> list:
+    """(pattern, source stem) for every ``__global__`` function of
+    resselt_tpu_torch/csrc/*.cu: a kernel is known by its symbol, mangled
+    (``<length>name``) or demangled."""
+    out = []
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith('.cu'):
+            with open(os.path.join(CSRC, name)) as fh:
+                out += [(re.compile(rf'{len(s)}{s}|(?<![\w]){s}(?=[<(]|$)'), name[:-3])
+                        for s in sorted(set(_GLOBAL.findall(fh.read())))]
+    return out
+
+
+def graph_kernel_counts(graph) -> dict:
+    """The kernels of csrc/ among a captured CUDA graph's kernel nodes, by
+    source stem: a replay launches each node once, so these are what a
+    replay launches, which no Python counter sees.  Read from the graph's
+    ``cudaGraph_t`` (``TiledProgram`` captures with ``keep_graph=True``)
+    through the driver API: ``cuGraphGetNodes``, ``cuGraphNodeGetType``,
+    ``cuGraphKernelNodeGetParams`` and ``cuFuncGetName`` (or
+    ``cuKernelGetName`` for a node that names a library kernel), each name
+    matched against :func:`kernel_patterns`."""
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [('func', ctypes.c_void_p), ('grid', ctypes.c_uint * 3), ('block', ctypes.c_uint * 3),
+                    ('shared_mem_bytes', ctypes.c_uint), ('kernel_params', ctypes.c_void_p),
+                    ('extra', ctypes.c_void_p), ('kern', ctypes.c_void_p), ('ctx', ctypes.c_void_p)]
+
+    cu = ctypes.CDLL('libcuda.so.1')
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f'{what} failed: CUresult {rc}')
+
+    graph_t = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph_t, None, ctypes.byref(n)), 'cuGraphGetNodes')
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph_t, nodes, ctypes.byref(n)), 'cuGraphGetNodes')
+    patterns = kernel_patterns()
+    counts: dict[str, int] = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), 'cuGraphNodeGetType')
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params)),
+              'cuGraphKernelNodeGetParams')
+        name = ctypes.c_char_p()
+        if params.func:
+            check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func)), 'cuFuncGetName')
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern)), 'cuKernelGetName')
+        text = name.value.decode()
+        for pat, src in patterns:
+            if pat.search(text):
+                counts[src] = counts.get(src, 0) + 1
+                break
+    return counts
+
+
+# a small model of each family whose forward runs a CUDA source (LAWFFT: cuFFT too), and the wrappers that count
+# each source's launches
+_GRAPH_FAMILIES = {
+    'esrgan': (lambda: make_esrgan(16, 3, 2, gc=8, seed=21), {'conv3x3': fused_conv3x3_act}),
+    'plksr': (lambda: make_plksr(16, 2, 2, kernel_size=9, split_ratio=0.5, seed=4), {'conv_lk': fused_conv_lk}),
+    'swinir': (lambda: make_swinir(16, (2,), (2,), 8, upscale=2, seed=4), {'window_attn': window_mha}),
+    'eimn': (lambda: make_eimn(64, 1, 1, 2.66, 2, seed=4), {'molrcm': fused_molrcm}),
+    'atd': (lambda: make_atd(24, (2,), (3,), 8, upscale=2, seed=4), {'window_attn': window_mha,
+                                                                     'row_gather': row_gather}),
+    'lawfft': (lambda: make_lawfft(16, 1, 2, 2, seed=4), {'conv3x3': fused_conv3x3_act}),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('family', ['esrgan', 'plksr'])
+@pytest.mark.parametrize('family', sorted(_GRAPH_FAMILIES))
 def test_graph_capture_replays_and_counts_on_the_card(family):
     """On the card: the first call warms up, captures and replays; later
-    calls only replay (the replay counter).  The wrapper counts the warm-up
+    calls only replay (the replay counter).  The wrappers count the warm-up
     run's launches and the capture's, each the host loop's, and nothing on
     a replay; what a replay launches, the graph's kernel nodes, equals the
-    host loop's launches.  The output equals the host loop's
+    host loop's launches of each source.  The output equals the host loop's
     within 1e-6 (f32, TF32 off)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
-    from chip_smoke import graph_kernel_counts
-    from resselt_tpu_torch.ops import fused_conv3x3_act, fused_conv_lk
+    make, entries = _GRAPH_FAMILIES[family]
 
-    entry, source = (fused_conv3x3_act, 'conv3x3') if family == 'esrgan' else (fused_conv_lk, 'conv_lk')
-    sd = make_esrgan(16, 3, 2, gc=8, seed=21) if family == 'esrgan' else \
-        make_plksr(16, 2, 2, kernel_size=9, split_ratio=0.5, seed=4)
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        tm = resselt_tpu_torch.load_from_state_dict(sd, device='cuda')
-        img = torch.from_numpy(_img(72, 90)).cuda()
-        entry.launches = 0
-        host = tt.upscale_tiled(tm, img, tile=16, on_device=False)
+    def launches():
         torch.cuda.synchronize()
-        per_image = entry.launches
-        assert per_image > 0
-        entry.launches = 0
+        return {source: entry.launches for source, entry in entries.items()}
+
+    def since(before):
+        return {source: n - before[source] for source, n in launches().items()}
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        tm = resselt_tpu_torch.load_from_state_dict(make(), device='cuda')
+        img = torch.from_numpy(_img(72, 90)).cuda()
+        before = launches()
+        host = tt.upscale_tiled(tm, img, tile=16, on_device=False)
+        per_image = since(before)
+        assert all(per_image.values())
+        before = launches()
         first = tt.upscale_tiled(tm, img, tile=16, on_device=True)
         (program,) = tm.__dict__['_tiled_fn_cache'].values()
-        assert program.graph is not None and program.replays == 1 and entry.launches == 2 * per_image
-        entry.launches = 0
+        assert program.graph is not None and program.replays == 1
+        assert since(before) == {source: 2 * n for source, n in per_image.items()}
+        before = launches()
         again = tt.upscale_tiled(tm, img, tile=16)
-        torch.cuda.synchronize()
-        assert program.replays == 2 and entry.launches == 0
-        assert graph_kernel_counts(program.graph) == {source: per_image}
+        assert program.replays == 2 and not any(since(before).values())
+        assert graph_kernel_counts(program.graph) == per_image
         assert float((again - host).abs().max()) <= HOST_TOL and torch.equal(first, again)
         assert again.data_ptr() != program._out.data_ptr()
     finally:
-        torch.backends.cudnn.allow_tf32 = saved
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+# distinct 720p-class image sizes, each its own grid, a few windows apart
+POOL_SIZES = ((720, 1280), (768, 1152), (800, 1216), (864, 1088))
+POOL_GROWTH = 1.5  # x the first size's: one pool a model holds the largest capture's intermediates once
+
+
+@pytest.mark.cuda
+def test_graphs_of_one_model_share_one_pool_on_the_card():
+    """RHA 4x at the zoo's widths (dim 64, four groups of six blocks), bf16
+    at the loader's hints, through four distinct 720p-class sizes: the
+    programs of a model share one graph pool, so a new size adds its static
+    canvases, not a replay's intermediates, and the device memory the four
+    cached programs keep is at most POOL_GROWTH x what the first keeps."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    model = resselt_tpu_torch.load_from_state_dict(make_rha(64, 4, down_list=(8, 4, 2, 1), res_blocks=6, seed=0),
+                                                   device='cuda')
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    kept = []
+    try:
+        for i, (h, w) in enumerate(POOL_SIZES):
+            tt.upscale_tiled(model, _img(h, w, seed=10 + i), dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            kept.append(torch.cuda.memory_reserved() - base)
+        assert len(model.__dict__['_tiled_fn_cache']) == len(POOL_SIZES)
+        assert 0 < kept[-1] <= POOL_GROWTH * kept[0], kept
+    finally:
+        for p in model.__dict__.get('_tiled_fn_cache', {}).values():
+            p.release()

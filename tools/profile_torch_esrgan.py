@@ -19,14 +19,14 @@ features (``--model span``), SPANPlus 2x, blocks (4,), 48 features, ``ps``
 mosr``), SpanPP 2x, 48 features, zoo.make_spanpp's IGConv (``--model
 spanpp``), RCAN 4x, 10 groups of 20 RCABs, 64 features (``--model rcan``),
 or CUGAN 2x, UpCunet2x, all plain torch (``--model cugan``), or one of the
-restoration U-nets and the MoSR lineage at chip_smoke.py's widths: GateR
+restoration U-nets and the MoSR lineage at the zoo's widths: GateR
 1x, dim 64, blocks (2, 2, 2, 4, 2, 2, 2), FLPVT2 latent (``--model
 gater``), MoSRv2 4x, dim 64, 24 blocks, pixelshuffledirect (``--model
 mosrv2``), MoESR 4x, dim 64, 6 x 6 blocks, expansion 2.5 (``--model
 moesr``), GateRv2 1x, dim 32, enc (2, 2, 4), dec (4, 2, 2), 6 latent blocks
 (``--model gaterv2``), GateRV3 1x, dim 32, the same U-Net, 4 latent blocks
 with channel attention, 4 SPABs (``--model gaterv3``), or one of the last
-eight at chip_smoke.py's widths: RTMoSR 2x, dim 64, 2 blocks, unshuffle
+eight at the zoo's widths: RTMoSR 2x, dim 64, 2 blocks, unshuffle
 (``--model rtmosr``), SMoSR 4x, dim 64, 2 middle blocks (``--model
 smosr``), RHA 4x, dim 64, 4 groups of 6 blocks (``--model rha``), FlexNet
 4x, dim 64, six groups of six blocks, with the window-attention kernel too
@@ -41,12 +41,13 @@ blocks (``--model figsr``), LAWFFT 4x, dim 64, 4 x 6 meta blocks
         [--reps 2] [--seed 0]
 
 Runs on a CUDA device only.  Warms up, then records ``--reps`` forwards
-under torch.profiler and prints one JSON line: the window's wall time per
-forward, device time per forward summed by kernel name (the top entries),
-the share of it in the model's hand-written kernels (conv3x3 / conv_lk /
-wattn / molrcm / row_gather; ATD has two, reported together and apart),
-and the device busy share of the window (the union of device-event
-intervals over the wall time).
+under torch.profiler, in a range that ``h100_bench.trace.read`` takes for
+its window, and prints one JSON line from what that reads: the window's
+wall time per forward, kernel time per forward summed by kernel name (the
+top entries), the share of it in the model's hand-written kernels (conv3x3
+/ conv_lk / wattn / molrcm / row_gather; ATD has two, reported together
+and apart), and the device busy share of the window (the union of device
+operations, copies and sets too, over the window's time).
 """
 
 from __future__ import annotations
@@ -55,7 +56,6 @@ import argparse
 import json
 import os
 import sys
-import time
 
 
 def main(argv=None) -> int:
@@ -77,6 +77,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import resselt_tpu_torch
+    from h100_bench.trace import WINDOW, read
     from resselt_tpu_torch.zoo import (make_atd, make_compact, make_cugan, make_dat, make_drct, make_eimn,
                                        make_esrgan, make_fdat, make_figsr, make_flexnet, make_gater, make_gaterv2,
                                        make_gaterv3, make_gfisr, make_gfisrv2, make_hat, make_lawfft, make_moesr,
@@ -154,32 +155,12 @@ def main(argv=None) -> int:
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.reps):
-            model(x, dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-
-    # device-side events only (kernels, copies); CUPTI's "Command Buffer
-    # Full" marks the host waiting on a full launch queue, not device work
-    by_name: dict[str, list[float]] = {}
-    spans = []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith('Command Buffer Full'):
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        acc = by_name.setdefault(e.name, [0.0, 0])
-        acc[0] += (e.time_range.end - e.time_range.start) / 1e3
-        acc[1] += 1
-    rows = [(k, ms / args.reps, n // args.reps) for k, (ms, n) in by_name.items()]
-    busy_us, last_end = 0.0, None
-    for start, end in sorted(spans):
-        if last_end is None or start >= last_end:
-            busy_us += end - start
-            last_end = end
-        elif end > last_end:
-            busy_us += end - last_end
-            last_end = end
+        with torch.profiler.record_function(WINDOW):
+            for _ in range(args.reps):
+                model(x, dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+    trace = read(prof)
+    rows = [(k, s * 1e3 / args.reps, trace.kernel_n[k] // args.reps) for k, s in trace.kernel_s.items()]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     parts = {k: sum(r[1] for r in rows if k in r[0]) for k in kernel.split('+')}
@@ -187,12 +168,12 @@ def main(argv=None) -> int:
     out = {
         'device': torch.cuda.get_device_name(0),
         'config': config + ', bf16, batch 16 x 256x256',
-        'wall_ms_per_forward': wall * 1e3 / args.reps,
+        'wall_ms_per_forward': trace.window_s * 1e3 / args.reps,
         'device_ms_per_forward': device_ms,
         f'{kernel}_ms_per_forward': kernel_ms,
         f'{kernel}_share_of_device': kernel_ms / device_ms if device_ms else None,
         **({f'{k}_ms_per_forward': ms for k, ms in parts.items()} if len(parts) > 1 else {}),
-        'device_busy_share': busy_us / 1e3 / (wall * 1e3) if device_ms else None,
+        'device_busy_share': trace.busy_s / trace.window_s if device_ms else None,
         'top': [{'kernel': k[:120], 'ms_per_forward': ms, 'launches_per_forward': n} for k, ms, n in rows[: args.top]],
     }
     print(json.dumps(out))
