@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's hand-written kernels shape by shape on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent-conv3x3 PATH]
+    python3 chip_smoke.py [--parent-conv3x3 PATH] [--parent-window-attn PATH]
 
 It builds resselt_tpu_torch/csrc/*.cu (one nvcc per source, all started
 together; ptxas's registers, shared memory and spills per kernel), then
@@ -23,7 +23,10 @@ shapes, with the backward's ms at each kernel's main shape (timed eagerly).
 With --parent-conv3x3 (an earlier copy of csrc/conv3x3.cu) the conv3x3
 rows also hold that build's 16-bit outputs equal to the kernel's bit for
 bit and time both in turns; each line lists the rows over 2% slower than
-the parent.  Then the card's name and power limit, one JSON line of each
+the parent.  --parent-window-attn does the same for an earlier
+csrc/window_attn.cu at the window-attention rows (DRCT-L's served pair
+launches among them, each row with its bound's share of its time).  Then
+the card's name and power limit, one JSON line of each
 kernel's figures a launch with, under ``served_launches``, the launches a
 tile-batch forward by wrapper and route of BENCHMARK.json's three
 configurations at their published widths, each loaded and served a 720p
@@ -280,14 +283,15 @@ def bound_ms(s: dict, dtype_name: str) -> tuple[float, str]:
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
-def vs_parent(parent, call, reps: int) -> dict:
-    """The bf16 conv3x3 launch ``call(lib)`` (a C entry of the library,
-    ``tools/time_kernel_variants.py``'s launchers) timed on this build and
-    on the ``parent`` copy's, in the order parent, change, change, parent:
-    the means, and the change's time over the parent's."""
+def vs_parent(parent, call, reps: int, source: str = 'conv3x3') -> dict:
+    """The bf16 launch ``call(lib)`` (a C entry of the library of
+    ``csrc/<source>.cu``, ``tools/time_kernel_variants.py``'s launchers)
+    timed on this build and on the ``parent`` copy's, in the order parent,
+    change, change, parent: the means, and the change's time over the
+    parent's."""
     from resselt_tpu_torch.ops import _build
 
-    mine = _build.load('conv3x3')
+    mine = _build.load(source)
     times = {'parent_ms': [], 'ms': []}
     for key, lib in (('parent_ms', parent), ('ms', mine), ('ms', mine), ('parent_ms', parent)):
         times[key].append(_ms(lambda: call(lib), reps))
@@ -679,6 +683,11 @@ def wattn_shapes(n_img: int, tile: int, cfg: dict, others: tuple[dict, ...]) -> 
         ('window (16, 20) n320 masked', n_img * 64, 320, c, h, 64, 'random', (16, 20), None),
         ('edge n320 head_dim 160 unmasked', 6, 320, 160, 1, None, None, (16, 20), None),
     ]
+    # DRCT-L's pair launches as drct_l_x4.frames720 serves them: one 144^2 window (tile 128, halo 8) of 81
+    # windows of 256 tokens, swin1 / swin2 / swin4 at C 180 / 212 / 276, with the model's shift mask and without
+    for label, dc, dh in (('swin1', 180, 6), ('swin2', 212, 4), ('swin4', 276, 6)):
+        rows += [(f'DRCT-L served {label} shift mask', 81, 256, dc, dh, 81, 'shift', (16, 16), (144, 144)),
+                 (f'DRCT-L served {label}', 81, 256, dc, dh, None, None, (16, 16), None)]
     for o in others:
         pad, classes = window_classes(o)
         window = o['tile'] + 2 * o['halo']
@@ -730,14 +739,19 @@ def _device_kernels(fn) -> str:
     return '; '.join(k[:60] for k, _ in sorted(by_name.items(), key=lambda kv: -kv[1])[:2])
 
 
-def phase_wattn_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
+def phase_wattn_kernels(device, shapes: list[dict], reps: int, parent=None) -> list[dict]:
     """Each shape: the window-attention kernel against its plain version in
     f32 (TF32 off), in bf16 and in fp16 (plain version in f32 from the same
     16-bit inputs), with q, k, v handed over as slices of one qkv tensor as
     the model does and a random f32 bias; then kernel / plain / library / bound times in bf16 (f32
-    times too at the bench shape).  The library call is
+    times too at the bench shape), and the bound's share of the kernel's
+    time (``bound_pct``).  The library call is
     ``scaled_dot_product_attention`` with bias + mask summed into one bf16
-    additive mask (materialised per window where masked)."""
+    additive mask (materialised per window where masked).  With ``parent``
+    (an earlier window_attn.cu's library), each row times its bf16 launch and
+    this build's in turns (``vs_parent``), both through the C entry on the
+    heads as the wrapper hands them over, and says whether the two outputs
+    are equal bit for bit (``equal_to_parent``)."""
     import torch
     import torch.nn.functional as TF
 
@@ -808,6 +822,19 @@ def phase_wattn_kernels(device, shapes: list[dict], reps: int) -> list[dict]:
         row['library_kernels'] = _device_kernels(library)
         counted = {**s, 'nonzero_mask_windows': nonzero_windows or 0}  # what this run's mask needs read
         row['bound_ms'], row['bound_by'] = wattn_bound_ms(counted, 'bfloat16')
+        row['bound_pct'] = 100.0 * row['bound_ms'] / row['ms']
+        if parent is not None:
+            from resselt_tpu_torch.ops import _build
+            from tools.time_kernel_variants import window_attn_launch
+
+            ql, kl, vl = wa.padded_heads(qb, kb, vb, h)
+
+            def call(lib):
+                return window_attn_launch(lib, ql, kl, vl, bias, mask, h, scale)
+
+            row['equal_to_parent'] = same_as_parent(parent, call, call(_build.load('window_attn')))
+            row['vs_parent'] = vs_parent(parent, call, reps, 'window_attn')
+            del ql, kl, vl
         if s['name'] == 'bench masked':
             q32, k32, v32 = (t.float() for t in (qb, kb, vb))
             row['ms_f32'] = _ms(lambda: wa.window_mha(q32, k32, v32, bias, mask, num_heads=h, scale=scale), reps)
@@ -1312,7 +1339,7 @@ def ptxas_report(build_log: str) -> dict:
     return out
 
 
-PARENT_SLACK = 1.02  # a conv3x3 shape slower than the parent's build by more than this is listed
+PARENT_SLACK = 1.02  # a conv3x3 or window-attention shape slower than the parent's build by more than this is listed
 
 
 def slower_than_parent(rows: list[dict]) -> dict:
@@ -1322,7 +1349,7 @@ def slower_than_parent(rows: list[dict]) -> dict:
     timed = [r for r in rows if 'vs_parent' in r]
     if not timed:
         return {}
-    slow = [f"{r['name']} {r['shape']}" for r in timed if r['vs_parent']['ratio'] > PARENT_SLACK]
+    slow = [f"{r['name']} {r.get('shape', '')}".strip() for r in timed if r['vs_parent']['ratio'] > PARENT_SLACK]
     return {'slower_than_parent': json.dumps(slow)}
 
 
@@ -1354,6 +1381,9 @@ def main() -> int:
     ap.add_argument('--parent-conv3x3', metavar='PATH',
                     help="an earlier copy of csrc/conv3x3.cu: the kernels, step_kernels and conv_family_kernels "
                          "phases also hold its outputs equal to the kernel's and time it")
+    ap.add_argument('--parent-window-attn', metavar='PATH',
+                    help="an earlier copy of csrc/window_attn.cu: the wattn_kernels rows also time its launches in "
+                         "turns with this build's and compare their bf16 outputs")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1377,11 +1407,12 @@ def main() -> int:
     log('build', seconds=round(time.perf_counter() - t0, 2), kernels=took,
         ptxas=json.dumps({name: ptxas_report(_build.build_log(name)) for name in took}))
 
-    parent = None
-    if args.parent_conv3x3:
-        from tools.time_kernel_variants import build as build_variants
+    from tools.time_kernel_variants import build as build_variants
 
-        parent = build_variants('conv3x3', ['@' + args.parent_conv3x3])[0]
+    parent = build_variants('conv3x3', ['@' + args.parent_conv3x3])[0] if args.parent_conv3x3 else None
+    parent_wattn = None
+    if args.parent_window_attn:
+        parent_wattn = build_variants('window_attn', ['@' + args.parent_window_attn])[0]
     n, tile = BENCH['batch'], BENCH['tile']
     tols = {'f32_tol': F32_TOL, 'bf16_rtol': BF16_RTOL, 'bf16_atol': BF16_ATOL}
     rows = phase_kernels('cuda', conv_shapes(n, tile), reps=10, parent=parent)
@@ -1391,8 +1422,9 @@ def main() -> int:
     lk_rows = phase_lk_kernels('cuda', lk_shapes(n, tile, PLKSR['pdim'], PLKSR['kernel_size']), reps=10)
     log('lk_kernels', **tols, rows=json.dumps(lk_rows))
     others = (ATD, HAT, DAT, RGT, DRCT, FDAT, OMNI, FLEXNET)
-    w_rows = phase_wattn_kernels('cuda', wattn_shapes(n, tile, SWINIR, others), reps=10)
-    log('wattn_kernels', **{**tols, 'bf16_atol': WATTN_BF16_ATOL}, rows=json.dumps(w_rows))
+    w_rows = phase_wattn_kernels('cuda', wattn_shapes(n, tile, SWINIR, others), reps=10, parent=parent_wattn)
+    log('wattn_kernels', **{**tols, 'bf16_atol': WATTN_BF16_ATOL}, rows=json.dumps(w_rows),
+        **slower_than_parent(w_rows))
     m_rows = phase_molrcm_kernels('cuda', molrcm_shapes(n, tile, EIMN), reps=10)
     log('molrcm_kernels', **{**tols, 'f32_tol': f'{MOLRCM_TOL} x max|plain|'}, rows=json.dumps(m_rows))
     g_rows = phase_gather_kernels('cuda', gather_shapes(n, tile, ATD), reps=10)
@@ -1433,6 +1465,7 @@ def main() -> int:
                     'P)), dq = scale dS k, dk = scale dS^T q, dbias the sum of dS over windows; no mask gradient',
                     'SwinIR-M masked '),
         'shapes_on_any_kernels': [r['name'] for r in w_rows if r['n'] > 256 or r['c'] // r['heads'] > 64],
+        'shapes_on_wgmma_kernel': [r['name'] for r in w_rows if 64 < r['n'] <= 256 and r['c'] // r['heads'] <= 64],
         'shapes': w_rows,
     }, {
         'name': 'fused_molrcm', 'source': 'resselt_tpu_torch/csrc/molrcm.cu', 'replaces': 'resselt_tpu/ops/molrcm.py:80',

@@ -8,19 +8,17 @@ Counterpart of ``resselt_tpu/ops/window_attention.py``'s
 with the scores, bias, mask and softmax in f32 and the output in the
 input's dtype.  On a CUDA tensor :func:`window_mha` launches the
 hand-written Hopper kernel ``csrc/window_attn.cu`` (f32: exact FMA; bf16 and
-fp16: tensor cores with f32 accumulation and an online softmax, persistent
-blocks that keep their bias rows in shared memory and skip all-zero mask
-windows) or raises; on a CPU tensor it computes the plain version
-:func:`window_mha_ref`.  The
+fp16: tensor cores with f32 accumulation, persistent blocks that keep their
+bias rows in shared memory and skip all-zero mask windows; windows of more
+than 64 tokens on wgmma with one exact softmax pass a window) or raises; on
+a CPU tensor it computes the plain version :func:`window_mha_ref`.  The
 wrapper counts its kernel launches in ``window_mha.launches``, per shape in
 the ``window_mha.by_shape`` Counter under ``(windows, n, c, heads,
 masked)``, and per route in the ``window_mha.by_kernel`` Counter under
 ``(kernel, windows, n, c, heads, masked, head_pad)``: ``kernel`` the
-``__global__`` function that ran (``wattn_f32_kernel`` or
-``wattn_h16_kernel``, the first pair; ``wattn_f32_any_kernel`` or
-``wattn_h16_any_kernel``), as the CUDA source's own
-``resselt_window_attn_first_pair`` decides for the dispatch, and
-``head_pad`` the head width launched (above head_dim where the wrapper
+``__global__`` function that ran (one of :data:`ROUTE_KERNELS`), as the
+CUDA source's own ``resselt_window_attn_route`` decides for the dispatch,
+and ``head_pad`` the head width launched (above head_dim where the wrapper
 padded the heads).
 
 q, k and v may be the three channel slices ``qkv[..., :C]``,
@@ -56,6 +54,11 @@ from .. import tracing
 from . import _build
 
 BACKWARD_RANGE = 'window_mha.backward'
+# the __global__ function of csrc/window_attn.cu that a launch runs, by dtype kind and
+# resselt_window_attn_route's answer: 0 the first pair, 1 the "any" kernels, 2 the wgmma kernel
+ROUTE_KERNELS = {('f32', 0): 'wattn_f32_kernel', ('f32', 1): 'wattn_f32_any_kernel',
+                 ('h16', 0): 'wattn_h16_kernel', ('h16', 1): 'wattn_h16_any_kernel',
+                 ('h16', 2): 'wattn_wgmma_kernel'}
 BACKWARD_CHUNK_BYTES = 1 << 28  # f32 (windows, heads, n, n) bytes of one run of the backward
 
 
@@ -115,8 +118,8 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.resselt_window_attn_max_windows.argtypes = [ctypes.c_int] * 4
         lib.resselt_window_attn_max_windows.restype = ctypes.c_longlong
-        lib.resselt_window_attn_first_pair.argtypes = [ctypes.c_int] * 2
-        lib.resselt_window_attn_first_pair.restype = ctypes.c_int
+        lib.resselt_window_attn_route.argtypes = [ctypes.c_int] * 3
+        lib.resselt_window_attn_route.restype = ctypes.c_int
         lib._resselt_typed = True
     return lib
 
@@ -150,16 +153,13 @@ def _launch(q, k, v, bias, mask, num_heads: int, scale: float) -> torch.Tensor:
         stand_in = torch.empty_strided(q.shape, q.stride(), dtype=q.dtype, device=q.device)
         q, scale = (stand_in.copy_(-q), -scale) if scale < 0 else (stand_in.zero_(), 1.0)
     b, n, c = q.shape
-    hd = c // num_heads
-    sw, st = _token_strides(q, k, v)
+    _token_strides(q, k, v)
     if b == 0 or c == 0:
         return torch.empty((b, n, c), dtype=q.dtype, device=q.device)
-    padded = q.dtype != torch.float32 and (q.data_ptr() | k.data_ptr() | v.data_ptr() | 2 * (sw | st | hd)) % 4
-    if padded:  # rows only 2-byte aligned: zero-pad each head to a multiple of 8 elements (16 bytes)
-        hd = -(-hd // 8) * 8
-        q, k, v = (TF.pad(t.unflatten(-1, (num_heads, c // num_heads)), (0, hd - c // num_heads)).flatten(2)
-                   for t in (q, k, v))
-        sw, st = _token_strides(q, k, v)
+    q, k, v = padded_heads(q, k, v, num_heads)
+    hd = q.shape[2] // num_heads
+    padded = hd != c // num_heads
+    sw, st = _token_strides(q, k, v)
     bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
     nw = 1
     if mask is not None:
@@ -173,8 +173,7 @@ def _launch(q, k, v, bias, mask, num_heads: int, scale: float) -> torch.Tensor:
         fn = lib.resselt_window_attn_bf16 if q.dtype == torch.bfloat16 else lib.resselt_window_attn_f16
         flags = None if mask is None else mask_window_flags(mask)  # alive until the launches below
     es = q.element_size()
-    kernel = ('wattn_f32' if q.dtype == torch.float32 else 'wattn_h16') + (
-        '_kernel' if lib.resselt_window_attn_first_pair(n, hd) else '_any_kernel')
+    kernel = ROUTE_KERNELS[('f32' if es == 4 else 'h16', lib.resselt_window_attn_route(n, hd, es))]
     ranges = _launch_ranges(b, nw, lib.resselt_window_attn_max_windows(n, num_heads, hd, es))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -195,6 +194,18 @@ def _launch(q, k, v, bias, mask, num_heads: int, scale: float) -> torch.Tensor:
     if padded:
         out = out.unflatten(-1, (num_heads, hd))[..., : c // num_heads].reshape(b, n, c)
     return out
+
+
+def padded_heads(q, k, v, num_heads: int):
+    """q, k and v as the kernel takes them: unchanged, or in 16 bits where a
+    head's rows are only 2-byte aligned, each head zero-padded to a
+    multiple of 8 elements (16 bytes) in new tensors."""
+    sw, st = _token_strides(q, k, v)
+    hd = q.shape[2] // num_heads
+    if q.dtype == torch.float32 or (q.data_ptr() | k.data_ptr() | v.data_ptr() | 2 * (sw | st | hd)) % 4 == 0:
+        return q, k, v
+    hp = -(-hd // 8) * 8
+    return tuple(TF.pad(t.unflatten(-1, (num_heads, hd)), (0, hp - hd)).flatten(2) for t in (q, k, v))
 
 
 def _launch_ranges(b: int, nw: int, max_windows: int) -> list[tuple[int, int, int, int]]:

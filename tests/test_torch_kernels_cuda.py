@@ -520,13 +520,119 @@ def test_window_kernel_matches_plain(cuda, dtype, windows, n, c, heads, nw):
 def test_window_kernel_routes_drct_blocks(cuda, dtype, masked, c, heads, head_pad):
     """DRCT's five blocks at 256-token windows, q, k, v read in place from
     the projection: ``by_kernel`` names the kernel that ran and the head
-    width launched.  Heads of 122 and 77 take the "any" kernels, 30, 46 and
-    53 the first pair; in 16 bits the odd heads (53, 77) run zero-padded to
-    56 and 80, in f32 unpadded."""
+    width launched.  Heads of 122 and 77 take the "any" kernels; 30, 46 and
+    53 the first f32 kernel, and in 16 bits the wgmma kernel (windows of
+    more than 64 tokens); in 16 bits the odd heads (53, 77) run zero-padded
+    to 56 and 80, in f32 unpadded."""
     route = _wattn_check(cuda, dtype, 8, 256, c, heads, 4 if masked else None)
     hd = c // heads
-    kernel = ('wattn_f32' if dtype == torch.float32 else 'wattn_h16') + ('_any_kernel' if hd > 64 else '_kernel')
+    if hd > 64:
+        kernel = 'wattn_f32_any_kernel' if dtype == torch.float32 else 'wattn_h16_any_kernel'
+    else:
+        kernel = 'wattn_f32_kernel' if dtype == torch.float32 else 'wattn_wgmma_kernel'
     assert route == (kernel, 8, 256, c, heads, masked, hd if dtype == torch.float32 else head_pad)
+
+
+def _mixed_mask(g, nw, n, device):
+    """A mask of nW windows whose odd windows hold -100 at 30% of their
+    entries and whose even ones are all zero: flags mark every other tile."""
+    mask = torch.where(torch.rand((nw, n, n), generator=g, device=device) < 0.3, -100.0, 0.0)
+    mask[0::2] = 0.0
+    return mask
+
+
+def _wgmma_check(cuda, dtype, windows, n, c, heads, nw=None, seed=0):
+    """The 16-bit window attention at 64 < n <= 256 and head_dim <= 64 on q,
+    k, v read in place from one projection, with a mask whose flags mark
+    every other window (nw) or none: the route counter names the wgmma
+    kernel, and the output holds to the plain version.  Returns q, k, v,
+    bias, mask and the output."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    t = torch.randn((windows, n, 3 * c), generator=g, device=cuda).to(dtype)
+    q, k, v = t[..., :c], t[..., c:2 * c], t[..., 2 * c:]
+    bias = torch.randn((heads, n, n), generator=g, device=cuda) * 0.5
+    mask = None if nw is None else _mixed_mask(g, nw, n, cuda)
+    if mask is not None:
+        flags = wa.mask_window_flags(mask)
+        assert 0 < int(flags.sum()) < nw or nw == 1
+    scale = (c // heads) ** -0.5
+    routes_before = Counter(wa.window_mha.by_kernel)
+    got = wa.window_mha(q, k, v, bias, mask, num_heads=heads, scale=scale)
+    torch.cuda.synchronize()
+    routed = wa.window_mha.by_kernel - routes_before
+    assert {key[0] for key in routed} == {'wattn_wgmma_kernel'}
+    want = wa.window_mha_ref(q.float(), k.float(), v.float(), bias, mask, num_heads=heads, scale=scale)
+    assert got.dtype == dtype and got.shape == (windows, n, c)
+    torch.testing.assert_close(got.float(), want, rtol=WATTN_BF16_TOL[0], atol=WATTN_BF16_TOL[1])
+    return q, k, v, bias, mask, got
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('masked', [False, True])
+@pytest.mark.parametrize('hd', [12, 24, 30, 46, 53, 64])
+@pytest.mark.parametrize('n', [65, 100, 128, 144, 200, 256])
+def test_window_kernel_wgmma_route(cuda, dtype, masked, hd, n):
+    """Every n of the wgmma kernel's two key chunkings (up to 128 tokens, and
+    up to 256) at every head width it pads (16, 32, 48, 64; 53 zero-padded
+    to 56 by the wrapper), two heads, masked with every other window's tile
+    all zero, and unmasked."""
+    _wgmma_check(cuda, dtype, 6, n, 2 * hd, 2, 3 if masked else None, seed=n * 100 + hd)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('c,heads', [(180, 6), (276, 6)])
+@pytest.mark.parametrize('windows,nw', [(1, None), (1, 1), (81, None), (81, 81)])
+def test_window_kernel_wgmma_drct_widths(cuda, dtype, c, heads, windows, nw):
+    """DRCT's swin1 and swin4 widths, q, k, v read in place from the
+    projection (rows 4-byte aligned only: 1,080 and 1,656 bytes apart, heads
+    of 60 and 92 bytes), one window and a 144^2 tile's 81."""
+    _wgmma_check(cuda, dtype, windows, 256, c, heads, nw, seed=c + windows)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('c,heads,nw', [(180, 6, None), (276, 6, 81), (212, 4, 27)])
+def test_window_kernel_wgmma_launches_split_at_the_grid_limit(cuda, monkeypatch, dtype, c, heads, nw):
+    """81 windows with the limit on windows a launch cut to 32: the wrapper
+    launches the wgmma kernel on runs of windows (inside the mask's period of
+    81, or whole periods of 27), and the output is one launch's bit for
+    bit."""
+    q, k, v, bias, mask, whole = _wgmma_check(cuda, dtype, 81, 256, c, heads, nw, seed=c)
+    ranges = wa._launch_ranges
+    monkeypatch.setattr(wa, '_launch_ranges', lambda b, m, limit: ranges(b, m, 32))
+    before = wa.window_mha.launches
+    got = wa.window_mha(q, k, v, bias, mask, num_heads=heads, scale=(c // heads) ** -0.5)
+    torch.cuda.synchronize()
+    assert wa.window_mha.launches - before == len(ranges(81, nw or 1, 32)) > 1
+    torch.testing.assert_close(got, whole, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('masked', [False, True])
+def test_window_kernel_wgmma_in_a_cuda_graph(cuda, dtype, masked):
+    """The wgmma kernel captured into a CUDA graph: replays on new inputs
+    copied into the captured ones give the eager launch's output bit for
+    bit, and each replay runs the one captured launch."""
+    c, heads, n, windows = 276, 6, 256, 9
+    q, k, v, bias, mask, _ = _wgmma_check(cuda, dtype, windows, n, c, heads, 9 if masked else None, seed=3)
+    qkv = q.as_strided((windows, n, 3 * c), q.stride())  # the projection the slices view
+    scale = (c // heads) ** -0.5
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        wa.window_mha(q, k, v, bias, mask, num_heads=heads, scale=scale)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = wa.window_mha.launches
+    with torch.cuda.graph(graph):
+        out = wa.window_mha(q, k, v, bias, mask, num_heads=heads, scale=scale)
+    assert wa.window_mha.launches - before == 1
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for _ in range(2):
+        qkv.copy_(torch.randn(qkv.shape, generator=g, device=cuda).to(dtype))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = wa.window_mha(q, k, v, bias, mask, num_heads=heads, scale=scale)
+        torch.testing.assert_close(out, eager, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
@@ -1235,15 +1341,15 @@ _SERVED = {
                {'window_mha': 36, 'wattn_kernel': {'wattn_h16_kernel': 36}}),
     'eimn': (lambda: make_eimn(64, 16, 1, 2.66, 4, seed=0), None, {'molrcm': 16, 'molrcm_dtype': {'bfloat16': 16}}),
     'atd': (lambda: make_atd(48, (6,) * 5, (4,) * 5, 16, 64, 8, 7, 1.0, 4, seed=0), None,
-            {'window_mha': 30, 'row_gather': 60, 'wattn_kernel': {'wattn_h16_kernel': 30}}),
+            {'window_mha': 30, 'row_gather': 60, 'wattn_kernel': {'wattn_wgmma_kernel': 30}}),
     'hat': (lambda: make_hat(144, (6,) * 6, (6,) * 6, 16, 0.5, 24, 24, 2.0, 4, 64, seed=0), None,
-            {'window_mha': 36, 'plain_attention': 6, 'wattn_kernel': {'wattn_h16_kernel': 36}}),
+            {'window_mha': 36, 'plain_attention': 6, 'wattn_kernel': {'wattn_wgmma_kernel': 36}}),
     'dat': (lambda: make_dat(180, (6,) * 6, (6,) * 6, (8, 16), 2.0, 4, seed=0), None,
-            {'window_mha': 36, 'wattn_kernel': {'wattn_h16_kernel': 36}}),
+            {'window_mha': 36, 'wattn_kernel': {'wattn_wgmma_kernel': 36}}),
     'rgt': (lambda: make_rgt(180, (6,) * 6, (6,) * 6, (8, 32), 2.0, 0.5, 4, seed=0), None,
-            {'window_mha': 36, 'wattn_kernel': {'wattn_h16_kernel': 36}}),
+            {'window_mha': 36, 'wattn_kernel': {'wattn_wgmma_kernel': 36}}),
     'drct': (lambda: make_drct(180, 6, 6, 16, 32, 2.0, 4, img_size=64, seed=0), None,
-             {'window_mha': 30, 'wattn_kernel': {'wattn_h16_kernel': 18, 'wattn_h16_any_kernel': 12}}),
+             {'window_mha': 30, 'wattn_kernel': {'wattn_wgmma_kernel': 18, 'wattn_h16_any_kernel': 12}}),
     'fdat': (lambda: make_fdat(120, 4, 3, 4, 8, 2.0, 8, 64, 'transpose+conv', 4, seed=0), None,
              {'window_mha': 12, 'wattn_kernel': {'wattn_h16_kernel': 12}}),
     'omni': (lambda: make_omni(64, 1, True, 8, 5, 4, seed=0), None,
@@ -1339,12 +1445,13 @@ def test_served_forward_launches(cuda, monkeypatch, family):
 
 
 # BENCHMARK.json's configurations at their published widths, with their launches a forward by counter and route:
-# DRCT-L's twelve groups each take two window attentions to the "any" kernels (heads of 122 and 77 channels)
+# DRCT-L's twelve groups each take three window attentions to the wgmma kernel (heads of 30, 53 and 46 channels)
+# and two to the "any" kernels (heads of 122 and 77)
 _CELLS = {
     'esrgan_x4': _SERVED['esrgan'][::2],
     'swinir_m_x4': _SERVED['swinir'][::2],
     'drct_l_x4': (lambda: make_drct(180, 12, 6, 16, 32, 2.0, 4, img_size=64, seed=0),
-                  {'window_mha': 60, 'wattn_kernel': {'wattn_h16_kernel': 36, 'wattn_h16_any_kernel': 24}}),
+                  {'window_mha': 60, 'wattn_kernel': {'wattn_wgmma_kernel': 36, 'wattn_h16_any_kernel': 24}}),
 }
 
 

@@ -143,3 +143,32 @@ def test_window_geometry_equals_jax(ws, shift, h, w):
     m1 = tw.shift_mask(cache, h, w, ws, shift, 'cpu')
     assert tw.shift_mask(cache, h, w, ws, shift, 'cpu') is m1
     assert (m1 is None) == (shift == 0) and len(cache) == (shift != 0)
+
+
+@pytest.mark.parametrize('route', sorted(wa.ROUTE_KERNELS.items()), ids=lambda r: r[1])
+def test_route_kernels_are_kernels_of_the_source(route):
+    """Every name the wrapper's route counter can report under ``kernel``
+    (``window_mha.by_kernel``) is a ``__global__`` of csrc/window_attn.cu as
+    the benchmark's trace reader finds them, so that the roofline metrics and
+    the launch check count each route's device time."""
+    import os
+
+    from h100_bench import trace
+
+    source = os.path.join(os.path.dirname(wa.__file__), os.pardir, 'csrc', 'window_attn.cu')
+    assert route[1] in trace.kernels_in(source)
+
+
+def test_padded_heads_only_for_two_byte_rows():
+    """16-bit heads whose rows are only 2-byte aligned come back zero-padded
+    to a multiple of 8 elements; 4-byte aligned ones and f32 come back as
+    they are."""
+    qkv = torch.randn((2, 16, 3 * 106)).to(torch.bfloat16)
+    q, k, v = qkv[..., :106], qkv[..., 106:212], qkv[..., 212:]
+    pq, pk, pv = wa.padded_heads(q, k, v, 2)
+    assert pq.shape == (2, 16, 112) and torch.equal(pq.unflatten(-1, (2, 56))[..., :53], q.unflatten(-1, (2, 53)))
+    assert not pv.unflatten(-1, (2, 56))[..., 53:].any()
+    even = qkv[..., :104], qkv[..., 104:208], qkv[..., 208:312]
+    assert all(a is b for a, b in zip(wa.padded_heads(*even, 2), even))
+    f32 = tuple(t.float() for t in (q, k, v))
+    assert all(a is b for a, b in zip(wa.padded_heads(*f32, 2), f32))

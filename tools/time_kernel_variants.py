@@ -196,6 +196,31 @@ def conv3x3_step_launch(lib, x, taps, b, addend, split, residuals):
     return y if carry is None else (y, carry)
 
 
+def window_attn_launch(lib, q, k, v, bias, mask, num_heads: int, scale: float):
+    """One launch of a window_attn library's 16-bit entry on q, k, v (B, N,
+    C) that share their strides, rows at least 4-byte aligned (the wrapper
+    pads heads that are not), with f32 ``bias`` and ``mask`` (or None) and
+    the mask's window flags: the contiguous output."""
+    import torch
+
+    from resselt_tpu_torch.ops import window_attention as wa
+
+    b, n, c = q.shape
+    out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
+    fn = getattr(lib, 'resselt_window_attn_' + ('bf16' if q.dtype == torch.bfloat16 else 'f16'))
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    flags = None if mask is None else wa.mask_window_flags(mask)
+    sw, st, _ = q.stride()
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None if mask is None else mask.data_ptr(),
+            None if flags is None else flags.data_ptr(), out.data_ptr(), b, n, num_heads, c // num_heads, st, sw,
+            1 if mask is None else mask.shape[0], scale, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'launch failed: CUDA error {rc}')
+    return out
+
+
 def build(name: str, variants: list[str]) -> list[ctypes.CDLL]:
     """Each variant of ``csrc/<name>.cu`` (extra nvcc flags, optionally led by
     ``@path`` of another copy of the source) built into a temporary
