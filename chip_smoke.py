@@ -10,7 +10,9 @@ ESRGAN's shapes and the kernel's other shape classes), step_kernels
 (ESRGAN's producer steps, each equal bit for bit to the chain of a conv
 launch and PyTorch ops), lk_kernels (PLKSR's large-kernel conv, each bf16
 launch on the path its row names), wattn_kernels (the window attention of
-the eight window transformers and FlexNet), molrcm_kernels (EIMN's
+the eight window transformers and FlexNet), wcross_kernels (HAT's
+overlapping cross-attention, against the plain path it replaced),
+molrcm_kernels (EIMN's
 MOLRCM), gather_kernels (ATD's row gather) and conv_family_kernels (every
 3x3 conv of the conv families).  Each row holds the kernel against its
 plain version in f32, bf16 and fp16 and gives kernel / plain / library /
@@ -28,7 +30,7 @@ csrc/window_attn.cu at the window-attention rows (DRCT-L's served pair
 launches among them, each row with its bound's share of its time).  Then
 the card's name and power limit, one JSON line of each
 kernel's figures a launch with, under ``served_launches``, the launches a
-tile-batch forward by wrapper and route of BENCHMARK.json's three
+tile-batch forward by wrapper and route of BENCHMARK.json's four
 configurations at their published widths, each loaded and served a 720p
 frame through ``upscale_tiled`` at the loader's hints, and last
 ``{"ok": true, "device": {...}}``.
@@ -845,6 +847,81 @@ def phase_wattn_kernels(device, shapes: list[dict], reps: int, parent=None) -> l
         out.append(row)
     return out
 
+# HAT's OCAB as the loader's hints serve it: two 224^2 windows a batch (tile 192, halo 16), 14 x 14 windows of 16^2
+# queries each against the 24^2 keys of the overlapping window around it
+HAT_L = {'name': 'HAT-L', 'embed_dim': 180, 'num_heads': 6}
+WCROSS_SHAPES = [
+    ('HAT-L served', 2 * 14 * 14, 256, 576, HAT_L['embed_dim'], HAT_L['num_heads']),
+    ('HAT-S served', 2 * 14 * 14, 256, 576, HAT['embed_dim'], HAT['num_heads'][0]),
+    ('HAT-L model', 16, 256, 576, HAT_L['embed_dim'], HAT_L['num_heads']),
+]
+
+
+def wcross_bound_ms(windows: int, n: int, m: int, c: int, heads: int) -> tuple[float, str]:
+    """Least time for one cross attention in bf16 on an H100: the larger of
+    its bytes (q and O over n rows, k and v over m rows, the f32 bias) over
+    the memory rate and its FLOPs (Q K^T and P V) over the dense peak."""
+    t_bytes = (2 * windows * (2 * n * c + 2 * m * c) + 4 * heads * n * m) / PEAK_BYTES * 1e3
+    t_ops = 4 * windows * n * m * c / PEAK_FLOPS['bfloat16'] * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def phase_wcross_kernels(device, reps: int) -> list[dict]:
+    """Each shape of :data:`WCROSS_SHAPES`: the cross-attention kernel
+    against its plain version in bf16 and fp16 (in f32 from the same 16-bit
+    inputs), q read in place from a window-partitioned (B, N, C) projection
+    and k, v as the channel halves of a (B, M, 2C) tensor of overlapping
+    windows, as HAT hands them over; then kernel / plain / library / bound
+    ms in bf16 and ``bound_pct``.  Plain is the path OCAB took before the
+    kernel (``nn.window._mha_plain``: scores, bias and softmax in bf16
+    tensors); the library call is ``scaled_dot_product_attention`` with the
+    bias as a bf16 additive mask."""
+    import torch
+    import torch.nn.functional as TF
+
+    from resselt_tpu_torch.nn.window import _mha_plain
+    from resselt_tpu_torch.ops import window_cross_attention as wca
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = []
+    for name, w, n, m, c, h in WCROSS_SHAPES:
+        hd = c // h
+        scale = hd ** -0.5
+        qf = torch.randn((w, n, c), generator=gen, device=device)
+        kvf = torch.randn((w, m, 2 * c), generator=gen, device=device)
+        bias = torch.randn((h, n, m), generator=gen, device=device) * 0.5
+        errs = {}
+        for dtype in (torch.bfloat16, torch.float16):
+            q, kv = qf.to(dtype), kvf.to(torch.bfloat16).to(dtype)
+            got = wca.window_cross_mha(q, kv[..., :c], kv[..., c:], bias, num_heads=h, scale=scale)
+            want = wca.window_cross_mha_ref(q.float(), kv[..., :c].float(), kv[..., c:].float(), bias, num_heads=h,
+                                            scale=scale)
+            errs[dtype] = (got.float() - want).abs().max().item()
+            torch.testing.assert_close(got.float(), want, rtol=BF16_RTOL, atol=WATTN_BF16_ATOL)
+            del got, want
+        q, kv = qf.to(torch.bfloat16), kvf.to(torch.bfloat16)
+        del qf, kvf
+        k, v = kv[..., :c], kv[..., c:]
+        row = {'name': name, 'windows': w, 'n': n, 'm': m, 'c': c, 'heads': h,
+               'max_abs_err_bf16': errs[torch.bfloat16], 'max_abs_err_f16': errs[torch.float16]}
+        row['ms'] = _ms(lambda: wca.window_cross_mha(q, k, v, bias, num_heads=h, scale=scale), reps)
+        row['plain_ms'] = _ms(lambda: _mha_plain(q, k, v, h, scale, bias, None), reps)
+        q4, k4, v4 = (t.unflatten(-1, (h, hd)).transpose(1, 2) for t in (q, k, v))
+        am = bias.to(torch.bfloat16)[None]
+
+        def library():
+            return TF.scaled_dot_product_attention(q4, k4, v4, attn_mask=am, scale=scale)
+
+        row['library_ms'] = _ms(library, reps)
+        row['library_kernels'] = _device_kernels(library)
+        row['bound_ms'], row['bound_by'] = wcross_bound_ms(w, n, m, c, h)
+        row['bound_pct'] = 100.0 * row['bound_ms'] / row['ms']
+        del q, kv, k, v, q4, k4, v4, am, bias
+        torch.cuda.empty_cache()
+        out.append(row)
+    return out
+
+
 def molrcm_shapes(n_img: int, tile: int, cfg: dict) -> list[dict]:
     """Every MOLRCM shape of the EIMN path (the bench forwards, the tiled
     720p windows at the default tile and halo, a 48x64 and a 64x64
@@ -1040,8 +1117,10 @@ def _entries() -> dict:
     from resselt_tpu_torch.ops import row_gather
     from resselt_tpu_torch.ops import window_attention as wa
 
+    from resselt_tpu_torch.ops import window_cross_attention as wca
+
     return {'act': fc.fused_conv3x3_act, 'pack2': fc.fused_conv3x3_pack2, 'lk': fc.fused_conv_lk,
-            'wattn': wa.window_mha, 'molrcm': mo.fused_molrcm, 'gather': row_gather}
+            'wattn': wa.window_mha, 'wcross': wca.window_cross_mha, 'molrcm': mo.fused_molrcm, 'gather': row_gather}
 
 # -- the served path: launches a forward at the cells' shapes ----------------------------------------------
 
@@ -1050,6 +1129,7 @@ SERVED = {
     'esrgan_x4': ('make_esrgan', (64, 23, 4), {}),
     'swinir_m_x4': ('make_swinir', (180, (6,) * 6, (6,) * 6, 8), {'upscale': 4, 'img_size': 64}),
     'drct_l_x4': ('make_drct', (180, 12, 6, 16, 32, 2.0, 4), {'img_size': 64}),
+    'hat_l_x4': ('make_hat', (180, (6,) * 12, (6,) * 12, 16, 0.5, 3, 30, 2.0, 4, 64), {}),
 }
 FRAME = (720, 1280)
 
@@ -1150,8 +1230,9 @@ def train_makers() -> dict:
 
 def _grad_entries() -> dict:
     """The wrappers whose Functions carry a gradient, by the names their
-    counts are reported under."""
-    return {k: v for k, v in _entries().items() if k != 'pack2'}
+    counts are reported under (not the cross attention's: training keeps
+    its plain path)."""
+    return {k: v for k, v in _entries().items() if k not in ('pack2', 'wcross')}
 
 
 def forward_shapes(model, cfg: dict) -> dict:
@@ -1425,6 +1506,8 @@ def main() -> int:
     w_rows = phase_wattn_kernels('cuda', wattn_shapes(n, tile, SWINIR, others), reps=10, parent=parent_wattn)
     log('wattn_kernels', **{**tols, 'bf16_atol': WATTN_BF16_ATOL}, rows=json.dumps(w_rows),
         **slower_than_parent(w_rows))
+    x_rows = phase_wcross_kernels('cuda', reps=10)
+    log('wcross_kernels', bf16_rtol=BF16_RTOL, bf16_atol=WATTN_BF16_ATOL, rows=json.dumps(x_rows))
     m_rows = phase_molrcm_kernels('cuda', molrcm_shapes(n, tile, EIMN), reps=10)
     log('molrcm_kernels', **{**tols, 'f32_tol': f'{MOLRCM_TOL} x max|plain|'}, rows=json.dumps(m_rows))
     g_rows = phase_gather_kernels('cuda', gather_shapes(n, tile, ATD), reps=10)
@@ -1437,6 +1520,7 @@ def main() -> int:
     head = next(r for r in rows if r['name'] == 'rdb stage0 64->192')
     lk_head = next(r for r in lk_rows if r['name'] == 'bench 16->16')
     w_head = next(r for r in w_rows if r['name'] == 'bench masked')
+    x_head = next(r for r in x_rows if r['name'] == 'HAT-L served')
     m_head = next(r for r in m_rows if r['name'] == 'bench')
     g_head = next(r for r in g_rows if r['name'] == 'bench gather bfloat16')
     kernels = [{
@@ -1467,6 +1551,13 @@ def main() -> int:
         'shapes_on_any_kernels': [r['name'] for r in w_rows if r['n'] > 256 or r['c'] // r['heads'] > 64],
         'shapes_on_wgmma_kernel': [r['name'] for r in w_rows if 64 < r['n'] <= 256 and r['c'] // r['heads'] <= 64],
         'shapes': w_rows,
+    }, {
+        'name': 'window_cross_mha', 'source': 'resselt_tpu_torch/csrc/window_cross_attn.cu',
+        'replaces': 'none: the JAX package runs OCAB in XLA (resselt_tpu/archs/hat.py::_ocab)',
+        **_figures(x_head, x_rows, f"HAT-L served bf16 {x_head['windows']} windows x {x_head['n']} queries x "
+                   f"{x_head['m']} keys, C {x_head['c']}, {x_head['heads']} heads",
+                   library_kernels=x_head['library_kernels']),
+        'backward': 'none: training keeps the plain path', 'shapes': x_rows,
     }, {
         'name': 'fused_molrcm', 'source': 'resselt_tpu_torch/csrc/molrcm.cu', 'replaces': 'resselt_tpu/ops/molrcm.py:80',
         **_figures(m_head, m_rows, f"EIMN_L bench bf16 {'x'.join(map(str, m_head['shape']))}",

@@ -10,11 +10,15 @@ checkpoint.
 On the card every block's window attention runs through ``ops.window_mha``
 (``csrc/window_attn.cu``, q, k and v read in place from the qkv
 projection: one launch per block).  OCAB attends from a window's N queries
-to the M > N keys of a larger overlapping window, which the kernel does
-not take: it runs the plain path of ``nn.window.multi_head_attention``, as
-in the JAX package.  ``prepare`` casts the params once per dtype and
-gathers every relative-position bias once; the shift masks are built once
-per geometry and device.
+to the M > N keys of a larger overlapping window: in 16 bits on the card
+(serving) ``nn.window.multi_head_attention`` sends it to
+``ops.window_cross_mha`` (``csrc/window_cross_attn.cu``: q read in place
+from the window-partitioned projection, k and v as the two channel halves
+of the overlapping windows, f32 scores that never reach device memory; one
+launch per group), and in f32, on the CPU and in training to its plain
+path, as the JAX package runs it in XLA.  ``prepare`` casts the params once
+per dtype and gathers every relative-position bias once; the shift masks
+are built once per geometry and device.
 """
 
 from __future__ import annotations

@@ -5,8 +5,11 @@ relative-position index and shift mask (numpy geometry, copied), and the
 same attention, and DAT's rectangular-window shift mask.
 :func:`multi_head_attention` sends every window attention with a bias
 and as many keys as queries to ``ops.window_mha`` (on the card:
-``csrc/window_attn.cu``, which takes every window length and head_dim);
-the rest (no bias, HAT's M > N overlapping keys, or the
+``csrc/window_attn.cu``, which takes every window length and head_dim), and
+HAT's overlapping cross-attention (M > N keys, a bias, no mask) in 16 bits
+on the card with no gradient asked for to ``ops.window_cross_mha``
+(``csrc/window_cross_attn.cu``, :func:`takes_cross_kernel`); the rest (no
+bias, the cross-attention in f32, on the CPU or in training, or the
 ``use_fused_attention(False)`` switch) takes a plain path with the JAX
 package's ``_mha_xla`` semantics, as the JAX kernel does not compute them
 either.  The plain path's calls on a CUDA tensor are counted in
@@ -23,7 +26,7 @@ from collections import Counter
 import numpy as np
 import torch
 
-from ..ops import window_mha, window_mha_supported
+from ..ops import window_cross_mha, window_cross_mha_supported, window_mha, window_mha_supported
 
 
 def window_partition(x, ws: int):
@@ -124,7 +127,8 @@ def fused_attention_enabled() -> bool:
 
 
 def use_fused_attention(on: bool) -> None:
-    """Send window attentions to ``ops.window_mha`` (on, the default) or
+    """Send window attentions to ``ops.window_mha`` and HAT's overlapping
+    cross-attentions to ``ops.window_cross_mha`` (on, the default), or
     every one of them to the plain path, for the process: the JAX
     package's kill switch (``resselt_tpu/nn/window.py:122``), the CLI's
     ``--no-fused-attention``.  The plain path's calls on the card stay
@@ -144,6 +148,10 @@ def multi_head_attention(q, k, v, num_heads: int, scale: float, bias=None, mask=
     b, n, c = q.shape
     if _FUSED_ATTENTION and bias is not None and k.shape[1] == n and window_mha_supported(n, c, num_heads):
         return window_mha(q, k, v, bias, mask, num_heads=num_heads, scale=float(scale))
+    needs_grad = torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, bias))
+    if takes_cross_kernel(n, k.shape[1], c, num_heads, dtype=q.dtype, on_cuda=q.is_cuda, needs_grad=needs_grad,
+                          has_bias=bias is not None, has_mask=mask is not None, scale=float(scale)):
+        return window_cross_mha(q, k, v, bias, num_heads=num_heads, scale=float(scale))
     if q.is_cuda:
         multi_head_attention.plain_calls += 1
         multi_head_attention.plain_by_shape[(b, n, k.shape[1], c, num_heads, mask is not None)] += 1
@@ -152,6 +160,18 @@ def multi_head_attention(q, k, v, num_heads: int, scale: float, bias=None, mask=
 
 multi_head_attention.plain_calls = 0
 multi_head_attention.plain_by_shape = Counter()
+
+
+def takes_cross_kernel(n: int, m: int, c: int, num_heads: int, *, dtype: torch.dtype, on_cuda: bool,
+                       needs_grad: bool, has_bias: bool, has_mask: bool, scale: float) -> bool:
+    """Whether :func:`multi_head_attention` sends an attention of n queries
+    to m keys to ``ops.window_cross_mha``: more keys than queries (HAT's
+    OCAB), a bias and no mask, a 16-bit CUDA tensor, no gradient asked for,
+    a positive scale, the switch on, and a shape the kernel takes.  Every
+    other such call keeps the plain path, so that f32, the CPU and training
+    compute what the JAX package computes."""
+    return (_FUSED_ATTENTION and m > n and has_bias and not has_mask and on_cuda and not needs_grad and scale > 0
+            and dtype in (torch.bfloat16, torch.float16) and window_cross_mha_supported(n, m, c, num_heads))
 
 
 def _mha_plain(q, k, v, num_heads: int, scale: float, bias, mask):

@@ -12,6 +12,7 @@ from .fused_conv import (
 from .molrcm import fused_molrcm, fused_molrcm_ref, molrcm_supported, pack_molrcm_weights
 from .row_gather import row_gather, row_gather_ref
 from .window_attention import window_mha, window_mha_ref, window_mha_supported
+from .window_cross_attention import window_cross_mha, window_cross_mha_ref, window_cross_mha_supported
 
 __all__ = [
     'fused_conv3x3_act',
@@ -29,6 +30,9 @@ __all__ = [
     'pack_molrcm_weights',
     'row_gather',
     'row_gather_ref',
+    'window_cross_mha',
+    'window_cross_mha_ref',
+    'window_cross_mha_supported',
     'window_mha',
     'window_mha_ref',
     'window_mha_supported',

@@ -154,6 +154,24 @@ def test_zoo_hat_s_full_width_layout():
     assert tm.params['relative_position_index_OCA'].dtype == torch.int64
 
 
+def test_hat_l_published_layout():
+    """HAT-L 4x (``options/test/HAT-L_SRx4_ImageNet-pretrain.yml``): embed
+    180, 12 groups of 6 blocks, 6 heads, window 16, overlap 0.5, compress 3,
+    squeeze 30, mlp ratio 2, 64 features, 1conv.  The port infers the
+    configuration and the serving hints that JAX infers."""
+    sd = make_hat(180, (6,) * 12, (6,) * 12, 16, 0.5, 3, 30, 2.0, 4, num_feat=64)
+    tm = resselt_tpu_torch.load_from_state_dict(sd, device='cpu')
+    jm = resselt_tpu.load_from_state_dict(sd)
+    cfg = tm.config
+    assert cfg.__dict__ == jm.config.__dict__
+    assert (cfg.embed_dim, cfg.depths, cfg.num_heads, cfg.window_size) == (180, (6,) * 12, (6,) * 12, 16)
+    assert (cfg.overlap_win_size, cfg.compress_ratio, cfg.squeeze_factor, cfg.num_feat) == (24, 3, 30, 64)
+    assert (cfg.resi_connection, cfg.mlp_ratio, cfg.conv_scale, cfg.upscale) == ('1conv', 2.0, 0.01, 4)
+    assert all(getattr(tm, h) == getattr(jm, h) for h in _HINTS)
+    assert (tm.tile_batch, tm.serving_tile, tm.serving_halo, tm.size_multiple) == (2, 192, 16, 16)
+    assert sum(int(np.prod(v.shape)) for k, v in sd.items() if 'relative_position_index' not in k) == 40_846_215
+
+
 def test_params_from_numpy_carries_jax_params():
     sd = _sd(2, 8, seed=10)
     jm = resselt_tpu.load_from_state_dict(sd)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (conv3x3, conv_lk, window_attn, molrcm,
+"""The port's CUDA kernels (conv3x3, conv_lk, window_attn, window_cross_attn, molrcm,
 row_gather) and main paths (ESRGAN, PLKSR, RealPLKSR, SwinIR, EIMN, ATD,
 HAT, DAT, RGT, DRCT, FDAT, OmniSR, Compact, SPAN, SPANPlus, MoSR, SpanPP,
 RCAN, CUGAN, GateR, MoSRv2, MoESR, GateRv2, GateRV3, RTMoSR, SMoSR, RHA,
@@ -42,6 +42,7 @@ from resselt_tpu_torch.ops import row_gather, row_gather_ref
 from resselt_tpu_torch.ops import fused_conv as fc
 from resselt_tpu_torch.ops import molrcm as mo
 from resselt_tpu_torch.ops import window_attention as wa
+from resselt_tpu_torch.ops import window_cross_attention as wca
 from resselt_tpu_torch.parallel import upscale_tiled
 from resselt_tpu_torch.zoo import (make_atd, make_compact, make_cugan, make_dat, make_drct, make_eimn, make_esrgan,
                                    make_fdat, make_figsr, make_flexnet, make_gater, make_gaterv2, make_gaterv3,
@@ -502,7 +503,8 @@ def _wattn_check(cuda, dtype, windows, n, c, heads, nw=None, qkv=True, seed=0):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize('windows,n,c,heads,nw', [
-    (64, 64, 180, 6, 16), (64, 64, 180, 6, None),  # SwinIR-M / HAT-L / SwinIR-L
+    (64, 64, 180, 6, 16), (64, 64, 180, 6, None),  # SwinIR-M / SwinIR-L
+    (8, 256, 180, 6, None), (8, 256, 180, 6, 4),    # HAT-L / DRCT-L swin1
     (32, 64, 60, 6, 8),                             # SwinIR-light
     (24, 128, 180, 6, 4),                           # DAT-S rectangles
     (8, 256, 144, 6, None), (8, 256, 144, 6, 4),    # HAT-S
@@ -791,6 +793,105 @@ def test_window_kernel_empty_input_launches_nothing(cuda):
     before = wa.window_mha.launches
     got = wa.window_mha(q, q, q, torch.zeros((4, 64, 64), device=cuda), num_heads=4, scale=1.0)
     assert got.shape == (0, 64, 32) and wa.window_mha.launches == before
+
+
+# -- window_cross_attn.cu: HAT's overlapping cross-attention ---------------------------
+
+
+def _cross_check(cuda, dtype, windows, n, m, c, heads, seed=0):
+    """The cross kernel on q read in place from a (B, N, 3C) projection and
+    k, v as the two channel halves of a (B, M, 2C) tensor of overlapping
+    windows, as HAT hands them over: one launch counted under its shape, the
+    output held to the plain version in f32 from the same 16-bit inputs
+    within window_mha's 16-bit tolerances."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((windows, n, 3 * c), generator=g, device=cuda).to(dtype)[..., :c]
+    kv = torch.randn((windows, m, 2 * c), generator=g, device=cuda).to(dtype)
+    k, v = kv[..., :c], kv[..., c:]
+    bias = torch.randn((heads, n, m), generator=g, device=cuda) * 0.5
+    scale = (c // heads) ** -0.5
+    key = (windows, n, m, c, heads)
+    before, shape_before = wca.window_cross_mha.launches, wca.window_cross_mha.by_shape[key]
+    got = wca.window_cross_mha(q, k, v, bias, num_heads=heads, scale=scale)
+    torch.cuda.synchronize()
+    assert wca.window_cross_mha.launches == before + 1 and wca.window_cross_mha.by_shape[key] == shape_before + 1
+    assert got.dtype == dtype and got.shape == (windows, n, c) and got.is_contiguous()
+    want = wca.window_cross_mha_ref(q.float(), k.float(), v.float(), bias, num_heads=heads, scale=scale)
+    torch.testing.assert_close(got.float(), want, rtol=WATTN_BF16_TOL[0], atol=WATTN_BF16_TOL[1])
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('windows,n,m,c,heads', [
+    (392, 256, 576, 180, 6),  # HAT-L's served OCAB: two 224^2 windows of 14 x 14 windows, heads of 30
+    (32, 256, 576, 144, 6),   # HAT-S: heads of 24, 16-byte rows
+    (8, 64, 169, 60, 3),      # an odd owin - ws (window 8, overlap 13): odd M, heads of 20
+    (5, 100, 150, 32, 2),     # N off the 64-row tile, one chunk and a half, heads of 16
+    (3, 16, 1, 12, 2),        # one key
+])
+def test_cross_kernel_matches_plain(cuda, dtype, windows, n, m, c, heads):
+    _cross_check(cuda, dtype, windows, n, m, c, heads, seed=n + m)
+
+
+def test_cross_kernel_rule_is_the_sources(cuda):
+    """``window_cross_mha_supported`` (the route's) is the CUDA source's
+    exported rule, over every head width up to 66 and keys up to 600."""
+    rule = wca._lib().resselt_window_cross_attn_supported
+    for hd in range(1, 67):
+        for m in (1, 63, 64, 65, 575, 576, 577, 600):
+            for n in (1, 64, 256):
+                assert wca.window_cross_mha_supported(n, m, 2 * hd, 2) == bool(rule(n, m, hd, 2)), (n, m, hd)
+                assert not rule(n, m, hd, 4)
+
+
+def test_cross_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((4, 64, 48), device=cuda, dtype=torch.bfloat16)
+    kv = torch.zeros((4, 144, 96), device=cuda, dtype=torch.bfloat16)
+    k, v = kv[..., :48], kv[..., 48:]
+    bias = torch.zeros((2, 64, 144), device=cuda)
+    with pytest.raises(TypeError):  # f32
+        wca.window_cross_mha(q.float(), k.float(), v.float(), bias, num_heads=2, scale=0.2)
+    with pytest.raises(ValueError):  # heads of 48
+        wca.window_cross_mha(q, k, v, bias[:1], num_heads=1, scale=0.2)
+    with pytest.raises(ValueError):  # heads of 3: odd
+        wca.window_cross_mha(q, k, v, torch.zeros((16, 64, 144), device=cuda), num_heads=16, scale=0.2)
+    big = torch.zeros((4, 577, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # more keys than a stage holds
+        wca.window_cross_mha(q, big[..., :48], big[..., 48:], torch.zeros((2, 64, 577), device=cuda), num_heads=2,
+                             scale=0.2)
+    with pytest.raises(ValueError):  # k and v at different strides
+        wca.window_cross_mha(q, k, v.contiguous(), bias, num_heads=2, scale=0.2)
+    with pytest.raises(ValueError):  # channels not next to each other
+        t = torch.zeros((4, 48, 64), device=cuda, dtype=torch.bfloat16).transpose(1, 2)
+        wca.window_cross_mha(t, k, v, bias, num_heads=2, scale=0.2)
+    with pytest.raises(ValueError):  # a scale that is not positive
+        wca.window_cross_mha(q, k, v, bias, num_heads=2, scale=0.0)
+    with pytest.raises(ValueError):  # a gradient asked for
+        wca.window_cross_mha(q.requires_grad_(), k, v, bias, num_heads=2, scale=0.2)
+    with pytest.raises(ValueError):  # a bias of the wrong shape
+        wca.window_cross_mha(q, k, v, bias[:, :, :64], num_heads=2, scale=0.2)
+
+
+def test_cross_kernel_in_a_cuda_graph(cuda):
+    """Captured into a CUDA graph at HAT-L's width: a replay on new inputs
+    gives the eager launch's output bit for bit."""
+    windows, n, m, c, heads = 18, 256, 576, 180, 6
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((windows, n, c), generator=g, device=cuda).to(torch.bfloat16)
+    kv = torch.randn((windows, m, 2 * c), generator=g, device=cuda).to(torch.bfloat16)
+    bias = torch.randn((heads, n, m), generator=g, device=cuda)
+    args = (q, kv[..., :c], kv[..., c:], bias)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        wca.window_cross_mha(*args, num_heads=heads, scale=0.2)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = wca.window_cross_mha(*args, num_heads=heads, scale=0.2)
+    q.copy_(torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, wca.window_cross_mha(*args, num_heads=heads, scale=0.2), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize('upsampler,scale', [('pixelshuffle', 4), ('nearest+conv', 4), ('', 1)])
@@ -1343,7 +1444,7 @@ _SERVED = {
     'atd': (lambda: make_atd(48, (6,) * 5, (4,) * 5, 16, 64, 8, 7, 1.0, 4, seed=0), None,
             {'window_mha': 30, 'row_gather': 60, 'wattn_kernel': {'wattn_wgmma_kernel': 30}}),
     'hat': (lambda: make_hat(144, (6,) * 6, (6,) * 6, 16, 0.5, 24, 24, 2.0, 4, 64, seed=0), None,
-            {'window_mha': 36, 'plain_attention': 6, 'wattn_kernel': {'wattn_wgmma_kernel': 36}}),
+            {'window_mha': 36, 'window_cross_mha': 6, 'wattn_kernel': {'wattn_wgmma_kernel': 36}}),
     'dat': (lambda: make_dat(180, (6,) * 6, (6,) * 6, (8, 16), 2.0, 4, seed=0), None,
             {'window_mha': 36, 'wattn_kernel': {'wattn_wgmma_kernel': 36}}),
     'rgt': (lambda: make_rgt(180, (6,) * 6, (6,) * 6, (8, 32), 2.0, 0.5, 4, seed=0), None,
@@ -1397,10 +1498,12 @@ def _launch_counts() -> dict:
 
     act, lk = fc.fused_conv3x3_act, fc.fused_conv_lk
     return {'conv3x3': act.launches + fc.fused_conv3x3_pack2.launches, 'conv_lk': lk.launches,
-            'window_mha': wa.window_mha.launches, 'molrcm': mo.fused_molrcm.launches,
+            'window_mha': wa.window_mha.launches, 'window_cross_mha': wca.window_cross_mha.launches,
+            'molrcm': mo.fused_molrcm.launches,
             'row_gather': row_gather.launches, 'plain_attention': multi_head_attention.plain_calls,
             'epilogue': Counter(act.by_epilogue), 'schedule': Counter(act.by_schedule),
             'lk_path': by(lk.by_path, lambda key: key[1]), 'wattn_kernel': by(wa.window_mha.by_kernel, lambda key: key[0]),
+            'wattn_masked': by(wa.window_mha.by_shape, lambda key: key[4]),
             'molrcm_dtype': by(mo.fused_molrcm.by_shape, lambda key: key[-1])}
 
 
@@ -1446,12 +1549,16 @@ def test_served_forward_launches(cuda, monkeypatch, family):
 
 # BENCHMARK.json's configurations at their published widths, with their launches a forward by counter and route:
 # DRCT-L's twelve groups each take three window attentions to the wgmma kernel (heads of 30, 53 and 46 channels)
-# and two to the "any" kernels (heads of 122 and 77)
+# and two to the "any" kernels (heads of 122 and 77); HAT-L's twelve groups six block attentions each to the wgmma
+# kernel (every other one masked) and their OCAB to the cross kernel, none to the plain path
 _CELLS = {
     'esrgan_x4': _SERVED['esrgan'][::2],
     'swinir_m_x4': _SERVED['swinir'][::2],
     'drct_l_x4': (lambda: make_drct(180, 12, 6, 16, 32, 2.0, 4, img_size=64, seed=0),
                   {'window_mha': 60, 'wattn_kernel': {'wattn_wgmma_kernel': 36, 'wattn_h16_any_kernel': 24}}),
+    'hat_l_x4': (lambda: make_hat(180, (6,) * 12, (6,) * 12, 16, 0.5, 3, 30, 2.0, 4, 64, seed=0),
+                 {'window_mha': 72, 'window_cross_mha': 12, 'wattn_kernel': {'wattn_wgmma_kernel': 72},
+                  'wattn_masked': {True: 36, False: 36}}),
 }
 
 
